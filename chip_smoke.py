@@ -25,7 +25,28 @@ result line is printed):
    device time from `torch.profiler`, and the bound; plus request
    p50/p95/p99 and the mean per-stage split of both services over a
    closed loop of 1,000 requests per size, and the device's idle share
-   over a profiled window of 200 more.
+   over a profiled window of 200 more;
+6. K3 `level_hist` and K4 `level_hist_fused` against their plain
+   versions at R = 2,000,000, C = 28, B = 64 for S = 1 and 32, with
+   dump-slot rows and NaN/±inf values: integer grads exact, real ones
+   within 1e-5·Σ|grad| per slot;
+7. K5 `best_splits` against its plain version at N = 1, 32 and 640 on
+   integer-valued histograms with a planted tie and an all-masked node:
+   feature, bin and default_left exact;
+8. the training main path: model sets of 28 numeric columns and
+   262,144 rows written with the port's own config writers, trained by
+   `python -m shifu_tpu_torch --dir <set> train` on the card and with
+   `--device cpu` (RF 10 trees and one-round squared-loss GBT
+   bit-exact; 10-tree log-loss GBT, also through K4 with
+   SHIFU_TPU_HIST_FUSED=1, within 1e-4 relative train log-loss and 1e-3
+   AUC); each card run reports its kernels' launches, which must be
+   non-zero; the port's `serve` then scores the card-trained GBT;
+9. training times at the HIGGS widths (28 columns, depth 6, 64 bins,
+   log loss, lr 0.2): per kernel at the main path's shapes (events,
+   profiler, plain, bound; K3 also `torch.bincount`), 2,000,000 rows ×
+   10 trees end to end with one profiled tree split by kernel and the
+   device's idle share, and 11,000,000 rows × 20 trees when the
+   projected time fits half the limit.
 
 The last lines are the per-kernel launch line, the kernel JSON line,
 the card's name and power limit, and the result object.
@@ -287,7 +308,8 @@ def k2_inputs(seed, r, device, kind="gbt", loss="log"):
     meta, params = tree_model(rng, kind, loss)
     ens = weights.to_torch(kind, meta, params, device)
     x = tree_rows(rng, r)
-    fb = gbdt.make_fused_inputs(ens.tables, x, None, GBT_BINS, device)
+    fb = gbdt.make_fused_inputs(ens.tables, x, None, GBT_BINS,
+                                device=device)
     # one +inf pad column in the cuts, as make_fused_inputs pads widths
     cuts = torch.nn.functional.pad(fb.cuts, (0, 1), value=math.inf)
     return ens.nodes, fb.valuesT, cuts.contiguous(), ens.statics
@@ -502,11 +524,591 @@ def phase_timing(report):
     report["sweep"] = sweep
 
 
+# ---------------------------------------------------------------------------
+# The tree-training slice: K3, K4 and K5, and `train` on the card
+# ---------------------------------------------------------------------------
+
+HIGGS_ROWS, HIGGS_TREES = 2_000_000, 10     # bench.py:178-179 (GBT_SMALL)
+BIG_ROWS, BIG_TREES = 11_000_000, 20        # bench.py:171-176 (HIGGS)
+TRAIN_ROWS = 262_144                        # the main path's model sets
+TRAIN_DEPTH, TRAIN_LR = 6, 0.2
+HIST_SLOTS = (1, 32)          # root level; leaf level with subtraction
+SPLIT_NODES = (1, 32, 20 * 32)  # one tree's levels; a 20-tree forest level
+LIMIT_S = 1200.0
+
+
+def hist_inputs(seed, r, n_slots, device, integer, c=GBT_COLS,
+                n_bins=GBT_BINS):
+    """Raw (C, R) values with NaN and ±inf, (C, B-2) quantile cuts, their
+    bins, and per-row slot (dump slot S and -1 included) / grad / hess,
+    made on `device` from a seed."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    vals = torch.randn((c, r), generator=gen, device=device)
+    u = torch.rand((c, r), generator=gen, device=device)
+    vals[u < 0.05] = math.nan
+    vals[u > 0.998] = math.inf
+    vals[(u > 0.996) & (u <= 0.998)] = -math.inf
+    qs = torch.linspace(0, 1, n_bins, device=device)[1:-1]
+    sample = torch.randn(20000, generator=gen, device=device)
+    cuts = torch.quantile(sample, qs).expand(c, n_bins - 2).contiguous()
+    from shifu_tpu_torch.ops.level_hist import bins_from_values_plain
+    binsT = bins_from_values_plain(vals, cuts, n_bins)
+    slot = torch.randint(-1, n_slots + 1, (r,), generator=gen,
+                         device=device, dtype=torch.int32)
+    if integer:
+        grad = torch.randint(-3, 4, (r,), generator=gen,
+                             device=device).float()
+        hess = torch.randint(0, 3, (r,), generator=gen,
+                             device=device).float()
+    else:
+        grad = torch.randn(r, generator=gen, device=device)
+        hess = torch.rand(r, generator=gen, device=device)
+    return vals, cuts, binsT, slot, grad, hess
+
+
+def _hist_err(name, got, want, slot, w, n_slots, integer):
+    """Exact for integer weights; otherwise |err| ≤ 1e-5·Σ|w| per slot."""
+    import torch
+    if integer:
+        assert torch.equal(got, want), f"{name}: not bit-exact"
+        print(f"  {name}: bit-exact")
+        return 0.0
+    ok = (slot >= 0) & (slot < n_slots)
+    per_slot = torch.zeros(n_slots, dtype=torch.float64, device=w.device)
+    per_slot.index_add_(0, slot[ok].long(), w[ok].abs().double())
+    err = (got - want).abs().amax(dim=(1, 2)).double()
+    tol = 1e-5 * per_slot
+    assert bool((err <= tol).all()), \
+        f"{name}: per-slot max |err| {err.tolist()} over {tol.tolist()}"
+    print(f"  {name}: max |err| {float(err.max()):.3g} (≤ 1e-5·Σ|w| per "
+          f"slot, tightest {float(tol.min()):.3g}) ok")
+    return float(err.max())
+
+
+def phase_k3_k4(report, device="cuda", r=HIGGS_ROWS):
+    from shifu_tpu_torch.ops import level_hist as lh
+    errs = {"level_hist": [0.0], "level_hist_fused": [0.0]}
+    for s in HIST_SLOTS:
+        for integer in (True, False):
+            vals, cuts, binsT, slot, grad, hess = hist_inputs(
+                20 + s + integer, r, s, device, integer)
+            kind = "int" if integer else "real"
+            want = lh.level_histograms_plain(binsT, slot, grad, hess, s,
+                                             GBT_BINS)
+            for name, got in (
+                    ("level_hist", lh.level_histograms(
+                        binsT, slot, grad, hess, s, GBT_BINS)),
+                    ("level_hist_fused", lh.level_histograms_fused(
+                        vals, cuts, slot, grad, hess, s, GBT_BINS))):
+                for part, g, wv, w in zip("GH", got, want, (grad, hess)):
+                    errs[name].append(_hist_err(
+                        f"{name} R={r} S={s} {kind} {part}", g, wv, slot,
+                        w, s, integer))
+    for name, e in errs.items():
+        report[name] = {"max_abs_err": max(e)}
+
+
+def split_inputs(seed, n, device, c=GBT_COLS, n_bins=GBT_BINS):
+    """Integer-valued (N, C, B) G/H (every cumsum exact), a planted tie
+    (column 5 repeats column 2) and, for N > 1, an all-masked node 0."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g = torch.randint(-20, 21, (n, c, n_bins), generator=gen,
+                      device=device).float()
+    h = torch.randint(0, 30, (n, c, n_bins), generator=gen,
+                      device=device).float()
+    g[:, 5] = g[:, 2]
+    h[:, 5] = h[:, 2]
+    mask = (torch.rand((n, c), generator=gen, device=device) < 0.8).float()
+    mask[:, 2] = 1.0
+    mask[:, 5] = 1.0
+    if n > 1:
+        mask[0] = 0.0
+    return g, h, mask
+
+
+def phase_k5(report, device="cuda"):
+    import torch
+    from shifu_tpu_torch.ops import best_splits as bs
+    err = 0.0
+    for n in SPLIT_NODES:
+        g, h, mask = split_inputs(30 + n, n, device)
+        got = bs.best_splits(g, h, mask, 1.0, 2.0)
+        want = bs.best_splits_plain(g, h, mask, 1.0, 2.0)
+        for k in ("feature", "bin", "default_left"):
+            assert torch.equal(got[k], want[k]), f"K5 N={n}: {k} differs"
+        assert not bool((got["feature"] == 5).any()), \
+            "K5: the tie went to the later column"
+        if n > 1:
+            assert got["gain"][0] == -math.inf and got["feature"][0] == 0 \
+                and got["bin"][0] == 0, "K5: all-masked node not at index 0"
+        for k, rtol in (("gain", 1e-5), ("g_tot", 1e-6), ("h_tot", 1e-6)):
+            torch.testing.assert_close(got[k], want[k], rtol=rtol, atol=0.0,
+                                       msg=lambda m: f"K5 N={n} {k}: {m}")
+            fin = torch.isfinite(want[k])
+            if bool(fin.any()):
+                err = max(err, float((got[k][fin] - want[k][fin]).abs()
+                                     .max()))
+        print(f"  K5 best_splits N={n}: feature, bin, default_left exact")
+    report["best_splits"] = {"max_abs_err": err}
+
+
+def write_model_set(root, alg, params, seed, rows, valid_rate):
+    """A model set from a seed, with the port's own writers: 28 numeric
+    HIGGS-like columns with stats bin boundaries (63 bins → 64 with the
+    missing slot), a binary target, and `tmp/CleanedData`."""
+    from shifu_tpu_torch.config.column_config import (
+        ColumnBinning, ColumnConfig, ColumnFlag, save_column_configs)
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    from shifu_tpu_torch.fileio import atomic_write
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (rows, GBT_COLS)).astype(np.float32)
+    logit = (x[:, 0] - 0.8 * x[:, 1] + 0.5 * x[:, 2] * x[:, 3]
+             + np.where(x[:, 4] > 0.5, 1.0, -0.3)
+             + rng.logistic(0, 1, rows))
+    y = (logit > 0).astype(np.float32)
+    x[rng.random(x.shape) < 0.02] = np.nan
+    names = [f"f{j}" for j in range(GBT_COLS)]
+    qs = np.linspace(0, 1, GBT_BINS - 1)[1:-1]
+    ccs = []
+    for j, name in enumerate(names):
+        cuts = np.nanquantile(x[:, j], qs)
+        ccs.append(ColumnConfig(
+            columnNum=j, columnName=name,
+            columnBinning=ColumnBinning(
+                length=len(cuts) + 1,
+                binBoundary=[-math.inf] + [float(v) for v in cuts])))
+    ccs.append(ColumnConfig(columnNum=GBT_COLS, columnName="label",
+                            columnFlag=ColumnFlag.Target))
+    os.makedirs(os.path.join(root, "tmp", "CleanedData"))
+    ModelConfig.from_dict({
+        "basic": {"name": f"smoke{alg}"},
+        "dataSet": {"targetColumnName": "label", "posTags": ["1"],
+                    "negTags": ["0"]},
+        "stats": {"maxNumBin": GBT_BINS - 1},
+        "train": {"algorithm": alg, "validSetRate": valid_rate,
+                  "params": params}}).save(root)
+    save_column_configs(ccs, root)
+    clean = os.path.join(root, "tmp", "CleanedData")
+    np.savez(os.path.join(clean, "data.npz"), dense=x,
+             index=np.zeros((rows, 0), np.int32), tags=y,
+             weights=np.ones(rows, np.float32))
+    with atomic_write(os.path.join(clean, "meta.json")) as f:
+        json.dump({"denseNames": names, "indexNames": []}, f)
+    return x, y
+
+
+def run_train(root, device, env_extra=None):
+    """`python -m shifu_tpu_torch --dir root train --device D` as a
+    subprocess; returns its JSON report line."""
+    env = dict(os.environ)
+    env.update(env_extra or {})
+    proc = subprocess.run(
+        [sys.executable, "-m", "shifu_tpu_torch", "--dir", root, "train",
+         "--device", device], capture_output=True, text=True, env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)), timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"train --device {device} on {root} failed "
+                           f"(rc {proc.returncode}):\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _model_file(root, kind):
+    from shifu_tpu_torch.models.spec import load_model
+    return load_model(os.path.join(root, "models", f"model0.{kind}"))
+
+
+def auc(y, s):
+    """Mann-Whitney AUC with average ranks for ties."""
+    order = np.argsort(s, kind="mergesort")
+    _, first, counts = np.unique(s[order], return_index=True,
+                                 return_counts=True)
+    ranks = np.empty(len(s))
+    ranks[order] = np.repeat(first + (counts + 1) / 2.0, counts)
+    pos = y > 0.5
+    n_pos = int(pos.sum())
+    n_neg = len(y) - n_pos
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2.0)
+                 / (n_pos * n_neg))
+
+
+def train_metrics(root, x, y):
+    """Train log-loss and AUC of a saved GBT scored on the CPU."""
+    import torch
+    from shifu_tpu_torch import weights
+    from shifu_tpu_torch.models import gbdt
+    kind, meta, params = _model_file(root, "gbt")
+    ens = weights.to_torch(kind, meta, params, "cpu")
+    p = gbdt.predict(meta, ens, x, None).double().numpy()
+    p = np.clip(p, 1e-7, 1 - 1e-7)
+    loss = float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p)))
+    return loss, auc(y, p)
+
+
+def phase_train_main_path(report, workdir, device="cuda", rows=TRAIN_ROWS):
+    """`train` on the card and on the CPU for RF, one-round squared GBT
+    and log-loss GBT (and log-loss GBT through K4), then the port's
+    `serve` on the card-trained model."""
+    import torch
+    sets = {
+        "rf": ("RF", {"TreeNum": 10, "MaxDepth": TRAIN_DEPTH,
+                      "FeatureSubsetStrategy": "SQRT"}, 0.0),
+        "gbt_sq": ("GBT", {"TreeNum": 1, "MaxDepth": TRAIN_DEPTH,
+                           "LearningRate": TRAIN_LR, "Loss": "squared"},
+                   0.1),
+        "gbt_log": ("GBT", {"TreeNum": 10, "MaxDepth": TRAIN_DEPTH,
+                            "LearningRate": TRAIN_LR, "Loss": "log"}, 0.1),
+    }
+    data = {}
+    for name, (alg, params, vr) in sets.items():
+        for where in ("card", "cpu"):
+            data[name] = write_model_set(
+                os.path.join(workdir, f"{name}_{where}"), alg, params, 40,
+                rows, vr)
+    fused_root = os.path.join(workdir, "gbt_log_fused")
+    write_model_set(fused_root, *sets["gbt_log"][:2], 40, rows, 0.1)
+
+    # each `train` run reports its kernels' launches (its process's
+    # counters start at zero and are read before and after the run);
+    # the main path's counts are the card runs' sums
+    runs = {}
+    for name in sets:
+        runs[name] = run_train(os.path.join(workdir, f"{name}_card"), device)
+        runs[name + "_cpu"] = run_train(os.path.join(workdir, f"{name}_cpu"),
+                                        "cpu")
+    runs["gbt_log_fused"] = run_train(fused_root, device,
+                                      {"SHIFU_TPU_HIST_FUSED": "1"})
+    launches = {k: sum(r["launches"][k] for n, r in runs.items()
+                       if not n.endswith("_cpu"))
+                for k in ("level_hist", "level_hist_fused", "best_splits")}
+    for name, r in runs.items():
+        print(f"  train {name}: {r['algorithm']} on {r['device']} in "
+              f"{r['seconds']:.2f} s, launches {r['launches']}")
+    for k, v in launches.items():
+        assert v > 0, f"kernel {k} was not launched on the train path"
+        report[k]["launches"] = v
+
+    for name, kind in (("rf", "rf"), ("gbt_sq", "gbt")):
+        _, meta_a, pa = _model_file(os.path.join(workdir, f"{name}_card"),
+                                    kind)
+        _, meta_b, pb = _model_file(os.path.join(workdir, f"{name}_cpu"),
+                                    kind)
+        assert meta_a == meta_b, f"{name}: meta differs"
+        for part in ("trees", "tables"):
+            for k in pb[part]:
+                assert np.array_equal(pa[part][k], pb[part][k]), \
+                    f"{name}: {part}.{k} differs between card and CPU"
+        print(f"  {name}: card-trained file bit-exact with the CPU run")
+    x, y = data["gbt_log"]
+    ref = train_metrics(os.path.join(workdir, "gbt_log_cpu"), x, y)
+    for name in ("gbt_log_card", "gbt_log_fused"):
+        loss, a = train_metrics(os.path.join(workdir, name), x, y)
+        assert abs(loss - ref[0]) <= 1e-4 * ref[0], \
+            f"{name}: train log-loss {loss} vs CPU {ref[0]}"
+        assert abs(a - ref[1]) <= 1e-3, f"{name}: AUC {a} vs CPU {ref[1]}"
+        print(f"  {name}: train log-loss {loss:.6f} (CPU {ref[0]:.6f}), "
+              f"AUC {a:.6f} (CPU {ref[1]:.6f}) ok")
+    report["train_runs"] = runs
+
+    # the port's serve scores the card-trained model, against the CPU
+    from shifu_tpu_torch.serve.service import ScorerService
+    models = os.path.join(workdir, "gbt_log_card", "models")
+    rows_in = {"raw_dense": x[:512]}
+    gpu = ScorerService(models_dir=models, max_delay=0.002, device=device)
+    cpu = ScorerService(models_dir=models, max_delay=0.002, device="cpu")
+    try:
+        gpu.start(proto={"raw_dense": x[:1]})
+        cpu.start(proto={"raw_dense": x[:1]})
+        got, want = gpu.submit(**rows_in), cpu.submit(**rows_in)
+    finally:
+        gpu.close()
+        cpu.close()
+    for k in want:
+        assert got[k].shape == (512,) and np.isfinite(got[k]).all()
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-6)
+    print("  serve: the card-trained GBT scores 512 rows on the card like "
+          "the CPU twin")
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _gbt_data(r, device, seed=50):
+    """HIGGS-width training data made on the card: (C, R) raw values
+    with NaN/±inf, their (C, R) int32 bins of 64 (missing included) and
+    cuts, and labels from the raw values."""
+    import torch
+    vals, cuts, binsT, _, _, _ = hist_inputs(seed, r, 1, device, False)
+    v = torch.nan_to_num(vals, nan=0.0, posinf=3.0, neginf=-3.0)
+    logit = v[0] - 0.8 * v[1] + 0.5 * v[2] * v[3] + (v[4] > 0.5).float()
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    y = (logit + torch.randn(r, generator=gen, device=device) > 0).float()
+    del v, logit
+    return vals, binsT, cuts, y
+
+
+def profile_by_kernel(fn):
+    """(wall ms, {category: device ms}) over `fn` under torch.profiler:
+    level_hist, best_splits, and everything else the build launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cats = {"level_hist": 0.0, "best_splits": 0.0, "other": 0.0}
+    counts = {"level_hist": 0, "best_splits": 0, "other": 0}
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        key = "level_hist" if "level_hist" in ev.name else \
+            "best_splits" if "best_splits" in ev.name else "other"
+        ms = ev.self_device_time_total / 1e3
+        cats[key] += ms
+        counts[key] += 1
+        n, t = by_name.get(ev.name[:90], (0, 0.0))
+        by_name[ev.name[:90]] = (n + 1, t + ms)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    return wall_ms, cats, counts, [(k, n, t) for k, (n, t) in top]
+
+
+def profile_levels(fn):
+    """Per level of one tree built by `fn`, for the histograms
+    (`_child_level_histograms`: K3 or K4 plus the sibling subtraction),
+    the split search and fold (`_apply_level`: K5 plus the fold) and the
+    routing step (`_route_level`): host ms (the range on the CPU),
+    device span ms (first to last kernel of the range on the card's
+    timeline, gaps included) and kernel ms (device time of the kernels
+    and copies inside that span), from `torch.profiler` ranges put
+    around those three builder functions for the run."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from shifu_tpu_torch.models import gbdt
+    names = {"_child_level_histograms": "hist", "_apply_level": "split",
+             "_route_level": "route"}
+    saved = {k: getattr(gbdt, k) for k in names}
+
+    def wrap(key, f):
+        def inner(*a, **kw):
+            with record_function("tree." + names[key]):
+                return f(*a, **kw)
+        return inner
+
+    torch.cuda.synchronize()
+    try:
+        for k, f in saved.items():
+            setattr(gbdt, k, wrap(k, f))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for k, f in saved.items():
+            setattr(gbdt, k, f)
+    host = {v: [] for v in names.values()}
+    spans = {v: [] for v in names.values()}
+    kernels = []
+    for ev in prof.events():
+        t = ev.time_range
+        if ev.name.startswith("tree."):
+            side = spans if ev.device_type == DeviceType.CUDA else host
+            side[ev.name[5:]].append((t.start, t.end))
+        elif ev.device_type == DeviceType.CUDA:
+            kernels.append((t.start, t.end))
+
+    def busy(a, b):
+        return sum(max(0, min(e, b) - max(s, a)) for s, e in kernels)
+
+    rows = {}
+    for key in names.values():
+        h = sorted(host[key])
+        g = sorted(spans[key])
+        rows[key] = [{"host_ms": (he - hs) / 1e3,
+                      "span_ms": (ge - gs) / 1e3 if i < len(g) else None,
+                      "kernel_ms": busy(gs, ge) / 1e3 if i < len(g)
+                      else None}
+                     for i, ((hs, he), (gs, ge)) in enumerate(
+                         zip(h, g + [(0, 0)] * (len(h) - len(g))))]
+    return wall_ms, rows
+
+
+def k3_cost(c, r_active, r, n_slots, n_bins):
+    """Bytes: the bins of rows in a live slot, slot/grad/hess of every
+    row, G and H written once. Operations: one add each into G and H
+    per live (row, column)."""
+    return (4 * c * r_active + 12 * r + 8 * n_slots * c * n_bins,
+            2 * c * r_active)
+
+
+def k4_cost(c, r_active, r, k, n_slots, n_bins):
+    """K3's bytes with raw values in place of bins plus the cut table;
+    operations add ⌈log2(K+1)⌉ compares per live cell for the bins."""
+    return (4 * c * r_active + 4 * c * k + 12 * r
+            + 8 * n_slots * c * n_bins,
+            2 * c * r_active + c * r_active * math.ceil(math.log2(k + 1)))
+
+
+def k5_cost(n, c, n_bins):
+    """Bytes: G and H read once, the mask, the (5, N) result. Operations:
+    two cumsum adds and ~22 flops for the two gains per (node, column,
+    main bin)."""
+    return 8 * n * c * n_bins + 4 * n * c + 20 * n, 24 * n * c * (n_bins - 1)
+
+
+def phase_train_timing(report, t_start):
+    """HIGGS widths (28 columns, depth 6, 64 bins, log loss, lr 0.2):
+    per-kernel times at the main path's shapes, the end-to-end build at
+    2M rows × 10 trees, one profiled tree, and 11M × 20 if the time
+    limit allows."""
+    import torch
+    from shifu_tpu_torch.models import gbdt
+    from shifu_tpu_torch.ops import best_splits as bs
+    from shifu_tpu_torch.ops import level_hist as lh
+    sweep = []
+    r = HIGGS_ROWS
+    for s in HIST_SLOTS:
+        vals, cuts, binsT, slot, grad, hess = hist_inputs(60 + s, r, s,
+                                                          "cuda", False)
+        live = (slot >= 0) & (slot < s)
+        r_active = int(live.sum())
+        # the library call: bincount over the flat (slot, column, bin)
+        # index with a trailing dump slot, once for G and once for H
+        slot_d = torch.where(live, slot, s).long()
+        flat = ((slot_d * GBT_COLS)[None, :]
+                + torch.arange(GBT_COLS, device="cuda")[:, None]) \
+            * GBT_BINS + binsT.long()
+        flat = flat.reshape(-1)
+        wg = grad.expand(GBT_COLS, r).reshape(-1)
+        wh = hess.expand(GBT_COLS, r).reshape(-1)
+        size = (s + 1) * GBT_COLS * GBT_BINS
+        lib = cuda_ms(lambda: (torch.bincount(flat, weights=wg,
+                                              minlength=size),
+                               torch.bincount(flat, weights=wh,
+                                              minlength=size)), 10)
+        del flat, wg, wh
+        for name, fn, plain, cost in (
+                ("level_hist",
+                 lambda: lh.level_histograms(binsT, slot, grad, hess, s,
+                                             GBT_BINS),
+                 lambda: lh.level_histograms_plain(binsT, slot, grad, hess,
+                                                   s, GBT_BINS),
+                 k3_cost(GBT_COLS, r_active, r, s, GBT_BINS)),
+                ("level_hist_fused",
+                 lambda: lh.level_histograms_fused(vals, cuts, slot, grad,
+                                                   hess, s, GBT_BINS),
+                 lambda: lh.level_histograms_plain(
+                     lh.bins_from_values_plain(vals, cuts, GBT_BINS), slot,
+                     grad, hess, s, GBT_BINS),
+                 k4_cost(GBT_COLS, r_active, r, cuts.shape[1], s,
+                         GBT_BINS))):
+            ms = cuda_ms(fn, 20)
+            dev = kernel_device_ms(fn, 20, "level_hist_kernel")
+            pl_ms = cuda_ms(plain, 5, warmup=1)
+            bnd, by = bound_ms(*cost)
+            sweep.append({"name": name, "shape": f"R={r}x{GBT_COLS} S={s} "
+                          f"B={GBT_BINS}", "ms": ms, "kernel_device_ms": dev,
+                          "plain_ms": pl_ms,
+                          "library_ms": lib if name == "level_hist"
+                          else None, "bound_ms": bnd, "bound_by": by})
+        del vals, cuts, binsT, slot, grad, hess
+    for n in SPLIT_NODES:
+        g, h, mask = split_inputs(70 + n, n, "cuda")
+        fn = lambda: bs.best_splits(g, h, mask, 1.0, 1.0)  # noqa: E731
+        bnd, by = bound_ms(*k5_cost(n, GBT_COLS, GBT_BINS))
+        sweep.append({"name": "best_splits", "shape": f"N={n} C={GBT_COLS}"
+                      f" B={GBT_BINS}", "ms": cuda_ms(fn, 100),
+                      "kernel_device_ms": kernel_device_ms(
+                          fn, 100, "best_splits_kernel"),
+                      "plain_ms": cuda_ms(lambda: bs.best_splits_plain(
+                          g, h, mask, 1.0, 1.0), 50),
+                      "library_ms": None, "bound_ms": bnd, "bound_by": by})
+    for row in sweep:
+        print("  timing " + json.dumps(row))
+    # the kernels line: K3/K4 at the leaf level (S = 32), K5 at N = 32
+    for row in sweep:
+        if (row["name"].startswith("level_hist") and "S=32" in row["shape"]) \
+                or (row["name"] == "best_splits" and "N=32 " in row["shape"]):
+            report[row["name"]].update({k: row[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    report["train_sweep"] = sweep
+
+    cfg = gbdt.TreeConfig(max_depth=TRAIN_DEPTH, n_bins=GBT_BINS,
+                          learning_rate=TRAIN_LR, loss="log")
+    e2e = {}
+    vals, binsT, cuts, y = _gbt_data(r, "cuda")
+    w = torch.ones_like(y)
+    walls = {}
+    for route, bins in (("binned", binsT),
+                        ("fused", gbdt.FusedBins(vals, cuts))):
+        gbdt.build_gbt(cfg, bins, y, w, 1)                  # warm-up
+        counts0 = (lh.launches, lh.fused_launches, bs.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trees, _ = gbdt.build_gbt(cfg, bins, y, w, HIGGS_TREES)
+        walls[route] = wall = time.perf_counter() - t0
+        assert np.isfinite(trees["leaf_value"]).all()
+        per_tree = {"level_hist": (lh.launches - counts0[0]) / HIGGS_TREES,
+                    "level_hist_fused": (lh.fused_launches - counts0[1])
+                    / HIGGS_TREES,
+                    "best_splits": (bs.launches - counts0[2]) / HIGGS_TREES}
+        wall_ms, cats, counts, top = profile_by_kernel(
+            lambda: gbdt.build_gbt(cfg, bins, y, w, 1))
+        busy = sum(cats.values())
+        e2e[f"{route} {r}x{HIGGS_TREES}"] = {
+            "wall_s": wall, "row_trees_per_s": r * HIGGS_TREES / wall,
+            "launches_per_tree": per_tree,
+            "profiled_tree": {"wall_ms": wall_ms, "device_ms": cats,
+                              "device_launches": counts,
+                              "idle_share": 1.0 - busy / wall_ms,
+                              "top_kernels": top}}
+        print(f"  train {route} {r} rows x {HIGGS_TREES} trees: "
+              f"{wall:.3f} s")
+    wall_ms, levels = profile_levels(
+        lambda: gbdt.build_gbt(cfg, binsT, y, w, 1))
+    e2e[f"binned {r}x{HIGGS_TREES}"]["per_level"] = {
+        "wall_ms": wall_ms, "host_device_ms": levels}
+    print("  per level of one profiled tree: " + json.dumps(levels))
+    del vals, binsT, cuts, y, w
+    wall = walls["binned"]
+    elapsed = time.monotonic() - t_start
+    projected = wall * (BIG_ROWS / r) * (BIG_TREES / HIGGS_TREES) * 1.5 + 30
+    if elapsed + projected < LIMIT_S / 2:
+        vals, binsT, _, y = _gbt_data(BIG_ROWS, "cuda")
+        del vals
+        w = torch.ones_like(y)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gbdt.build_gbt(cfg, binsT, y, w, BIG_TREES)
+        big = time.perf_counter() - t0
+        e2e[f"binned {BIG_ROWS}x{BIG_TREES}"] = {
+            "wall_s": big, "row_trees_per_s": BIG_ROWS * BIG_TREES / big}
+        print(f"  train {BIG_ROWS} rows x {BIG_TREES} trees: {big:.3f} s")
+        del binsT, y, w
+    else:
+        print(f"  train {BIG_ROWS} x {BIG_TREES}: skipped (projected "
+              f"{projected:.0f} s after {elapsed:.0f} s)")
+    print("  train end to end: " + json.dumps(e2e))
+    report["train_e2e"] = e2e
+
+
 SOURCES = {
     "fused_score": ("shifu_tpu_torch/csrc/fused_score.cu",
                     "shifu_tpu/ops/pallas_score.py:110"),
     "fused_trees": ("shifu_tpu_torch/csrc/fused_trees.cu",
                     "shifu_tpu/ops/pallas_trees.py:203"),
+    "level_hist": ("shifu_tpu_torch/csrc/level_hist.cu",
+                   "shifu_tpu/ops/pallas_hist.py:250"),
+    "level_hist_fused": ("shifu_tpu_torch/csrc/level_hist.cu",
+                         "shifu_tpu/ops/pallas_hist.py:338"),
+    "best_splits": ("shifu_tpu_torch/csrc/best_splits.cu",
+                    "shifu_tpu/ops/pallas_split.py:144"),
 }
 
 
@@ -537,6 +1139,15 @@ def main() -> int:
     print("phase 5: timing (CUDA events)")
     phase_timing(report)
     print("services: " + json.dumps(report["services"]))
+    print("phase 6: K3 level_hist and K4 level_hist_fused vs plain")
+    phase_k3_k4(report)
+    print("phase 7: K5 best_splits vs plain")
+    phase_k5(report)
+    print("phase 8: train main path (card vs CPU, then serve)")
+    with tempfile.TemporaryDirectory() as workdir:
+        phase_train_main_path(report, workdir)
+    print("phase 9: training timing at the HIGGS widths")
+    phase_train_timing(report, t_start)
     print(f"total: {time.monotonic() - t_start:.1f} s on {smi}")
 
     kernels = []

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface and compiles on its own
 with `nvcc` for Hopper (``sm_90a``) into ``build/lib<name>-<hash>.so``
-beside this file, at first use; the hash is of the source, so an edited
-kernel is rebuilt and a stale library is never loaded. The libraries are
+beside this file, at first use; the hash is of the source and of every
+shared header in `csrc/` (`*.cuh`), so an edited kernel is rebuilt and
+a stale library is never loaded. The libraries are
 opened with `ctypes`. `build_all` starts one `nvcc` per source, all at
 once, and waits for them together.
 
@@ -24,7 +25,7 @@ from typing import Dict, Iterable, List
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
-SOURCES = ("fused_score", "fused_trees")
+SOURCES = ("fused_score", "fused_trees", "level_hist", "best_splits")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -41,8 +42,12 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(f.encode() + b"\0" + fh.read())
+    digest = h.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 

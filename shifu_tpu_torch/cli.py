@@ -1,13 +1,18 @@
-"""Command line of the port — the `serve` verb of `shifu_tpu/cli.py`
-(single model set; the registry fleet comes later).
+"""Command line of the port — the `serve` and `train` verbs of
+`shifu_tpu/cli.py` (single model set; the registry fleet comes later).
 
     python -m shifu_tpu_torch --dir <model-set> serve [--port P]
         [--no-http] [--duration-s S] [--device cuda|cpu]
+    python -m shifu_tpu_torch --dir <model-set> train [--device cuda|cpu]
 
-Serves every model spec under ``<model-set>/models`` (the
+`serve` serves every model spec under ``<model-set>/models`` (the
 `PathFinder.models_path()` rule) until SIGTERM/SIGINT or `--duration-s`,
-then prints the service stats as one JSON line. `--device` defaults to
-the card and raises when there is none.
+then prints the service stats as one JSON line. `train` trains the
+model set's GBT/RF/DT algorithm from `tmp/CleanedData` into
+``models/model<bag>.{gbt,rf}`` and prints one JSON line: the algorithm,
+the device, the wall seconds and the launches of each training kernel
+during the run. `--device` defaults to the card and raises when there
+is none.
 """
 
 from __future__ import annotations
@@ -54,6 +59,33 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_train(args) -> int:
+    import time
+
+    from shifu_tpu_torch import resolve_device
+    from shifu_tpu_torch.ops import best_splits, level_hist
+    from shifu_tpu_torch.processor import train as train_proc
+    from shifu_tpu_torch.processor.base import ProcessorContext
+    def counts():
+        return {"level_hist": level_hist.launches,
+                "level_hist_fused": level_hist.fused_launches,
+                "best_splits": best_splits.launches}
+
+    dev = resolve_device(args.device)
+    ctx = ProcessorContext.load(os.path.abspath(args.dir))
+    before = counts()
+    t0 = time.perf_counter()
+    rc = train_proc.run(ctx, device=dev)
+    if dev.type == "cuda":
+        import torch
+        torch.cuda.synchronize(dev)
+    print(json.dumps({
+        "algorithm": ctx.model_config.train.algorithm.value,
+        "device": str(dev), "seconds": time.perf_counter() - t0,
+        "launches": {k: v - before[k] for k, v in counts().items()}}))
+    return rc
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="shifu_tpu_torch")
     ap.add_argument("--dir", default=".", help="model-set directory")
@@ -70,6 +102,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (default cuda)")
     p.set_defaults(fn=cmd_serve)
+    p = sub.add_parser("train", help="train the model set's GBT/RF/DT "
+                                     "algorithm")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on (default cuda)")
+    p.set_defaults(fn=cmd_train)
     return ap
 
 

@@ -1,9 +1,12 @@
-"""Environment knobs the serving slice reads.
+"""Environment knobs the serving and tree-training slices read.
 
 A copy of the reading half of `shifu_tpu/config/environment.py` for the
-four serving knobs: same names, same defaults, and the same
-warn-and-run parsing (a malformed value logs a warning and falls back to
-the default instead of failing the process).
+four serving knobs and the two tree-build knobs: same names, same
+defaults, and the same warn-and-run parsing (a malformed value logs a
+warning and falls back to the default instead of failing the process).
+The JAX package's routing and TPU-dispatch knobs (`SHIFU_TPU_HIST`,
+`SHIFU_TPU_SPLIT_FUSED`, `SHIFU_TPU_TREE_SCAN`, ...) have no counterpart:
+the tensors' device picks the route here.
 """
 
 from __future__ import annotations
@@ -34,6 +37,12 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
          "queue rejects submits instead of buffering unbounded"),
     Knob("SHIFU_TPU_SERVE_PORT", 8488,
          "HTTP/JSON listener port for `serve` (0 = ephemeral)"),
+    Knob("SHIFU_TPU_HIST_SUBTRACT", "1",
+         "sibling-subtraction trick in GBT histogram builds"),
+    Knob("SHIFU_TPU_HIST_FUSED", "0",
+         "1 = GBT level builds bin numeric values inside the histogram "
+         "kernel (no materialized bin-index matrix); needs FusedBins "
+         "inputs from gbdt.make_fused_inputs"),
 )}
 
 
@@ -79,3 +88,13 @@ def knob_str(name: str, default: Optional[str] = None) -> Optional[str]:
     if raw is None or raw == "":
         return default if default is not None else k.default
     return raw
+
+
+def knob_bool(name: str, default: Optional[bool] = None) -> bool:
+    """bool/flag knobs: "0"/"false"/"no"/"off" (any case) are False,
+    anything else set is True; unset uses the registry default."""
+    k = _require(name)
+    raw = os.environ.get(name)
+    if raw is None or raw.strip() == "":
+        raw = str(k.default if default is None else default)
+    return raw.strip().lower() not in ("0", "false", "no", "off", "none")

@@ -25,7 +25,8 @@
 // the node table per chunk; the per-row sum still runs in tree order.
 //
 // Semantics (bit-exact routing with the reference walk): bin = Σ(v ≥ cut)
-// clamped to n_bins-2, NaN → n_bins-1; at a node the missing bin goes by
+// clamped to n_bins-2, NaN → n_bins-1 (`bin_of`, binning.cuh, shared
+// with the histogram kernel K4); at a node the missing bin goes by
 // default_left, else bin <= split bin goes left (child 2i+1) and right
 // otherwise (2i+2); a stop node parks the row. RF averages the leaves,
 // GBT scales the sum by lr and, for log loss, applies the ±30-clipped
@@ -33,6 +34,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "binning.cuh"
 
 namespace {
 
@@ -70,16 +73,8 @@ fused_trees_kernel(const float* __restrict__ valsT,   // (c, r)
   // bins of this thread's row, column-major by thread: conflict-free
   if (active) {
     for (int col = 0; col < c; ++col) {
-      const float v = valsT[(size_t)col * r + row];
-      int b;
-      if (isnan(v)) {
-        b = n_bins - 1;
-      } else {
-        b = 0;
-        const float* cc = s_cuts + col * k;
-        for (int j = 0; j < k; ++j) b += (v >= cc[j]) ? 1 : 0;
-        b = min(b, n_bins - 2);
-      }
+      const int b = bin_of(valsT[(size_t)col * r + row], s_cuts + col * k,
+                           k, n_bins);
       s_bins[col * THREADS + tid] = (uint8_t)b;
     }
   }

@@ -8,13 +8,13 @@ round. numpy-only.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
-import shutil
-from typing import Any, Dict, Iterator, List, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
+
+from shifu_tpu_torch.fileio import atomic_path
 
 FORMAT_VERSION = 1
 
@@ -51,26 +51,6 @@ def _unflatten(flat: Dict[str, np.ndarray], prefix: str = "p") -> Any:
     return {k: _unflatten(children[k], f"{prefix}.{k}") for k in children}
 
 
-@contextlib.contextmanager
-def _atomic_path(path: str) -> Iterator[str]:
-    """Yield a dot-prefixed sibling temp path that keeps the extension;
-    on clean exit replace `path` with it, on error remove it (the
-    `resilience.atomic_path` contract, without fault injection)."""
-    d, base = os.path.split(path)
-    tmp = os.path.join(d, f".tmp.{os.getpid()}.{base}")
-    try:
-        yield tmp
-        if os.path.isdir(path) and os.path.isdir(tmp):
-            shutil.rmtree(path)
-        os.replace(tmp, path)
-    except BaseException:
-        if os.path.isdir(tmp):
-            shutil.rmtree(tmp, ignore_errors=True)
-        elif os.path.exists(tmp):
-            os.remove(tmp)
-        raise
-
-
 def save_model(path: str, kind: str, meta: Dict[str, Any],
                params: Any) -> None:
     """Write a model spec: npz of arrays + embedded JSON header, staged
@@ -79,7 +59,7 @@ def save_model(path: str, kind: str, meta: Dict[str, Any],
     flat = _flatten(params)
     header = json.dumps({"format": FORMAT_VERSION, "kind": kind,
                          "meta": meta})
-    with _atomic_path(path) as tmp:
+    with atomic_path(path) as tmp:
         np.savez_compressed(tmp if path.endswith(".npz") else tmp + ".npz",
                             __header__=np.frombuffer(header.encode(),
                                                      np.uint8),

@@ -67,7 +67,8 @@ def _model(kind, loss="squared", seed=0, n_trees=4, depth=4):
 
 def _port_kernel_route(meta, params, dense, codes):
     ens = weights.to_torch(meta["kind"], meta, params, "cpu")
-    fb = tgbdt.make_fused_inputs(ens.tables, dense, codes, N_BINS)
+    fb = tgbdt.make_fused_inputs(ens.tables, dense, codes, N_BINS,
+                                 device="cpu")
     return fused_trees.predict_ensemble(ens.nodes, fb.valuesT, fb.cuts,
                                         **ens.statics, return_leaves=True)
 
@@ -174,3 +175,13 @@ def test_row_count_invariance():
     padc = np.concatenate([codes, np.repeat(codes[-1:], 40, 0)])
     padded, _ = _port_kernel_route(meta, params, pad, padc)
     np.testing.assert_array_equal(padded.numpy()[:len(dense)], base.numpy())
+
+
+def test_make_fused_inputs_defaults_to_the_card(monkeypatch):
+    """Without a device argument the packing targets the card, like
+    every entry point: with none present it raises instead of quietly
+    building CPU tensors."""
+    dense, codes, tables, _ = _dataset(3)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        tgbdt.make_fused_inputs(tables, dense, codes, N_BINS)

@@ -18,6 +18,9 @@ import numpy as np
 import torch
 import shifu_tpu_torch.cli, shifu_tpu_torch.weights, shifu_tpu_torch._build
 import shifu_tpu_torch.serve.http
+import shifu_tpu_torch.processor.train, shifu_tpu_torch.fileio
+from shifu_tpu_torch.models import gbdt
+from shifu_tpu_torch.ops import best_splits, level_hist
 from shifu_tpu_torch.eval.scorer import Scorer
 from shifu_tpu_torch.models.spec import save_model
 from shifu_tpu_torch.serve.service import ScorerService
@@ -40,6 +43,11 @@ try:
 finally:
     svc.close()
 assert out["mean"].shape == (5,)
+bins = rng.integers(0, 8, (60, 3)).astype(np.int32)
+y = (bins[:, 0] > 3).astype(np.float32)
+trees = gbdt.build_rf(gbdt.TreeConfig(max_depth=2, n_bins=8), bins, y,
+                      np.ones_like(y), 2, "ALL", 1.0, 0, device="cpu")
+assert trees["feature"].shape == (2, 7)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "shifu_tpu" or m.startswith("shifu_tpu."))
