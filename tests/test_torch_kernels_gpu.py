@@ -167,3 +167,27 @@ def test_training_kernels_refuse_what_they_do_not_take(cuda):
     g = torch.zeros((2, 3, 4), device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError):
         best_splits.best_splits(g, g, torch.ones(3, device=cuda), 1.0, 1.0)
+
+
+def test_level_loop_never_waits_for_the_card(cuda):
+    """Growing a forest (K3, K5, fold and route on every level) makes no
+    host synchronization: with CUDA sync debugging set to error, any
+    `.item()`, `.cpu()` or data-dependent shape in the loop raises."""
+    _, _, binsT, _, _, _ = cs.hist_inputs(6, 30_000, 1, cuda, True)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    grad = torch.randn((3, 30_000), generator=gen, device=cuda)
+    hess = torch.rand((3, 30_000), generator=gen, device=cuda)
+    masks = torch.ones((3, cs.GBT_COLS), device=cuda)
+    cfg = gbdt.TreeConfig(max_depth=6, n_bins=cs.GBT_BINS)
+    gbdt.build_forest(cfg, binsT, grad, hess, masks)    # loads the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trees, node = gbdt.build_forest(cfg, binsT, grad, hess, masks,
+                                        return_nodes=True)
+        with pytest.raises(RuntimeError):   # the mode does catch a sync
+            trees["gain"].sum().item()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert node.shape == (3, 30_000)
+    assert bool(trees["is_leaf"][:, cfg.n_internal:].all())
