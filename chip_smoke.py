@@ -6,14 +6,16 @@ Phases, each fatal on failure (the exit code is then non-zero and no
 result line is printed):
 
 1. the card's name, count and power limit; build every kernel from
-   `shifu_tpu_torch/csrc/` (one `nvcc` per source, all at once);
-2. K1 `fused_score` against its plain PyTorch version at 512×600→512 and
-   at an eval-sized 65,536×600→512, with NaNs, outliers and a tiny-std
-   column (rtol 1e-5 / atol 1e-5);
-3. K2 `fused_trees` against its plain version at R = 512 and
-   R = 1,048,576 on the HIGGS GBT shape (28 columns, 20 trees, depth 6,
-   64 bins, log loss) with NaN and ±inf values: landing leaves exact,
-   scores within 1e-6;
+   `shifu_tpu_torch/csrc/` (one `nvcc` per source, all at once), with
+   ptxas's registers, shared memory and spills per kernel;
+2. K1 `fused_score` against its plain PyTorch version at 512×600→512, at
+   an eval-sized 65,536×600→512, at the odd width 37×37→16 and at H = 1
+   (1×20→1, 512×20→1), with NaNs, outliers and a tiny-std column
+   (rtol 1e-5 / atol 1e-5), two launches bit-identical;
+3. K2 `fused_trees` against its plain version at R = 512 (one warp per
+   row) and R = 1,048,576 (one thread per row) on the HIGGS GBT shape
+   (28 columns, 20 trees, depth 6, 64 bins, log loss) with NaN and ±inf
+   values: landing leaves exact, scores within 1e-6;
 4. the main path: model sets written with the port's `save_model` from a
    seed (NN 600→512→256→1 served with `norm`; GBT + RF of the HIGGS
    shape), two `ScorerService`s on the card behind `HttpFrontEnd`,
@@ -21,11 +23,14 @@ result line is printed):
    every answer held against the same service on the CPU; the kernels'
    launch counters are zeroed just before and must have risen;
 5. per kernel, CUDA-event times of the wrapper call, its plain version
-   and (K1) one `torch.matmul` over the z-scored input, the kernel's own
-   device time from `torch.profiler`, and the bound; plus request
-   p50/p95/p99 and the mean per-stage split of both services over a
-   closed loop of 1,000 requests per size, and the device's idle share
-   over a profiled window of 200 more;
+   and (K1) one f32 `torch.matmul` over the z-scored input, the kernel's
+   own device time from `torch.profiler`, and the bound (K1: 3xTF32 on
+   the tensor cores, and the f32 bound beside it), K1 at N = 1, 8, 64,
+   512, 65,536 (and at 512 under other plans than `_k1_plan`'s, the
+   evidence for its block target) and K2 at R = 1, 64, 512, 1,048,576;
+   plus request p50/p95/p99 and the mean per-stage split of both
+   services over a closed loop of 1,000 requests per size, and the
+   device's idle share over a profiled window of 200 more;
 6. K3 `level_hist` and K4 `level_hist_fused` against their plain
    versions at R = 2,000,000, C = 28, B = 64 for S = 1 and 32, with
    dump-slot rows and NaN/±inf values: integer grads exact, real ones
@@ -67,6 +72,7 @@ import numpy as np
 
 MEM_BW = 3.35e12      # H100 SXM HBM3 bytes/s (data sheet)
 F32_PEAK = 67e12      # H100 SXM f32 FLOP/s outside the tensor cores
+TF32_PEAK = 495e12    # H100 SXM dense TF32 tensor-core FLOP/s
 
 NN_IN, NN_HIDDEN = 600, (512, 256)        # bench.py:90-92
 GBT_COLS, GBT_TREES, GBT_DEPTH, GBT_BINS = 28, 20, 6, 64  # bench.py:171-174
@@ -119,8 +125,8 @@ def tree_rows(rng, n, c=GBT_COLS):
     return x
 
 
-def tree_model(rng, kind, loss):
-    """Random perfect trees of depth 6 over 28 columns with quantile
+def tree_model(rng, kind, loss, t=GBT_TREES):
+    """`t` random perfect trees of depth 6 over 28 columns with quantile
     cuts (62 per column; 64 bins incl. the missing slot), a few
     subtrees cut short by early leaves."""
     sample = rng.normal(0, 1, (20000, GBT_COLS)).astype(np.float32)
@@ -128,7 +134,6 @@ def tree_model(rng, kind, loss):
     num_cuts = np.quantile(sample, qs, axis=0).astype(np.float32)
     n_nodes = 2 ** (GBT_DEPTH + 1) - 1
     n_internal = 2 ** GBT_DEPTH - 1
-    t = GBT_TREES
     feature = rng.integers(0, GBT_COLS, (t, n_nodes)).astype(np.int32)
     bins = rng.integers(0, GBT_BINS - 1, (t, n_nodes)).astype(np.int32)
     is_leaf = np.zeros((t, n_nodes), bool)
@@ -222,13 +227,26 @@ def k1_cost(n, c, h):
     return 4 * (n * c + 2 * c + c * h + h + n * h), 2 * n * c * h + 5 * n * c
 
 
+def k1_tf32_bound_ms(n, c, h):
+    """The least time of an f32-accurate product on the card: the same
+    bytes as `k1_cost`, against 3·2·N·C·H TF32 operations (3xTF32) at
+    the tensor cores' peak and the normalize's 5·N·C at the f32 peak,
+    whichever is longest."""
+    n_bytes, _ = k1_cost(n, c, h)
+    t_mem = n_bytes / MEM_BW * 1e3
+    t_tc = 3 * 2 * n * c * h / TF32_PEAK * 1e3
+    t_alu = 5 * n * c / F32_PEAK * 1e3
+    t = max(t_mem, t_tc, t_alu)
+    return t, ("bytes" if t == t_mem else "operations")
+
+
 def k2_cost(c, r, k, s, n_trees, leaves):
     """Bytes: valuesT, cuts, the five node rows the walk reads (feature,
     bin, default_left, stop, leaf; rows 5-7 of the (8, S) block are
     padding nothing reads) once each, scores written once. Operations
     (this run's data): ⌈log2(K+1)⌉ compares per cell for the bins, the
-    least that finds Σ(v ≥ cut) over ascending cuts (the kernel itself
-    scans all K); 3 per node step each row took (compare, select,
+    least that finds Σ(v ≥ cut) over ascending cuts (the kernel's
+    binary search); 3 per node step each row took (compare, select,
     index), counted from the landing node depths; one add per tree and
     row."""
     import torch
@@ -269,43 +287,60 @@ def phase_build():
     logs = _build.build_all(extra_flags=["-Xptxas", "-v"])
     print(f"build: {sorted(logs)} in {time.monotonic() - t0:.1f} s")
     for name, text in sorted(logs.items()):
+        fn = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1] if "'" in line else line.strip()
+            elif "registers" in line or "spill" in line:
+                where = f"{name} {fn}" if name in (
+                    "fused_score", "fused_trees") else name
+                print(f"  ptxas {where}: {line.strip().split(':', 1)[-1]}")
 
 
-def k1_inputs(seed, n, device):
+def k1_inputs(seed, n, device, c=NN_IN, h=NN_HIDDEN[0]):
+    """Raw rows, norm params and a first layer (C, H) drawn as
+    `nn_params` draws it (the NN's first layer at the default width)."""
     import torch
     rng = np.random.default_rng(seed)
-    mean, std = norm_params(rng)
+    mean, std = norm_params(rng, c)
     x = raw_rows(rng, n, mean, std)
-    layer = nn_params(rng)[0]
-    return [torch.as_tensor(a, device=device)
-            for a in (x, mean, std, layer["w"], layer["b"])]
+    lim = math.sqrt(6.0 / (c + h))
+    w = rng.uniform(-lim, lim, (c, h)).astype(np.float32)
+    b = rng.normal(0, 0.01, h).astype(np.float32)
+    return [torch.as_tensor(a, device=device) for a in (x, mean, std, w, b)]
+
+
+K1_SHAPES = ((1, 512, NN_IN, NN_HIDDEN[0]), (2, 65536, NN_IN, NN_HIDDEN[0]),
+             (3, 37, 37, 16), (4, 1, 20, 1), (5, 512, 20, 1))
 
 
 def phase_k1(report, device="cuda"):
     import torch
     from shifu_tpu_torch.ops import fused_score as fs
     errs = []
-    for seed, n in ((1, 512), (2, 65536)):
-        x, mean, std, w, b = k1_inputs(seed, n, device)
+    for seed, n, c, h in K1_SHAPES:
+        x, mean, std, w, b = k1_inputs(seed, n, device, c, h)
         got = fs.fused_first_layer(x, mean, std, CUTOFF, w, b)
+        again = fs.fused_first_layer(x, mean, std, CUTOFF, w, b)
         want = fs.fused_first_layer_plain(x, mean, std, CUTOFF, w, b)
         if device == "cuda":
             torch.cuda.synchronize()
         assert torch.isfinite(got).all(), "K1 output not finite"
-        errs.append(check_close(f"K1 fused_score {n}x{NN_IN}->"
-                                f"{NN_HIDDEN[0]}", got, want, 1e-5, 1e-5))
+        assert torch.equal(got, again), \
+            f"K1 {n}x{c}->{h}: two launches differ"
+        errs.append(check_close(f"K1 fused_score {n}x{c}->{h} (plan "
+                                f"{tuple(fs._k1_plan(n, c, h))}, two "
+                                "launches bit-identical)", got, want,
+                                1e-5, 1e-5))
     report["fused_score"] = {"max_abs_err": max(errs)}
 
 
-def k2_inputs(seed, r, device, kind="gbt", loss="log"):
+def k2_inputs(seed, r, device, kind="gbt", loss="log", t=GBT_TREES):
     import torch
     from shifu_tpu_torch import weights
     from shifu_tpu_torch.models import gbdt
     rng = np.random.default_rng(seed)
-    meta, params = tree_model(rng, kind, loss)
+    meta, params = tree_model(rng, kind, loss, t)
     ens = weights.to_torch(kind, meta, params, device)
     x = tree_rows(rng, r)
     fb = gbdt.make_fused_inputs(ens.tables, x, None, GBT_BINS,
@@ -473,54 +508,112 @@ def phase_main_path(report, workdir, device="cuda"):
             s.close()
 
 
+K1_SWEEP = (1, 8, 64, 512, 65536)          # the serving buckets, eval
+K2_SWEEP = (1, 64, 512, 1 << 20)
+
+
+K1_PLANS = ((128, 128, 1), (128, 128, 2), (128, 128, 4), (128, 128, 8),
+            (64, 64, 8))
+
+
+def k1_plan_sweep(n):
+    """K1 at `n` rows under each of K1_PLANS in place of `_k1_plan`'s
+    choice, each checked against the plain version: the evidence for
+    the plan's block target."""
+    import torch
+    from shifu_tpu_torch.ops import fused_score as fs
+    x, mean, std, w, b = k1_inputs(11, n, "cuda")
+    packed, wp = fs.pack_norm(mean, std, CUTOFF), fs.pack_weights(w)
+    want = fs.fused_first_layer_plain(x, mean, std, CUTOFF, w, b)
+    chosen, rows = fs._k1_plan, []
+
+    def kernel():
+        return fs.fused_first_layer(x, mean, std, CUTOFF, w, b, packed, wp)
+    try:
+        for plan in K1_PLANS:
+            fs._k1_plan = lambda *a, p=plan: fs.K1Plan(*p)
+            fs._launches.clear()
+            torch.testing.assert_close(kernel(), want, rtol=1e-5, atol=1e-5)
+            rows.append({"name": "fused_score plan", "shape": f"{n}x{NN_IN}x"
+                         f"{NN_HIDDEN[0]}", "plan": list(plan),
+                         "blocks": fs.K1Plan(*plan).blocks(n, NN_HIDDEN[0]),
+                         "chosen": plan == tuple(chosen(n, NN_IN,
+                                                        NN_HIDDEN[0])),
+                         "ms": cuda_ms(kernel, 200),
+                         "kernel_device_ms": kernel_device_ms(
+                             kernel, 200, "fused_score_kernel")})
+    finally:
+        fs._k1_plan = chosen
+        fs._launches.clear()
+    return rows
+
+
 def phase_timing(report):
     import torch
     from shifu_tpu_torch.ops import fused_score as fs
     from shifu_tpu_torch.ops import fused_trees as ft
     from shifu_tpu_torch.ops.normalize import zscore
 
+    assert not torch.backends.cuda.matmul.allow_tf32
     sweep = []
-    for n in (512, 65536):
+    for n in K1_SWEEP:
         x, mean, std, w, b = k1_inputs(11, n, "cuda")
         packed = fs.pack_norm(mean, std, CUTOFF)
+        wp = fs.pack_weights(w)
         z = zscore(x, mean, std, CUTOFF)
         iters = 200 if n <= 512 else 20
-        ms = cuda_ms(lambda: fs.fused_first_layer(x, mean, std, CUTOFF, w,
-                                                  b, packed), iters)
+
+        def kernel():
+            return fs.fused_first_layer(x, mean, std, CUTOFF, w, b, packed,
+                                        wp)
+        ms = cuda_ms(kernel, iters)
         plain = cuda_ms(lambda: fs.fused_first_layer_plain(
             x, mean, std, CUTOFF, w, b), iters)
         lib = cuda_ms(lambda: torch.matmul(z, w), iters)
-        dev = kernel_device_ms(lambda: fs.fused_first_layer(
-            x, mean, std, CUTOFF, w, b, packed), iters, "fused_score_kernel")
-        bnd, by = bound_ms(*k1_cost(n, NN_IN, NN_HIDDEN[0]))
+        dev = kernel_device_ms(kernel, iters, "fused_score_kernel")
+        bnd, by = k1_tf32_bound_ms(n, NN_IN, NN_HIDDEN[0])
+        f32, f32_by = bound_ms(*k1_cost(n, NN_IN, NN_HIDDEN[0]))
         sweep.append({"name": "fused_score", "shape": f"{n}x{NN_IN}x"
-                      f"{NN_HIDDEN[0]}", "ms": ms, "kernel_device_ms": dev,
+                      f"{NN_HIDDEN[0]}", "plan": list(fs._k1_plan(
+                          n, NN_IN, NN_HIDDEN[0])),
+                      "ms": ms, "kernel_device_ms": dev,
                       "plain_ms": plain, "library_ms": lib,
-                      "bound_ms": bnd, "bound_by": by})
-    for r in (512, 1 << 20):
+                      "library": "torch.matmul(z, w), f32, allow_tf32 "
+                      "False", "bound_ms": bnd, "bound_by": by,
+                      "bound_f32_ms": f32, "bound_f32_by": f32_by})
+    sweep += k1_plan_sweep(512)
+    for r in K2_SWEEP:
         nodes, vT, cuts, kw = k2_inputs(12, r, "cuda")
+        pack = ft.pack_nodes(nodes, kw["n_trees"])
         _, leaves = ft.predict_ensemble_plain(nodes, vT, cuts, **kw,
                                               return_leaves=True)
         iters = 200 if r <= 512 else 20
-        ms = cuda_ms(lambda: ft.predict_ensemble(nodes, vT, cuts, **kw),
-                     iters)
+
+        def kernel():
+            return ft.predict_ensemble(nodes, vT, cuts, **kw,
+                                       node_pack=pack)
+        ms = cuda_ms(kernel, iters)
         plain = cuda_ms(lambda: ft.predict_ensemble_plain(nodes, vT, cuts,
                                                           **kw), iters)
-        dev = kernel_device_ms(lambda: ft.predict_ensemble(
-            nodes, vT, cuts, **kw), iters, "fused_trees_kernel")
+        dev = kernel_device_ms(kernel, iters, "fused_trees_")
         bnd, by = bound_ms(*k2_cost(vT.shape[0], r, cuts.shape[1],
                                     nodes.shape[1], kw["n_trees"], leaves))
+        plan = ft._k2_plan(r, vT.shape[0], cuts.shape[1], kw["n_trees"],
+                           nodes.shape[1] // kw["n_trees"])
         sweep.append({"name": "fused_trees", "shape": f"R={r}x{GBT_COLS}"
-                      f" T={GBT_TREES} d={GBT_DEPTH}", "ms": ms,
-                      "kernel_device_ms": dev,
+                      f" T={GBT_TREES} d={GBT_DEPTH}",
+                      "layout": "rows" if plan.layout == ft.LAYOUT_ROWS
+                      else "warps", "ms": ms, "kernel_device_ms": dev,
                       "plain_ms": plain, "library_ms": None,
                       "bound_ms": bnd, "bound_by": by})
     for row in sweep:
         print("  timing " + json.dumps(row))
     # the main path's shape: the top serving bucket (512 rows)
-    for row in sweep[0], sweep[2]:
-        report[row["name"]].update({k: row[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    for row in sweep:
+        if row["name"] in report and row["shape"].startswith(
+                ("512x", "R=512x")):
+            report[row["name"]].update({k: row[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     report["sweep"] = sweep
 
 

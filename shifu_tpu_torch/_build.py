@@ -22,6 +22,8 @@ import subprocess
 import threading
 from typing import Dict, Iterable, List
 
+import torch
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
@@ -107,3 +109,10 @@ def check(rc: int, what: str, error_string) -> None:
         msg = error_string(rc).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA launch failed: {msg} "
                            f"(cudaError_t {rc})")
+
+
+def raw_stream(device: torch.device) -> int:
+    """The current CUDA stream of `device` as the handle a launch takes:
+    `torch.cuda.current_stream(device).cuda_stream` without building a
+    Stream object on every launch of a serving kernel."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

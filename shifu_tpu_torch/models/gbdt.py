@@ -248,7 +248,8 @@ def predict(meta: Dict[str, Any], ensemble, dense,
     valuesT = fused_values(ensemble.tables, dense, codes,
                            ensemble.cfg.n_bins, ensemble.device)
     return fused_trees.predict_ensemble(ensemble.nodes, valuesT,
-                                        ensemble.cuts, **ensemble.statics)
+                                        ensemble.cuts, **ensemble.statics,
+                                        node_pack=ensemble.node_pack)
 
 
 # ---------------------------------------------------------------------------

@@ -7,12 +7,14 @@ binning and walk included, in one launch.
 
 Kernel: `csrc/fused_trees.cu`, CUDA C++ for sm_90a. It replaces the TPU
 kernel `_tree_kernel` via `_predict_ensemble_pallas`
-(shifu_tpu/ops/pallas_trees.py:118,203). At the HIGGS serving shape it
-sits near the card's balance point (C·K compares per row against C
-floats read), so the kernel keeps what a row reads again on chip: one
-thread per row, cuts and 8-byte packed nodes in shared memory, each
-row's bins computed once into shared memory, and a direct-index walk
-instead of the TPU's one-hot routing.
+(shifu_tpu/ops/pallas_trees.py:118,203). The kernel bins each value by
+a binary search over the ascending cuts, keeps cuts and 4-byte split
+words (`pack_nodes`, built once per model) in shared memory, and
+walks by direct index instead of the TPU's one-hot routing. `_k2_plan`
+picks its layout: one thread per row for large batches, one warp per
+row for the serving buckets, so that a 512-row batch spreads over the
+card. Shared-memory sizes and the kernel attributes are set once per
+shape, not per launch.
 
 Routing has no knob: CUDA tensors launch the kernel (a failed build or
 launch raises), CPU tensors take `predict_ensemble_plain`, the plain
@@ -22,21 +24,95 @@ PyTorch version of the same function. `launches` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, Tuple, Union
+import functools
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from shifu_tpu_torch import _build
 
-__all__ = ["pack_ensemble", "predict_ensemble", "predict_ensemble_plain",
-           "convert", "launches"]
+__all__ = ["pack_ensemble", "pack_nodes", "predict_ensemble",
+           "predict_ensemble_plain", "convert", "launches"]
 
 launches = 0  # kernel launches of this process (plain calls not counted)
 
 # Shared-memory budget of one block (of the 227 KB an H100 block may
 # use): ensembles whose nodes do not fit are walked in chunks of trees.
 SMEM_BUDGET = 96 * 1024
+
+# Layouts of csrc/fused_trees.cu and the constants that size them.
+LAYOUT_ROWS, LAYOUT_WARPS = 0, 1
+ROW_THREADS = 256       # rows layout: threads (rows) per block
+WARPS = 4               # warps layout: warps (rows) per block
+SMALL_R_MAX = 2048      # batches up to this many rows take the warps layout
+
+
+class K2Plan(NamedTuple):
+    layout: int         # LAYOUT_ROWS or LAYOUT_WARPS
+    chunk: int          # trees whose nodes sit in shared memory at once
+    smem: int           # dynamic shared-memory bytes of one block
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def search_span(k: int) -> int:
+    """`search_span` of csrc/binning.cuh: the slots a column's cuts take
+    in shared memory, 2·top - 1 for top the largest power of two <= K
+    (the pads past K hold NaN, which the search never counts)."""
+    return 2 * (1 << (k.bit_length() - 1)) - 1 if k > 0 else 0
+
+
+def smem_bytes(layout: int, c: int, k: int, n_pad: int, chunk: int) -> int:
+    """`smem_bytes` of csrc/fused_trees.cu (the launcher checks it): a
+    chunk of split words and leaves, the cuts at `search_span(K)` slots a
+    column, and the bins (rows layout) or the bins and per-tree leaf
+    values (warps layout)."""
+    b = chunk * n_pad * 8 + _round_up(c * search_span(k) * 4, 8)
+    if layout == LAYOUT_ROWS:
+        return b + c * ROW_THREADS
+    return b + WARPS * chunk * 4 + WARPS * _round_up(c, 4)
+
+
+@functools.lru_cache(maxsize=64)
+def _chunked(layout: int, c: int, k: int, t: int, n_pad: int,
+             budget: int) -> K2Plan:
+    fixed = smem_bytes(layout, c, k, n_pad, 0)
+    per_tree = smem_bytes(layout, 0, 0, n_pad, 1) - \
+        smem_bytes(layout, 0, 0, n_pad, 0)
+    chunk = min(t, (budget - fixed) // per_tree)
+    if chunk < 1:
+        raise ValueError(f"{c} columns × {k} cuts and {n_pad}-node trees "
+                         f"exceed the tree kernel's shared memory budget")
+    return K2Plan(layout, chunk, smem_bytes(layout, c, k, n_pad, chunk))
+
+
+def _k2_plan(r: int, c: int, k: int, t: int, n_pad: int) -> K2Plan:
+    """Layout, tree chunk and shared-memory bytes for R rows of C
+    columns, K cuts and T trees of N_pad nodes: one warp per row up to
+    SMALL_R_MAX rows (a serving batch then spreads over R/4 blocks),
+    one thread per row above (a warp would read a row's C values with
+    stride R). Sizes are computed once per shape and budget."""
+    layout = LAYOUT_WARPS if r <= SMALL_R_MAX else LAYOUT_ROWS
+    return _chunked(layout, c, k, t, n_pad, SMEM_BUDGET)
+
+
+def pack_nodes(nodes: torch.Tensor, n_trees: int) -> torch.Tensor:
+    """(8, T·N_pad) f32 block of `pack_ensemble` → the kernel's (2,
+    T·N_pad) int32 planes, on the block's device: row 0 the split words
+    (bits 0-7 the split bin, at most 254, bits 8-23 the feature, 0 on
+    stop nodes, bit 24 default_left, bit 25 stop), row 1 the leaf
+    values' bits. A walk step reads one 4-byte word; the leaf only at
+    the end."""
+    stop = nodes[3] > 0
+    feat = torch.where(stop, 0, nodes[0].to(torch.int32))
+    # <= 254: the kernel's missing bin (255) lies above every split bin
+    sbin = nodes[1].to(torch.int32).clamp(0, 254)
+    word = sbin | (feat << 8) | ((nodes[2] > 0).to(torch.int32) << 24) | \
+        (stop.to(torch.int32) << 25)
+    return torch.stack([word, nodes[4].contiguous().view(torch.int32)])
 
 
 def pack_ensemble(trees: Dict[str, Any]) -> Tuple[np.ndarray, int]:
@@ -131,8 +207,8 @@ def _check(nodes, valuesT, cuts, n_trees: int, n_bins: int) -> None:
         raise ValueError("an ensemble needs at least one tree")
     if n_bins < 2:
         raise ValueError(f"n_bins {n_bins} < 2")
-    devices = {t.device for t in (nodes, valuesT, cuts)}
-    if len(devices) != 1:
+    if not (nodes.device == valuesT.device == cuts.device):
+        devices = {t.device for t in (nodes, valuesT, cuts)}
         raise ValueError(f"inputs lie on several devices: {devices}")
     for name, t in (("nodes", nodes), ("valuesT", valuesT), ("cuts", cuts)):
         if t.dtype != torch.float32:
@@ -145,62 +221,145 @@ def predict_ensemble(nodes: torch.Tensor, valuesT: torch.Tensor,
                      cuts: torch.Tensor, *, n_trees: int, kind: str,
                      loss: str = "squared", learning_rate: float = 0.1,
                      max_depth: int, n_bins: int,
-                     return_leaves: bool = False
+                     return_leaves: bool = False,
+                     node_pack: Optional[torch.Tensor] = None
                      ) -> Union[torch.Tensor,
                                 Tuple[torch.Tensor, torch.Tensor]]:
     """Packed ensemble + FusedBins-style raw inputs → (R,) scores (and,
     with `return_leaves`, the (T, R) int32 landing node ids). On a CUDA
     tensor this launches the kernel; on a CPU tensor it runs the plain
-    version. Every split node's feature must be < C: `weights.to_torch`
-    checks that once per model, so the kernel does not re-read the node
-    table on the host per call."""
-    _check(nodes, valuesT, cuts, n_trees, n_bins)
-    kw = dict(n_trees=n_trees, kind=kind, loss=loss,
-              learning_rate=learning_rate, max_depth=max_depth,
-              n_bins=n_bins, return_leaves=return_leaves)
-    if valuesT.device.type == "cpu":
-        return predict_ensemble_plain(nodes, valuesT, cuts, **kw)
-    if valuesT.device.type != "cuda":
-        raise ValueError(f"no kernel for device {valuesT.device}")
-    # the kernel packs a node into 8 bytes and a bin into one
-    if n_bins > 256 or valuesT.shape[0] > 32767:
-        raise ValueError(f"the tree kernel takes n_bins <= 256 and < 32768 "
-                         f"columns, got {n_bins} and {valuesT.shape[0]}")
+    version. `node_pack` is `pack_nodes(nodes, n_trees)` built once by
+    the model (`weights.TreeEnsemble.node_pack`); without it the wrapper
+    packs per call. Every split node's feature must be < C and each
+    column's cuts ascending: `weights.to_torch` checks the features once
+    per model, so the kernel does not re-read the node table on the
+    host per call."""
+    if not valuesT.is_cuda:
+        _check(nodes, valuesT, cuts, n_trees, n_bins)
+        if valuesT.device.type != "cpu":
+            raise ValueError(f"no kernel for device {valuesT.device}")
+        return predict_ensemble_plain(
+            nodes, valuesT, cuts, n_trees=n_trees, kind=kind, loss=loss,
+            learning_rate=learning_rate, max_depth=max_depth,
+            n_bins=n_bins, return_leaves=return_leaves)
+    r = valuesT.shape[-1]
+    key = (id(nodes), id(cuts), id(node_pack), n_trees, kind, loss,
+           learning_rate, max_depth, n_bins, r)
+    hit = _launches.get(key)
+    if hit is None or not (hit[0] is nodes and hit[1] is cuts
+                           and hit[2] is node_pack):
+        hit = _launcher(key, nodes, valuesT, cuts, node_pack, n_trees, kind,
+                        loss, learning_rate, max_depth, n_bins)
+    launch, dev, c = hit[3:6]
+    if (valuesT.dim() != 2 or valuesT.shape[0] != c
+            or valuesT.dtype != torch.float32
+            or not valuesT.is_contiguous()
+            or valuesT.get_device() != dev.index):
+        _check(nodes, valuesT, cuts, n_trees, n_bins)
+        raise ValueError(f"valuesT must be a contiguous float32 ({c}, R) "
+                         f"block on {dev}")
     global launches
-    lib = _lib()
-    c, r = valuesT.shape
-    k = cuts.shape[1]
-    n_pad = nodes.shape[1] // n_trees
-    fixed = lib.fused_trees_smem_bytes(c, k, n_pad, 0)
-    per_tree = lib.fused_trees_smem_bytes(0, 0, n_pad, 1)
-    chunk = min(n_trees, (SMEM_BUDGET - fixed) // per_tree)
-    if chunk < 1:
-        raise ValueError(f"{c} columns × {k} cuts and {n_pad}-node trees "
-                         f"exceed the tree kernel's shared memory budget")
-    out = torch.empty(r, dtype=torch.float32, device=valuesT.device)
-    leaves = (torch.empty((n_trees, r), dtype=torch.int32,
-                          device=valuesT.device) if return_leaves else None)
-    stream = torch.cuda.current_stream(valuesT.device).cuda_stream
-    rc = lib.fused_trees_launch(
-        valuesT.data_ptr(), cuts.data_ptr(), nodes.data_ptr(),
-        out.data_ptr(), leaves.data_ptr() if leaves is not None else None,
-        r, c, k, n_trees, n_pad, max_depth, n_bins, chunk,
-        int(kind == "rf"), int(str(loss).startswith("log")),
-        float(learning_rate), stream)
-    _build.check(rc, "fused_trees", lib.fused_trees_error_string)
+    out = torch.empty(r, dtype=torch.float32, device=dev)
+    leaves = (torch.empty((n_trees, r), dtype=torch.int32, device=dev)
+              if return_leaves else None)
+    rc = _LIB.fused_trees_run(
+        launch, valuesT.data_ptr(), out.data_ptr(),
+        leaves.data_ptr() if leaves is not None else None,
+        _build.raw_stream(dev))
+    if rc:
+        _build.check(rc, "fused_trees", _LIB.fused_trees_error_string)
     launches += 1
     return (out, leaves) if return_leaves else out
 
 
+class _Launch(ctypes.Structure):
+    """`Launch` of csrc/fused_trees.cu, field for field."""
+    _fields_ = ([("cuts", ctypes.c_void_p), ("nodes", ctypes.c_void_p)]
+                + [(f, ctypes.c_int) for f in (
+                    "layout", "grid", "smem", "r", "c", "k", "t", "n_pad",
+                    "max_depth", "n_bins", "chunk", "is_rf", "log_loss")]
+                + [("lr", ctypes.c_float)])
+
+
+# (nodes, cuts, node_pack, statics, R) of the models scored lately →
+# (those tensors, launch address, device, C, the launch and the node
+# planes it points into); an entry holds its tensors, so an id is never
+# another tensor's
+_launches: Dict[Tuple[Any, ...], Tuple[Any, ...]] = {}
+
+
+def _launcher(key, nodes, valuesT, cuts, node_pack, n_trees, kind, loss,
+              learning_rate, max_depth, n_bins) -> Tuple[Any, ...]:
+    """Check a model on the card and its node planes, and fill its launch
+    for R rows (plan, grid, shared memory prepared once per size);
+    cached when the caller passes the model's `node_pack`."""
+    _check(nodes, valuesT, cuts, n_trees, n_bins)
+    # the kernel packs a node's bin into one byte, its feature into two
+    c = valuesT.shape[0]
+    if n_bins > 256 or c > 32767:
+        raise ValueError(f"the tree kernel takes n_bins <= 256 and < 32768 "
+                         f"columns, got {n_bins} and {c}")
+    s = nodes.shape[1]
+    n_pad = s // n_trees
+    dev = valuesT.device
+    pack = pack_nodes(nodes, n_trees) if node_pack is None else node_pack
+    if (tuple(pack.shape) != (2, s) or pack.dtype != torch.int32
+            or pack.device != dev or not pack.is_contiguous()
+            or pack.data_ptr() % 16 or n_pad % 8):
+        raise ValueError(f"node_pack must be pack_nodes(nodes): a "
+                         f"contiguous, 16-byte aligned int32 (2, {s}) "
+                         f"block on {dev}")
+    r, k = valuesT.shape[1], cuts.shape[1]
+    plan = _k2_plan(r, c, k, n_trees, n_pad)
+    cap = _prepare(_lib(), dev, plan.layout, plan.smem)
+    grid = (min(cap, -(-r // ROW_THREADS)) if plan.layout == LAYOUT_ROWS
+            else -(-r // WARPS))
+    launch = _Launch(cuts.data_ptr(), pack.data_ptr(), plan.layout, grid,
+                     plan.smem, r, c, k, n_trees, n_pad, max_depth, n_bins,
+                     plan.chunk, kind == "rf", str(loss).startswith("log"),
+                     learning_rate)
+    entry = (nodes, cuts, node_pack, ctypes.addressof(launch), dev, c,
+             launch, pack)
+    if node_pack is not None:
+        if len(_launches) >= 64:
+            _launches.clear()
+        _launches[key] = entry
+    return entry
+
+
+_prepared: Dict[Tuple[int, int, int], int] = {}
+
+
+def _prepare(lib, device: torch.device, layout: int, smem: int) -> int:
+    """The kernel attribute for `smem` bytes, set once per (device,
+    layout, bytes); returns the blocks the card holds at once."""
+    key = (device.index or 0, layout, smem)
+    cap = _prepared.get(key)
+    if cap is None:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = lib.fused_trees_prepare(layout, smem, ctypes.byref(out))
+        _build.check(rc, "fused_trees_prepare",
+                     lib.fused_trees_error_string)
+        cap = _prepared[key] = max(1, out.value)
+    return cap
+
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
 def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is not None:
+        return _LIB
     lib = _build.load("fused_trees")
-    if lib.fused_trees_launch.argtypes is None:
+    if lib.fused_trees_run.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_trees_launch.argtypes = [p, p, p, p, p] + [i] * 10 + [
-            ctypes.c_float, p]
-        lib.fused_trees_launch.restype = i
-        lib.fused_trees_smem_bytes.argtypes = [i, i, i, i]
-        lib.fused_trees_smem_bytes.restype = i
+        lib.fused_trees_run.argtypes = [p] * 5
+        lib.fused_trees_run.restype = i
+        lib.fused_trees_prepare.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.fused_trees_prepare.restype = i
         lib.fused_trees_error_string.argtypes = [i]
         lib.fused_trees_error_string.restype = ctypes.c_char_p
+    _LIB = lib
     return lib

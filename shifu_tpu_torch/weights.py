@@ -4,8 +4,11 @@
 returns (or ``jax.tree.map(np.asarray, ...)`` of live params: any nested
 lists/dicts of numpy arrays) and builds the port's scoring object:
 
-- nn / lr → `models.nn.MLP` with the same ``w`` / ``b`` on `device`;
-- gbt / rf → `TreeEnsemble`: the packed node block and fused cuts of the
+- nn / lr → `models.nn.MLP` with the same ``w`` / ``b`` on `device`,
+  and the first layer's `fused_score.pack_weights` (the tensor-core B
+  operand of kernel K1) built once as its ``w0_pack`` buffer;
+- gbt / rf → `TreeEnsemble`: the packed node block, its split-word and
+  leaf planes (`fused_trees.pack_nodes`, built once) and fused cuts of the
   tree kernel on `device`, the host binning tables, the tree arrays on
   the host for the start-up check's plain walk, and the statics.
 
@@ -23,7 +26,7 @@ import torch
 
 from shifu_tpu_torch.models import gbdt
 from shifu_tpu_torch.models import nn as nn_mod
-from shifu_tpu_torch.ops import fused_trees
+from shifu_tpu_torch.ops import fused_score, fused_trees
 
 TREE_KEYS = ("feature", "bin", "default_left", "is_leaf", "leaf_value")
 
@@ -34,6 +37,7 @@ class TreeEnsemble:
     kind: str
     cfg: gbdt.TreeConfig              # max_depth, n_bins, lr, loss
     nodes: torch.Tensor               # (8, T·N_pad) packed, on device
+    node_pack: torch.Tensor           # pack_nodes(nodes): K2's node planes
     cuts: torch.Tensor                # (Cn+Cc, K) fused cuts, on device
     trees: Dict[str, torch.Tensor]    # (T, n_nodes) arrays, on the host
     tables: Dict[str, np.ndarray]     # num_cuts, cat_map (host)
@@ -71,9 +75,10 @@ def _ensemble(kind: str, meta: Dict[str, Any], params: Any,
         raise ValueError(f"a split reads feature {int(feat[split].max())} "
                          f"of {n_num + n_cat}")
     packed, _ = fused_trees.pack_ensemble(trees_np)
+    nodes = torch.as_tensor(packed, device=device)
     return TreeEnsemble(
-        kind=kind, cfg=cfg,
-        nodes=torch.as_tensor(packed, device=device),
+        kind=kind, cfg=cfg, nodes=nodes,
+        node_pack=fused_trees.pack_nodes(nodes, int(feat.shape[0])),
         cuts=torch.as_tensor(gbdt.fused_cuts(tables, n_num, n_cat,
                                              cfg.n_bins), device=device),
         trees={k: torch.tensor(trees_np[k])
@@ -90,7 +95,10 @@ def to_torch(kind: str, meta: Dict[str, Any], params: Any,
     dev = torch.device(device)
     if kind in ("nn", "lr"):
         spec = nn_mod.MLPSpec.from_meta(meta["spec"])
-        return nn_mod.MLP(spec, params).to(dev).eval()
+        mlp = nn_mod.MLP(spec, params).to(dev).eval()
+        mlp.register_buffer("w0_pack", fused_score.pack_weights(
+            mlp.w[0].detach()), persistent=False)
+        return mlp
     if kind in ("gbt", "rf"):
         return _ensemble(kind, meta, params, dev)
     if kind in ("wdl", "mtl"):

@@ -185,3 +185,139 @@ def test_make_fused_inputs_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA"):
         tgbdt.make_fused_inputs(tables, dense, codes, N_BINS)
+
+
+# ---------------------------------------------------------------------------
+# The redesigned kernel's pieces, rehearsed on the CPU: binary-search
+# binning, the node records, and `_k2_plan`
+# ---------------------------------------------------------------------------
+
+def _adversarial_cuts(rng, k):
+    """Ascending cuts of width K with duplicated values and, past the
+    real cuts, +inf pads (K need not be a power of two)."""
+    real = max(1, k - 3)
+    base = np.sort(rng.choice(np.arange(-6, 7, dtype=np.float32) / 2,
+                              real))                 # duplicates likely
+    return np.concatenate([base, np.full(k - real, np.inf, np.float32)])
+
+
+def _adversarial_values(rng, cuts, n=400):
+    """Values on every cut (ties), between cuts, ±inf and NaN."""
+    fin = cuts[np.isfinite(cuts)]
+    v = np.concatenate([fin, fin + 0.25, fin - 0.25,
+                        rng.normal(0, 2, n).astype(np.float32),
+                        [np.inf, -np.inf, np.nan, np.nan, 1e30, -1e30]])
+    return v.astype(np.float32)
+
+
+def _sigma_bins(v, cuts, n_bins):
+    """The plain rule: Σ(v ≥ cut) clamped to n_bins-2, NaN → n_bins-1."""
+    b = np.minimum((v[:, None] >= cuts[None, :]).sum(1), n_bins - 2)
+    return np.where(np.isnan(v), n_bins - 1, b)
+
+
+def _bin_of_sorted(v, cuts, n_bins):
+    """`bin_of_sorted` of csrc/binning.cuh, step for step, over the cuts
+    as the kernel stages them: the K cuts, then NaN up to
+    `search_span(K)` slots; binary lifting from the largest power of two
+    <= K with no bound check (a NaN slot is <= no value)."""
+    if np.isnan(v):
+        return n_bins - 1
+    k = len(cuts)
+    span = fused_trees.search_span(k)
+    staged = np.concatenate([cuts, np.full(span - k, np.nan, np.float32)])
+    pos, step = 0, (span + 1) // 2
+    while step:
+        if staged[pos + step - 1] <= v:
+            pos += step
+        step >>= 1
+    return min(pos, n_bins - 2)
+
+
+@pytest.mark.parametrize("k", [7, 40, 64])
+@pytest.mark.parametrize("n_bins", [8, 64, 256])
+def test_binary_search_bins_equal_the_sum_rule(k, n_bins):
+    """searchsorted(cuts[:K], v, right=True) clamped to n_bins-2 (NaN →
+    n_bins-1), and the kernel's bounded search, both equal Σ(v ≥ cut):
+    on ties, duplicated cuts, +inf pads with K not a power of two, ±inf
+    and NaN values."""
+    rng = np.random.default_rng(100 + k + n_bins)
+    cuts = _adversarial_cuts(rng, k)
+    v = _adversarial_values(rng, cuts)
+    want = _sigma_bins(v, cuts, n_bins)
+    tc, tv = torch.as_tensor(cuts), torch.as_tensor(v)
+    got = torch.searchsorted(tc, tv, right=True).clamp(max=n_bins - 2)
+    got = torch.where(torch.isnan(tv), n_bins - 1, got)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        [_bin_of_sorted(x, cuts, n_bins) for x in v], want)
+    # and the plain kernel route bins the same way
+    vT = torch.as_tensor(np.tile(v, (2, 1)))
+    plain_bins = torch.zeros(vT.shape, dtype=torch.long)
+    for j in range(k):
+        plain_bins += vT >= torch.as_tensor(np.tile(cuts, (2, 1)))[:, j:j + 1]
+    plain_bins = torch.where(torch.isnan(vT), n_bins - 1,
+                             plain_bins.clamp(max=n_bins - 2))
+    np.testing.assert_array_equal(plain_bins[0].numpy(), want)
+
+
+def test_inf_counts_only_the_pads_inside_k():
+    """K = 7 with two +inf pads and 64 bins: v = +inf lands in bin 7
+    (every cut counts), not in the bin a search over cuts padded to a
+    power of two with further +inf would give (8)."""
+    cuts = np.array([-1, 0, 0, 1, 2, np.inf, np.inf], np.float32)
+    assert _sigma_bins(np.array([np.inf], np.float32), cuts, 64)[0] == 7
+    assert _bin_of_sorted(np.float32(np.inf), cuts, 64) == 7
+    padded = np.concatenate([cuts, [np.inf]]).astype(np.float32)
+    assert _bin_of_sorted(np.float32(np.inf), padded, 64) == 8
+
+
+def test_pack_nodes_records():
+    """Each node's split word decodes to the packed block's split bin
+    (bits 0-7, at most 254), feature on split nodes (bits 8-23; 0 on
+    stop nodes), default_left (bit 24) and stop (bit 25); the leaf plane
+    holds the leaf values' exact bits."""
+    meta, params, _, _ = _model("gbt", seed=3, n_trees=3, depth=3)
+    ens = weights.to_torch("gbt", meta, params, "cpu")
+    rec = ens.node_pack
+    assert rec.dtype == torch.int32 and tuple(rec.shape) == \
+        (2, ens.nodes.shape[1])
+    assert torch.equal(rec, fused_trees.pack_nodes(ens.nodes, ens.n_trees))
+    w0 = rec[0]
+    stop = ens.nodes[3] > 0
+    assert stop.any() and (~stop).any()
+    np.testing.assert_array_equal(w0 & 0xFF, ens.nodes[1].int().clamp(0, 254))
+    np.testing.assert_array_equal((w0 >> 24) & 1, (ens.nodes[2] > 0).int())
+    np.testing.assert_array_equal((w0 >> 25) & 1, stop.int())
+    np.testing.assert_array_equal(
+        (w0 >> 8) & 0xFFFF, torch.where(stop, 0, ens.nodes[0].int()))
+    assert torch.equal(rec[1].view(torch.float32), ens.nodes[4])
+
+
+def test_k2_plan_layouts_and_chunks(monkeypatch):
+    """One warp per row up to SMALL_R_MAX rows, one thread per row
+    above; every ensemble that fits the budget is one chunk, a larger
+    one is walked in chunks, and the bytes are the kernel's formula."""
+    small = fused_trees.SMALL_R_MAX
+    c, k, t, n_pad = 28, 63, 20, 128
+    for r in (1, 512, small):
+        assert fused_trees._k2_plan(r, c, k, t, n_pad).layout == \
+            fused_trees.LAYOUT_WARPS
+    for r in (small + 1, 1 << 20):
+        assert fused_trees._k2_plan(r, c, k, t, n_pad).layout == \
+            fused_trees.LAYOUT_ROWS
+    for r in (small, small + 1):
+        plan = fused_trees._k2_plan(r, c, k, t, n_pad)
+        assert plan.chunk == t
+        assert plan.smem == fused_trees.smem_bytes(plan.layout, c, k, n_pad,
+                                                   t)
+        assert plan.smem <= fused_trees.SMEM_BUDGET
+    monkeypatch.setattr(fused_trees, "SMEM_BUDGET", 24 * 1024)
+    for r in (small, small + 1):
+        plan = fused_trees._k2_plan(r, c, k, t, n_pad)
+        assert 1 <= plan.chunk < t and plan.smem <= 24 * 1024
+        assert fused_trees.smem_bytes(plan.layout, c, k, n_pad,
+                                      plan.chunk + 1) > 24 * 1024
+    monkeypatch.setattr(fused_trees, "SMEM_BUDGET", 4 * 1024)
+    with pytest.raises(ValueError, match="budget"):
+        fused_trees._k2_plan(1, c, k, t, n_pad)

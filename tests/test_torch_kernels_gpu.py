@@ -31,16 +31,34 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n", [1, 37, 512])
-def test_fused_score_matches_plain(cuda, n):
-    x, mean, std, w, b = cs.k1_inputs(n, n, cuda)
+@pytest.mark.parametrize("prepacked", [False, True])
+@pytest.mark.parametrize("c,h", [(600, 512), (37, 16), (20, 1)])
+@pytest.mark.parametrize("n", [1, 8, 37, 64, 512, 65536])
+def test_fused_score_matches_plain(cuda, n, c, h, prepacked):
+    """Every plan the serving buckets and eval reach (cluster K-splits at
+    small N, two warpgroups above 64 rows), odd widths (C = 37 takes the
+    4-byte copies) and H = 1, with and without a precomputed pack."""
+    x, mean, std, w, b = cs.k1_inputs(n + c, n, cuda, c, h)
+    kw = dict(packed=fused_score.pack_norm(mean, std, cs.CUTOFF),
+              packed_w=fused_score.pack_weights(w)) if prepacked else {}
     before = fused_score.launches
-    got = fused_score.fused_first_layer(x, mean, std, cs.CUTOFF, w, b)
+    got = fused_score.fused_first_layer(x, mean, std, cs.CUTOFF, w, b, **kw)
     want = fused_score.fused_first_layer_plain(x, mean, std, cs.CUTOFF, w,
                                                b)
     torch.cuda.synchronize()
     assert fused_score.launches == before + 1
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [8, 512, 65536])
+def test_fused_score_launches_bit_identical(cuda, n):
+    """The K-split reduces in a fixed order, without atomics: two
+    launches on the same input agree bit for bit."""
+    x, mean, std, w, b = cs.k1_inputs(3, n, cuda)
+    one = fused_score.fused_first_layer(x, mean, std, cs.CUTOFF, w, b)
+    two = fused_score.fused_first_layer(x, mean, std, cs.CUTOFF, w, b)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
 
 
 @pytest.mark.parametrize("r,kind,loss", [(1, "gbt", "log"),
@@ -58,12 +76,63 @@ def test_fused_trees_matches_plain(cuda, r, kind, loss):
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
-def test_fused_trees_chunks_large_ensembles(cuda, monkeypatch):
+@pytest.mark.parametrize("t", [1, 20, 200])
+@pytest.mark.parametrize("r", [2048, 2049, 100_000])
+def test_fused_trees_layouts_and_tree_counts(cuda, r, t):
+    """Both layouts (one warp per row up to SMALL_R_MAX = 2048 rows, one
+    thread per row above) at 1, 20 and 200 trees: leaves exact."""
+    assert fused_trees.SMALL_R_MAX == 2048
+    nodes, vT, cuts, kw = cs.k2_inputs(t, r, cuda, t=t)
+    got, leaves = fused_trees.predict_ensemble(nodes, vT, cuts, **kw,
+                                               return_leaves=True)
+    want, want_leaves = fused_trees.predict_ensemble_plain(
+        nodes, vT, cuts, **kw, return_leaves=True)
+    torch.cuda.synchronize()
+    assert torch.equal(leaves, want_leaves)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("r", [300, 5000])
+@pytest.mark.parametrize("k,n_bins", [(7, 64), (40, 8), (64, 256)])
+def test_fused_trees_adversarial_binning(cuda, r, k, n_bins):
+    """Cuts with duplicates and +inf pads (K not a power of two), values
+    on every cut, ±inf and NaN: the binary search lands every row on the
+    plain Σ(v ≥ cut) walk's leaves, in both layouts."""
+    nodes, vT, _, kw = cs.k2_inputs(k, r, cuda)
+    kw["n_bins"] = n_bins
+    gen = np.random.default_rng(k)
+    c = vT.shape[0]
+    real = max(1, k - 3)
+    cuts = np.sort(gen.choice(np.arange(-6, 7) / 2.0, (c, real)), axis=1)
+    cuts = np.concatenate([cuts, np.full((c, k - real), np.inf)], axis=1)
+    cuts_t = torch.as_tensor(cuts, dtype=torch.float32, device=cuda)
+    on_cut = cuts_t[torch.arange(c, device=cuda)[:, None],
+                    torch.randint(0, real, (c, r), device=cuda)]
+    pick = torch.rand((c, r), device=cuda)
+    vals = torch.where(pick < 0.5, on_cut, vT)
+    vals[(pick > 0.90) & (pick <= 0.93)] = np.inf
+    vals[(pick > 0.93) & (pick <= 0.96)] = -np.inf
+    vals[pick > 0.96] = np.nan
+    vals = vals.contiguous()
+    got, leaves = fused_trees.predict_ensemble(nodes, vals, cuts_t, **kw,
+                                               return_leaves=True)
+    want, want_leaves = fused_trees.predict_ensemble_plain(
+        nodes, vals, cuts_t, **kw, return_leaves=True)
+    torch.cuda.synchronize()
+    assert torch.equal(leaves, want_leaves)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("r", [300, 5000])
+def test_fused_trees_chunks_large_ensembles(cuda, monkeypatch, r):
     """An ensemble larger than the shared-memory budget is walked in
-    chunks of trees and scores the same."""
-    nodes, vT, cuts, kw = cs.k2_inputs(9, 300, cuda)
+    chunks of trees and scores the same, in both layouts."""
+    nodes, vT, cuts, kw = cs.k2_inputs(9, r, cuda)
     whole = fused_trees.predict_ensemble(nodes, vT, cuts, **kw)
     monkeypatch.setattr(fused_trees, "SMEM_BUDGET", 24 * 1024)
+    assert fused_trees._k2_plan(r, vT.shape[0], cuts.shape[1],
+                                kw["n_trees"], nodes.shape[1]
+                                // kw["n_trees"]).chunk < kw["n_trees"]
     chunked = fused_trees.predict_ensemble(nodes, vT, cuts, **kw)
     torch.testing.assert_close(chunked, whole, rtol=0, atol=0)
 
