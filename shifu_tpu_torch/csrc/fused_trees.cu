@@ -56,24 +56,19 @@
 namespace {
 
 constexpr int ROW_THREADS = 256;  // rows layout: one thread per row
-                                  // (a column of its bins: 256 bytes)
 constexpr int WARPS = 4;          // warps layout: one warp per row
 constexpr int LAYOUT_ROWS = 0, LAYOUT_WARPS = 1;
-constexpr int COLS = 8;   // rows layout: columns binned side by side
-constexpr int TREES = 4;  // rows layout: trees walked side by side
+// Rows layout: columns binned and trees walked side by side by a thread.
+// Four of each keep the kernel at 32 registers, six blocks an SM.
+constexpr int COLS = 4;
+constexpr int TREES = 4;
 
 // A split word (`pack_nodes`): bits 0-7 the split bin (bin <= it goes
-// left), bits 8-23 the feature (0 on stop nodes, whose bin read is
-// discarded), bit 24 default_left, bit 25 stop. Masked in place, bits
-// 8-23 are the feature's byte offset in the rows layout's bins
-// (ROW_THREADS = 256 bytes a column).
-constexpr uint32_t WORD_FEAT = 0xffff00u, WORD_LEFT_DEFAULT = 1u << 24,
-                   WORD_STOP = 1u << 25;
-__device__ __forceinline__ int word_feat(uint32_t w) {
-  return (w & WORD_FEAT) >> 8;
-}
+// left), bit 8 default_left, bit 9 stop, bits 16-31 the feature (0 on
+// stop nodes, whose bin read is discarded).
+constexpr uint32_t WORD_LEFT_DEFAULT = 1u << 8, WORD_STOP = 1u << 9;
+__device__ __forceinline__ int word_feat(uint32_t w) { return w >> 16; }
 __device__ __forceinline__ int word_bin(uint32_t w) { return w & 0xff; }
-static_assert(ROW_THREADS == 256, "WORD_FEAT is a byte offset, 256 a column");
 
 __host__ __device__ constexpr int round_up(int v, int m) {
   return (v + m - 1) / m * m;
@@ -271,8 +266,8 @@ fused_trees_rows_kernel(const Args a) {
 #pragma unroll
           for (int u = 0; u < TREES; ++u) {
             const uint32_t w = lds_u32(tree[u] + 4 * node[u]);
-            // masked in place, the feature is its column's byte offset
-            node[u] = child(w, lds_u8(bins_at + (w & WORD_FEAT)), node[u]);
+            node[u] = child(
+                w, lds_u8(bins_at + word_feat(w) * ROW_THREADS), node[u]);
           }
 #pragma unroll
         for (int u = 0; u < TREES; ++u)

@@ -102,16 +102,16 @@ def _k2_plan(r: int, c: int, k: int, t: int, n_pad: int) -> K2Plan:
 def pack_nodes(nodes: torch.Tensor, n_trees: int) -> torch.Tensor:
     """(8, T·N_pad) f32 block of `pack_ensemble` → the kernel's (2,
     T·N_pad) int32 planes, on the block's device: row 0 the split words
-    (bits 0-7 the split bin, at most 254, bits 8-23 the feature, 0 on
-    stop nodes, bit 24 default_left, bit 25 stop), row 1 the leaf
+    (bits 0-7 the split bin, at most 254, bit 8 default_left, bit 9
+    stop, bits 16-30 the feature, 0 on stop nodes), row 1 the leaf
     values' bits. A walk step reads one 4-byte word; the leaf only at
     the end."""
     stop = nodes[3] > 0
     feat = torch.where(stop, 0, nodes[0].to(torch.int32))
     # <= 254: the kernel's missing bin (255) lies above every split bin
     sbin = nodes[1].to(torch.int32).clamp(0, 254)
-    word = sbin | (feat << 8) | ((nodes[2] > 0).to(torch.int32) << 24) | \
-        (stop.to(torch.int32) << 25)
+    word = sbin | ((nodes[2] > 0).to(torch.int32) << 8) | \
+        (stop.to(torch.int32) << 9) | (feat << 16)
     return torch.stack([word, nodes[4].contiguous().view(torch.int32)])
 
 

@@ -274,8 +274,8 @@ def test_inf_counts_only_the_pads_inside_k():
 
 def test_pack_nodes_records():
     """Each node's split word decodes to the packed block's split bin
-    (bits 0-7, at most 254), feature on split nodes (bits 8-23; 0 on
-    stop nodes), default_left (bit 24) and stop (bit 25); the leaf plane
+    (bits 0-7, at most 254), default_left (bit 8), stop (bit 9) and, on
+    split nodes, feature (bits 16-30; 0 on stop nodes); the leaf plane
     holds the leaf values' exact bits."""
     meta, params, _, _ = _model("gbt", seed=3, n_trees=3, depth=3)
     ens = weights.to_torch("gbt", meta, params, "cpu")
@@ -287,10 +287,10 @@ def test_pack_nodes_records():
     stop = ens.nodes[3] > 0
     assert stop.any() and (~stop).any()
     np.testing.assert_array_equal(w0 & 0xFF, ens.nodes[1].int().clamp(0, 254))
-    np.testing.assert_array_equal((w0 >> 24) & 1, (ens.nodes[2] > 0).int())
-    np.testing.assert_array_equal((w0 >> 25) & 1, stop.int())
+    np.testing.assert_array_equal((w0 >> 8) & 1, (ens.nodes[2] > 0).int())
+    np.testing.assert_array_equal((w0 >> 9) & 1, stop.int())
     np.testing.assert_array_equal(
-        (w0 >> 8) & 0xFFFF, torch.where(stop, 0, ens.nodes[0].int()))
+        w0 >> 16, torch.where(stop, 0, ens.nodes[0].int()))
     assert torch.equal(rec[1].view(torch.float32), ens.nodes[4])
 
 
