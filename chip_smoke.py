@@ -31,10 +31,11 @@ result line is printed):
    plus request p50/p95/p99 and the mean per-stage split of both
    services over a closed loop of 1,000 requests per size, and the
    device's idle share over a profiled window of 200 more;
-6. K3 `level_hist` and K4 `level_hist_fused` against their plain
-   versions at R = 2,000,000, C = 28, B = 64 for S = 1 and 32, with
-   dump-slot rows and NaN/±inf values: integer grads exact, real ones
-   within 1e-5·Σ|grad| per slot;
+6. K3 `level_hist` (on the builders' uint8 bins and on int32 bins) and
+   K4 `level_hist_fused` against their plain versions at R = 2,000,000,
+   C = 28, B = 64 for S = 1 and 32, with dump-slot rows and NaN/±inf
+   values: integer grads exact, real ones within 1e-5·Σ|grad| per
+   slot; K4 equal to K3 over the same bins on integer grads;
 7. K5 `best_splits` against its plain version at N = 1, 32 and 640 on
    integer-valued histograms with a planted tie and an all-masked node:
    feature, bin and default_left exact;
@@ -48,10 +49,14 @@ result line is printed):
    non-zero; the port's `serve` then scores the card-trained GBT;
 9. training times at the HIGGS widths (28 columns, depth 6, 64 bins,
    log loss, lr 0.2): per kernel at the main path's shapes (events,
-   profiler, plain, bound; K3 also `torch.bincount`), 2,000,000 rows ×
-   10 trees end to end with one profiled tree split by kernel and the
-   device's idle share, and 11,000,000 rows × 20 trees when the
-   projected time fits half the limit.
+   profiler, plain, bound; K3 on uint8 and int32 bins with both bounds,
+   and `torch.bincount`); K3 over one tree's levels (S = 1 with every
+   row live, then S = 1 … 32 with the left children live), whose sum
+   stands beside the profiled tree's K3 time; K3 on skewed bins (90 %
+   in one bin) and under forced plans (histogram replicas, cluster
+   sizes); 2,000,000 rows × 10 trees end to end with one profiled tree
+   split by kernel and the device's idle share, and 11,000,000 rows ×
+   20 trees when the projected time fits half the limit.
 
 The last lines are the per-kernel launch line, the kernel JSON line,
 the card's name and power limit, and the result object.
@@ -293,7 +298,7 @@ def phase_build():
                 fn = line.split("'")[1] if "'" in line else line.strip()
             elif "registers" in line or "spill" in line:
                 where = f"{name} {fn}" if name in (
-                    "fused_score", "fused_trees") else name
+                    "fused_score", "fused_trees", "level_hist") else name
                 print(f"  ptxas {where}: {line.strip().split(':', 1)[-1]}")
 
 
@@ -680,6 +685,7 @@ def _hist_err(name, got, want, slot, w, n_slots, integer):
 
 
 def phase_k3_k4(report, device="cuda", r=HIGGS_ROWS):
+    import torch
     from shifu_tpu_torch.ops import level_hist as lh
     errs = {"level_hist": [0.0], "level_hist_fused": [0.0]}
     for s in HIST_SLOTS:
@@ -689,15 +695,24 @@ def phase_k3_k4(report, device="cuda", r=HIGGS_ROWS):
             kind = "int" if integer else "real"
             want = lh.level_histograms_plain(binsT, slot, grad, hess, s,
                                              GBT_BINS)
-            for name, got in (
-                    ("level_hist", lh.level_histograms(
+            runs = (("level_hist", "int32", lh.level_histograms(
                         binsT, slot, grad, hess, s, GBT_BINS)),
-                    ("level_hist_fused", lh.level_histograms_fused(
-                        vals, cuts, slot, grad, hess, s, GBT_BINS))):
+                    ("level_hist", "uint8", lh.level_histograms(
+                        binsT.to(torch.uint8), slot, grad, hess, s,
+                        GBT_BINS)),
+                    ("level_hist_fused", "values",
+                     lh.level_histograms_fused(vals, cuts, slot, grad,
+                                               hess, s, GBT_BINS)))
+            for name, how, got in runs:
                 for part, g, wv, w in zip("GH", got, want, (grad, hess)):
                     errs[name].append(_hist_err(
-                        f"{name} R={r} S={s} {kind} {part}", g, wv, slot,
-                        w, s, integer))
+                        f"{name} ({how}) R={r} S={s} {kind} {part}", g, wv,
+                        slot, w, s, integer))
+            if integer:
+                k3, k4 = runs[1][2], runs[2][2]
+                assert torch.equal(k3[0], k4[0]) and \
+                    torch.equal(k3[1], k4[1]), "K4 differs from K3"
+                print(f"  K4 equals K3 over the same bins at S={s}")
     for name, e in errs.items():
         report[name] = {"max_abs_err": max(e)}
 
@@ -1032,11 +1047,12 @@ def profile_levels(fn):
     return wall_ms, rows
 
 
-def k3_cost(c, r_active, r, n_slots, n_bins):
-    """Bytes: the bins of rows in a live slot, slot/grad/hess of every
-    row, G and H written once. Operations: one add each into G and H
-    per live (row, column)."""
-    return (4 * c * r_active + 12 * r + 8 * n_slots * c * n_bins,
+def k3_cost(c, r_active, r, n_slots, n_bins, width=1):
+    """Bytes: the bins (`width` bytes each: 1 for the builders' uint8,
+    4 for int32) of rows in a live slot, slot/grad/hess of every row, G
+    and H written once. Operations: one add each into G and H per live
+    (row, column)."""
+    return (width * c * r_active + 12 * r + 8 * n_slots * c * n_bins,
             2 * c * r_active)
 
 
@@ -1053,6 +1069,95 @@ def k5_cost(n, c, n_bins):
     two cumsum adds and ~22 flops for the two gains per (node, column,
     main bin)."""
     return 8 * n * c * n_bins + 4 * n * c + 20 * n, 24 * n * c * (n_bins - 1)
+
+
+def k3_variant(plan, n_slots, n_bins, es, k=0, cluster=None, copies=None,
+               c=GBT_COLS):
+    """`plan` forced to another cluster size (the column tile follows) or
+    replica count, its chunk shrunk until the block fits; None if even
+    the smallest chunk does not."""
+    from shifu_tpu_torch.ops import level_hist as lh
+    ct = -(-c // cluster) if cluster else plan.col_tile
+    cl = cluster or plan.cluster
+    cp = copies or plan.copies
+    ch = plan.chunk
+    while True:
+        smem = lh.smem_bytes(ct, plan.slot_tile, n_bins, k, ch, plan.stages,
+                             es, cp)
+        if smem <= lh.SMEM_MAX or ch <= lh.MIN_CHUNK:
+            break
+        ch -= lh.MIN_CHUNK
+    if smem > lh.SMEM_MAX:
+        return None
+    return plan._replace(cluster=cl, col_tile=ct, copies=cp, chunk=ch,
+                         smem=smem)
+
+
+def level_slots(seed, r, n_slots, half, device):
+    """(R,) slots of one level: every row live (the root), or, with
+    `half`, the left children of S parents live (sibling subtraction:
+    the right half of the rows carries -1)."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u = torch.randint(0, 2 * n_slots if half else n_slots, (r,),
+                      generator=gen, device=device, dtype=torch.int32)
+    return torch.where(u % 2 == 0, u // 2, -1) if half else u
+
+
+def k3_sweeps(report, r=HIGGS_ROWS):
+    """K3 on uint8 bins at R = 2M: over one tree's levels (returns the sum
+    of their times), on skewed bins, and under forced plan variants."""
+    import torch
+    from shifu_tpu_torch.ops import level_hist as lh
+    vals, cuts, binsT, _, grad, hess = hist_inputs(80, r, 1, "cuda", False)
+    del vals, cuts
+    bins8 = binsT.to(torch.uint8)
+    del binsT
+    gen = torch.Generator(device="cuda").manual_seed(81)
+    skew = torch.where(torch.rand(bins8.shape, generator=gen,
+                                  device="cuda") < 0.9,
+                       torch.zeros_like(bins8), bins8)
+    out = {"levels": [], "variants": []}
+    # one tree's levels: the root (every row live), then S = 1 … 32
+    total = 0.0
+    for depth, (s, half) in enumerate([(1, False)] + [
+            (2 ** d, True) for d in range(6)]):
+        slot = level_slots(90 + depth, r, s, half, "cuda").to(torch.int32)
+        live = int(((slot >= 0) & (slot < s)).sum())
+        fn = lambda: lh.level_histograms(bins8, slot, grad, hess, s,  # noqa
+                                         GBT_BINS)
+        ms = cuda_ms(fn, 20)
+        total += ms
+        bnd, by = bound_ms(*k3_cost(GBT_COLS, live, r, s, GBT_BINS, 1))
+        out["levels"].append({"depth": depth, "S": s, "live_rows": live,
+                              "ms": ms, "bound_ms": bnd, "bound_by": by,
+                              "plan": lh.plan_for(bins8, None, slot, s,
+                                                  GBT_BINS)._asdict()})
+    # uniform and skewed bins under the chosen plan and forced variants
+    for s in (1, 32):
+        slot = level_slots(95 + s, r, s, False, "cuda").to(torch.int32)
+        plan = lh.plan_for(bins8, None, slot, s, GBT_BINS)
+        variants = [("plan", plan)]
+        for cp in (1, 2, 4, 8):
+            variants.append((f"copies {cp}", k3_variant(plan, s, GBT_BINS,
+                                                         1, copies=cp)))
+        for cl in (1, 2, 4, 7):
+            variants.append((f"cluster {cl}", k3_variant(plan, s, GBT_BINS,
+                                                          1, cluster=cl)))
+        for name, v in variants:
+            if v is None:
+                continue
+            row = {"S": s, "variant": name, "plan": v._asdict()}
+            for bins_name, b in (("uniform", bins8), ("skewed", skew)):
+                row[bins_name + "_ms"] = cuda_ms(
+                    lambda: lh._launch(b, None, slot, grad, hess, s,  # noqa
+                                       GBT_BINS, plan=v), 20)
+            out["variants"].append(row)
+    for row in out["levels"] + out["variants"]:
+        print("  k3 " + json.dumps(row))
+    out["levels_sum_ms"] = total
+    report["k3_sweeps"] = out
+    return total
 
 
 def phase_train_timing(report, t_start):
@@ -1086,13 +1191,20 @@ def phase_train_timing(report, t_start):
                                torch.bincount(flat, weights=wh,
                                               minlength=size)), 10)
         del flat, wg, wh
+        bins8 = binsT.to(torch.uint8)
         for name, fn, plain, cost in (
                 ("level_hist",
+                 lambda: lh.level_histograms(bins8, slot, grad, hess, s,
+                                             GBT_BINS),
+                 lambda: lh.level_histograms_plain(bins8, slot, grad, hess,
+                                                   s, GBT_BINS),
+                 k3_cost(GBT_COLS, r_active, r, s, GBT_BINS, 1)),
+                ("level_hist int32",
                  lambda: lh.level_histograms(binsT, slot, grad, hess, s,
                                              GBT_BINS),
                  lambda: lh.level_histograms_plain(binsT, slot, grad, hess,
                                                    s, GBT_BINS),
-                 k3_cost(GBT_COLS, r_active, r, s, GBT_BINS)),
+                 k3_cost(GBT_COLS, r_active, r, s, GBT_BINS, 4)),
                 ("level_hist_fused",
                  lambda: lh.level_histograms_fused(vals, cuts, slot, grad,
                                                    hess, s, GBT_BINS),
@@ -1108,9 +1220,10 @@ def phase_train_timing(report, t_start):
             sweep.append({"name": name, "shape": f"R={r}x{GBT_COLS} S={s} "
                           f"B={GBT_BINS}", "ms": ms, "kernel_device_ms": dev,
                           "plain_ms": pl_ms,
-                          "library_ms": lib if name == "level_hist"
-                          else None, "bound_ms": bnd, "bound_by": by})
-        del vals, cuts, binsT, slot, grad, hess
+                          "library_ms": lib if name.startswith("level_hist ")
+                          or name == "level_hist" else None,
+                          "bound_ms": bnd, "bound_by": by})
+        del vals, cuts, binsT, bins8, slot, grad, hess
     for n in SPLIT_NODES:
         g, h, mask = split_inputs(70 + n, n, "cuda")
         fn = lambda: bs.best_splits(g, h, mask, 1.0, 1.0)  # noqa: E731
@@ -1124,13 +1237,16 @@ def phase_train_timing(report, t_start):
                       "library_ms": None, "bound_ms": bnd, "bound_by": by})
     for row in sweep:
         print("  timing " + json.dumps(row))
-    # the kernels line: K3/K4 at the leaf level (S = 32), K5 at N = 32
+    # the kernels line: K3 (on the builders' uint8 bins) and K4 at the
+    # leaf level (S = 32), K5 at N = 32
     for row in sweep:
-        if (row["name"].startswith("level_hist") and "S=32" in row["shape"]) \
+        if (row["name"] in ("level_hist", "level_hist_fused")
+                and "S=32" in row["shape"]) \
                 or (row["name"] == "best_splits" and "N=32 " in row["shape"]):
             report[row["name"]].update({k: row[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     report["train_sweep"] = sweep
+    levels = k3_sweeps(report)
 
     cfg = gbdt.TreeConfig(max_depth=TRAIN_DEPTH, n_bins=GBT_BINS,
                           learning_rate=TRAIN_LR, loss="log")
@@ -1163,11 +1279,16 @@ def phase_train_timing(report, t_start):
                               "top_kernels": top}}
         print(f"  train {route} {r} rows x {HIGGS_TREES} trees: "
               f"{wall:.3f} s")
-    wall_ms, levels = profile_levels(
+    tree_k3 = e2e[f"binned {r}x{HIGGS_TREES}"]["profiled_tree"][
+        "device_ms"]["level_hist"]
+    print(f"  K3 over one tree's levels: sweep sum {levels:.4f} ms (random "
+          f"slots), profiled tree {tree_k3:.4f} ms (its own rows)")
+    report["k3_sweeps"]["tree_profile_k3_ms"] = tree_k3
+    wall_ms, per_level = profile_levels(
         lambda: gbdt.build_gbt(cfg, binsT, y, w, 1))
     e2e[f"binned {r}x{HIGGS_TREES}"]["per_level"] = {
-        "wall_ms": wall_ms, "host_device_ms": levels}
-    print("  per level of one profiled tree: " + json.dumps(levels))
+        "wall_ms": wall_ms, "host_device_ms": per_level}
+    print("  per level of one profiled tree: " + json.dumps(per_level))
     del vals, binsT, cuts, y, w
     wall = walls["binned"]
     elapsed = time.monotonic() - t_start

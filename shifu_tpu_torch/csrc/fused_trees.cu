@@ -104,18 +104,7 @@ __device__ __forceinline__ void stage(uint32_t* s_words, const int* nodes,
                  "l"(nodes + (size_t)plane * s + first + j)
                  : "memory");
   }
-  const int span = search_span(k);
-  if (s_cuts != nullptr)
-    for (int i = tid; i < c * span; i += nthreads) {
-      const int col = i / span, j = i - col * span;
-      if (j < k)
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                         smem_u32(s_cuts + i)),
-                     "l"(cuts + col * k + j)
-                     : "memory");
-      else
-        s_cuts[i] = __int_as_float(0x7fffffff);  // NaN: never <= v
-    }
+  if (s_cuts != nullptr) stage_cuts(s_cuts, cuts, 0, c, k, tid, nthreads);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 

@@ -465,10 +465,11 @@ def _grow(cfg: TreeConfig, binsT, grad_T, hess_T, feature_masks,
 def build_tree(cfg: TreeConfig, binsT, grad, hess, feature_mask,
                subtract: Optional[bool] = None, return_nodes: bool = False):
     """Grow one tree level by level (all nodes of a level at once).
-    binsT: (C, R) int32 bins (missing = n_bins-1) or FusedBins; grad,
-    hess: (R,) f32; feature_mask: (C,) f32. Returns flat (n_nodes,)
-    arrays feature, bin, default_left, is_leaf, leaf_value, gain, and
-    with return_nodes=True also the (R,) landing node of every row."""
+    binsT: (C, R) uint8 or int32 bins (missing = n_bins-1) or
+    FusedBins; grad, hess: (R,) f32; feature_mask: (C,) f32. Returns
+    flat (n_nodes,) arrays feature, bin, default_left, is_leaf,
+    leaf_value, gain, and with return_nodes=True also the (R,) landing
+    node of every row."""
     trees, node = _grow(cfg, binsT, grad[None], hess[None],
                         feature_mask[None], subtract)
     tree = {k: v[0] for k, v in trees.items()}
@@ -515,16 +516,27 @@ def _f32(a, dev: torch.device) -> torch.Tensor:
                            device=dev)
 
 
-def _device_bins(bins, dev: torch.device):
+def bin_dtype(n_bins: int) -> torch.dtype:
+    """The dtype of a builder's (C, R) bin matrix: one byte a bin when
+    every bin, the missing one (n_bins - 1) included, fits (every model
+    set Shifu writes), else int32."""
+    return torch.uint8 if n_bins <= 256 else torch.int32
+
+
+def _device_bins(bins, dev: torch.device, n_bins: int):
     """A builder's bin input on `dev`: a torch.Tensor is taken as the
-    already transposed (C, R) int32 matrix; FusedBins keep their layout
-    with f32 values and cuts; a numpy (R, C) matrix is transposed."""
+    already transposed (C, R) matrix; FusedBins keep their layout with
+    f32 values and cuts; a numpy (R, C) matrix is transposed (and
+    narrowed on the host, before the copy). Bins are `bin_dtype`."""
+    dtype = bin_dtype(n_bins)
     if isinstance(bins, torch.Tensor):
-        return bins.to(dev, torch.int32).contiguous()
+        return bins.to(dev, dtype).contiguous()
     if isinstance(bins, FusedBins):
         return FusedBins(_f32(bins.valuesT, dev), _f32(bins.cuts, dev))
-    return torch.as_tensor(np.ascontiguousarray(np.asarray(bins, np.int32).T),
-                           device=dev)
+    np_dtype = np.uint8 if dtype == torch.uint8 else np.int32
+    return torch.as_tensor(
+        np.ascontiguousarray(np.asarray(bins).T, dtype=np_dtype),
+        device=dev)
 
 
 def _walk_bins(binsT, n_bins: int):
@@ -565,13 +577,13 @@ def build_gbt(cfg: TreeConfig, bins, y, weights, n_trees: int,
               early_stop_window: int = 0,
               device: "str | torch.device" = "cuda"):
     """Sequential boosting on `device`. bins: numpy (R, C) int bins, a
-    (C, R) int32 tensor already placed, or FusedBins. Returns (stacked
+    (C, R) tensor already placed, or FusedBins. Returns (stacked
     numpy trees, per-round val errors). init_trees (numpy or tensors,
     (T, n_nodes)) resumes a previous ensemble: GBT continuous training
     appends trees (TrainModelProcessor.java:1064-1073). The per-round
     validation error (for early stop) is the one host sync per round."""
     dev = resolve_device(device)
-    jb = _device_bins(bins, dev)
+    jb = _device_bins(bins, dev, cfg.n_bins)
     jy, jw = _f32(y, dev), _f32(weights, dev)
     c, r = jb.shape
     fm = _f32(feature_mask if feature_mask is not None
@@ -590,7 +602,7 @@ def build_gbt(cfg: TreeConfig, bins, y, weights, n_trees: int,
     val_errs: List[float] = []
     best_val, bad = np.inf, 0
     if val_data is not None:
-        vb = _device_bins(val_data[0], dev)
+        vb = _device_bins(val_data[0], dev, cfg.n_bins)
         vy = _f32(val_data[1], dev)
         vw = torch.ones(vb.shape[1], dtype=torch.float32, device=dev)
         vraw = torch.zeros(vb.shape[1], dtype=torch.float32, device=dev)
@@ -643,7 +655,7 @@ def build_gbt_bagged(cfg: TreeConfig, bins, y, weights_T, n_trees: int,
     Returns a list of (stacked numpy trees, val_errs) per bag."""
     dev = resolve_device(device)
     n_bags = int(weights_T.shape[0])
-    jb = _device_bins(bins, dev)
+    jb = _device_bins(bins, dev, cfg.n_bins)
     jy, jw_T = _f32(y, dev), _f32(weights_T, dev)
     c, r = jb.shape
     fm = np.asarray(feature_mask if feature_mask is not None
@@ -663,7 +675,7 @@ def build_gbt_bagged(cfg: TreeConfig, bins, y, weights_T, n_trees: int,
         return [({k: a[:, b] for k, a in rounds_np.items()}, [])
                 for b in range(n_bags)]
 
-    vb = _device_bins(val_data[0], dev)
+    vb = _device_bins(val_data[0], dev, cfg.n_bins)
     vy = _f32(val_data[1], dev)
     vw = torch.ones(vb.shape[1], dtype=torch.float32, device=dev)
     vraw_T = torch.zeros((n_bags, vb.shape[1]), dtype=torch.float32,
@@ -709,7 +721,7 @@ def build_rf(cfg: TreeConfig, bins, y, weights, n_trees: int,
     from one `np.random.default_rng(seed)` in the JAX package's order
     (weights, then one mask per tree). `stratified`/`neg_only` shape the
     per-tree draws through `bagging_weights`. bins: numpy (R, C) or a
-    placed (C, R) int32 tensor. Returns numpy (T, n_nodes) trees."""
+    placed (C, R) tensor. Returns numpy (T, n_nodes) trees."""
     from shifu_tpu_torch.train.trainer import bagging_weights
     rng = np.random.default_rng(seed)
     if isinstance(bins, torch.Tensor):
@@ -731,7 +743,7 @@ def build_rf(cfg: TreeConfig, bins, y, weights, n_trees: int,
         masks[t, rng.choice(c, size=k, replace=False)] = 1.0
 
     dev = resolve_device(device)
-    jb = _device_bins(bins, dev)
+    jb = _device_bins(bins, dev, cfg.n_bins)
     jy, jw = _f32(y, dev), _f32(weights, dev)
     d_inst_w = _f32(inst_w, dev)
     # leaf value = weighted mean label: grad = -y·w·iw, hess = w·iw

@@ -4,7 +4,9 @@ and K4).
 Counterpart of `shifu_tpu/ops/pallas_hist.py`:
 
 - `level_histograms(binsT, slot, grad, hess, n_slots, n_bins)` (K3):
-  (C, R) int32 bins → G, H of shape (S, C, B);
+  (C, R) uint8 or int32 bins → G, H of shape (S, C, B). The builders
+  hand uint8 bins (`gbdt._device_bins`, every model set with B <= 256);
+  int32 is the JAX package's contract, which the parity tests feed;
 - `level_histograms_fused(valuesT, cuts, slot, grad, hess, n_slots,
   n_bins)` (K4): the same from (C, R) raw f32 values (NaN = missing)
   and (C, K) ascending, +inf padded cuts, binned in-register with K2's
@@ -16,45 +18,149 @@ are dropped. slot/grad/hess may carry a leading tree axis (T, R) — the
 lockstep forest — and the outputs then do too, (T, S, C, B), from one
 launch.
 
-Kernel: `csrc/level_hist.cu`, CUDA C++ for sm_90a, one source for both
-(the binning is a compile-time prologue). It replaces `_hist_kernel` /
-`_level_histograms_pallas` (shifu_tpu/ops/pallas_hist.py:100,250) and
-`_fused_hist_kernel` / `_level_histograms_fused` (:112,338). The TPU
-kernels contract one-hot matrices on the MXU; here each block keeps a
-privatized (slots × columns × B) histogram in shared memory, adds with
-shared-memory atomics and flushes with global atomics. Bound by bytes
-(each bin or value read once, slot/grad/hess per row, the outputs
-written once). Sums are f32, as the JAX package's XLA scatter route —
-not the TPU kernel's default bf16 products. Atomics reorder the sums:
-exact for integer grad/hess, within f32 rounding of the sum otherwise.
+Kernel: `csrc/level_hist.cu`, CUDA C++ for sm_90a, one source for both,
+instantiated per bin type (uint8, int32, f32 values). It replaces
+`_hist_kernel` / `_level_histograms_pallas`
+(shifu_tpu/ops/pallas_hist.py:100,250) and `_fused_hist_kernel` /
+`_level_histograms_fused` (:112,338). The TPU kernels contract one-hot
+matrices on the MXU; here persistent thread-block clusters keep a
+privatized (slots × columns × B) histogram in each block's shared
+memory, fed by a ring of bulk copies (the row chunk's slot/grad/hess
+multicast to the cluster), add with shared-memory atomics and flush
+once per block with global atomics. `_k3_plan` sizes the cluster, the
+tiles and the ring. Sums are f32, as the JAX package's XLA scatter
+route — not the TPU kernel's default bf16 products. Atomics reorder the
+sums: exact for integer grad/hess, within f32 rounding of the sum
+otherwise.
 
-Routing has no knob: CUDA tensors launch the kernel (a failed build or
-launch raises), CPU tensors take `level_histograms_plain`. `launches`
-counts K3 launches and `fused_launches` K4 launches.
+Routing has no knob: CUDA tensors launch the kernel (a failed build,
+attribute call or launch raises), CPU tensors take
+`level_histograms_plain`; the bins' dtype picks the kernel's
+instantiation. `launches` counts K3 launches and `fused_launches` K4
+launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from shifu_tpu_torch import _build
+from shifu_tpu_torch.ops.fused_trees import search_span
 
 __all__ = ["level_histograms", "level_histograms_fused",
            "level_histograms_plain", "bins_from_values_plain",
-           "launches", "fused_launches"]
+           "staged_cuts_plain", "launches", "fused_launches"]
 
 launches = 0        # K3 kernel launches of this process
 fused_launches = 0  # K4 kernel launches of this process
 
-# Shared-memory budget of one block (of the 227 KB an H100 block may
-# use): two blocks fit on an SM.
-SMEM_BUDGET = 96 * 1024
-SMEM_MAX = 227 * 1024
-THREADS = 256
-BLOCKS_PER_SM_WAVE = 2  # row chunks are sized for this many waves
+# The constants of csrc/level_hist.cu and of the H100 that size a plan.
+SMEM_MAX = 232448       # shared memory one block may use (227 KB)
+HEAD = 64               # the ring's mbarriers
+WARP_SCRATCH = 32 * 4   # a consumer warp's list of live rows
+MAX_CLUSTER = 8         # the portable cluster size
+MAX_STAGES = 3
+CONSUMER_WARPS = 16     # plus one producer warp
+MIN_CHUNK, PLAN_CHUNK, MAX_CHUNK = 512, 1024, 8192   # ring rows:
+# multiples of MIN_CHUNK, one row for each consumer thread
+SMS = 132
+KINDS = {torch.uint8: 0, torch.int32: 1, torch.float32: 2}
+
+
+class K3Plan(NamedTuple):
+    cluster: int        # blocks of a cluster: they split a column group
+    col_tile: int       # columns of one block
+    slot_tile: int      # slots of one block's histogram
+    chunk: int          # rows of one ring stage
+    stages: int         # ring depth
+    copies: int         # replicas of the histogram, each for a share of
+                        # the consumer warps (fewer collisions)
+    smem: int           # dynamic shared-memory bytes of one block
+
+
+def _r16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def smem_bytes(col_tile: int, slot_tile: int, n_bins: int, k: int,
+               chunk: int, stages: int, es: int, copies: int = 1) -> int:
+    """`level_hist_smem_bytes` of csrc/level_hist.cu: the barriers, the
+    consumer warps' scratch, `copies` replicas of the (slot_tile,
+    col_tile, B + 1) cells of (G, H) f32 pairs, K4's cuts at
+    search_span(K) slots a column, and `stages` ring stages, each with
+    slot/grad/hess buffers and a buffer a column of `es`-byte bins (each
+    buffer a chunk plus the 16-byte windows around it; a column's 16
+    bytes past a multiple of 128, so 8 columns start on 8 banks)."""
+    cells = slot_tile * col_tile * (n_bins + 1)
+    ring = _r16(_r16(HEAD + CONSUMER_WARPS * WARP_SCRATCH
+                     + 8 * copies * cells)
+                + 4 * col_tile * search_span(k))
+    col_buf = (es * chunk + 32 + 111) // 128 * 128 + 16
+    stage = 3 * _r16(4 * chunk + 32) + col_tile * col_buf
+    return ring + stages * stage
+
+
+@functools.lru_cache(maxsize=256)
+def _k3_plan(c: int, n_slots: int, n_bins: int, k: int = 0, es: int = 1,
+             rows: int = 0, trees: int = 1, sms: int = SMS) -> K3Plan:
+    """Cluster, tiles and ring of K3/K4 for C columns of `es`-byte bins
+    (or f32 values and K cuts), S slots and B bins:
+
+    1. the smallest cluster (1..8 blocks) whose blocks each hold every
+       slot of their share of the columns beside a ring of three
+       PLAN_CHUNK-row stages;
+    2. if none, slot tiles: the widest column tile of which one slot
+       fits beside a two-stage MIN_CHUNK ring, a cluster of up to 8 such
+       blocks (more columns go to further column groups), and as many
+       slots a block as fit;
+    3. replicas of the histogram: as many (a power of two, up to one
+       a consumer warp) as fit beside a three-stage MIN_CHUNK ring (at
+       S = 1, 8 replicas in 512-row chunks tie 4 in 1,024-row ones on
+       uniform bins and win on skewed ones);
+    4. the chunk: about four units (row chunk × tree × slot tile ×
+       column group) for each cluster the card holds (one block an SM),
+       within [MIN_CHUNK, MAX_CHUNK] and what fits, in three stages if
+       a MIN_CHUNK stage fits thrice, else two."""
+    def size(ct, st, ch, stages, copies=1):
+        return smem_bytes(ct, st, n_bins, k, ch, stages, es, copies)
+
+    for cl in range(1, MAX_CLUSTER + 1):
+        ct = -(-c // cl)
+        if -(-c // ct) == cl and \
+                size(ct, n_slots, PLAN_CHUNK, MAX_STAGES) <= SMEM_MAX:
+            st = n_slots
+            break
+    else:
+        ct = -(-c // min(c, MAX_CLUSTER))
+        while ct > 1 and size(ct, 1, MIN_CHUNK, 2) > SMEM_MAX:
+            ct -= 1
+        if size(ct, 1, MIN_CHUNK, 2) > SMEM_MAX:
+            raise ValueError(f"one slot of {n_bins} bins and {k} cuts "
+                             "exceeds the histogram kernel's shared memory")
+        cl = min(MAX_CLUSTER, -(-c // ct))
+        st = 1
+        while st < n_slots and size(ct, st + 1, MIN_CHUNK, 2) <= SMEM_MAX:
+            st += 1
+    copies = 1
+    while 2 * copies <= CONSUMER_WARPS and \
+            size(ct, st, MIN_CHUNK, MAX_STAGES, 2 * copies) <= SMEM_MAX:
+        copies *= 2
+    groups = -(-c // (cl * ct))
+    units = max(rows, 1) * trees * -(-n_slots // st) * groups
+    clusters = max(1, sms // cl)
+    want = -(-units // (4 * clusters * MIN_CHUNK)) * MIN_CHUNK
+    want = min(max(want, MIN_CHUNK), MAX_CHUNK)
+    stages = MAX_STAGES if size(ct, st, MIN_CHUNK, MAX_STAGES,
+                                copies) <= SMEM_MAX else 2
+    ch = want
+    while ch > MIN_CHUNK and size(ct, st, ch, stages, copies) > SMEM_MAX:
+        ch -= MIN_CHUNK
+    return K3Plan(cl, ct, st, ch, stages, copies,
+                  size(ct, st, ch, stages, copies))
 
 
 def bins_from_values_plain(valuesT: torch.Tensor, cuts: torch.Tensor,
@@ -66,6 +172,17 @@ def bins_from_values_plain(valuesT: torch.Tensor, cuts: torch.Tensor,
                            right=True)
     b = torch.clamp(b, max=n_bins - 2)
     return torch.where(torch.isnan(valuesT), n_bins - 1, b).to(torch.int32)
+
+
+def staged_cuts_plain(cuts: torch.Tensor) -> torch.Tensor:
+    """(C, K) cuts → (C, search_span(K)) as K4 stages them in shared
+    memory (`stage_cuts` of csrc/binning.cuh): the K cuts, then NaN,
+    which no value counts, in the slots the binary search can reach
+    past them."""
+    c, k = cuts.shape
+    pad = torch.full((c, search_span(k) - k), float("nan"),
+                     dtype=cuts.dtype, device=cuts.device)
+    return torch.cat([cuts, pad], dim=1)
 
 
 def level_histograms_plain(binsT: torch.Tensor, slot: torch.Tensor,
@@ -103,9 +220,10 @@ def level_histograms_plain(binsT: torch.Tensor, slot: torch.Tensor,
     return (g_out, h_out) if forest else (g_out[0], h_out[0])
 
 
-def _check(name, t, dtype):
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+def _check(name, t, dtypes):
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, "
+                        f"got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
@@ -132,14 +250,14 @@ def _check_rows(columns: torch.Tensor, slot, grad, hess, n_slots: int,
 def level_histograms(binsT: torch.Tensor, slot: torch.Tensor,
                      grad: torch.Tensor, hess: torch.Tensor, n_slots: int,
                      n_bins: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3: (C, R) int32 bins + slot/grad/hess (R,) or (T, R) → G, H of
-    shape (S, C, B) or (T, S, C, B)."""
+    """K3: (C, R) uint8 or int32 bins + slot/grad/hess (R,) or (T, R) →
+    G, H of shape (S, C, B) or (T, S, C, B)."""
     _check_rows(binsT, slot, grad, hess, n_slots, n_bins)
     if binsT.device.type == "cpu":
         return level_histograms_plain(binsT, slot, grad, hess, n_slots,
                                       n_bins)
     global launches
-    out = _launch(binsT, None, None, slot, grad, hess, n_slots, n_bins)
+    out = _launch(binsT, None, slot, grad, hess, n_slots, n_bins)
     launches += 1
     return out
 
@@ -161,78 +279,82 @@ def level_histograms_fused(valuesT: torch.Tensor, cuts: torch.Tensor,
             bins_from_values_plain(valuesT, cuts, n_bins), slot, grad,
             hess, n_slots, n_bins)
     global fused_launches
-    out = _launch(None, valuesT, cuts, slot, grad, hess, n_slots, n_bins)
+    out = _launch(valuesT, cuts, slot, grad, hess, n_slots, n_bins)
     fused_launches += 1
     return out
 
 
-def tiles(c: int, n_slots: int, n_bins: int, k: int = 0
-          ) -> Tuple[int, int]:
-    """(col_tile, slot_tile) of one block under SMEM_BUDGET: every slot
-    and as many columns as fit, else one column and as many slots as
-    fit."""
-    per_col = 8 * n_slots * n_bins + 4 * k
-    if per_col <= SMEM_BUDGET:
-        return max(1, min(c, SMEM_BUDGET // per_col)), n_slots
-    slot_tile = max(1, (SMEM_BUDGET - 4 * k) // (8 * n_bins))
-    if 8 * slot_tile * n_bins + 4 * k > SMEM_MAX:
-        raise ValueError(f"one slot of {n_bins} bins and {k} cuts exceeds "
-                         "the histogram kernel's shared memory")
-    return 1, min(slot_tile, n_slots)
+class _Args(ctypes.Structure):
+    """`HistArgs` of csrc/level_hist.cu, field for field."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "cols", "cuts", "slot", "grad", "hess", "out_g", "out_h")]
+        + [(n, ctypes.c_int) for n in (
+            "r", "c", "k", "t", "n_slots", "n_bins", "kind", "cluster",
+            "col_tile", "slot_tile", "chunk", "stages", "copies")])
 
 
-def _launch(binsT: Optional[torch.Tensor], valuesT: Optional[torch.Tensor],
-            cuts: Optional[torch.Tensor], slot, grad, hess, n_slots: int,
-            n_bins: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    cols = binsT if binsT is not None else valuesT
+def plan_for(cols: torch.Tensor, cuts: Optional[torch.Tensor],
+             slot: torch.Tensor, n_slots: int, n_bins: int) -> K3Plan:
+    """`_k3_plan` for these inputs on their card."""
+    c, r = cols.shape
+    sms = torch.cuda.get_device_properties(cols.device) \
+        .multi_processor_count if cols.device.type == "cuda" else SMS
+    return _k3_plan(c, n_slots, n_bins,
+                    cuts.shape[1] if cuts is not None else 0,
+                    cols.element_size(), r,
+                    slot.shape[0] if slot.dim() == 2 else 1, sms)
+
+
+def _launch(cols: torch.Tensor, cuts: Optional[torch.Tensor], slot, grad,
+            hess, n_slots: int, n_bins: int,
+            plan: Optional[K3Plan] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One K3 (cuts None) or K4 launch; `plan` overrides `_k3_plan`
+    (the timing sweeps of chip_smoke.py compare variants)."""
     if cols.device.type != "cuda":
         raise ValueError(f"no kernel for device {cols.device}")
-    if binsT is not None:
-        _check("binsT", binsT, torch.int32)
+    if cuts is None:
+        _check("binsT", cols, (torch.uint8, torch.int32))
     else:
-        _check("valuesT", valuesT, torch.float32)
-        _check("cuts", cuts, torch.float32)
-    _check("slot", slot, torch.int32)
-    _check("grad", grad, torch.float32)
-    _check("hess", hess, torch.float32)
+        _check("valuesT", cols, (torch.float32,))
+        _check("cuts", cuts, (torch.float32,))
+        if cuts.shape[1] < 1:
+            raise ValueError("K4 needs at least one cut a column")
+    _check("slot", slot, (torch.int32,))
+    _check("grad", grad, (torch.float32,))
+    _check("hess", hess, (torch.float32,))
     c, r = cols.shape
     t = slot.shape[0] if slot.dim() == 2 else 1
-    k = cuts.shape[1] if cuts is not None else 0
     if r >= 2 ** 31:
         raise ValueError(f"{r} rows exceed the kernel's int32 row index")
-    col_tile, slot_tile = tiles(c, n_slots, n_bins, k)
-    n_tiles = -(-c // col_tile) * -(-n_slots // slot_tile)
-    if n_tiles > 65535 or t > 65535:
-        raise ValueError(f"{n_tiles} tiles or {t} trees exceed the grid")
-    lib = _lib()
-    smem = lib.level_hist_smem_bytes(col_tile, slot_tile, n_bins, k)
-    per_sm = max(1, min(2048 // THREADS, SMEM_MAX // max(smem, 1)))
-    sms = torch.cuda.get_device_properties(cols.device).multi_processor_count
-    target = BLOCKS_PER_SM_WAVE * sms * per_sm
-    row_blocks = max(1, min(-(-r // THREADS), -(-target // (n_tiles * t))))
+    if plan is None:
+        plan = plan_for(cols, cuts, slot, n_slots, n_bins)
     lead = (t,) if slot.dim() == 2 else ()
     out_g = torch.zeros(lead + (n_slots, c, n_bins), dtype=torch.float32,
                         device=cols.device)
     out_h = torch.zeros_like(out_g)
-    stream = torch.cuda.current_stream(cols.device).cuda_stream
-    rc = lib.level_hist_launch(
-        binsT.data_ptr() if binsT is not None else None,
-        valuesT.data_ptr() if valuesT is not None else None,
-        cuts.data_ptr() if cuts is not None else None,
-        slot.data_ptr(), grad.data_ptr(), hess.data_ptr(),
-        out_g.data_ptr(), out_h.data_ptr(), r, c, k, t, n_slots, n_bins,
-        col_tile, slot_tile, row_blocks, stream)
+    args = _Args(cols.data_ptr(),
+                 cuts.data_ptr() if cuts is not None else None,
+                 slot.data_ptr(), grad.data_ptr(), hess.data_ptr(),
+                 out_g.data_ptr(), out_h.data_ptr(), r, c,
+                 cuts.shape[1] if cuts is not None else 0, t, n_slots,
+                 n_bins, KINDS[cols.dtype], plan.cluster, plan.col_tile,
+                 plan.slot_tile, plan.chunk, plan.stages, plan.copies)
+    lib = _lib()
+    rc = lib.level_hist_run(ctypes.byref(args),
+                            _build.raw_stream(cols.device))
     _build.check(rc, "level_hist", lib.level_hist_error_string)
     return out_g, out_h
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("level_hist")
-    if lib.level_hist_launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.level_hist_launch.argtypes = [p] * 8 + [i] * 9 + [p]
-        lib.level_hist_launch.restype = i
-        lib.level_hist_smem_bytes.argtypes = [i, i, i, i]
+    if lib.level_hist_run.argtypes is None:
+        i = ctypes.c_int
+        lib.level_hist_run.argtypes = [ctypes.POINTER(_Args),
+                                       ctypes.c_void_p]
+        lib.level_hist_run.restype = i
+        lib.level_hist_smem_bytes.argtypes = [i] * 8
         lib.level_hist_smem_bytes.restype = i
         lib.level_hist_error_string.argtypes = [i]
         lib.level_hist_error_string.restype = ctypes.c_char_p

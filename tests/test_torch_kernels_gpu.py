@@ -161,40 +161,151 @@ def test_cuda_route_never_falls_back(cuda):
 @pytest.mark.parametrize("n_slots", [1, 7, 32])
 @pytest.mark.parametrize("integer", [True, False])
 def test_level_hist_k3_k4_match_plain(cuda, n_slots, integer):
+    """K3 on the builders' uint8 bins and on int32 bins, and K4 on the
+    raw values, against the plain version; K4 equals K3 over the same
+    bins on integer grads."""
     vals, cuts, binsT, slot, grad, hess = cs.hist_inputs(
         n_slots, 100_003, n_slots, cuda, integer)
     want = level_hist.level_histograms_plain(binsT, slot, grad, hess,
                                              n_slots, cs.GBT_BINS)
     before = level_hist.launches, level_hist.fused_launches
-    k3 = level_hist.level_histograms(binsT, slot, grad, hess, n_slots,
-                                     cs.GBT_BINS)
+    k3 = [level_hist.level_histograms(b, slot, grad, hess, n_slots,
+                                      cs.GBT_BINS)
+          for b in (binsT, binsT.to(torch.uint8))]
     k4 = level_hist.level_histograms_fused(vals, cuts, slot, grad, hess,
                                            n_slots, cs.GBT_BINS)
     torch.cuda.synchronize()
     assert (level_hist.launches, level_hist.fused_launches) == \
-        (before[0] + 1, before[1] + 1)
-    for got in (k3, k4):
+        (before[0] + 2, before[1] + 1)
+    for got in k3 + [k4]:
         for g, w, wt in zip(got, want, (grad, hess)):
             cs._hist_err("hist", g, w, slot, wt, n_slots, integer)
+    if integer:
+        assert torch.equal(k4[0], k3[1][0]) and torch.equal(k4[1], k3[1][1])
+
+
+def _exact(got, binsT, slot, grad, hess, n_slots, n_bins):
+    want = level_hist.level_histograms_plain(binsT, slot, grad, hess,
+                                             n_slots, n_bins)
+    assert got[0].shape == want[0].shape
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _int_rows(seed, shape, n_slots, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    slot = torch.randint(-1, n_slots + 1, shape, generator=gen,
+                         device=device, dtype=torch.int32)
+    grad = torch.randint(-3, 4, shape, generator=gen, device=device).float()
+    hess = torch.randint(0, 3, shape, generator=gen, device=device).float()
+    return slot, grad, hess
 
 
 def test_level_hist_forest_axis_and_slot_tiles(cuda):
     """(T, R) per-tree rows in one launch; a level too wide for one
-    block's shared memory splits its slots across blocks."""
+    block's shared memory splits its slots across blocks (S = 512 at
+    B = 64, S = 64 at B = 256); T = 20 trees."""
     _, _, binsT, _, _, _ = cs.hist_inputs(3, 50_000, 1, cuda, True)
-    gen = torch.Generator(device=cuda).manual_seed(3)
-    for n_slots in (4, 512):
-        slot = torch.randint(-1, n_slots + 1, (3, 50_000), generator=gen,
-                             device=cuda, dtype=torch.int32)
-        grad = torch.randint(-3, 4, (3, 50_000), generator=gen,
-                             device=cuda).float()
-        hess = torch.ones_like(grad)
-        got = level_hist.level_histograms(binsT, slot, grad, hess, n_slots,
-                                          cs.GBT_BINS)
-        want = level_hist.level_histograms_plain(binsT, slot, grad, hess,
-                                                 n_slots, cs.GBT_BINS)
-        assert got[0].shape == (3, n_slots, cs.GBT_COLS, cs.GBT_BINS)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for n_slots, n_bins, t in ((4, 64, 3), (512, 64, 3), (64, 256, 3),
+                               (32, 64, 20)):
+        bins = binsT if n_bins == 64 else binsT * 4 + 3
+        slot, grad, hess = _int_rows(n_slots, (t, 50_000), n_slots, cuda)
+        plan = level_hist.plan_for(bins, None, slot, n_slots, n_bins)
+        assert (n_slots, n_bins) not in ((512, 64), (64, 256)) or \
+            plan.slot_tile < n_slots
+        for b in (bins, bins.to(torch.uint8)):
+            got = level_hist.level_histograms(b, slot, grad, hess, n_slots,
+                                              n_bins)
+            assert got[0].shape == (t, n_slots, cs.GBT_COLS, n_bins)
+            _exact(got, bins, slot, grad, hess, n_slots, n_bins)
+
+
+@pytest.mark.parametrize("r", [1, 15, 17, 511, 1000, 100_003])
+@pytest.mark.parametrize("trees", [0, 3])
+def test_level_hist_ragged_rows(cuda, r, trees):
+    """R below one chunk, R % 16 != 0 and a ragged last chunk, for one
+    tree and for a forest whose trees start off the 16-byte grid."""
+    vals, cuts, binsT, _, _, _ = cs.hist_inputs(r, r, 1, cuda, True)
+    slot, grad, hess = _int_rows(r, ((trees,) if trees else ()) + (r,), 8,
+                                 cuda)
+    for b in (binsT, binsT.to(torch.uint8)):
+        _exact(level_hist.level_histograms(b, slot, grad, hess, 8,
+                                           cs.GBT_BINS),
+               binsT, slot, grad, hess, 8, cs.GBT_BINS)
+    _exact(level_hist.level_histograms_fused(vals, cuts, slot, grad, hess, 8,
+                                             cs.GBT_BINS),
+           binsT, slot, grad, hess, 8, cs.GBT_BINS)
+
+
+@pytest.mark.parametrize("c,n_slots", [(29, 32), (7, 8), (1, 4), (300, 2)])
+def test_level_hist_columns_not_a_tile_multiple(cuda, c, n_slots):
+    """Column counts that leave the last block of a cluster (or of a
+    column group) part empty."""
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    r = 20_011
+    binsT = torch.randint(0, cs.GBT_BINS, (c, r), generator=gen,
+                          device=cuda, dtype=torch.int32)
+    slot, grad, hess = _int_rows(c, (r,), n_slots, cuda)
+    got = level_hist.level_histograms(binsT.to(torch.uint8), slot, grad,
+                                      hess, n_slots, cs.GBT_BINS)
+    _exact(got, binsT, slot, grad, hess, n_slots, cs.GBT_BINS)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 7, 62, 254])
+def test_level_hist_k4_adversarial_cuts(cuda, k):
+    """K4's binary search over staged cuts with duplicates, ±inf pads,
+    NaN values and values equal to a cut gives K3 over the plain bins
+    exactly."""
+    n_bins, c, r = k + 2, 5, 30_001
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    cuts = torch.sort(torch.randn((c, k), generator=gen, device=cuda),
+                      dim=1).values
+    if k >= 3:
+        cuts[0, 1] = cuts[0, 0]
+        cuts[1, -1] = float("inf")
+        cuts[3, -(k // 2):] = float("inf")
+    if k >= 2:
+        cuts[2, 0] = -float("inf")
+    vals = torch.randn((c, r), generator=gen, device=cuda)
+    u = torch.rand((c, r), generator=gen, device=cuda)
+    vals[u < 0.05] = float("nan")
+    vals[u > 0.99] = float("inf")
+    vals[(u > 0.98) & (u <= 0.99)] = -float("inf")
+    pick = torch.randint(0, k, (c, r), generator=gen, device=cuda)
+    on_cut = (u > 0.5) & (u < 0.7)
+    vals[on_cut] = torch.gather(cuts, 1, pick)[on_cut]
+    cuts = cuts.contiguous()
+    binsT = level_hist.bins_from_values_plain(vals, cuts, n_bins)
+    slot, grad, hess = _int_rows(k, (r,), 4, cuda)
+    _exact(level_hist.level_histograms_fused(vals, cuts, slot, grad, hess,
+                                             4, n_bins),
+           binsT, slot, grad, hess, 4, n_bins)
+
+
+def test_level_hist_plan_variants_and_smem(cuda):
+    """Every variant the timing sweeps force (histogram replicas, other
+    clusters) gives the plain result;
+    the Python mirror of the kernel's shared memory matches the
+    library's."""
+    vals, cuts, binsT, slot, grad, hess = cs.hist_inputs(9, 70_001, 4, cuda,
+                                                         True)
+    b8 = binsT.to(torch.uint8)
+    plan = level_hist.plan_for(b8, None, slot, 4, cs.GBT_BINS)
+    lib = level_hist._lib()
+    variants = [cs.k3_variant(plan, 4, cs.GBT_BINS, 1, cluster=cl,
+                              copies=cp)
+                for cl, cp in ((1, 1), (2, 4), (4, 8), (7, 16))]
+    assert None not in variants
+    for v in [plan] + variants:
+        assert lib.level_hist_smem_bytes(
+            v.col_tile, v.slot_tile, cs.GBT_BINS, 0, v.chunk, v.stages, 1,
+            v.copies) == v.smem
+        _exact(level_hist._launch(b8, None, slot, grad, hess, 4,
+                                  cs.GBT_BINS, plan=v),
+               binsT, slot, grad, hess, 4, cs.GBT_BINS)
+    k4 = level_hist.plan_for(vals, cuts, slot, 4, cs.GBT_BINS)
+    assert lib.level_hist_smem_bytes(k4.col_tile, k4.slot_tile, cs.GBT_BINS,
+                                     cuts.shape[1], k4.chunk, k4.stages, 4,
+                                     k4.copies) == k4.smem
 
 
 @pytest.mark.parametrize("n", [1, 32, 640])

@@ -180,14 +180,162 @@ def test_k4_equals_k3_over_binned_values():
 
 
 def test_tiles_fit_the_shared_memory_budget():
-    """The kernel's tile choice: whole levels of the HIGGS shape split
-    columns; slots split only when one column does not fit."""
-    assert level_hist.tiles(28, 1, 64) == (28, 1)
-    assert level_hist.tiles(28, 32, 64) == (6, 32)
-    col, slots = level_hist.tiles(28, 512, 64)
-    assert col == 1 and 8 * slots * 64 <= level_hist.SMEM_BUDGET
-    col, _ = level_hist.tiles(28, 32, 64, k=63)
-    assert 8 * 32 * 64 * col + 4 * 63 * col <= level_hist.SMEM_BUDGET
+    """The kernel's tile choice (`_k3_plan`): the HIGGS root level fits
+    one block; the leaf level splits its columns over a cluster; slots
+    split only when one column's slots do not fit any block."""
+    root = level_hist._k3_plan(28, 1, 64, rows=2_000_000)
+    assert (root.cluster, root.col_tile, root.slot_tile) == (1, 28, 1)
+    leaf = level_hist._k3_plan(28, 32, 64, rows=2_000_000)
+    assert (leaf.cluster, leaf.col_tile, leaf.slot_tile) == (4, 7, 32)
+    wide = level_hist._k3_plan(28, 512, 64, es=4, rows=50_000, trees=3)
+    assert wide.slot_tile < 512 and wide.cluster <= level_hist.MAX_CLUSTER
+    k4 = level_hist._k3_plan(28, 32, 64, k=62, es=4, rows=2_000_000)
+    assert k4.slot_tile == 32
+    for plan in (root, leaf, wide, k4):
+        assert plan.smem <= level_hist.SMEM_MAX
+
+
+_KINDS = {"u8": (0, 1), "i32": (0, 4), "k4": (None, 4)}
+
+
+@pytest.mark.parametrize("kind", sorted(_KINDS))
+@pytest.mark.parametrize("n_bins", [16, 64, 256])
+@pytest.mark.parametrize("n_slots", [1, 2, 16, 32, 64])
+@pytest.mark.parametrize("c", [1, 7, 28, 300])
+def test_k3_plan_fits_and_covers(c, n_slots, n_bins, kind):
+    """Every plan fits one block's shared memory with its ring, keeps
+    the cluster portable and covers every column and slot; `smem` is
+    `smem_bytes` of it."""
+    k, es = _KINDS[kind]
+    k = n_bins - 2 if k is None else k
+    p = level_hist._k3_plan(c, n_slots, n_bins, k=k, es=es,
+                            rows=2_000_000)
+    assert p.smem == level_hist.smem_bytes(p.col_tile, p.slot_tile, n_bins,
+                                           k, p.chunk, p.stages, es,
+                                           p.copies)
+    assert 1 <= p.copies <= level_hist.CONSUMER_WARPS
+    assert p.copies & (p.copies - 1) == 0
+    assert p.smem <= level_hist.SMEM_MAX
+    assert 1 <= p.cluster <= level_hist.MAX_CLUSTER
+    assert 2 <= p.stages <= level_hist.MAX_STAGES
+    assert p.chunk % level_hist.MIN_CHUNK == 0
+    assert level_hist.MIN_CHUNK <= p.chunk <= level_hist.MAX_CHUNK
+    groups = -(-c // (p.cluster * p.col_tile))
+    assert groups * p.cluster * p.col_tile >= c      # every column
+    assert (groups - 1) * p.cluster * p.col_tile < c  # no empty group
+    if groups == 1:                          # no block of a lone cluster
+        assert (p.cluster - 1) * p.col_tile < c      # is left idle
+    assert -(-n_slots // p.slot_tile) * p.slot_tile >= n_slots
+    assert p.slot_tile <= n_slots
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("trees", [0, 3])
+def test_plain_k3_uint8_bins_match_int32_and_xla(trees, integer):
+    """The builders' one-byte bins give the int32 result exactly, and
+    the JAX scatter's, for one tree and the forest."""
+    binsT, slot, grad, hess = _rows(17 + trees, c=6, n_slots=4, n_bins=64,
+                                    integer=integer, trees=trees)
+    binsT[:, ::7] = 63                      # the missing bin
+    _, ts, tg, th = _torch(binsT, slot, grad, hess)
+    g8, h8 = level_hist.level_histograms(
+        torch.as_tensor(binsT.astype(np.uint8)), ts, tg, th, 4, 64)
+    g32, h32 = level_hist.level_histograms(
+        torch.as_tensor(binsT), ts, tg, th, 4, 64)
+    assert torch.equal(g8, g32) and torch.equal(h8, h32)
+    want_g, want_h = _jax_scatter(binsT, slot, grad, hess, 4, 64)
+    _close(g8, want_g, grad, integer)
+    _close(h8, want_h, hess, integer)
+
+
+@pytest.mark.parametrize("n_bins,dtype", [(16, torch.uint8),
+                                          (64, torch.uint8),
+                                          (256, torch.uint8),
+                                          (257, torch.int32),
+                                          (1024, torch.int32)])
+def test_device_bins_are_one_byte_up_to_256_bins(n_bins, dtype):
+    from shifu_tpu_torch.models import gbdt
+    rng = np.random.default_rng(n_bins)
+    bins = rng.integers(0, n_bins, (50, 3)).astype(np.int32)
+    assert gbdt.bin_dtype(n_bins) == dtype
+    for given in (bins, torch.as_tensor(np.ascontiguousarray(bins.T))):
+        got = gbdt._device_bins(given, torch.device("cpu"), n_bins)
+        assert got.dtype == dtype and got.is_contiguous()
+        np.testing.assert_array_equal(got.numpy(), bins.T)
+
+
+def test_uint8_bins_route_and_walk_like_int32():
+    """uint8 bins against int32 split bins promote (no wrap): the route
+    step and the walk land every row where int32 bins do, at 256 bins
+    (bins up to 255, the missing one; split bins up to 254)."""
+    from shifu_tpu_torch.models import gbdt
+    rng = np.random.default_rng(3)
+    cfg = gbdt.TreeConfig(max_depth=3, n_bins=256)
+    c, r, t = 4, 400, 2
+    bins = rng.integers(0, 256, (c, r)).astype(np.int32)
+    bins[:, :8] = 255
+    trees = gbdt._empty_trees(cfg, t, "cpu")
+    trees["feature"][:, :7] = torch.as_tensor(
+        rng.integers(0, c, (t, 7)), dtype=torch.int32)
+    trees["bin"][:, :7] = torch.as_tensor(rng.integers(0, 255, (t, 7)),
+                                          dtype=torch.int32)
+    trees["bin"][:, 0] = 254
+    trees["default_left"][:, :7] = torch.as_tensor(
+        rng.integers(0, 2, (t, 7)).astype(bool))
+    trees["is_leaf"][:, 7:] = True
+    node = torch.zeros((t, r), dtype=torch.long)
+    b8 = torch.as_tensor(bins.astype(np.uint8))
+    b32 = torch.as_tensor(bins)
+    for depth in range(cfg.max_depth):
+        n8 = gbdt._route_level(cfg, trees, b8, node, depth)
+        n32 = gbdt._route_level(cfg, trees, b32, node, depth)
+        assert torch.equal(n8, n32)
+        node = n32
+    assert torch.equal(gbdt._walk_trees(trees, b8, 3, 256),
+                       gbdt._walk_trees(trees, b32, 3, 256))
+    assert torch.equal(gbdt._walk_trees(trees, b8, 3, 256), node)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 7, 62, 254])
+def test_staged_cuts_mirror_and_binary_lifting(k):
+    """`staged_cuts_plain` holds K cuts then NaN up to search_span(K)
+    slots; a binary lifting over it (K4's `bin_of_sorted`) gives
+    `bins_from_values_plain` on duplicates, ±inf pads, NaN values and
+    values equal to a cut."""
+    from shifu_tpu_torch.ops.fused_trees import search_span
+    n_bins = k + 2
+    rng = np.random.default_rng(k)
+    cuts = np.sort(rng.normal(0, 1, (3, k)).astype(np.float32), axis=1)
+    if k >= 3:
+        cuts[0, 1] = cuts[0, 0]             # a duplicate
+        cuts[1, -1] = np.inf                # an +inf pad
+    if k >= 2:
+        cuts[2, 0] = -np.inf
+    vals = rng.normal(0, 1, (3, 300)).astype(np.float32)
+    vals[:, :k] = cuts                      # values equal to a cut
+    vals[:, -4:] = [np.nan, np.inf, -np.inf, 0.0]
+    staged = level_hist.staged_cuts_plain(torch.as_tensor(cuts)).numpy()
+    span = search_span(k)
+    top = 1 << (k.bit_length() - 1)         # the first step, <= K
+    assert staged.shape == (3, span) and span == 2 * top - 1
+    assert k <= span < 2 * k                 # every reachable slot
+    np.testing.assert_array_equal(staged[:, :k], cuts)
+    assert np.isnan(staged[:, k:]).all()
+    got = np.empty(vals.shape, np.int32)
+    for col in range(3):
+        for i, v in enumerate(vals[col]):
+            if np.isnan(v):
+                got[col, i] = n_bins - 1
+                continue
+            q, step = 0, top
+            while step:
+                if staged[col, q + step - 1] <= v:
+                    q += step
+                step >>= 1
+            got[col, i] = min(q, n_bins - 2)
+    want = level_hist.bins_from_values_plain(
+        torch.as_tensor(vals), torch.as_tensor(cuts), n_bins).numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 def test_cuda_route_never_falls_back_to_plain():
