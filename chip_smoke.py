@@ -1071,28 +1071,6 @@ def k5_cost(n, c, n_bins):
     return 8 * n * c * n_bins + 4 * n * c + 20 * n, 24 * n * c * (n_bins - 1)
 
 
-def k3_variant(plan, n_slots, n_bins, es, k=0, cluster=None, copies=None,
-               c=GBT_COLS):
-    """`plan` forced to another cluster size (the column tile follows) or
-    replica count, its chunk shrunk until the block fits; None if even
-    the smallest chunk does not."""
-    from shifu_tpu_torch.ops import level_hist as lh
-    ct = -(-c // cluster) if cluster else plan.col_tile
-    cl = cluster or plan.cluster
-    cp = copies or plan.copies
-    ch = plan.chunk
-    while True:
-        smem = lh.smem_bytes(ct, plan.slot_tile, n_bins, k, ch, plan.stages,
-                             es, cp)
-        if smem <= lh.SMEM_MAX or ch <= lh.MIN_CHUNK:
-            break
-        ch -= lh.MIN_CHUNK
-    if smem > lh.SMEM_MAX:
-        return None
-    return plan._replace(cluster=cl, col_tile=ct, copies=cp, chunk=ch,
-                         smem=smem)
-
-
 def level_slots(seed, r, n_slots, half, device):
     """(R,) slots of one level: every row live (the root), or, with
     `half`, the left children of S parents live (sibling subtraction:
@@ -1136,16 +1114,13 @@ def k3_sweeps(report, r=HIGGS_ROWS):
     # uniform and skewed bins under the chosen plan and forced variants
     for s in (1, 32):
         slot = level_slots(95 + s, r, s, False, "cuda").to(torch.int32)
-        plan = lh.plan_for(bins8, None, slot, s, GBT_BINS)
-        variants = [("plan", plan)]
-        for cp in (1, 2, 4, 8):
-            variants.append((f"copies {cp}", k3_variant(plan, s, GBT_BINS,
-                                                         1, copies=cp)))
-        for cl in (1, 2, 4, 7):
-            variants.append((f"cluster {cl}", k3_variant(plan, s, GBT_BINS,
-                                                          1, cluster=cl)))
-        for name, v in variants:
-            if v is None:
+        variants = [("plan", {})] + [
+            (f"copies {cp}", {"copies": cp}) for cp in (1, 2, 4, 8)] + [
+            (f"cluster {cl}", {"cluster": cl}) for cl in (1, 2, 4, 7)]
+        for name, force in variants:
+            try:
+                v = lh.plan_for(bins8, None, slot, s, GBT_BINS, **force)
+            except ValueError:      # not even one slot fits beside them
                 continue
             row = {"S": s, "variant": name, "plan": v._asdict()}
             for bins_name, b in (("uniform", bins8), ("skewed", skew)):
@@ -1312,6 +1287,31 @@ def phase_train_timing(report, t_start):
     report["train_e2e"] = e2e
 
 
+def train_walls(repeats=3):
+    """Wall seconds of `build_gbt` at 2M rows × 10 trees (HIGGS widths),
+    binned and fused, `repeats` times each after a one-tree warm-up. It
+    calls only the public `build_gbt`, so it times another tree of the
+    package as well: `python3 chip_smoke.py --train-walls` from a copy of
+    that tree with this script in its root."""
+    import torch
+    from shifu_tpu_torch.models import gbdt
+    cfg = gbdt.TreeConfig(max_depth=TRAIN_DEPTH, n_bins=GBT_BINS,
+                          learning_rate=TRAIN_LR, loss="log")
+    vals, binsT, cuts, y = _gbt_data(HIGGS_ROWS, "cuda")
+    w = torch.ones_like(y)
+    walls = {}
+    for route, bins in (("binned", binsT),
+                        ("fused", gbdt.FusedBins(vals, cuts))):
+        gbdt.build_gbt(cfg, bins, y, w, 1)
+        walls[route] = []
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gbdt.build_gbt(cfg, bins, y, w, HIGGS_TREES)
+            walls[route].append(time.perf_counter() - t0)
+    return walls
+
+
 SOURCES = {
     "fused_score": ("shifu_tpu_torch/csrc/fused_score.cu",
                     "shifu_tpu/ops/pallas_score.py:110"),
@@ -1340,6 +1340,9 @@ def main() -> int:
 
     t_start = time.monotonic()
     name, smi = phase_device()
+    if sys.argv[1:] == ["--train-walls"]:
+        print(json.dumps({"train_walls_s": train_walls()}))
+        return 0
     print("phase 1: build")
     phase_build()
     report = {}

@@ -54,9 +54,8 @@
 //   bins alike.)
 // - Flush: once per block and unit key (tree, slot tile, column group),
 //   normally once per block per launch, the non-zero cells go to the
-//   (T, S, C, B) outputs with global atomics, four cells at a time
-//   (`atomicAdd` on float4, a vector `red`; as fast as scalar ones) when
-//   B % 4 == 0. The wrapper zeroes the outputs.
+//   (T, S, C, B) outputs with global atomics (four cells at a time, a
+//   float4 `red`, measured no faster). The wrapper zeroes the outputs.
 // - K4 bins each value by K2's binary lifting (`bin_of_sorted2` of
 //   binning.cuh: `bin_of_sorted` for two values at once) over its
 //   columns' cuts, staged once per column group with NaN pads
@@ -140,8 +139,11 @@ struct HistArgs {
   float* out_g;       // (t, n_slots, c, n_bins), zeroed
   float* out_h;
   int r, c, k, t, n_slots, n_bins, kind;
-  // `_k3_plan`
-  int cluster, col_tile, slot_tile, chunk, stages, copies;
+  // `_k3_plan` (smem: its `smem_bytes`, which the launch checks)
+  int cluster, col_tile, slot_tile, chunk, stages, copies, smem;
+  // clusters of this plan the card holds at once
+  // (`level_hist_max_clusters`)
+  int max_clusters;
 };
 
 }  // extern "C"
@@ -421,36 +423,16 @@ level_hist_kernel(const HistArgs a) {
       consumers_sync();  // every add of the key is in
       const size_t out0 =
           ((size_t)x.tree * a.n_slots + x.s0) * a.c * a.n_bins;
-      if (a.n_bins % 4 == 0) {
-        const int b4 = a.n_bins / 4, per_slot = x.nc * b4;
-        for (int i = ctid; i < x.ns * per_slot; i += CONSUMERS) {
-          const int s = i / per_slot, rest = i - s * per_slot;
-          const int j = rest / b4, b = 4 * (rest - j * b4);
-          const int sm = (s * a.col_tile + j) * bp + b;
-          const size_t o =
-              out0 + ((size_t)s * a.c + x.c0 + j) * a.n_bins + b;
-          const float2 v0 = cell_sum(sm), v1 = cell_sum(sm + 1),
-                       v2 = cell_sum(sm + 2), v3 = cell_sum(sm + 3);
-          const float4 g = make_float4(v0.x, v1.x, v2.x, v3.x);
-          const float4 h = make_float4(v0.y, v1.y, v2.y, v3.y);
-          if (g.x != 0.f || g.y != 0.f || g.z != 0.f || g.w != 0.f)
-            atomicAdd(reinterpret_cast<float4*>(a.out_g + o), g);
-          if (h.x != 0.f || h.y != 0.f || h.z != 0.f || h.w != 0.f)
-            atomicAdd(reinterpret_cast<float4*>(a.out_h + o), h);
-        }
-      } else {
-        const int per_slot = x.nc * a.n_bins;
-        for (int i = ctid; i < x.ns * per_slot; i += CONSUMERS) {
-          const int s = i / per_slot, rest = i - s * per_slot;
-          const int j = rest / a.n_bins, b = rest - j * a.n_bins;
-          const int sm = (s * a.col_tile + j) * bp + b;
-          const size_t o =
-              out0 + ((size_t)s * a.c + x.c0 + j) * a.n_bins + b;
-          // skipping zero cells is exact (x + 0 = x for the +0 start)
-          const float2 v = cell_sum(sm);
-          if (v.x != 0.f) atomicAdd(a.out_g + o, v.x);
-          if (v.y != 0.f) atomicAdd(a.out_h + o, v.y);
-        }
+      const int per_slot = x.nc * a.n_bins;
+      for (int i = ctid; i < x.ns * per_slot; i += CONSUMERS) {
+        const int s = i / per_slot, rest = i - s * per_slot;
+        const int j = rest / a.n_bins, b = rest - j * a.n_bins;
+        const int sm = (s * a.col_tile + j) * bp + b;
+        const size_t o = out0 + ((size_t)s * a.c + x.c0 + j) * a.n_bins + b;
+        // skipping zero cells is exact (x + 0 = x for the +0 start)
+        const float2 v = cell_sum(sm);
+        if (v.x != 0.f) atomicAdd(a.out_g + o, v.x);
+        if (v.y != 0.f) atomicAdd(a.out_h + o, v.y);
       }
     };
 
@@ -570,56 +552,47 @@ level_hist_kernel(const HistArgs a) {
   cluster_sync();
 }
 
+cudaLaunchAttribute cluster_dim(int cluster) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  return attr;
+}
+
 template <typename BinT>
-int launch(const HistArgs& a, int smem, cudaStream_t stream) {
-  static bool attr_set = false;  // once per variant: the largest size
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        level_hist_kernel<BinT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
-  }
+int max_clusters(int cluster, int smem, int* fit) {
+  // per device: the caller caches the result per card
+  cudaError_t err = cudaFuncSetAttribute(
+      level_hist_kernel<BinT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_MAX);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr = cluster_dim(cluster);
   cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a.cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
+  cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  // as many clusters as the card holds at once, cached per shape
-  static int cache_key[4][2] = {{0}}, cache_val[4] = {0};
-  const int key0 = smem, key1 = a.cluster;
-  int slot = -1;
-  for (int i = 0; i < 4; ++i)
-    if (cache_val[i] && cache_key[i][0] == key0 && cache_key[i][1] == key1)
-      slot = i;
-  int fit;
-  if (slot >= 0) {
-    fit = cache_val[slot];
-  } else {
-    cfg.gridDim = dim3(a.cluster);
-    cudaError_t err = cudaOccupancyMaxActiveClusters(
-        &fit, level_hist_kernel<BinT>, &cfg);
-    if (err != cudaSuccess) return (int)err;
-    if (fit < 1) return (int)cudaErrorInvalidConfiguration;
-    static int next = 0;
-    cache_key[next][0] = key0;
-    cache_key[next][1] = key1;
-    cache_val[next] = fit;
-    next = (next + 1) % 4;
-  }
-  const int n_chunks = (a.r + a.chunk - 1) / a.chunk;
-  const int n_stiles = (a.n_slots + a.slot_tile - 1) / a.slot_tile;
-  const int n_groups =
-      (a.c + a.cluster * a.col_tile - 1) / (a.cluster * a.col_tile);
-  const long long units = (long long)n_groups * n_stiles * a.t * n_chunks;
-  const int clusters = (int)(units < fit ? units : fit);
+  err = cudaOccupancyMaxActiveClusters(fit, level_hist_kernel<BinT>, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  return *fit < 1 ? (int)cudaErrorInvalidConfiguration : 0;
+}
+
+template <typename BinT>
+int launch(const HistArgs& a, long long units, cudaStream_t stream) {
+  // as many clusters as the card holds at once, fewer for a small launch
+  const int clusters =
+      (int)(units < a.max_clusters ? units : a.max_clusters);
+  cudaLaunchAttribute attr = cluster_dim(a.cluster);
+  cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(clusters * a.cluster);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = a.smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelEx(&cfg, level_hist_kernel<BinT>, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -629,25 +602,34 @@ int launch(const HistArgs& a, int smem, cudaStream_t stream) {
 
 extern "C" {
 
-// Dynamic shared-memory bytes of one block under a plan (es: bytes of
-// one bin or value; k: K4's cuts a column, 0 for K3).
-int level_hist_smem_bytes(int col_tile, int slot_tile, int n_bins, int k,
-                          int chunk, int stages, int es, int copies) {
-  return layout(col_tile, slot_tile, n_bins, search_span(k), chunk, stages,
-                es, copies)
-      .total;
+// Sets the largest shared-memory size on the current device for K3
+// (kind BINS_U8 / BINS_I32) or K4 (VALUES_F32) and writes to `fit` how
+// many clusters of `cluster` blocks with `smem` bytes each it holds at
+// once. Returns a cudaError_t (0 = ok).
+int level_hist_max_clusters(int kind, int cluster, int smem, int* fit) {
+  if (cluster < 1 || cluster > MAX_CLUSTER || smem < 0 || smem > SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  switch (kind) {
+    case BINS_U8:
+      return max_clusters<uint8_t>(cluster, smem, fit);
+    case BINS_I32:
+      return max_clusters<int32_t>(cluster, smem, fit);
+    case VALUES_F32:
+      return max_clusters<float>(cluster, smem, fit);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-// Launches K3 (kind BINS_U8 / BINS_I32) or K4 (VALUES_F32) on `stream`;
-// out_g/out_h must be zeroed. Returns the cudaError_t of the launch
-// (0 = ok).
+// Launches K3 (kind BINS_U8 / BINS_I32) or K4 (VALUES_F32) on `stream`,
+// a stream of the current device, after `level_hist_max_clusters` for
+// the plan on that device; out_g/out_h must be zeroed. Returns the
+// cudaError_t of the launch (0 = ok); a plan whose `smem` is not the
+// kernel's layout is refused.
 int level_hist_run(const HistArgs* p, void* stream) {
   const HistArgs& a = *p;
   if (a.r <= 0 || a.c <= 0 || a.t <= 0 || a.n_slots <= 0) return 0;
   const int es = a.kind == BINS_U8 ? 1 : 4;
-  const int smem = level_hist_smem_bytes(
-      a.col_tile, a.slot_tile, a.n_bins, a.kind == VALUES_F32 ? a.k : 0,
-      a.chunk, a.stages, es, a.copies);
+  const int span = a.kind == VALUES_F32 ? search_span(a.k) : 0;
   const long long units =
       (long long)((a.c + a.cluster * a.col_tile - 1) /
                   (a.cluster * a.col_tile)) *
@@ -656,17 +638,20 @@ int level_hist_run(const HistArgs* p, void* stream) {
   if (a.cluster < 1 || a.cluster > MAX_CLUSTER || a.col_tile < 1 ||
       a.slot_tile < 1 || a.chunk < 16 || a.chunk % 16 || a.stages < 2 ||
       a.copies < 1 || a.copies > CONSUMER_WARPS ||
-      a.stages > MAX_STAGES || smem > SMEM_MAX || units >= (1ll << 31) ||
-      (a.kind == VALUES_F32 && a.k < 1))
+      a.stages > MAX_STAGES || a.smem > SMEM_MAX || a.max_clusters < 1 ||
+      units >= (1ll << 31) || (a.kind == VALUES_F32 && a.k < 1) ||
+      a.smem != layout(a.col_tile, a.slot_tile, a.n_bins, span, a.chunk,
+                       a.stages, es, a.copies)
+                    .total)
     return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   switch (a.kind) {
     case BINS_U8:
-      return launch<uint8_t>(a, smem, st);
+      return launch<uint8_t>(a, units, st);
     case BINS_I32:
-      return launch<int32_t>(a, smem, st);
+      return launch<int32_t>(a, units, st);
     case VALUES_F32:
-      return launch<float>(a, smem, st);
+      return launch<float>(a, units, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -527,16 +527,29 @@ def _device_bins(bins, dev: torch.device, n_bins: int):
     """A builder's bin input on `dev`: a torch.Tensor is taken as the
     already transposed (C, R) matrix; FusedBins keep their layout with
     f32 values and cuts; a numpy (R, C) matrix is transposed (and
-    narrowed on the host, before the copy). Bins are `bin_dtype`."""
+    narrowed on the host, before the copy). Bins are `bin_dtype`, except
+    that a matrix holding a bin below 0 or above 255 stays int32: the
+    histograms drop bins outside [0, n_bins), and a narrowing would wrap
+    such a bin into that range."""
     dtype = bin_dtype(n_bins)
-    if isinstance(bins, torch.Tensor):
-        return bins.to(dev, dtype).contiguous()
     if isinstance(bins, FusedBins):
         return FusedBins(_f32(bins.valuesT, dev), _f32(bins.cuts, dev))
+    if isinstance(bins, torch.Tensor):
+        if dtype == torch.uint8 and bins.dtype != torch.uint8 and \
+                bins.numel() and not _byte_range(*torch.aminmax(bins)):
+            dtype = torch.int32
+        return bins.to(dev, dtype).contiguous()
+    bins = np.asarray(bins)
+    if dtype == torch.uint8 and bins.size and \
+            not _byte_range(bins.min(), bins.max()):
+        dtype = torch.int32
     np_dtype = np.uint8 if dtype == torch.uint8 else np.int32
-    return torch.as_tensor(
-        np.ascontiguousarray(np.asarray(bins).T, dtype=np_dtype),
-        device=dev)
+    return torch.as_tensor(np.ascontiguousarray(bins.T, dtype=np_dtype),
+                           device=dev)
+
+
+def _byte_range(lo, hi) -> bool:
+    return 0 <= int(lo) and int(hi) <= 255
 
 
 def _walk_bins(binsT, n_bins: int):

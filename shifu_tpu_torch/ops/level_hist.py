@@ -52,8 +52,8 @@ from shifu_tpu_torch import _build
 from shifu_tpu_torch.ops.fused_trees import search_span
 
 __all__ = ["level_histograms", "level_histograms_fused",
-           "level_histograms_plain", "bins_from_values_plain",
-           "staged_cuts_plain", "launches", "fused_launches"]
+           "level_histograms_plain", "bins_from_values_plain", "launches",
+           "fused_launches"]
 
 launches = 0        # K3 kernel launches of this process
 fused_launches = 0  # K4 kernel launches of this process
@@ -88,7 +88,8 @@ def _r16(v: int) -> int:
 
 def smem_bytes(col_tile: int, slot_tile: int, n_bins: int, k: int,
                chunk: int, stages: int, es: int, copies: int = 1) -> int:
-    """`level_hist_smem_bytes` of csrc/level_hist.cu: the barriers, the
+    """`layout` of csrc/level_hist.cu, whose launch refuses a plan that
+    disagrees with it: the barriers, the
     consumer warps' scratch, `copies` replicas of the (slot_tile,
     col_tile, B + 1) cells of (G, H) f32 pairs, K4's cuts at
     search_span(K) slots a column, and `stages` ring stages, each with
@@ -106,7 +107,9 @@ def smem_bytes(col_tile: int, slot_tile: int, n_bins: int, k: int,
 
 @functools.lru_cache(maxsize=256)
 def _k3_plan(c: int, n_slots: int, n_bins: int, k: int = 0, es: int = 1,
-             rows: int = 0, trees: int = 1, sms: int = SMS) -> K3Plan:
+             rows: int = 0, trees: int = 1, sms: int = SMS,
+             cluster: Optional[int] = None,
+             copies: Optional[int] = None) -> K3Plan:
     """Cluster, tiles and ring of K3/K4 for C columns of `es`-byte bins
     (or f32 values and K cuts), S slots and B bins:
 
@@ -124,43 +127,55 @@ def _k3_plan(c: int, n_slots: int, n_bins: int, k: int = 0, es: int = 1,
     4. the chunk: about four units (row chunk × tree × slot tile ×
        column group) for each cluster the card holds (one block an SM),
        within [MIN_CHUNK, MAX_CHUNK] and what fits, in three stages if
-       a MIN_CHUNK stage fits thrice, else two."""
-    def size(ct, st, ch, stages, copies=1):
-        return smem_bytes(ct, st, n_bins, k, ch, stages, es, copies)
+       a MIN_CHUNK stage fits thrice, else two.
 
-    for cl in range(1, MAX_CLUSTER + 1):
-        ct = -(-c // cl)
-        if -(-c // ct) == cl and \
-                size(ct, n_slots, PLAN_CHUNK, MAX_STAGES) <= SMEM_MAX:
-            st = n_slots
-            break
-    else:
-        ct = -(-c // min(c, MAX_CLUSTER))
-        while ct > 1 and size(ct, 1, MIN_CHUNK, 2) > SMEM_MAX:
-            ct -= 1
-        if size(ct, 1, MIN_CHUNK, 2) > SMEM_MAX:
-            raise ValueError(f"one slot of {n_bins} bins and {k} cuts "
-                             "exceeds the histogram kernel's shared memory")
-        cl = min(MAX_CLUSTER, -(-c // ct))
-        st = 1
-        while st < n_slots and size(ct, st + 1, MIN_CHUNK, 2) <= SMEM_MAX:
+    `cluster` forces steps 1–2 (the column tile is C / cluster, the slot
+    tile as many slots as fit) and `copies` step 3 (the slot tile then
+    fits that many replicas); the timing sweeps of chip_smoke.py compare
+    such variants. ValueError when nothing fits."""
+    def size(ct, st, ch, stages, cp=1):
+        return smem_bytes(ct, st, n_bins, k, ch, stages, es, cp)
+
+    def slot_tile(ct, cp):
+        st = 0
+        while st < n_slots and \
+                size(ct, st + 1, MIN_CHUNK, 2, cp) <= SMEM_MAX:
             st += 1
-    copies = 1
-    while 2 * copies <= CONSUMER_WARPS and \
-            size(ct, st, MIN_CHUNK, MAX_STAGES, 2 * copies) <= SMEM_MAX:
-        copies *= 2
+        return st
+
+    if cluster:
+        cl, ct = cluster, -(-c // cluster)
+    else:
+        for cl in range(1, MAX_CLUSTER + 1):
+            ct = -(-c // cl)
+            if -(-c // ct) == cl and \
+                    size(ct, n_slots, PLAN_CHUNK, MAX_STAGES) <= SMEM_MAX:
+                break
+        else:
+            ct = -(-c // min(c, MAX_CLUSTER))
+            while ct > 1 and size(ct, 1, MIN_CHUNK, 2) > SMEM_MAX:
+                ct -= 1
+            cl = min(MAX_CLUSTER, -(-c // ct))
+    cp = copies or 1
+    st = slot_tile(ct, cp)
+    while not copies and 2 * cp <= CONSUMER_WARPS and \
+            size(ct, st, MIN_CHUNK, MAX_STAGES, 2 * cp) <= SMEM_MAX:
+        cp *= 2
+    stages = MAX_STAGES if size(ct, st, MIN_CHUNK, MAX_STAGES,
+                                cp) <= SMEM_MAX else 2
+    if st == 0 or size(ct, st, MIN_CHUNK, stages, cp) > SMEM_MAX:
+        raise ValueError(f"{cp} replicas of one slot of {min(ct, c)} "
+                         f"columns, {n_bins} bins and {k} cuts exceed the "
+                         "histogram kernel's shared memory")
     groups = -(-c // (cl * ct))
     units = max(rows, 1) * trees * -(-n_slots // st) * groups
     clusters = max(1, sms // cl)
     want = -(-units // (4 * clusters * MIN_CHUNK)) * MIN_CHUNK
     want = min(max(want, MIN_CHUNK), MAX_CHUNK)
-    stages = MAX_STAGES if size(ct, st, MIN_CHUNK, MAX_STAGES,
-                                copies) <= SMEM_MAX else 2
     ch = want
-    while ch > MIN_CHUNK and size(ct, st, ch, stages, copies) > SMEM_MAX:
+    while ch > MIN_CHUNK and size(ct, st, ch, stages, cp) > SMEM_MAX:
         ch -= MIN_CHUNK
-    return K3Plan(cl, ct, st, ch, stages, copies,
-                  size(ct, st, ch, stages, copies))
+    return K3Plan(cl, ct, st, ch, stages, cp, size(ct, st, ch, stages, cp))
 
 
 def bins_from_values_plain(valuesT: torch.Tensor, cuts: torch.Tensor,
@@ -172,17 +187,6 @@ def bins_from_values_plain(valuesT: torch.Tensor, cuts: torch.Tensor,
                            right=True)
     b = torch.clamp(b, max=n_bins - 2)
     return torch.where(torch.isnan(valuesT), n_bins - 1, b).to(torch.int32)
-
-
-def staged_cuts_plain(cuts: torch.Tensor) -> torch.Tensor:
-    """(C, K) cuts → (C, search_span(K)) as K4 stages them in shared
-    memory (`stage_cuts` of csrc/binning.cuh): the K cuts, then NaN,
-    which no value counts, in the slots the binary search can reach
-    past them."""
-    c, k = cuts.shape
-    pad = torch.full((c, search_span(k) - k), float("nan"),
-                     dtype=cuts.dtype, device=cuts.device)
-    return torch.cat([cuts, pad], dim=1)
 
 
 def level_histograms_plain(binsT: torch.Tensor, slot: torch.Tensor,
@@ -290,19 +294,38 @@ class _Args(ctypes.Structure):
         "cols", "cuts", "slot", "grad", "hess", "out_g", "out_h")]
         + [(n, ctypes.c_int) for n in (
             "r", "c", "k", "t", "n_slots", "n_bins", "kind", "cluster",
-            "col_tile", "slot_tile", "chunk", "stages", "copies")])
+            "col_tile", "slot_tile", "chunk", "stages", "copies", "smem",
+            "max_clusters")])
 
 
 def plan_for(cols: torch.Tensor, cuts: Optional[torch.Tensor],
-             slot: torch.Tensor, n_slots: int, n_bins: int) -> K3Plan:
-    """`_k3_plan` for these inputs on their card."""
+             slot: torch.Tensor, n_slots: int, n_bins: int,
+             cluster: Optional[int] = None,
+             copies: Optional[int] = None) -> K3Plan:
+    """`_k3_plan` for these inputs on their card (`cluster`, `copies`:
+    a forced variant)."""
     c, r = cols.shape
     sms = torch.cuda.get_device_properties(cols.device) \
         .multi_processor_count if cols.device.type == "cuda" else SMS
     return _k3_plan(c, n_slots, n_bins,
                     cuts.shape[1] if cuts is not None else 0,
                     cols.element_size(), r,
-                    slot.shape[0] if slot.dim() == 2 else 1, sms)
+                    slot.shape[0] if slot.dim() == 2 else 1, sms, cluster,
+                    copies)
+
+
+@functools.lru_cache(maxsize=256)
+def _max_clusters(device: int, kind: int, cluster: int, smem: int) -> int:
+    """How many clusters of `cluster` blocks with `smem` bytes each card
+    `device` holds at once. The library first sets the kernel's
+    shared-memory limit on that card: both are per device."""
+    lib = _lib()
+    fit = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.level_hist_max_clusters(kind, cluster, smem,
+                                         ctypes.byref(fit))
+    _build.check(rc, "level_hist", lib.level_hist_error_string)
+    return fit.value
 
 
 def _launch(cols: torch.Tensor, cuts: Optional[torch.Tensor], slot, grad,
@@ -333,16 +356,19 @@ def _launch(cols: torch.Tensor, cuts: Optional[torch.Tensor], slot, grad,
     out_g = torch.zeros(lead + (n_slots, c, n_bins), dtype=torch.float32,
                         device=cols.device)
     out_h = torch.zeros_like(out_g)
+    kind, dev = KINDS[cols.dtype], cols.device.index
     args = _Args(cols.data_ptr(),
                  cuts.data_ptr() if cuts is not None else None,
                  slot.data_ptr(), grad.data_ptr(), hess.data_ptr(),
                  out_g.data_ptr(), out_h.data_ptr(), r, c,
                  cuts.shape[1] if cuts is not None else 0, t, n_slots,
-                 n_bins, KINDS[cols.dtype], plan.cluster, plan.col_tile,
-                 plan.slot_tile, plan.chunk, plan.stages, plan.copies)
+                 n_bins, kind, plan.cluster, plan.col_tile, plan.slot_tile,
+                 plan.chunk, plan.stages, plan.copies, plan.smem,
+                 _max_clusters(dev, kind, plan.cluster, plan.smem))
     lib = _lib()
-    rc = lib.level_hist_run(ctypes.byref(args),
-                            _build.raw_stream(cols.device))
+    with torch.cuda.device(dev):
+        rc = lib.level_hist_run(ctypes.byref(args),
+                                _build.raw_stream(cols.device))
     _build.check(rc, "level_hist", lib.level_hist_error_string)
     return out_g, out_h
 
@@ -354,8 +380,9 @@ def _lib() -> ctypes.CDLL:
         lib.level_hist_run.argtypes = [ctypes.POINTER(_Args),
                                        ctypes.c_void_p]
         lib.level_hist_run.restype = i
-        lib.level_hist_smem_bytes.argtypes = [i] * 8
-        lib.level_hist_smem_bytes.restype = i
+        lib.level_hist_max_clusters.argtypes = [i, i, i,
+                                                ctypes.POINTER(i)]
+        lib.level_hist_max_clusters.restype = i
         lib.level_hist_error_string.argtypes = [i]
         lib.level_hist_error_string.restype = ctypes.c_char_p
     return lib

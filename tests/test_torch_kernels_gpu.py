@@ -283,29 +283,49 @@ def test_level_hist_k4_adversarial_cuts(cuda, k):
 
 def test_level_hist_plan_variants_and_smem(cuda):
     """Every variant the timing sweeps force (histogram replicas, other
-    clusters) gives the plain result;
-    the Python mirror of the kernel's shared memory matches the
-    library's."""
-    vals, cuts, binsT, slot, grad, hess = cs.hist_inputs(9, 70_001, 4, cuda,
-                                                         True)
+    clusters, the slot tiles they bring) gives the plain result; the
+    launch refuses a plan whose shared memory disagrees with the
+    kernel's layout, so every launch holds the Python mirror to it."""
+    vals, cuts, binsT, slot, grad, hess = cs.hist_inputs(9, 70_001, 32,
+                                                         cuda, True)
     b8 = binsT.to(torch.uint8)
-    plan = level_hist.plan_for(b8, None, slot, 4, cs.GBT_BINS)
-    lib = level_hist._lib()
-    variants = [cs.k3_variant(plan, 4, cs.GBT_BINS, 1, cluster=cl,
-                              copies=cp)
-                for cl, cp in ((1, 1), (2, 4), (4, 8), (7, 16))]
-    assert None not in variants
-    for v in [plan] + variants:
-        assert lib.level_hist_smem_bytes(
-            v.col_tile, v.slot_tile, cs.GBT_BINS, 0, v.chunk, v.stages, 1,
-            v.copies) == v.smem
-        _exact(level_hist._launch(b8, None, slot, grad, hess, 4,
+    variants = [level_hist.plan_for(b8, None, slot, 32, cs.GBT_BINS,
+                                    cluster=cl, copies=cp)
+                for cl, cp in ((None, None), (1, 1), (2, 4), (4, 8),
+                               (7, 16), (1, None))]
+    assert any(v.slot_tile < 32 for v in variants)
+    for v in variants:
+        _exact(level_hist._launch(b8, None, slot, grad, hess, 32,
                                   cs.GBT_BINS, plan=v),
-               binsT, slot, grad, hess, 4, cs.GBT_BINS)
-    k4 = level_hist.plan_for(vals, cuts, slot, 4, cs.GBT_BINS)
-    assert lib.level_hist_smem_bytes(k4.col_tile, k4.slot_tile, cs.GBT_BINS,
-                                     cuts.shape[1], k4.chunk, k4.stages, 4,
-                                     k4.copies) == k4.smem
+               binsT, slot, grad, hess, 32, cs.GBT_BINS)
+    k4 = level_hist.plan_for(vals, cuts, slot, 32, cs.GBT_BINS)
+    _exact(level_hist._launch(vals, cuts, slot, grad, hess, 32, cs.GBT_BINS,
+                              plan=k4),
+           binsT, slot, grad, hess, 32, cs.GBT_BINS)
+    for plan, b, c in ((variants[0], b8, None), (k4, vals, cuts)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            level_hist._launch(b, c, slot, grad, hess, 32, cs.GBT_BINS,
+                               plan=plan._replace(smem=plan.smem - 16))
+
+
+def test_level_hist_second_card(cuda):
+    """K3 and K4 launch on every card present, each with the kernel's
+    shared-memory limit and its occupancy set on that card (needs two
+    cards; skips on one)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("one card: nothing to launch on a second one")
+    for i in range(torch.cuda.device_count() - 1, -1, -1):
+        dev = torch.device("cuda", i)
+        vals, cuts, binsT, slot, grad, hess = cs.hist_inputs(
+            11 + i, 50_003, 32, dev, True)
+        with torch.cuda.device(0):
+            got = level_hist.level_histograms(binsT.to(torch.uint8), slot,
+                                              grad, hess, 32, cs.GBT_BINS)
+            fused = level_hist.level_histograms_fused(
+                vals, cuts, slot, grad, hess, 32, cs.GBT_BINS)
+        assert got[0].device == dev
+        _exact(got, binsT, slot, grad, hess, 32, cs.GBT_BINS)
+        _exact(fused, binsT, slot, grad, hess, 32, cs.GBT_BINS)
 
 
 @pytest.mark.parametrize("n", [1, 32, 640])

@@ -229,6 +229,77 @@ def test_k3_plan_fits_and_covers(c, n_slots, n_bins, kind):
     assert p.slot_tile <= n_slots
 
 
+@pytest.mark.parametrize("cluster,copies", [(1, None), (2, 4), (4, 8),
+                                            (7, 16), (None, 1), (8, 2)])
+@pytest.mark.parametrize("n_slots", [1, 4, 32])
+def test_k3_plan_forced_variants(n_slots, cluster, copies):
+    """A forced cluster sets the column tile (C / cluster); forced
+    replicas are kept as given; the slot tile is as many slots as fit
+    beside them; each variant fits, covers every column and slot, or is
+    refused when not even one slot fits."""
+    c, n_bins = 28, 64
+    try:
+        p = level_hist._k3_plan(c, n_slots, n_bins, rows=2_000_000,
+                                cluster=cluster, copies=copies)
+    except ValueError:
+        with pytest.raises(ValueError):   # refused: one slot of the
+            level_hist._k3_plan(c, 1, n_bins, rows=2_000_000,  # tile
+                                cluster=cluster, copies=copies)
+        assert copies and copies > 1
+        return
+    free = level_hist._k3_plan(c, n_slots, n_bins, rows=2_000_000)
+    if cluster:
+        assert (p.cluster, p.col_tile) == (cluster, -(-c // cluster))
+    else:
+        assert (p.cluster, p.col_tile) == (free.cluster, free.col_tile)
+    assert p.copies == (copies or free.copies)
+    assert p.smem <= level_hist.SMEM_MAX
+    assert p.smem == level_hist.smem_bytes(p.col_tile, p.slot_tile, n_bins,
+                                           0, p.chunk, p.stages, 1,
+                                           p.copies)
+    assert p.cluster * p.col_tile >= c
+    assert 1 <= p.slot_tile <= n_slots
+    if level_hist.smem_bytes(p.col_tile, n_slots, n_bins, 0,
+                             level_hist.MIN_CHUNK, 2, 1,
+                             p.copies) <= level_hist.SMEM_MAX:
+        assert p.slot_tile == n_slots
+
+
+@pytest.mark.parametrize("n_bins", [16, 64, 256])
+def test_device_bins_out_of_a_byte_stay_int32_and_drop(n_bins):
+    """A bin below 0 or above 255 keeps the matrix int32 (a narrowing
+    would wrap it into [0, n_bins)), and K3 drops it: the result is the
+    int32 matrix's, and for bins past the top the JAX scatter's (which
+    drops those too; it wraps a negative index instead). Bins in
+    [n_bins, 256) narrow and are dropped as well."""
+    from shifu_tpu_torch.models import gbdt
+    binsT, slot, grad, hess = _rows(n_bins, c=4, n_slots=3, n_bins=n_bins,
+                                    integer=True)
+    _, ts, tg, th = _torch(binsT, slot, grad, hess)
+    for bad in (-1, 256, 300, 255):
+        b = binsT.copy()
+        b[1, ::5] = bad
+        want = level_hist.level_histograms(torch.as_tensor(b), ts, tg, th,
+                                           3, n_bins)
+        if bad >= 0:
+            jg, jh = _jax_scatter(b, slot, grad, hess, 3, n_bins)
+            _close(want[0], jg, grad, True)
+            _close(want[1], jh, hess, True)
+        for given in (np.ascontiguousarray(b.T), torch.as_tensor(b)):
+            got = gbdt._device_bins(given, torch.device("cpu"), n_bins)
+            assert got.dtype == (torch.uint8 if 0 <= bad <= 255
+                                 else torch.int32)
+            np.testing.assert_array_equal(got.numpy(), b)
+            g, h = level_hist.level_histograms(got, ts, tg, th, 3, n_bins)
+            assert torch.equal(g, want[0]) and torch.equal(h, want[1])
+    dropped = binsT.copy()
+    dropped[1, ::5] = -1
+    g, _ = level_hist.level_histograms(torch.as_tensor(dropped), ts, tg, th,
+                                       3, n_bins)
+    kept = (slot >= 0) & (slot < 3) & (np.arange(slot.size) % 5 != 0)
+    assert float(g[:, 1].sum()) == float(grad[kept].sum())
+
+
 @pytest.mark.parametrize("integer", [True, False])
 @pytest.mark.parametrize("trees", [0, 3])
 def test_plain_k3_uint8_bins_match_int32_and_xla(trees, integer):
@@ -296,9 +367,21 @@ def test_uint8_bins_route_and_walk_like_int32():
     assert torch.equal(gbdt._walk_trees(trees, b8, 3, 256), node)
 
 
+def _staged_cuts(cuts: torch.Tensor) -> torch.Tensor:
+    """(C, K) cuts → (C, search_span(K)) as K4 stages them in shared
+    memory (`stage_cuts` of csrc/binning.cuh): the K cuts, then NaN,
+    which no value counts, in the slots the binary search can reach
+    past them."""
+    from shifu_tpu_torch.ops.fused_trees import search_span
+    c, k = cuts.shape
+    pad = torch.full((c, search_span(k) - k), float("nan"),
+                     dtype=cuts.dtype)
+    return torch.cat([cuts, pad], dim=1)
+
+
 @pytest.mark.parametrize("k", [1, 2, 3, 7, 62, 254])
 def test_staged_cuts_mirror_and_binary_lifting(k):
-    """`staged_cuts_plain` holds K cuts then NaN up to search_span(K)
+    """`_staged_cuts` holds K cuts then NaN up to search_span(K)
     slots; a binary lifting over it (K4's `bin_of_sorted`) gives
     `bins_from_values_plain` on duplicates, ±inf pads, NaN values and
     values equal to a cut."""
@@ -314,7 +397,7 @@ def test_staged_cuts_mirror_and_binary_lifting(k):
     vals = rng.normal(0, 1, (3, 300)).astype(np.float32)
     vals[:, :k] = cuts                      # values equal to a cut
     vals[:, -4:] = [np.nan, np.inf, -np.inf, 0.0]
-    staged = level_hist.staged_cuts_plain(torch.as_tensor(cuts)).numpy()
+    staged = _staged_cuts(torch.as_tensor(cuts)).numpy()
     span = search_span(k)
     top = 1 << (k.bit_length() - 1)         # the first step, <= K
     assert staged.shape == (3, span) and span == 2 * top - 1
