@@ -36,9 +36,12 @@ result line is printed):
    C = 28, B = 64 for S = 1 and 32, with dump-slot rows and NaN/±inf
    values: integer grads exact, real ones within 1e-5·Σ|grad| per
    slot; K4 equal to K3 over the same bins on integer grads;
-7. K5 `best_splits` against its plain version at N = 1, 32 and 640 on
-   integer-valued histograms with a planted tie and an all-masked node:
-   feature, bin and default_left exact;
+7. K5 `best_splits` at N = 1 ((C,) mask), 32 (a mask a node) and 640
+   (a 20-tree forest level, (T, C) masks), with a tie planted across two
+   warps and an all-masked node: on integer-valued histograms against
+   its plain version (C = 28, B = 64), on real-valued ones against
+   `k5_sequential`, the sequential-f32 reference (C = 28 and 300, B =
+   64 and 256); every output bit for bit;
 8. the training main path: model sets of 28 numeric columns and
    262,144 rows written with the port's own config writers, trained by
    `python -m shifu_tpu_torch --dir <set> train` on the card and with
@@ -54,9 +57,13 @@ result line is printed):
    row live, then S = 1 … 32 with the left children live), whose sum
    stands beside the profiled tree's K3 time; K3 on skewed bins (90 %
    in one bin) and under forced plans (histogram replicas, cluster
-   sizes); 2,000,000 rows × 10 trees end to end with one profiled tree
-   split by kernel and the device's idle share, and 11,000,000 rows ×
-   20 trees when the projected time fits half the limit.
+   sizes); K5 at N = 1, 32, 320 and 640 beside the launch floor (a
+   one-element `add_`) and with 8 and 32 warps a block; 2,000,000 rows ×
+   10 trees end to end with one profiled tree split by kernel and the
+   device's idle share, per-level host and device times, and one
+   level's split step counted in launches (the search, then the fold);
+   11,000,000 rows × 20 trees when the projected time fits half the
+   limit.
 
 The last lines are the per-kernel launch line, the kernel JSON line,
 the card's name and power limit, and the result object.
@@ -631,7 +638,6 @@ BIG_ROWS, BIG_TREES = 11_000_000, 20        # bench.py:171-176 (HIGGS)
 TRAIN_ROWS = 262_144                        # the main path's model sets
 TRAIN_DEPTH, TRAIN_LR = 6, 0.2
 HIST_SLOTS = (1, 32)          # root level; leaf level with subtraction
-SPLIT_NODES = (1, 32, 20 * 32)  # one tree's levels; a 20-tree forest level
 LIMIT_S = 1200.0
 
 
@@ -717,49 +723,135 @@ def phase_k3_k4(report, device="cuda", r=HIGGS_ROWS):
         report[name] = {"max_abs_err": max(e)}
 
 
-def split_inputs(seed, n, device, c=GBT_COLS, n_bins=GBT_BINS):
-    """Integer-valued (N, C, B) G/H (every cumsum exact), a planted tie
-    (column 5 repeats column 2) and, for N > 1, an all-masked node 0."""
+def split_inputs(seed, n, device, c=GBT_COLS, n_bins=GBT_BINS,
+                 integer=True, mask_rows=None):
+    """(N, C, B) G/H and a feature mask, made on `device` from a seed:
+    integer-valued (every cumsum exact) or real-valued (G normal, H in
+    [0.05, 1)); a planted tie (column 5 repeats column 2, two columns
+    that different warps own) when C > 5; and, for N > 1, an all-masked
+    node 0. The mask has `mask_rows` rows (a forest's (T, C); N rows by
+    default, a (C,) vector for N = 1), node i reading row i // (N/M)."""
     import torch
     gen = torch.Generator(device=device).manual_seed(seed)
-    g = torch.randint(-20, 21, (n, c, n_bins), generator=gen,
-                      device=device).float()
-    h = torch.randint(0, 30, (n, c, n_bins), generator=gen,
-                      device=device).float()
-    g[:, 5] = g[:, 2]
-    h[:, 5] = h[:, 2]
-    mask = (torch.rand((n, c), generator=gen, device=device) < 0.8).float()
-    mask[:, 2] = 1.0
-    mask[:, 5] = 1.0
+    if integer:
+        g = torch.randint(-20, 21, (n, c, n_bins), generator=gen,
+                          device=device).float()
+        h = torch.randint(0, 30, (n, c, n_bins), generator=gen,
+                          device=device).float()
+    else:
+        g = torch.randn((n, c, n_bins), generator=gen, device=device)
+        h = torch.rand((n, c, n_bins), generator=gen, device=device) \
+            * 0.95 + 0.05
+    m = mask_rows or n
+    mask = (torch.rand((m, c), generator=gen, device=device) < 0.8).float()
+    if c > 5:
+        g[:, 5] = g[:, 2]
+        h[:, 5] = h[:, 2]
+        mask[:, 2] = 1.0
+        mask[:, 5] = 1.0
     if n > 1:
         mask[0] = 0.0
-    return g, h, mask
+    return g, h, mask[0] if n == 1 and mask_rows is None else mask
+
+
+def k5_sequential(g, h, mask, lam, min_inst):
+    """K5's function with each column's left sums added bin by bin in
+    f32 — ((b0 + b1) + …) + bj, the kernel's order — and then the plain
+    chain's gain operations, one PyTorch op each: what the kernel must
+    return bit for bit."""
+    import torch
+    n, c, b = g.shape
+    gl = torch.empty_like(g[:, :, :-1])
+    hl = torch.empty_like(gl)
+    sg = torch.zeros((n, c), dtype=g.dtype, device=g.device)
+    sh = torch.zeros_like(sg)
+    for j in range(b - 1):
+        sg = sg + g[:, :, j]
+        sh = sh + h[:, :, j]
+        gl[:, :, j] = sg
+        hl[:, :, j] = sh
+    g_miss, h_miss = g[:, :, -1], h[:, :, -1]
+    g_tot, h_tot = sg + g_miss, sh + h_miss
+    parent = g_tot * g_tot / (h_tot + lam)
+    neg_inf = torch.tensor(-math.inf, device=g.device)
+
+    def gain_of(gl_, hl_):
+        gr_ = g_tot[:, :, None] - gl_
+        hr_ = h_tot[:, :, None] - hl_
+        left = gl_ * gl_ / (hl_ + lam)
+        right = gr_ * gr_ / (hr_ + lam)
+        score = left + right - parent[:, :, None]
+        return torch.where((hl_ >= min_inst) & (hr_ >= min_inst), score,
+                           neg_inf)
+
+    gain_left = gain_of(gl + g_miss[:, :, None], hl + h_miss[:, :, None])
+    gain_right = gain_of(gl, hl)
+    dl = gain_left >= gain_right
+    gain = torch.maximum(gain_left, gain_right)
+    rows = mask.reshape(-1, c)
+    on = torch.repeat_interleave(rows, n // rows.shape[0], dim=0) > 0
+    gain = torch.where(on[:, :, None], gain, neg_inf)
+    gain[:, :, -1] = -math.inf
+    flat = gain.reshape(n, -1)
+    best = torch.argmax(flat, dim=1)
+    bm = b - 1
+    return {"feature": (best // bm).to(torch.int32),
+            "bin": (best % bm).to(torch.int32),
+            "gain": flat.gather(1, best[:, None])[:, 0],
+            "default_left": dl.reshape(n, -1).gather(1, best[:, None])[:, 0],
+            "g_tot": g_tot[:, 0], "h_tot": h_tot[:, 0]}
+
+
+def same_bits(got, want):
+    """The names of the `best_splits` outputs whose dtype, shape or bits
+    differ (float outputs compared as their int32 bit patterns, NaNs
+    included)."""
+    import torch
+    bad = []
+    for k, w in want.items():
+        a = got[k]
+        if a.dtype != w.dtype or a.shape != w.shape:
+            bad.append(k)
+        elif a.dtype == torch.float32:
+            if not torch.equal(a.view(torch.int32), w.view(torch.int32)):
+                bad.append(k)
+        elif not torch.equal(a, w):
+            bad.append(k)
+    return bad
+
+
+# (N, mask rows): one tree's root ((C,) mask), its leaf level (a mask a
+# node), and a 20-tree forest's level ((T, C) masks)
+K5_SHAPES = ((1, None), (32, 32), (640, 20))
 
 
 def phase_k5(report, device="cuda"):
+    """Integer-valued histograms against the plain version, real-valued
+    ones against `k5_sequential`, every output bit for bit, with the tie
+    and all-masked gates."""
     import torch
     from shifu_tpu_torch.ops import best_splits as bs
-    err = 0.0
-    for n in SPLIT_NODES:
-        g, h, mask = split_inputs(30 + n, n, device)
+    cases = [(n, m, GBT_COLS, GBT_BINS, True) for n, m in K5_SHAPES] + [
+        (n, m, c, b, False) for n, m in K5_SHAPES for c in (GBT_COLS, 300)
+        for b in (GBT_BINS, 256)]
+    for n, m, c, b, integer in cases:
+        g, h, mask = split_inputs(30 + n + c + b, n, device, c, b, integer,
+                                  m)
         got = bs.best_splits(g, h, mask, 1.0, 2.0)
-        want = bs.best_splits_plain(g, h, mask, 1.0, 2.0)
-        for k in ("feature", "bin", "default_left"):
-            assert torch.equal(got[k], want[k]), f"K5 N={n}: {k} differs"
+        want = (bs.best_splits_plain if integer else k5_sequential)(
+            g, h, mask, 1.0, 2.0)
+        what = f"K5 N={n} C={c} B={b} mask {tuple(mask.shape)} " + (
+            "integer vs plain" if integer else "real vs sequential f32")
+        bad = same_bits(got, want)
+        assert not bad, f"{what}: {bad} differ"
         assert not bool((got["feature"] == 5).any()), \
-            "K5: the tie went to the later column"
+            f"{what}: the tie went to the later column"
         if n > 1:
             assert got["gain"][0] == -math.inf and got["feature"][0] == 0 \
-                and got["bin"][0] == 0, "K5: all-masked node not at index 0"
-        for k, rtol in (("gain", 1e-5), ("g_tot", 1e-6), ("h_tot", 1e-6)):
-            torch.testing.assert_close(got[k], want[k], rtol=rtol, atol=0.0,
-                                       msg=lambda m: f"K5 N={n} {k}: {m}")
-            fin = torch.isfinite(want[k])
-            if bool(fin.any()):
-                err = max(err, float((got[k][fin] - want[k][fin]).abs()
-                                     .max()))
-        print(f"  K5 best_splits N={n}: feature, bin, default_left exact")
-    report["best_splits"] = {"max_abs_err": err}
+                and got["bin"][0] == 0, \
+                f"{what}: all-masked node not at index 0"
+        print(f"  {what}: every output bit-exact")
+    report["best_splits"] = {"max_abs_err": 0.0}
 
 
 def write_model_set(root, alg, params, seed, rows, valid_rate):
@@ -1064,11 +1156,112 @@ def k4_cost(c, r_active, r, k, n_slots, n_bins):
             2 * c * r_active + c * r_active * math.ceil(math.log2(k + 1)))
 
 
-def k5_cost(n, c, n_bins):
-    """Bytes: G and H read once, the mask, the (5, N) result. Operations:
-    two cumsum adds and ~22 flops for the two gains per (node, column,
-    main bin)."""
-    return 8 * n * c * n_bins + 4 * n * c + 20 * n, 24 * n * c * (n_bins - 1)
+def k5_cost(n, c, n_bins, mask_rows):
+    """Bytes: G and H read once, the mask's rows, the six (N,) outputs
+    (4 + 4 + 4 + 1 + 4 + 4 bytes a node). Operations: two cumsum adds
+    and ~22 flops for the two gains per (node, column, main bin)."""
+    return (8 * n * c * n_bins + 4 * mask_rows * c + 21 * n,
+            24 * n * c * (n_bins - 1))
+
+
+def launch_floor():
+    """What a launch costs on this card: a one-element PyTorch
+    elementwise op (`add_` of a scalar), its CUDA-event time a call and
+    its kernel's device time from the profiler."""
+    import torch
+    x = torch.zeros(1, device="cuda")
+    fn = lambda: x.add_(1.0)  # noqa: E731
+    return {"name": "launch floor", "shape": "1 element add_",
+            "ms": cuda_ms(fn, 1000),
+            "kernel_device_ms": kernel_device_ms(fn, 1000,
+                                                 "elementwise_kernel")}
+
+
+# K5's timed shapes at the HIGGS widths, (N, mask rows): one tree's root
+# ((C,) mask) and leaf level (a mask a node), and a forest level of 10
+# and of 20 trees ((T, C) masks)
+K5_TIMED = ((1, None), (32, 32), (320, 10), (640, 20))
+
+
+def k5_timing():
+    """K5 at the builders' level shapes (C = 28, B = 64) by events and
+    profiler, beside its plain version, its bound and the launch floor;
+    and its kernel time with 8 and 32 warps a block against
+    MAX_WARPS."""
+    from shifu_tpu_torch.ops import best_splits as bs
+    rows = [launch_floor()]
+    for n, m in K5_TIMED:
+        g, h, mask = split_inputs(70 + n, n, "cuda", mask_rows=m)
+        fn = lambda: bs.best_splits(g, h, mask, 1.0, 1.0)  # noqa: E731
+        bnd, by = bound_ms(*k5_cost(n, GBT_COLS, GBT_BINS, m or 1))
+        shape = f"N={n} C={GBT_COLS} B={GBT_BINS} mask {tuple(mask.shape)}"
+        rows.append({"name": "best_splits", "shape": shape,
+                     "ms": cuda_ms(fn, 200),
+                     "kernel_device_ms": kernel_device_ms(
+                         fn, 200, "best_splits_kernel"),
+                     "plain_ms": cuda_ms(lambda: bs.best_splits_plain(
+                         g, h, mask, 1.0, 1.0), 50),
+                     "library_ms": None, "bound_ms": bnd, "bound_by": by})
+        for warps in (8, 32):
+            rows.append({"name": "best_splits warps", "shape": shape,
+                         "warps": warps, "kernel_device_ms": kernel_device_ms(
+                             lambda: bs._launch(g, h, mask, m or 1,  # noqa
+                                                1.0, 1.0, warps),
+                             200, "best_splits_kernel")})
+    return rows
+
+
+def kernels_between_markers(fn):
+    """Names of the CUDA kernels `fn` launches, from `torch.profiler`:
+    those between two marker kernels (`torch.cuda._sleep`'s spin
+    kernel) on the card's timeline. Padding launches before and after
+    keep the counted window away from the trace's ends, where the
+    profiler may miss the records of a short window's kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    pad = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            pad.add_(1.0)
+        torch.cuda._sleep(1000)
+        fn()
+        torch.cuda._sleep(1000)
+        for _ in range(100):
+            pad.add_(1.0)
+        torch.cuda.synchronize()
+    evs = sorted((ev.time_range.start, ev.name) for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA)
+    marks = [i for i, (_, name) in enumerate(evs) if "spin_kernel" in name]
+    assert len(marks) == 2, f"found {len(marks)} marker kernels"
+    return [name for _, name in evs[marks[0] + 1:marks[1]]]
+
+
+def split_step_launches(cfg, t=20, p=32, seed=75):
+    """CUDA kernels of one level's split step (`gbdt._apply_level` on a
+    forest level of T trees × P nodes): the split search alone (the
+    fold stubbed out), then the fold of what it found."""
+    import torch
+    from shifu_tpu_torch.models import gbdt
+    g, h, _ = split_inputs(seed, t * p, "cuda", integer=False)
+    g = g.reshape(t, p, GBT_COLS, GBT_BINS)
+    h = h.reshape(t, p, GBT_COLS, GBT_BINS)
+    masks = torch.ones((t, GBT_COLS), device="cuda")
+    trees = gbdt._empty_trees(cfg, t, "cuda")
+    depth = int(math.log2(p))
+    fold, found = gbdt._fold_splits, {}
+    gbdt._apply_level(cfg, trees, g, h, masks, depth)        # warm-up
+    try:
+        gbdt._fold_splits = lambda cfg_, trees_, s_, d_: found.update(s_)
+        search = kernels_between_markers(
+            lambda: gbdt._apply_level(cfg, trees, g, h, masks, depth))
+    finally:
+        gbdt._fold_splits = fold
+    folded = kernels_between_markers(lambda: fold(cfg, trees, found, depth))
+    return {what: {"launches": len(names),
+                   "kernels": sorted({k[:60] for k in names})}
+            for what, names in (("search", search), ("fold", folded))}
 
 
 def level_slots(seed, r, n_slots, half, device):
@@ -1199,17 +1392,7 @@ def phase_train_timing(report, t_start):
                           or name == "level_hist" else None,
                           "bound_ms": bnd, "bound_by": by})
         del vals, cuts, binsT, bins8, slot, grad, hess
-    for n in SPLIT_NODES:
-        g, h, mask = split_inputs(70 + n, n, "cuda")
-        fn = lambda: bs.best_splits(g, h, mask, 1.0, 1.0)  # noqa: E731
-        bnd, by = bound_ms(*k5_cost(n, GBT_COLS, GBT_BINS))
-        sweep.append({"name": "best_splits", "shape": f"N={n} C={GBT_COLS}"
-                      f" B={GBT_BINS}", "ms": cuda_ms(fn, 100),
-                      "kernel_device_ms": kernel_device_ms(
-                          fn, 100, "best_splits_kernel"),
-                      "plain_ms": cuda_ms(lambda: bs.best_splits_plain(
-                          g, h, mask, 1.0, 1.0), 50),
-                      "library_ms": None, "bound_ms": bnd, "bound_by": by})
+    sweep += k5_timing()
     for row in sweep:
         print("  timing " + json.dumps(row))
     # the kernels line: K3 (on the builders' uint8 bins) and K4 at the
@@ -1264,6 +1447,12 @@ def phase_train_timing(report, t_start):
     e2e[f"binned {r}x{HIGGS_TREES}"]["per_level"] = {
         "wall_ms": wall_ms, "host_device_ms": per_level}
     print("  per level of one profiled tree: " + json.dumps(per_level))
+    step = split_step_launches(cfg)
+    step["split_host_ms_per_level"] = [
+        row["host_ms"] for row in per_level["split"]]
+    e2e[f"binned {r}x{HIGGS_TREES}"]["split_step"] = step
+    print("  split step a level (launches; host ms per level): "
+          + json.dumps(step))
     del vals, binsT, cuts, y, w
     wall = walls["binned"]
     elapsed = time.monotonic() - t_start

@@ -111,6 +111,17 @@ def check(rc: int, what: str, error_string) -> None:
                            f"(cudaError_t {rc})")
 
 
+def call_on(index: int, fn, *args):
+    """`fn(*args)` with card `index` current, as a launch and a kernel
+    attribute need: switches (and switches back) only when another card
+    is current, so a serving launch on the current card pays one
+    device query."""
+    if torch.cuda.current_device() == index:
+        return fn(*args)
+    with torch.cuda.device(index):
+        return fn(*args)
+
+
 def raw_stream(device: torch.device) -> int:
     """The current CUDA stream of `device` as the handle a launch takes:
     `torch.cuda.current_stream(device).cuda_stream` without building a

@@ -2,12 +2,13 @@
 // bin, missing direction) over the level's G/H histograms.
 //
 // Replaces the TPU kernel `_split_kernel` / `best_splits_pallas`
-// (shifu_tpu/ops/pallas_split.py:64,124), which fuses the XLA chain of
-// `models/gbdt._best_splits` (gbdt.py:409-448). Inputs: g, h (N, C, B)
-// f32 with the missing bin last, mask (N, C) f32 (0 = feature off for
-// that node). Output (5, N) f32 rows: best gain, flat index c·(B-1)+b
-// (exact in f32: the wrapper checks C·(B-1) < 2^24), default_left,
-// and column 0's totals g_tot, h_tot.
+// (shifu_tpu/ops/pallas_split.py:64,144), which fuses the XLA chain of
+// `models/gbdt._best_splits` (gbdt.py:380-448). Inputs: g, h (N, C, B)
+// f32 with the missing bin last, and a feature mask of M rows (M
+// dividing N: node i reads row i / (N/M); 0 = feature off). Outputs,
+// each (N,): feature and bin int32, gain f32, default_left one byte
+// (0/1, a torch.bool), and column 0's totals g_tot, h_tot f32. One
+// launch writes them all.
 //
 // Semantics, each of which lands in the saved model file:
 // - per column, a sequential cumsum over the B-1 main bins; the split
@@ -16,31 +17,45 @@
 //   default_left = gain_left >= gain_right, taken BEFORE the masks;
 // - a side with hess sum < min_inst scores -inf, as do masked-off
 //   features and the last main bin (a split there sends every row left);
-// - the best gain wins; ties go to the EARLIEST flat index, across
-//   columns too (jnp.argmax's first-occurrence rule); NaN ranks above
-//   every number, as in torch.argmax / jnp.argmax;
+// - the best gain wins; ties go to the EARLIEST flat index c·(B-1)+b,
+//   across columns too (jnp.argmax's first-occurrence rule); NaN ranks
+//   above every number, as in torch.argmax / jnp.argmax;
 // - an all-masked node (every gain -inf) resolves to flat index 0, whose
 //   default_left is still computed from column 0, bin 0;
 // - g_tot / h_tot are column 0's cumsum total plus its missing bin.
 // The gain is computed with the round-to-nearest intrinsics so the
 // compiler contracts nothing into an FMA: each operation rounds as the
-// plain PyTorch chain's does.
+// plain PyTorch chain's does. Bin j's left sum is ((b0 + b1) + …) + bj
+// in f32, added in that order, so the trees do not depend on the card.
 //
-// The TPU kernel tiles columns and carries the running best across a
-// sequential grid; here one block owns one node (N = 2^depth per tree,
-// T·2^depth for the lockstep forest), one thread owns one column and
-// walks its bins in order, and a warp-shuffle plus shared-memory
-// reduction picks the block's winner. What bounds it on an H100: it
-// reads 8·N·C·B bytes once (458,752 B at N = 32, C = 28, B = 64:
-// 0.14 µs at 3.35 TB/s) and does ~20 flops per cell; at these sizes the
-// launch and the serial per-column walk set its time, not bytes.
+// Design: one block per node, one warp per column (columns stride over
+// at most `warps` warps). A warp stages its column's G and H main bins
+// into shared memory with coalesced loads, one lane turns them into
+// left sums in place (the sequential order admits no parallel scan: it
+// costs B-1 dependent adds, read from shared memory, never from device
+// memory), and then the 32 lanes score the (bin) cells in parallel, each
+// lane keeping its first best. A shuffle argmax with the `beats` order
+// and one pass over the warp winners in shared memory pick the node's
+// split. A column longer than a warp's share of shared memory is walked
+// in segments twice: once for its totals, once for the gains. Masked-off
+// columns other than column 0 can never win (their gains are -inf and
+// column 0, bin 0 always holds a -inf candidate of a lower index), so
+// their warps skip them. What bounds it on an H100: it reads 8·N·C·B
+// bytes once (458,752 B at N = 32, C = 28, B = 64: 0.14 µs at 3.35
+// TB/s) and does ~24 operations per cell; at the builders' sizes the
+// launch, a column's load latency and its B-1 dependent adds set its
+// time, not bytes.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int MAX_THREADS = 1024;
+constexpr int MAX_WARPS = 32;
+constexpr int SMEM_BUDGET = 40960;  // dynamic bytes: below the 48 KB that
+                                    // needs no opt-in attribute
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float neg_inf() {
   return __uint_as_float(0xff800000u);
@@ -49,7 +64,7 @@ __device__ __forceinline__ float neg_inf() {
 struct Best {
   float gain;
   int idx;
-  float dl;
+  int dl;
 };
 
 // a beats b: NaN above numbers, then the greater gain, then the lower index
@@ -58,6 +73,30 @@ __device__ __forceinline__ bool beats(const Best& a, const Best& b) {
   if (an != bn) return an;
   if (!an && a.gain != b.gain) return a.gain > b.gain;
   return a.idx < b.idx;
+}
+
+__device__ __forceinline__ Best shfl_best(const Best& v, int src_or_off,
+                                          bool down) {
+  Best o;
+  if (down) {
+    o.gain = __shfl_down_sync(FULL, v.gain, src_or_off);
+    o.idx = __shfl_down_sync(FULL, v.idx, src_or_off);
+    o.dl = __shfl_down_sync(FULL, v.dl, src_or_off);
+  } else {
+    o.gain = __shfl_sync(FULL, v.gain, src_or_off);
+    o.idx = __shfl_sync(FULL, v.idx, src_or_off);
+    o.dl = __shfl_sync(FULL, v.dl, src_or_off);
+  }
+  return o;
+}
+
+// the warp's best in lane 0 (ties to the lower index, as `beats` orders)
+__device__ __forceinline__ Best warp_best(Best best) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const Best o = shfl_best(best, off, true);
+    if (beats(o, best)) best = o;
+  }
+  return best;
 }
 
 __device__ __forceinline__ float gain_of(float gl, float hl, float g_tot,
@@ -71,81 +110,128 @@ __device__ __forceinline__ float gain_of(float gl, float hl, float g_tot,
   return __fsub_rn(__fadd_rn(left, right), parent);
 }
 
-__global__ void __launch_bounds__(MAX_THREADS)
+// Stage main bins [base, base + len) of a column into the warp's buffers
+// and turn them into left sums in place, carrying lane 0's running sums
+// (sg, sh) in from the previous segment. Every lane returns after the
+// sums are in shared memory.
+__device__ __forceinline__ void stage_sums(const float* __restrict__ gc,
+                                           const float* __restrict__ hc,
+                                           float* bg, float* bh, int base,
+                                           int len, int lane, float& sg,
+                                           float& sh) {
+  __syncwarp();  // the previous segment's readers are done with it
+  for (int j = lane; j < len; j += 32) {
+    bg[j] = gc[base + j];
+    bh[j] = hc[base + j];
+  }
+  __syncwarp();
+  if (lane == 0) {
+    int j = 0;
+#pragma unroll 4
+    for (; j + 4 <= len; j += 4) {
+      float4 a = *reinterpret_cast<const float4*>(bg + j);
+      float4 d = *reinterpret_cast<const float4*>(bh + j);
+      a.x = sg = __fadd_rn(sg, a.x);
+      d.x = sh = __fadd_rn(sh, d.x);
+      a.y = sg = __fadd_rn(sg, a.y);
+      d.y = sh = __fadd_rn(sh, d.y);
+      a.z = sg = __fadd_rn(sg, a.z);
+      d.z = sh = __fadd_rn(sh, d.z);
+      a.w = sg = __fadd_rn(sg, a.w);
+      d.w = sh = __fadd_rn(sh, d.w);
+      *reinterpret_cast<float4*>(bg + j) = a;
+      *reinterpret_cast<float4*>(bh + j) = d;
+    }
+    for (; j < len; ++j) {
+      bg[j] = sg = __fadd_rn(sg, bg[j]);
+      bh[j] = sh = __fadd_rn(sh, bh[j]);
+    }
+  }
+  __syncwarp();
+}
+
+struct Out {
+  int32_t* feature;
+  int32_t* bin;
+  float* gain;
+  uint8_t* default_left;
+  float* g_tot;
+  float* h_tot;
+};
+
+__global__ void __launch_bounds__(MAX_WARPS * 32)
 best_splits_kernel(const float* __restrict__ g,     // (n, c, b)
                    const float* __restrict__ h,
-                   const float* __restrict__ mask,  // (n, c)
-                   float* __restrict__ out,         // (5, n)
-                   int n, int c, int b, float lam, float min_inst) {
-  __shared__ Best s_best[MAX_THREADS / 32];
-  __shared__ float s_tot[2];
+                   const float* __restrict__ mask,  // (n / per_row, c)
+                   int per_row, Out out, int c, int b, int seg, float lam,
+                   float min_inst) {
+  extern __shared__ float4 smem4[];  // per warp: seg sums of G, then of H
+  __shared__ Best s_best[MAX_WARPS];
   const int node = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_warps = blockDim.x >> 5;
   const int bm = b - 1;
-  const float* gn = g + (size_t)node * c * b;
-  const float* hn = h + (size_t)node * c * b;
+  const int n_seg = (bm + seg - 1) / seg;
+  float* bg = reinterpret_cast<float*>(smem4) + (size_t)warp * 2 * seg;
+  float* bh = bg + seg;
+  const float* mrow = mask + (size_t)(node / per_row) * c;
 
-  Best best{neg_inf(), 0x7fffffff, 0.f};
-  for (int col = threadIdx.x; col < c; col += blockDim.x) {
-    const float* gc = gn + (size_t)col * b;
-    const float* hc = hn + (size_t)col * b;
+  Best best{neg_inf(), INT_MAX, 0};
+  for (int col = warp; col < c; col += n_warps) {
+    const bool on = mrow[col] > 0.f;
+    if (!on && col != 0) continue;  // -inf everywhere: never the winner
+    const float* gc = g + ((size_t)node * c + col) * b;
+    const float* hc = h + ((size_t)node * c + col) * b;
     const float g_miss = gc[bm], h_miss = hc[bm];
-    float gl = 0.f, hl = 0.f;
-    for (int j = 0; j < bm; ++j) {
-      gl = __fadd_rn(gl, gc[j]);
-      hl = __fadd_rn(hl, hc[j]);
-    }
-    const float g_tot = __fadd_rn(gl, g_miss);
-    const float h_tot = __fadd_rn(hl, h_miss);
-    if (col == 0) {
-      s_tot[0] = g_tot;
-      s_tot[1] = h_tot;
+    float sg = 0.f, sh = 0.f;
+    for (int s = 0; s < n_seg; ++s)
+      stage_sums(gc, hc, bg, bh, s * seg, min(seg, bm - s * seg), lane, sg,
+                 sh);
+    const float g_tot = __fadd_rn(__shfl_sync(FULL, sg, 0), g_miss);
+    const float h_tot = __fadd_rn(__shfl_sync(FULL, sh, 0), h_miss);
+    if (col == 0 && lane == 0) {
+      out.g_tot[node] = g_tot;
+      out.h_tot[node] = h_tot;
     }
     const float parent = __fdiv_rn(__fmul_rn(g_tot, g_tot),
                                    __fadd_rn(h_tot, lam));
-    const bool on = mask[(size_t)node * c + col] > 0.f;
-    gl = 0.f;
-    hl = 0.f;
-    for (int j = 0; j < bm; ++j) {
-      gl = __fadd_rn(gl, gc[j]);
-      hl = __fadd_rn(hl, hc[j]);
-      const float g_left = gain_of(__fadd_rn(gl, g_miss),
-                                   __fadd_rn(hl, h_miss), g_tot, h_tot,
-                                   parent, lam, min_inst);
-      const float g_right = gain_of(gl, hl, g_tot, h_tot, parent, lam,
-                                    min_inst);
-      const float dl = (g_left >= g_right) ? 1.f : 0.f;
-      float gain = (isnan(g_left) || isnan(g_right))
-                       ? __uint_as_float(0x7fc00000u)
-                       : fmaxf(g_left, g_right);
-      if (!on || j == bm - 1) gain = neg_inf();
-      const Best cand{gain, col * bm + j, dl};
-      if (beats(cand, best)) best = cand;
+    sg = sh = 0.f;
+    for (int s = 0; s < n_seg; ++s) {
+      const int base = s * seg, len = min(seg, bm - base);
+      if (n_seg > 1) stage_sums(gc, hc, bg, bh, base, len, lane, sg, sh);
+      for (int j = lane; j < len; j += 32) {
+        const float gl = bg[j], hl = bh[j];
+        const float g_left = gain_of(__fadd_rn(gl, g_miss),
+                                     __fadd_rn(hl, h_miss), g_tot, h_tot,
+                                     parent, lam, min_inst);
+        const float g_right = gain_of(gl, hl, g_tot, h_tot, parent, lam,
+                                      min_inst);
+        // torch.maximum's rule: the first NaN operand, bits and all
+        float gain = isnan(g_left)    ? g_left
+                     : isnan(g_right) ? g_right
+                                      : fmaxf(g_left, g_right);
+        if (!on || base + j == bm - 1) gain = neg_inf();
+        // a lane's candidates come in increasing index: keep its first best
+        const Best cand{gain, col * bm + base + j, g_left >= g_right};
+        if (beats(cand, best)) best = cand;
+      }
     }
   }
 
-  // block reduction: warps by shuffle, then the warp winners
-  for (int off = 16; off > 0; off >>= 1) {
-    Best o;
-    o.gain = __shfl_down_sync(0xffffffffu, best.gain, off);
-    o.idx = __shfl_down_sync(0xffffffffu, best.idx, off);
-    o.dl = __shfl_down_sync(0xffffffffu, best.dl, off);
-    if (beats(o, best)) best = o;
-  }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  best = warp_best(best);
   if (lane == 0) s_best[warp] = best;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    const int n_warps = (blockDim.x + 31) / 32;
-    for (int w = 1; w < n_warps; ++w)
-      if (beats(s_best[w], best)) best = s_best[w];
-    // column 0, bin 0 is thread 0's first candidate, so an all -inf node
-    // ends at index 0 (the lower index wins the tie), never at the
-    // initial 0x7fffffff
-    out[node] = best.gain;
-    out[n + node] = (float)best.idx;
-    out[2 * n + node] = best.dl;
-    out[3 * n + node] = s_tot[0];
-    out[4 * n + node] = s_tot[1];
+  if (warp == 0) {
+    best = lane < n_warps ? s_best[lane] : Best{neg_inf(), INT_MAX, 0};
+    best = warp_best(best);
+    // column 0, bin 0 is always a candidate, so an all -inf node ends at
+    // index 0 (the lower index wins the tie), never at INT_MAX
+    if (lane == 0) {
+      out.feature[node] = best.idx / bm;
+      out.bin[node] = best.idx % bm;
+      out.gain[node] = best.gain;
+      out.default_left[node] = (uint8_t)best.dl;
+    }
   }
 }
 
@@ -153,17 +239,29 @@ best_splits_kernel(const float* __restrict__ g,     // (n, c, b)
 
 extern "C" {
 
-// Launches on `stream`: one block of 32·⌈min(C, 1024)/32⌉ threads per
-// node. Returns the cudaError_t of the launch (0 = ok).
+// Launches on `stream`, for the current device: one block of
+// 32·min(C, warps) threads per node, each warp's left sums in
+// SMEM_BUDGET / warps bytes of shared memory. `mask` has n / per_row
+// rows. Returns the cudaError_t of the launch (0 = ok).
 int best_splits_launch(const void* g, const void* h, const void* mask,
-                       void* out, int n, int c, int b, float lam,
-                       float min_inst, void* stream) {
+                       int per_row, void* feature, void* bin, void* gain,
+                       void* default_left, void* g_tot, void* h_tot, int n,
+                       int c, int b, float lam, float min_inst, int warps,
+                       void* stream) {
   if (n <= 0) return 0;
-  const int cols = c < MAX_THREADS ? c : MAX_THREADS;
-  const int threads = ((cols + 31) / 32) * 32;
-  best_splits_kernel<<<n, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)g, (const float*)h, (const float*)mask, (float*)out, n,
-      c, b, lam, min_inst);
+  if (c < 1 || b < 2 || per_row < 1 || n % per_row || warps < 1 ||
+      warps > MAX_WARPS)
+    return (int)cudaErrorInvalidValue;
+  const int w = c < warps ? c : warps;
+  const int bm4 = (b - 1 + 3) / 4 * 4;
+  const int cap = SMEM_BUDGET / (8 * w) / 4 * 4;
+  const int seg = bm4 < cap ? bm4 : cap;
+  const Out out{(int32_t*)feature, (int32_t*)bin,   (float*)gain,
+                (uint8_t*)default_left, (float*)g_tot, (float*)h_tot};
+  best_splits_kernel<<<n, 32 * w, (size_t)8 * w * seg,
+                       (cudaStream_t)stream>>>(
+      (const float*)g, (const float*)h, (const float*)mask, per_row, out, c,
+      b, seg, lam, min_inst);
   return (int)cudaGetLastError();
 }
 

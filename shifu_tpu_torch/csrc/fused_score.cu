@@ -523,14 +523,6 @@ int launch(const float* x, const float* norm, const float* wpack,
            int kt_per_split, int split, cudaStream_t stream) {
   constexpr int BM = 64 * WG;
   constexpr int BYTES = Smem<BM, BN>::BYTES;
-  static bool attr_set = false;  // once per variant: its size is fixed
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_score_kernel<WG, BN>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
-  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(((n + BM - 1) / BM) * ((h8 + BN - 1) / BN), 1, split);
   cfg.blockDim = dim3(128 * WG);
@@ -552,7 +544,23 @@ int launch(const float* x, const float* norm, const float* wpack,
   return (int)cudaGetLastError();
 }
 
+// The variant's shared-memory limit, on the current device: its size is
+// fixed, so once per (device, variant) is enough.
+template <int WG, int BN>
+int prepare() {
+  return (int)cudaFuncSetAttribute(
+      fused_score_kernel<WG, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Smem<64 * WG, BN>::BYTES);
+}
+
 }  // namespace
+
+// Every (warpgroups, BN) variant the plan can pick (`_k1_plan`).
+#define K1_VARIANTS                                                        \
+  K1_CASE(1, 8) K1_CASE(1, 16) K1_CASE(1, 32) K1_CASE(1, 64)               \
+  K1_CASE(1, 128)                                                          \
+  K1_CASE(2, 8) K1_CASE(2, 16) K1_CASE(2, 32) K1_CASE(2, 64)               \
+  K1_CASE(2, 128)
 
 extern "C" {
 
@@ -587,10 +595,18 @@ int fused_score_run(const Launch* p, const void* x, void* out,
 #define K1_CASE(WG, BN)                                                    \
   if (bm == 64 * WG && bn == BN)                                           \
     return launch<WG, BN>(xf, nf, wf, bf, of, n, c, h, h8, kps, split, st);
-  K1_CASE(1, 8) K1_CASE(1, 16) K1_CASE(1, 32) K1_CASE(1, 64)
-  K1_CASE(1, 128)
-  K1_CASE(2, 8) K1_CASE(2, 16) K1_CASE(2, 32) K1_CASE(2, 64)
-  K1_CASE(2, 128)
+  K1_VARIANTS
+#undef K1_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// Sets the shared-memory limit of the (bm, bn) variant on the current
+// device; the wrapper calls it once per (device, variant) before that
+// variant's first launch there. Returns the cudaError_t (0 = ok).
+int fused_score_prepare(int bm, int bn) {
+#define K1_CASE(WG, BN) \
+  if (bm == 64 * WG && bn == BN) return prepare<WG, BN>();
+  K1_VARIANTS
 #undef K1_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -341,23 +341,19 @@ void* kernel_of(int layout) {
 
 extern "C" {
 
-// Once per (layout, shared-memory bytes): raises the kernel's dynamic
-// shared-memory limit to `smem` if it is below (never lowers it: a
-// smaller plan after a larger one still launches) and writes to
-// `grid_cap` the blocks the card holds at once (blocks per SM × SMs),
-// the rows layout's grid.
-int fused_trees_prepare(int layout, int smem, int* grid_cap) {
-  static int limit[2] = {0, 0};
-  if (layout != LAYOUT_ROWS && layout != LAYOUT_WARPS)
+// On the current device, once per (device, layout, shared-memory bytes)
+// (the wrapper keeps the record): sets the layout's dynamic
+// shared-memory limit to `limit` (the most any plan there has asked
+// for, so a smaller plan after a larger one never lowers it) and writes
+// to `grid_cap` the blocks of `smem` bytes the card holds at once
+// (blocks per SM × SMs), the rows layout's grid.
+int fused_trees_prepare(int layout, int limit, int smem, int* grid_cap) {
+  if ((layout != LAYOUT_ROWS && layout != LAYOUT_WARPS) || smem > limit)
     return (int)cudaErrorInvalidValue;
   const void* fn = kernel_of(layout);
-  cudaError_t err;
-  if (smem > limit[layout]) {
-    err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    limit[layout] = smem;
-  }
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+  if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);

@@ -363,11 +363,11 @@ def _apply_level(cfg: TreeConfig, trees, g, h, feature_masks, depth: int):
     """One split search for every node of a level of every tree: the
     (T, P, C, B) histograms flatten to T·P nodes, each tree's feature
     mask riding along per node (`_apply_level` / `_forest_apply_level`
-    of the JAX package), then the fold into the tree arrays."""
+    of the JAX package), then the fold into the tree arrays. The (T, C)
+    masks go to the search as they are: node i reads row i // P."""
     t, p, c, b = g.shape
-    mask2 = torch.repeat_interleave(feature_masks, p, dim=0)  # (T·P, C)
     s = split_op.best_splits(g.reshape(t * p, c, b), h.reshape(t * p, c, b),
-                             mask2, float(cfg.reg_lambda),
+                             feature_masks, float(cfg.reg_lambda),
                              float(cfg.min_instances_per_node))
     _fold_splits(cfg, trees, {k: v.reshape(t, p) for k, v in s.items()},
                  depth)

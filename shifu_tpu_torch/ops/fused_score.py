@@ -218,8 +218,9 @@ def fused_first_layer(values: torch.Tensor, mean: torch.Tensor,
                          f"block on {dev}")
     global launches
     out = torch.empty((n, h), dtype=torch.float32, device=dev)
-    rc = _LIB.fused_score_run(launch, values.data_ptr(), out.data_ptr(),
-                              _build.raw_stream(dev))
+    rc = _build.call_on(dev.index, _LIB.fused_score_run, launch,
+                        values.data_ptr(), out.data_ptr(),
+                        _build.raw_stream(dev))
     if rc:
         _build.check(rc, "fused_score", _LIB.fused_score_error_string)
     launches += 1
@@ -264,7 +265,7 @@ def _launcher(key, values, mean, std, cutoff, w, b, packed, packed_w
                          f"block on {dev}")
     n = values.shape[0]
     plan = _k1_plan(n, c, h)
-    _lib()
+    _prepare(dev, plan.bm, plan.bn)
     launch = _Launch(norm.data_ptr(), wp.data_ptr(), b.data_ptr(), n, c, h,
                      want[0], plan.bm, plan.bn, plan.split)
     entry = (mean, std, w, b, packed, packed_w, ctypes.addressof(launch),
@@ -274,6 +275,15 @@ def _launcher(key, values, mean, std, cutoff, w, b, packed, packed_w
             _launches.clear()
         _launches[key] = entry
     return entry
+
+
+@functools.lru_cache(maxsize=64)
+def _prepare(device: torch.device, bm: int, bn: int) -> None:
+    """The (bm, bn) variant's shared-memory limit, set on `device` once:
+    the attribute is per device and the variant's size is fixed."""
+    lib = _lib()
+    rc = _build.call_on(device.index, lib.fused_score_prepare, bm, bn)
+    _build.check(rc, "fused_score_prepare", lib.fused_score_error_string)
 
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -288,6 +298,8 @@ def _lib() -> ctypes.CDLL:
         p = ctypes.c_void_p
         lib.fused_score_run.argtypes = [p] * 4
         lib.fused_score_run.restype = ctypes.c_int
+        lib.fused_score_prepare.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.fused_score_prepare.restype = ctypes.c_int
         lib.fused_score_error_string.argtypes = [ctypes.c_int]
         lib.fused_score_error_string.restype = ctypes.c_char_p
     _LIB = lib

@@ -262,9 +262,9 @@ def predict_ensemble(nodes: torch.Tensor, valuesT: torch.Tensor,
     out = torch.empty(r, dtype=torch.float32, device=dev)
     leaves = (torch.empty((n_trees, r), dtype=torch.int32, device=dev)
               if return_leaves else None)
-    rc = _LIB.fused_trees_run(
-        launch, valuesT.data_ptr(), out.data_ptr(),
-        leaves.data_ptr() if leaves is not None else None,
+    rc = _build.call_on(
+        dev.index, _LIB.fused_trees_run, launch, valuesT.data_ptr(),
+        out.data_ptr(), leaves.data_ptr() if leaves is not None else None,
         _build.raw_stream(dev))
     if rc:
         _build.check(rc, "fused_trees", _LIB.fused_trees_error_string)
@@ -327,20 +327,26 @@ def _launcher(key, nodes, valuesT, cuts, node_pack, n_trees, kind, loss,
     return entry
 
 
+# (device, layout, smem) → blocks the card holds at once; (device,
+# layout) → the shared-memory limit set there (the largest asked for)
 _prepared: Dict[Tuple[int, int, int], int] = {}
+_limits: Dict[Tuple[int, int], int] = {}
 
 
 def _prepare(lib, device: torch.device, layout: int, smem: int) -> int:
-    """The kernel attribute for `smem` bytes, set once per (device,
-    layout, bytes); returns the blocks the card holds at once."""
-    key = (device.index or 0, layout, smem)
+    """The kernel attribute for `smem` bytes, set on `device` once per
+    (device, layout, bytes) and never lowered there; returns the blocks
+    the card holds at once."""
+    key = (device.index, layout, smem)
     cap = _prepared.get(key)
     if cap is None:
+        limit = max(smem, _limits.get(key[:2], 0))
         out = ctypes.c_int(0)
-        with torch.cuda.device(device):
-            rc = lib.fused_trees_prepare(layout, smem, ctypes.byref(out))
+        rc = _build.call_on(device.index, lib.fused_trees_prepare, layout,
+                            limit, smem, ctypes.byref(out))
         _build.check(rc, "fused_trees_prepare",
                      lib.fused_trees_error_string)
+        _limits[key[:2]] = limit
         cap = _prepared[key] = max(1, out.value)
     return cap
 
@@ -357,7 +363,7 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fused_trees_run.argtypes = [p] * 5
         lib.fused_trees_run.restype = i
-        lib.fused_trees_prepare.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.fused_trees_prepare.argtypes = [i, i, i, ctypes.POINTER(i)]
         lib.fused_trees_prepare.restype = i
         lib.fused_trees_error_string.argtypes = [i]
         lib.fused_trees_error_string.restype = ctypes.c_char_p

@@ -3,11 +3,15 @@
 `shifu_tpu_torch.ops.best_splits.best_splits` on CPU tensors runs its
 plain PyTorch route (the XLA chain of `gbdt._best_splits`, line for
 line); it is held against the JAX package's `_best_splits` (XLA chain)
-and `best_splits_pallas` in interpret mode. feature, bin and
+and `best_splits_pallas` in interpret mode, with the feature mask as a
+(C,) vector, a forest's (T, C) rows or one row a node. feature, bin and
 default_left must match exactly — they are written into the saved model
 file; gain within rtol 1e-5, g_tot / h_tot within rtol 1e-6 (the
 cumsums add in other orders).
 """
+
+import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +22,11 @@ from shifu_tpu.models import gbdt as jgbdt
 from shifu_tpu.models.gbdt import TreeConfig
 from shifu_tpu.ops import pallas_split
 from shifu_tpu_torch.ops import best_splits as bs
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import chip_smoke as cs  # noqa: E402
 
 LAM, MIN_INST = 1.0, 2.0
 
@@ -125,6 +134,70 @@ def test_last_main_bin_is_never_chosen():
     g, h = _hists(6, n=8, b=4)
     got = _port(g, h, np.ones(g.shape[1], np.float32))
     assert (got["bin"] < 2).all()
+
+
+@pytest.mark.parametrize("form", ["vector", "forest", "per_node"])
+def test_plain_k5_mask_forms_match_jax(form):
+    """A (C,) mask, a forest's (T, C) masks (node i reads row i // P) and
+    per-node (N, C) masks on the plain route, against both JAX routes
+    fed the mask expanded to (N, C) with `jnp.repeat`."""
+    t, p = 3, 4
+    g, h = _hists(7, n=t * p, c=6, b=9)
+    rng = np.random.default_rng(7)
+    rows = {"vector": None, "forest": t, "per_node": t * p}[form]
+    if rows is None:
+        mask = (rng.random(6) < 0.7).astype(np.float32)
+        full = jnp.repeat(jnp.asarray(mask)[None], t * p, axis=0)
+    else:
+        mask = (rng.random((rows, 6)) < 0.7).astype(np.float32)
+        mask[0] = 0.0                    # the first node(s): all masked
+        full = jnp.repeat(jnp.asarray(mask), t * p // rows, axis=0)
+    got = _port(g, h, mask)
+    _check(got, _xla(g, h, np.asarray(full)))
+    _check(got, _pallas(g, h, np.asarray(full)))
+    if rows is not None:
+        assert (got["gain"][:t * p // rows] == -np.inf).all()
+
+
+def test_output_dtypes_and_shapes():
+    """The dict the builders fold: feature and bin int32, gain f32,
+    default_left bool, g_tot and h_tot f32, each (N,)."""
+    g, h = _hists(8, n=5)
+    out = bs.best_splits(torch.as_tensor(g), torch.as_tensor(h),
+                         torch.ones(g.shape[1]), LAM, MIN_INST)
+    want = {"feature": torch.int32, "bin": torch.int32,
+            "gain": torch.float32, "default_left": torch.bool,
+            "g_tot": torch.float32, "h_tot": torch.float32}
+    assert {k: v.dtype for k, v in out.items()} == want
+    assert all(tuple(v.shape) == (5,) for v in out.values())
+
+
+@pytest.mark.parametrize("shape", [(4, 5), (5, 5), (6, 4), (1, 1, 5)])
+def test_refuses_a_mask_whose_rows_do_not_divide_n(shape):
+    g, h = (torch.zeros((6, 5, 8)) for _ in range(2))
+    with pytest.raises(ValueError, match="feature_mask"):
+        bs.best_splits(g, h, torch.ones(shape), LAM, MIN_INST)
+
+
+def test_sequential_reference_adds_bin_by_bin():
+    """`chip_smoke.k5_sequential`, the reference the card's output is held
+    to bit for bit: its left sums are f32 adds in bin order (a numpy
+    float32 loop gives the same totals), and on integer-valued
+    histograms, where every order of adds is exact, it equals the plain
+    version in every output."""
+    g, h = _hists(9, n=6, c=5, b=33)
+    mask = np.ones((2, 5), np.float32)
+    seq = cs.k5_sequential(torch.as_tensor(g), torch.as_tensor(h),
+                           torch.as_tensor(mask), LAM, MIN_INST)
+    sg = np.zeros(6, np.float32)
+    for j in range(32):
+        sg = (sg + g[:, 0, j]).astype(np.float32)
+    np.testing.assert_array_equal(seq["g_tot"].numpy(), sg + g[:, 0, 32])
+    gi, hi = _hists(9, n=6, c=5, b=33, integer=True)
+    args = (torch.as_tensor(gi), torch.as_tensor(hi), torch.as_tensor(mask),
+            LAM, MIN_INST)
+    assert cs.same_bits(cs.k5_sequential(*args),
+                        bs.best_splits_plain(*args)) == []
 
 
 def test_refuses_a_device_without_a_kernel():

@@ -92,3 +92,41 @@ def test_source_scan_finds_no_jax_or_jax_package_import():
             text = f.read()
         assert not _JAX_IMPORT.search(text), f"{path} imports jax"
         assert not _PKG_IMPORT.search(text), f"{path} imports shifu_tpu"
+
+
+# a `static` declaration that is not a constant: process-wide state that
+# outlives a launch and knows nothing of the device it was set on
+_MUTABLE_STATIC = re.compile(r"\bstatic\b(?!\s+(constexpr|const)\b)")
+
+
+def _code(text):
+    """C++ source without its comments and string literals."""
+    text = re.sub(r"/\*.*?\*/", " ", text, flags=re.S)
+    text = re.sub(r"//[^\n]*", "", text)
+    return re.sub(r'"(\\.|[^"\\])*"', '""', text)
+
+
+def test_kernel_sources_keep_no_mutable_static_state():
+    """A kernel attribute or an occupancy is per device: the wrappers set
+    and read them once per card from Python (`fused_score._prepare`,
+    `fused_trees._prepare`, `level_hist._max_clusters`), so no CUDA
+    source of the port may keep a mutable `static` that would remember
+    the first card only."""
+    for bad in ("  static bool attr_set = false;",
+                "static int limit[2] = {0, 0};",
+                "  static __device__ int hits;"):
+        assert _MUTABLE_STATIC.search(_code(bad)), bad
+    for fine in ("static constexpr int BYTES = 4;", "static_cast<int>(x)",
+                 "static const float K = 1.f;", "// static int note;",
+                 "static_assert(true);"):
+        assert not _MUTABLE_STATIC.search(_code(fine)), fine
+    csrc = os.path.join(REPO, "shifu_tpu_torch", "csrc")
+    files = sorted(f for f in os.listdir(csrc)
+                   if f.endswith((".cu", ".cuh")))
+    assert len(files) >= 5, files
+    for f in files:
+        with open(os.path.join(csrc, f)) as fh:
+            code = _code(fh.read())
+        for i, line in enumerate(code.splitlines(), 1):
+            assert not _MUTABLE_STATIC.search(line), \
+                f"{f}:{i}: mutable static state: {line.strip()}"

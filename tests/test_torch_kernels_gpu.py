@@ -6,6 +6,7 @@ JAX, so on a machine without it run it as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_gpu.py
 """
 
+import math
 import os
 import sys
 
@@ -328,18 +329,172 @@ def test_level_hist_second_card(cuda):
         _exact(fused, binsT, slot, grad, hess, 32, cs.GBT_BINS)
 
 
+def _k5_cases():
+    """(N, C, B) over N ∈ {1, 32, 320, 640}, C ∈ {1, 28, 33, 300} and
+    B ∈ {2, 3, 64, 65, 256, 1024}, without the products above 2^24
+    cells (their histograms and references run to gigabytes)."""
+    return [(n, c, b) for n in (1, 32, 320, 640) for c in (1, 28, 33, 300)
+            for b in (2, 3, 64, 65, 256, 1024) if n * c * b <= 2 ** 24]
+
+
+def _k5_mask_rows(n):
+    """A (C,) mask at N = 1, a forest's (T, C) masks at N = 320 and 640
+    (10 and 20 trees), a mask a node otherwise."""
+    return {1: None, 320: 10, 640: 20}.get(n, n)
+
+
 @pytest.mark.parametrize("n", [1, 32, 640])
 def test_best_splits_matches_plain(cuda, n):
+    """Integer-valued histograms (every order of adds exact): every
+    output equals the plain version bit for bit, and one call is one
+    launch."""
     g, h, mask = cs.split_inputs(n, n, cuda)
     before = best_splits.launches
     got = best_splits.best_splits(g, h, mask, 1.0, 2.0)
     want = best_splits.best_splits_plain(g, h, mask, 1.0, 2.0)
     torch.cuda.synchronize()
     assert best_splits.launches == before + 1
-    for k in ("feature", "bin", "default_left"):
-        assert torch.equal(got[k], want[k]), k
-    for k in ("gain", "g_tot", "h_tot"):
-        torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=0.0)
+    assert cs.same_bits(got, want) == []
+
+
+@pytest.mark.parametrize("n,c,b", _k5_cases())
+def test_best_splits_shapes_bit_exact(cuda, n, c, b):
+    """Real-valued histograms against the sequential-f32 reference and
+    integer-valued ones against the plain version, bit for bit, over
+    columns that one warp, several warps or many rounds of warps own,
+    and columns of 1 to 1,023 main bins (several shared-memory
+    segments)."""
+    m = _k5_mask_rows(n)
+    for integer in (False, True):
+        g, h, mask = cs.split_inputs(n + c + b, n, cuda, c, b, integer, m)
+        got = best_splits.best_splits(g, h, mask, 1.0, 2.0)
+        want = (best_splits.best_splits_plain if integer
+                else cs.k5_sequential)(g, h, mask, 1.0, 2.0)
+        assert cs.same_bits(got, want) == [], (integer, tuple(mask.shape))
+
+
+@pytest.mark.parametrize("c", [40, 300])
+def test_best_splits_tie_across_warps_goes_to_the_earlier_column(cuda, c):
+    """Two identical columns, the only ones switched on, owned by
+    different warps (3 and 20) or by one warp in different rounds (3 and
+    35, with 16 warps a block): their gains tie exactly and the earlier
+    column wins."""
+    for first, second in ((3, 20), (3, 35)):
+        g, h, _ = cs.split_inputs(c, 8, cuda, c, 64, False)
+        g[:, second] = g[:, first]
+        h[:, second] = h[:, first]
+        mask = torch.zeros((8, c), device=cuda)
+        mask[:, first] = mask[:, second] = 1.0
+        got = best_splits.best_splits(g, h, mask, 1.0, 2.0)
+        assert bool((got["feature"] == first).all()), (first, second)
+        assert cs.same_bits(got, cs.k5_sequential(g, h, mask, 1.0,
+                                                  2.0)) == []
+
+
+def test_best_splits_all_masked_node(cuda):
+    """A node with every feature off resolves to index 0 with gain -inf
+    and column 0, bin 0's default_left; column 0's totals all the
+    same."""
+    g, h, mask = cs.split_inputs(3, 32, cuda, 28, 64, False)
+    mask[5] = 0.0
+    got = best_splits.best_splits(g, h, mask, 1.0, 2.0)
+    want = cs.k5_sequential(g, h, mask, 1.0, 2.0)
+    assert cs.same_bits(got, want) == []
+    for node in (0, 5):
+        assert got["gain"][node] == -math.inf
+        assert got["feature"][node] == 0 and got["bin"][node] == 0
+
+
+def test_best_splits_nan_gains(cuda):
+    """λ = 0 and empty bins with min_inst = 0: 0/0 gains are NaN, rank
+    above every number and keep torch.maximum's NaN."""
+    g, h, mask = cs.split_inputs(4, 32, cuda, 28, 64)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    empty = torch.rand(g.shape, generator=gen, device=cuda) < 0.3
+    g[empty] = 0.0
+    h[empty] = 0.0
+    got = best_splits.best_splits(g, h, mask, 0.0, 0.0)
+    want = best_splits.best_splits_plain(g, h, mask, 0.0, 0.0)
+    assert bool(torch.isnan(want["gain"]).any())
+    assert cs.same_bits(got, want) == []
+    assert cs.same_bits(got, cs.k5_sequential(g, h, mask, 0.0, 0.0)) == []
+
+
+@pytest.mark.parametrize("min_inst", [2.0, 200.0, 1e9])
+def test_best_splits_min_inst(cuda, min_inst):
+    """Sides lighter than min_inst score -inf: some cells, most of them,
+    or every one (the node then resolves to index 0)."""
+    g, h, mask = cs.split_inputs(5, 32, cuda, 28, 64)
+    got = best_splits.best_splits(g, h, mask, 1.0, min_inst)
+    want = best_splits.best_splits_plain(g, h, mask, 1.0, min_inst)
+    assert cs.same_bits(got, want) == []
+    if min_inst == 1e9:
+        assert bool((got["gain"] == -math.inf).all())
+        assert bool((got["feature"] == 0).all())
+
+
+def test_best_splits_forest_masks_equal_per_node_masks(cuda):
+    """(T, C) masks give what the same masks repeated to one row a node
+    give: node i reads row i // P."""
+    g, h, masks = cs.split_inputs(6, 640, cuda, 28, 64, False, 20)
+    per_node = torch.repeat_interleave(masks, 32, dim=0)
+    got = best_splits.best_splits(g, h, masks, 1.0, 2.0)
+    assert cs.same_bits(got, best_splits.best_splits(
+        g, h, per_node, 1.0, 2.0)) == []
+
+
+def test_best_splits_warps_and_launch_count(cuda):
+    """Every warps-a-block setting gives the same bits; each call is one
+    launch."""
+    g, h, mask = cs.split_inputs(7, 320, cuda, 300, 256, False, 10)
+    want = cs.k5_sequential(g, h, mask, 1.0, 2.0)
+    for warps in (1, 8, 16, 32):
+        before = best_splits.launches
+        got = best_splits._launch(g, h, mask, 10, 1.0, 2.0, warps)
+        assert best_splits.launches == before + 1
+        assert cs.same_bits(got, want) == [], warps
+
+
+def test_split_step_is_one_kernel(cuda):
+    """A level's split search (`gbdt._apply_level` with the fold set
+    aside) launches exactly one CUDA kernel, K5."""
+    cfg = gbdt.TreeConfig(max_depth=6, n_bins=cs.GBT_BINS)
+    counts = cs.split_step_launches(cfg)
+    assert counts["search"]["launches"] == 1, counts
+    assert "best_splits_kernel" in counts["search"]["kernels"][0], counts
+    assert counts["fold"]["launches"] > 0
+
+
+def test_serving_and_split_kernels_on_every_card(cuda):
+    """K1, K2 and K5 launch on every card present with card 0 current:
+    each sets its kernel attributes on the tensors' card and launches
+    there (needs two cards; skips on one)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("one card: nothing to launch on a second one")
+    for i in range(torch.cuda.device_count() - 1, -1, -1):
+        dev = torch.device("cuda", i)
+        x, mean, std, w, b = cs.k1_inputs(20 + i, 512, dev)
+        nodes, vT, cuts, kw = cs.k2_inputs(20 + i, 512, dev)
+        g, h, mask = cs.split_inputs(20 + i, 640, dev, mask_rows=20)
+        with torch.cuda.device(0):
+            k1 = fused_score.fused_first_layer(
+                x, mean, std, cs.CUTOFF, w, b,
+                packed=fused_score.pack_norm(mean, std, cs.CUTOFF),
+                packed_w=fused_score.pack_weights(w))
+            k2, leaves = fused_trees.predict_ensemble(
+                nodes, vT, cuts, **kw, return_leaves=True)
+            k5 = best_splits.best_splits(g, h, mask, 1.0, 2.0)
+            assert torch.cuda.current_device() == 0
+        torch.cuda.synchronize(dev)
+        assert k1.device == k2.device == k5["gain"].device == dev
+        torch.testing.assert_close(k1, fused_score.fused_first_layer_plain(
+            x, mean, std, cs.CUTOFF, w, b), rtol=1e-5, atol=1e-5)
+        want, want_leaves = fused_trees.predict_ensemble_plain(
+            nodes, vT, cuts, **kw, return_leaves=True)
+        assert torch.equal(leaves, want_leaves)
+        torch.testing.assert_close(k2, want, rtol=1e-6, atol=1e-6)
+        assert cs.same_bits(k5, best_splits.best_splits_plain(
+            g, h, mask, 1.0, 2.0)) == []
 
 
 def test_rf_and_first_gbt_round_on_card_bit_exact_with_cpu(cuda):
@@ -367,6 +522,14 @@ def test_training_kernels_refuse_what_they_do_not_take(cuda):
     g = torch.zeros((2, 3, 4), device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError):
         best_splits.best_splits(g, g, torch.ones(3, device=cuda), 1.0, 1.0)
+    g = g.float()
+    for mask in (torch.ones(3, device=cuda, dtype=torch.float64),
+                 torch.ones((3, 2), device=cuda).T):
+        with pytest.raises(TypeError, match="feature_mask"):
+            best_splits.best_splits(g, g, mask, 1.0, 1.0)
+    with pytest.raises(ValueError, match="feature_mask"):
+        best_splits.best_splits(g, g, torch.ones((3, 3), device=cuda), 1.0,
+                                1.0)
 
 
 def test_level_loop_never_waits_for_the_card(cuda):
