@@ -28,23 +28,28 @@
 // plain PyTorch chain's does. Bin j's left sum is ((b0 + b1) + …) + bj
 // in f32, added in that order, so the trees do not depend on the card.
 //
-// Design: one block per node, one warp per column (columns stride over
-// at most `warps` warps). A warp stages its column's G and H main bins
-// into shared memory with coalesced loads, one lane turns them into
-// left sums in place (the sequential order admits no parallel scan: it
-// costs B-1 dependent adds, read from shared memory, never from device
-// memory), and then the 32 lanes score the (bin) cells in parallel, each
-// lane keeping its first best. A shuffle argmax with the `beats` order
-// and one pass over the warp winners in shared memory pick the node's
-// split. A column longer than a warp's share of shared memory is walked
-// in segments twice: once for its totals, once for the gains. Masked-off
-// columns other than column 0 can never win (their gains are -inf and
-// column 0, bin 0 always holds a -inf candidate of a lower index), so
-// their warps skip them. What bounds it on an H100: it reads 8·N·C·B
-// bytes once (458,752 B at N = 32, C = 28, B = 64: 0.14 µs at 3.35
-// TB/s) and does ~24 operations per cell; at the builders' sizes the
-// launch, a column's load latency and its B-1 dependent adds set its
-// time, not bytes.
+// Design: one block per node; columns go in tiles of whole columns
+// that fit shared memory (all 28 of the HIGGS shape at B = 64). The
+// block copies a tile's G and H main bins into rows of odd stride, a
+// few cells a thread in flight at once; one THREAD a column then turns
+// its row into left sums in place (the sequential order admits no
+// parallel scan, so the B-1 dependent adds run in parallel across
+// columns, each thread reading a bank of its own) and the column's
+// totals and parent score; then the block's threads score the tile's
+// (column, bin) cells, each keeping its best by the `beats` order (a
+// total order, so the order of arrival does not matter), and a shuffle
+// argmax and one pass over the warp winners in shared memory pick the
+// node's split. Where not one column fits, or whole columns would walk
+// the node's bins more than twice as often, a tile holds at most a
+// warp's columns in segments, summed twice: once for the totals, once
+// for the scores (`plan`). Masked-off columns other than column 0 can
+// never win (their gains are -inf and column 0, bin 0 always holds a
+// -inf candidate of a lower index), so they are neither summed nor
+// scored. What bounds it on an H100: it reads 8·N·C·B bytes once
+// (458,752 B at N = 32, C = 28, B = 64: 0.14 µs at 3.35 TB/s) and does
+// ~24 operations per cell, four of them IEEE divisions; at the
+// builders' sizes the launch, the loads' latency, the B-1 dependent
+// adds and the divisions set its time, not bytes.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -56,6 +61,7 @@ constexpr int MAX_WARPS = 32;
 constexpr int SMEM_BUDGET = 40960;  // dynamic bytes: below the 48 KB that
                                     // needs no opt-in attribute
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int COPY = 4;  // cells a thread's stage loop keeps in flight
 
 __device__ __forceinline__ float neg_inf() {
   return __uint_as_float(0xff800000u);
@@ -75,25 +81,12 @@ __device__ __forceinline__ bool beats(const Best& a, const Best& b) {
   return a.idx < b.idx;
 }
 
-__device__ __forceinline__ Best shfl_best(const Best& v, int src_or_off,
-                                          bool down) {
-  Best o;
-  if (down) {
-    o.gain = __shfl_down_sync(FULL, v.gain, src_or_off);
-    o.idx = __shfl_down_sync(FULL, v.idx, src_or_off);
-    o.dl = __shfl_down_sync(FULL, v.dl, src_or_off);
-  } else {
-    o.gain = __shfl_sync(FULL, v.gain, src_or_off);
-    o.idx = __shfl_sync(FULL, v.idx, src_or_off);
-    o.dl = __shfl_sync(FULL, v.dl, src_or_off);
-  }
-  return o;
-}
-
 // the warp's best in lane 0 (ties to the lower index, as `beats` orders)
 __device__ __forceinline__ Best warp_best(Best best) {
   for (int off = 16; off > 0; off >>= 1) {
-    const Best o = shfl_best(best, off, true);
+    const Best o{__shfl_down_sync(FULL, best.gain, off),
+                 __shfl_down_sync(FULL, best.idx, off),
+                 __shfl_down_sync(FULL, best.dl, off)};
     if (beats(o, best)) best = o;
   }
   return best;
@@ -110,46 +103,6 @@ __device__ __forceinline__ float gain_of(float gl, float hl, float g_tot,
   return __fsub_rn(__fadd_rn(left, right), parent);
 }
 
-// Stage main bins [base, base + len) of a column into the warp's buffers
-// and turn them into left sums in place, carrying lane 0's running sums
-// (sg, sh) in from the previous segment. Every lane returns after the
-// sums are in shared memory.
-__device__ __forceinline__ void stage_sums(const float* __restrict__ gc,
-                                           const float* __restrict__ hc,
-                                           float* bg, float* bh, int base,
-                                           int len, int lane, float& sg,
-                                           float& sh) {
-  __syncwarp();  // the previous segment's readers are done with it
-  for (int j = lane; j < len; j += 32) {
-    bg[j] = gc[base + j];
-    bh[j] = hc[base + j];
-  }
-  __syncwarp();
-  if (lane == 0) {
-    int j = 0;
-#pragma unroll 4
-    for (; j + 4 <= len; j += 4) {
-      float4 a = *reinterpret_cast<const float4*>(bg + j);
-      float4 d = *reinterpret_cast<const float4*>(bh + j);
-      a.x = sg = __fadd_rn(sg, a.x);
-      d.x = sh = __fadd_rn(sh, d.x);
-      a.y = sg = __fadd_rn(sg, a.y);
-      d.y = sh = __fadd_rn(sh, d.y);
-      a.z = sg = __fadd_rn(sg, a.z);
-      d.z = sh = __fadd_rn(sh, d.z);
-      a.w = sg = __fadd_rn(sg, a.w);
-      d.w = sh = __fadd_rn(sh, d.w);
-      *reinterpret_cast<float4*>(bg + j) = a;
-      *reinterpret_cast<float4*>(bh + j) = d;
-    }
-    for (; j < len; ++j) {
-      bg[j] = sg = __fadd_rn(sg, bg[j]);
-      bh[j] = sh = __fadd_rn(sh, bh[j]);
-    }
-  }
-  __syncwarp();
-}
-
 struct Out {
   int32_t* feature;
   int32_t* bin;
@@ -159,61 +112,160 @@ struct Out {
   float* h_tot;
 };
 
+// How a launch walks a node, chosen on the host (`plan`): `ct` columns
+// at a time (a tile), their main bins in segments of `seg`, each
+// column's left sums `stride` floats apart in shared memory (odd, so the
+// threads of the sums read a bank each).
+struct Tile {
+  int ct, seg, stride;
+};
+
+// Left sums of one column's segment, in place: ((s0 + b0) + b1) + …, the
+// bins read eight at a time ahead of their adds.
+__device__ __forceinline__ void left_sums(float* rg, float* rh, int len,
+                                          float& sg, float& sh) {
+  int j = 0;
+  for (; j + 8 <= len; j += 8) {
+    float vg[8], vh[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      vg[q] = rg[j + q];
+      vh[q] = rh[j + q];
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      rg[j + q] = sg = __fadd_rn(sg, vg[q]);
+      rh[j + q] = sh = __fadd_rn(sh, vh[q]);
+    }
+  }
+  for (; j < len; ++j) {
+    rg[j] = sg = __fadd_rn(sg, rg[j]);
+    rh[j] = sh = __fadd_rn(sh, rh[j]);
+  }
+}
+
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 best_splits_kernel(const float* __restrict__ g,     // (n, c, b)
                    const float* __restrict__ h,
                    const float* __restrict__ mask,  // (n / per_row, c)
-                   int per_row, Out out, int c, int b, int seg, float lam,
+                   int per_row, Out out, int c, int b, Tile tl, float lam,
                    float min_inst) {
-  extern __shared__ float4 smem4[];  // per warp: seg sums of G, then of H
+  // [ct][stride] left sums of G, the same of H, then per tile column its
+  // g_tot, h_tot, g_miss, h_miss, parent score and state (1: on, 0:
+  // column 0 switched off, -1: neither, never summed nor scored)
+  extern __shared__ float smem[];
   __shared__ Best s_best[MAX_WARPS];
   const int node = blockIdx.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n_warps = blockDim.x >> 5;
-  const int bm = b - 1;
-  const int n_seg = (bm + seg - 1) / seg;
-  float* bg = reinterpret_cast<float*>(smem4) + (size_t)warp * 2 * seg;
-  float* bh = bg + seg;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int threads = blockDim.x, n_warps = threads >> 5;
+  const int bm = b - 1, ct = tl.ct, stride = tl.stride;
+  const int n_seg = (bm + tl.seg - 1) / tl.seg;
+  float* sums_g = smem;
+  float* sums_h = sums_g + ct * stride;
+  float* tot = sums_h + ct * stride;
+  float* state = tot + 5 * ct;
   const float* mrow = mask + (size_t)(node / per_row) * c;
+  const float* gn = g + (size_t)node * c * b;
+  const float* hn = h + (size_t)node * c * b;
 
   Best best{neg_inf(), INT_MAX, 0};
-  for (int col = warp; col < c; col += n_warps) {
-    const bool on = mrow[col] > 0.f;
-    if (!on && col != 0) continue;  // -inf everywhere: never the winner
-    const float* gc = g + ((size_t)node * c + col) * b;
-    const float* hc = h + ((size_t)node * c + col) * b;
-    const float g_miss = gc[bm], h_miss = hc[bm];
-    float sg = 0.f, sh = 0.f;
-    for (int s = 0; s < n_seg; ++s)
-      stage_sums(gc, hc, bg, bh, s * seg, min(seg, bm - s * seg), lane, sg,
-                 sh);
-    const float g_tot = __fadd_rn(__shfl_sync(FULL, sg, 0), g_miss);
-    const float h_tot = __fadd_rn(__shfl_sync(FULL, sh, 0), h_miss);
-    if (col == 0 && lane == 0) {
-      out.g_tot[node] = g_tot;
-      out.h_tot[node] = h_tot;
-    }
-    const float parent = __fdiv_rn(__fmul_rn(g_tot, g_tot),
-                                   __fadd_rn(h_tot, lam));
-    sg = sh = 0.f;
-    for (int s = 0; s < n_seg; ++s) {
-      const int base = s * seg, len = min(seg, bm - base);
-      if (n_seg > 1) stage_sums(gc, hc, bg, bh, base, len, lane, sg, sh);
-      for (int j = lane; j < len; j += 32) {
-        const float gl = bg[j], hl = bh[j];
-        const float g_left = gain_of(__fadd_rn(gl, g_miss),
-                                     __fadd_rn(hl, h_miss), g_tot, h_tot,
-                                     parent, lam, min_inst);
-        const float g_right = gain_of(gl, hl, g_tot, h_tot, parent, lam,
-                                      min_inst);
-        // torch.maximum's rule: the first NaN operand, bits and all
-        float gain = isnan(g_left)    ? g_left
-                     : isnan(g_right) ? g_right
-                                      : fmaxf(g_left, g_right);
-        if (!on || base + j == bm - 1) gain = neg_inf();
-        // a lane's candidates come in increasing index: keep its first best
-        const Best cand{gain, col * bm + base + j, g_left >= g_right};
-        if (beats(cand, best)) best = cand;
+  for (int c0 = 0; c0 < c; c0 += ct) {
+    const int cols = min(ct, c - c0);
+    // with several segments, pass 0 sums each column for its totals
+    // first; pass 1 sums again and scores
+    for (int pass = n_seg > 1 ? 0 : 1; pass < 2; ++pass) {
+      const bool totals = pass == 0 || n_seg == 1;
+      float sg = 0.f, sh = 0.f;  // thread tid's sums of column c0 + tid
+      for (int s = 0; s < n_seg; ++s) {
+        const int base = s * tl.seg, len = min(tl.seg, bm - base);
+        const int n_cells = cols * len;
+        const float* gt = gn + (size_t)c0 * b + base;
+        const float* ht = hn + (size_t)c0 * b + base;
+        // stage: the block copies the tile's (column, bin) cells, COPY a
+        // thread in flight at once
+        for (int e0 = tid; e0 < n_cells; e0 += COPY * threads) {
+          float vg[COPY], vh[COPY];
+          int at[COPY];
+#pragma unroll
+          for (int q = 0; q < COPY; ++q) {
+            const int e = e0 + q * threads;
+            at[q] = -1;
+            if (e < n_cells) {
+              const int k = e / len, j = e - k * len;
+              vg[q] = gt[(size_t)k * b + j];
+              vh[q] = ht[(size_t)k * b + j];
+              at[q] = k * stride + j;
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < COPY; ++q)
+            if (at[q] >= 0) {
+              sums_g[at[q]] = vg[q];
+              sums_h[at[q]] = vh[q];
+            }
+        }
+        if (tid < cols) {
+          const int col = c0 + tid;
+          if (s == 0) state[tid] = mrow[col] > 0.f ? 1.f : col == 0 ? 0.f
+                                                                    : -1.f;
+          if (totals && s == n_seg - 1) {
+            tot[2 * ct + tid] = gn[(size_t)col * b + bm];
+            tot[3 * ct + tid] = hn[(size_t)col * b + bm];
+          }
+        }
+        __syncthreads();
+        // a thread a column adds its bins in order
+        if (tid < cols && state[tid] >= 0.f) {
+          left_sums(sums_g + tid * stride, sums_h + tid * stride, len, sg,
+                    sh);
+          if (totals && s == n_seg - 1) {
+            const float g_tot = __fadd_rn(sg, tot[2 * ct + tid]);
+            const float h_tot = __fadd_rn(sh, tot[3 * ct + tid]);
+            tot[tid] = g_tot;
+            tot[ct + tid] = h_tot;
+            tot[4 * ct + tid] = __fdiv_rn(__fmul_rn(g_tot, g_tot),
+                                          __fadd_rn(h_tot, lam));
+            if (c0 + tid == 0) {
+              out.g_tot[node] = g_tot;
+              out.h_tot[node] = h_tot;
+            }
+          }
+        }
+        __syncthreads();
+        if (pass == 0) continue;
+        // scores: the block's threads over the tile's (column, bin) cells
+        const int dk = threads / len, dj = threads - dk * len;
+        int k = tid / len, j = tid - k * len;
+        for (int e = tid; e < n_cells; e += threads) {
+          const float st = state[k];
+          if (st >= 0.f) {
+            const float gl = sums_g[k * stride + j];
+            const float hl = sums_h[k * stride + j];
+            const float g_tot = tot[k], h_tot = tot[ct + k];
+            const float g_miss = tot[2 * ct + k], h_miss = tot[3 * ct + k];
+            const float parent = tot[4 * ct + k];
+            const float g_left = gain_of(__fadd_rn(gl, g_miss),
+                                         __fadd_rn(hl, h_miss), g_tot,
+                                         h_tot, parent, lam, min_inst);
+            const float g_right = gain_of(gl, hl, g_tot, h_tot, parent,
+                                          lam, min_inst);
+            // torch.maximum's rule: the first NaN operand, bits and all
+            float gain = isnan(g_left)    ? g_left
+                         : isnan(g_right) ? g_right
+                                          : fmaxf(g_left, g_right);
+            if (st == 0.f || base + j == bm - 1) gain = neg_inf();
+            const Best cand{gain, (c0 + k) * bm + base + j,
+                            g_left >= g_right};
+            if (beats(cand, best)) best = cand;
+          }
+          j += dj;
+          k += dk;
+          if (j >= len) {
+            j -= len;
+            ++k;
+          }
+        }
+        __syncthreads();  // the next stage overwrites the sums
       }
     }
   }
@@ -235,14 +287,36 @@ best_splits_kernel(const float* __restrict__ g,     // (n, c, b)
   }
 }
 
+// The tile for C columns of B bins on `threads` threads: whole columns,
+// as many as fit the budget, when that walks the node's bins no more
+// often than segments do; else a warp's worth of columns (at most) in
+// segments that fit, summed twice (totals, then scores).
+Tile plan(int c, int b, int threads) {
+  const int bm = b - 1;
+  const int per_col = 8 * (bm | 1) + 24;  // two odd runs, six per column
+  const int fit = SMEM_BUDGET / per_col;
+  const int ct_one = c < threads ? c : threads;
+  const int ct_seg = ct_one < 32 ? ct_one : 32;
+  if (fit >= 1) {
+    const int ct = fit < ct_one ? fit : ct_one;
+    const int tiles_one = (c + ct - 1) / ct;
+    const int tiles_seg = (c + ct_seg - 1) / ct_seg;
+    if (tiles_one <= 2 * tiles_seg) return Tile{ct, bm, bm | 1};
+  }
+  int stride = (SMEM_BUDGET / ct_seg - 24) / 8;
+  if (!(stride & 1)) --stride;
+  return Tile{ct_seg, stride, stride};
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream`, for the current device: one block of
-// 32·min(C, warps) threads per node, each warp's left sums in
-// SMEM_BUDGET / warps bytes of shared memory. `mask` has n / per_row
-// rows. Returns the cudaError_t of the launch (0 = ok).
+// Launches on `stream`, for the current device: one block per node of
+// `warps` warps (fewer when the node has fewer than 32 cells a warp),
+// the tile from `plan` in at most
+// SMEM_BUDGET bytes of shared memory. `mask` has n / per_row rows.
+// Returns the cudaError_t of the launch (0 = ok).
 int best_splits_launch(const void* g, const void* h, const void* mask,
                        int per_row, void* feature, void* bin, void* gain,
                        void* default_left, void* g_tot, void* h_tot, int n,
@@ -252,16 +326,16 @@ int best_splits_launch(const void* g, const void* h, const void* mask,
   if (c < 1 || b < 2 || per_row < 1 || n % per_row || warps < 1 ||
       warps > MAX_WARPS)
     return (int)cudaErrorInvalidValue;
-  const int w = c < warps ? c : warps;
-  const int bm4 = (b - 1 + 3) / 4 * 4;
-  const int cap = SMEM_BUDGET / (8 * w) / 4 * 4;
-  const int seg = bm4 < cap ? bm4 : cap;
+  const int cell_warps = (int)(((long long)c * (b - 1) + 31) / 32);
+  const int w = cell_warps < warps ? cell_warps : warps;
+  const Tile tl = plan(c, b, 32 * w);
   const Out out{(int32_t*)feature, (int32_t*)bin,   (float*)gain,
                 (uint8_t*)default_left, (float*)g_tot, (float*)h_tot};
-  best_splits_kernel<<<n, 32 * w, (size_t)8 * w * seg,
-                       (cudaStream_t)stream>>>(
+  const size_t smem = sizeof(float) * (2 * (size_t)tl.ct * tl.stride +
+                                       6 * (size_t)tl.ct);
+  best_splits_kernel<<<n, 32 * w, smem, (cudaStream_t)stream>>>(
       (const float*)g, (const float*)h, (const float*)mask, per_row, out, c,
-      b, seg, lam, min_inst);
+      b, tl, lam, min_inst);
   return (int)cudaGetLastError();
 }
 
