@@ -12,15 +12,16 @@ B) G/H histograms (missing bin last) and a (C,) or (M, C) feature mask
 
 Kernel: `csrc/best_splits.cu`, CUDA C++ for sm_90a. It replaces
 `_split_kernel` / `best_splits_pallas` (shifu_tpu/ops/pallas_split.py:
-64,144): one block per node, one warp per column, the column's left
-sums staged in shared memory, the gains scored by the lanes in
-parallel, a shuffle argmax; one launch writes every output tensor. Ties
-keep the EARLIEST flat index c·(B-1)+b; an all-masked node resolves to
-index 0 with `default_left` from column 0, bin 0 — both are written
-into the saved model file. The kernel adds each column's left sums in
-sequential f32 order; the plain version's `torch.cumsum` may add in
-another order (on the CPU it accumulates in double), so the two agree
-exactly on integer-valued histograms and within f32 rounding otherwise.
+64,144): one block per node stages its columns in shared memory, one
+thread a column adds the left sums, every thread scores (column, bin)
+cells, and a shuffle argmax picks the split; one launch writes every
+output tensor. Ties keep the EARLIEST flat index c·(B-1)+b; an
+all-masked node resolves to index 0 with `default_left` from column 0,
+bin 0 — both are written into the saved model file. The kernel adds
+each column's left sums in sequential f32 order; the plain version's
+`torch.cumsum` may add in another order (on the CPU it accumulates in
+double), so the two agree exactly on integer-valued histograms and
+within f32 rounding otherwise.
 
 Routing has no knob: CUDA tensors launch the kernel (a failed build or
 launch raises), CPU tensors take `best_splits_plain`. `launches` counts
@@ -30,6 +31,7 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -39,7 +41,6 @@ from shifu_tpu_torch import _build
 __all__ = ["best_splits", "best_splits_plain", "launches"]
 
 launches = 0  # kernel launches of this process (plain calls not counted)
-MAX_WARPS = 16  # warps a node's block spreads its columns over
 
 
 def _mask_rows(feature_mask: torch.Tensor, n: int, c: int) -> int:
@@ -125,14 +126,27 @@ def best_splits(g: torch.Tensor, h: torch.Tensor,
     return _launch(g, h, feature_mask, m, lam, min_inst)
 
 
+@functools.lru_cache(maxsize=16)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _warps(n: int, device: torch.device) -> int:
+    """Warps a node's block: 32 while every node has an SM to itself
+    (the block's latency is the level's), 8 once nodes share SMs (small
+    blocks pack them); `chip_smoke.k5_timing` measures both against 16."""
+    return 32 if n <= _sms(device) else 8
+
+
 def _launch(g, h, feature_mask, m: int, lam: float, min_inst: float,
-            warps: int = MAX_WARPS) -> Dict[str, torch.Tensor]:
+            warps: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """One K5 launch writing the dict's tensors; `warps` overrides
-    MAX_WARPS (the timing sweeps of chip_smoke.py compare them)."""
+    `_warps` (the timing sweeps of chip_smoke.py compare them)."""
     for name, t in (("g", g), ("h", h), ("feature_mask", feature_mask)):
         if t.dtype != torch.float32 or not t.is_contiguous():
-            raise TypeError(f"{name} must be contiguous float32, got "
-                            f"{t.dtype}")
+            raise TypeError(f"{name} must be a contiguous float32 "
+                            f"tensor, got {t.dtype}, contiguous "
+                            f"{t.is_contiguous()}")
     n, c, b = g.shape
     if c * (b - 1) >= 2 ** 31:
         raise ValueError(f"{c} columns × {b - 1} bins: flat split indices "
@@ -152,7 +166,7 @@ def _launch(g, h, feature_mask, m: int, lam: float, min_inst: float,
         out["bin"].data_ptr(), out["gain"].data_ptr(),
         out["default_left"].data_ptr(), out["g_tot"].data_ptr(),
         out["h_tot"].data_ptr(), n, c, b, float(lam), float(min_inst),
-        warps, _build.raw_stream(dev))
+        warps or _warps(n, dev), _build.raw_stream(dev))
     _build.check(rc, "best_splits", lib.best_splits_error_string)
     launches += 1
     return out

@@ -321,9 +321,8 @@ def _max_clusters(device: int, kind: int, cluster: int, smem: int) -> int:
     shared-memory limit on that card: both are per device."""
     lib = _lib()
     fit = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        rc = lib.level_hist_max_clusters(kind, cluster, smem,
-                                         ctypes.byref(fit))
+    rc = _build.call_on(device, lib.level_hist_max_clusters, kind, cluster,
+                        smem, ctypes.byref(fit))
     _build.check(rc, "level_hist", lib.level_hist_error_string)
     return fit.value
 
@@ -366,9 +365,8 @@ def _launch(cols: torch.Tensor, cuts: Optional[torch.Tensor], slot, grad,
                  plan.chunk, plan.stages, plan.copies, plan.smem,
                  _max_clusters(dev, kind, plan.cluster, plan.smem))
     lib = _lib()
-    with torch.cuda.device(dev):
-        rc = lib.level_hist_run(ctypes.byref(args),
-                                _build.raw_stream(cols.device))
+    rc = _build.call_on(dev, lib.level_hist_run, ctypes.byref(args),
+                        _build.raw_stream(cols.device))
     _build.check(rc, "level_hist", lib.level_hist_error_string)
     return out_g, out_h
 
