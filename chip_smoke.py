@@ -742,9 +742,10 @@ def split_inputs(seed, n, device, c=GBT_COLS, n_bins=GBT_BINS,
     """(N, C, B) G/H and a feature mask, made on `device` from a seed:
     integer-valued (every cumsum exact) or real-valued (G normal, H in
     [0.05, 1)); a planted tie (column 5 repeats column 2, two columns
-    that different warps own) when C > 5; and, for N > 1, an all-masked
-    node 0. The mask has `mask_rows` rows (a forest's (T, C); N rows by
-    default, a (C,) vector for N = 1), node i reading row i // (N/M)."""
+    whose cells different warps score) when C > 5; and, for N > 1, an
+    all-masked node 0. The mask has `mask_rows` rows (a forest's (T, C);
+    N rows by default, a (C,) vector for N = 1), node i reading row
+    i // (N/M)."""
     import torch
     gen = torch.Generator(device=device).manual_seed(seed)
     if integer:

@@ -361,9 +361,8 @@ def test_best_splits_matches_plain(cuda, n):
 def test_best_splits_shapes_bit_exact(cuda, n, c, b):
     """Real-valued histograms against the sequential-f32 reference and
     integer-valued ones against the plain version, bit for bit, over
-    columns that one warp, several warps or many rounds of warps own,
-    and columns of 1 to 1,023 main bins (several shared-memory
-    segments)."""
+    tiles of one column up to all of a node's, and columns of 1 to
+    1,023 main bins (in one shared-memory segment or several)."""
     m = _k5_mask_rows(n)
     for integer in (False, True):
         g, h, mask = cs.split_inputs(n + c + b, n, cuda, c, b, integer, m)
@@ -375,10 +374,9 @@ def test_best_splits_shapes_bit_exact(cuda, n, c, b):
 
 @pytest.mark.parametrize("c", [40, 300])
 def test_best_splits_tie_across_warps_goes_to_the_earlier_column(cuda, c):
-    """Two identical columns, the only ones switched on, owned by
-    different warps (3 and 20) or by one warp in different rounds (3 and
-    35, with 16 warps a block): their gains tie exactly and the earlier
-    column wins."""
+    """Two identical columns, the only ones switched on, whose equal
+    cells threads of other warps score: their gains tie exactly and the
+    earlier column wins."""
     for first, second in ((3, 20), (3, 35)):
         g, h, _ = cs.split_inputs(c, 8, cuda, c, 64, False)
         g[:, second] = g[:, first]
