@@ -36,8 +36,9 @@ result line is printed):
    C = 28, B = 64 for S = 1 and 32, with dump-slot rows and NaN/±inf
    values: integer grads exact, real ones within 1e-5·Σ|grad| per
    slot; K4 equal to K3 over the same bins on integer grads;
-7. K5 `best_splits` at N = 1 ((C,) mask), 32 (a mask a node) and 640
-   (a 20-tree forest level, (T, C) masks), with a tie planted across two
+7. K5 `best_splits` at N = 1 ((C,) mask), 32 (the GBT leaf level: one
+   (1, C) mask for every node; and a mask a node) and 640 (a 20-tree
+   forest level, (T, C) masks), with a tie planted across two
    warps and an all-masked node: on integer-valued histograms against
    its plain version (C = 28, B = 64), on real-valued ones against
    `k5_sequential`, the sequential-f32 reference (C = 28 and 300, B =
@@ -57,8 +58,11 @@ result line is printed):
    row live, then S = 1 … 32 with the left children live), whose sum
    stands beside the profiled tree's K3 time; K3 on skewed bins (90 %
    in one bin) and under forced plans (histogram replicas, cluster
-   sizes); K5 at N = 1, 32, 320 and 640 beside the launch floor (a
-   one-element `add_`) and with 8, 16 and 32 warps a block; 2,000,000 rows ×
+   sizes); K5 at N = 1, 32 ((1, C) and (32, C) masks), 320 and 640
+   beside the launch floor (a one-element `add_`) and with 8, 16 and 32
+   warps a block, its bound counting only the columns it reads (column
+   0 and those switched on), and under RF's SQRT feature subsets;
+   2,000,000 rows ×
    10 trees end to end with one profiled tree split by kernel and the
    device's idle share, per-level host and device times, and one
    level's split step counted in launches (the search, then the fold);
@@ -70,9 +74,10 @@ the card's name and power limit, and the result object.
 
 `python3 chip_smoke.py --train-walls` times only the 2M × 10 builds
 (and the split step's host time a level), `--serve-walls` only both
-services' closed loop at 1 and 512 rows. Both call only functions that
-older trees of the port have too, so the script copied into the root of
-an older tree times that tree: run the two in turns on one card.
+services' closed loop at 1 and 512 rows, `--k5-timing` only phase 9's
+K5 rows. They call only functions that older trees of the port have
+too, so the script copied into the root of an older tree times that
+tree: run the two in turns on one card.
 """
 
 from __future__ import annotations
@@ -742,10 +747,11 @@ def split_inputs(seed, n, device, c=GBT_COLS, n_bins=GBT_BINS,
     """(N, C, B) G/H and a feature mask, made on `device` from a seed:
     integer-valued (every cumsum exact) or real-valued (G normal, H in
     [0.05, 1)); a planted tie (column 5 repeats column 2, two columns
-    whose cells different warps score) when C > 5; and, for N > 1, an
-    all-masked node 0. The mask has `mask_rows` rows (a forest's (T, C);
-    N rows by default, a (C,) vector for N = 1), node i reading row
-    i // (N/M)."""
+    whose cells different warps score) when C > 5; and, where N > 1 and
+    the mask has more than one row, an all-masked node 0 (row 0 off).
+    The mask has `mask_rows` rows (a forest's (T, C), the GBT builder's
+    (1, C); N rows by default, a (C,) vector for N = 1), node i reading
+    row i // (N/M)."""
     import torch
     gen = torch.Generator(device=device).manual_seed(seed)
     if integer:
@@ -764,7 +770,7 @@ def split_inputs(seed, n, device, c=GBT_COLS, n_bins=GBT_BINS,
         h[:, 5] = h[:, 2]
         mask[:, 2] = 1.0
         mask[:, 5] = 1.0
-    if n > 1:
+    if n > 1 and m > 1:
         mask[0] = 0.0
     return g, h, mask[0] if n == 1 and mask_rows is None else mask
 
@@ -835,9 +841,10 @@ def same_bits(got, want):
     return bad
 
 
-# (N, mask rows): one tree's root ((C,) mask), its leaf level (a mask a
-# node), and a 20-tree forest's level ((T, C) masks)
-K5_SHAPES = ((1, None), (32, 32), (640, 20))
+# (N, mask rows): one tree's root ((C,) mask), its leaf level (the GBT
+# builder's one (1, C) mask for every node, and a mask a node), and a
+# 20-tree forest's level ((T, C) masks)
+K5_SHAPES = ((1, None), (32, 1), (32, 32), (640, 20))
 
 
 def phase_k5(report, device="cuda"):
@@ -867,7 +874,7 @@ def phase_k5(report, device="cuda"):
                                      .max()))
         assert not bool((got["feature"] == 5).any()), \
             f"{what}: the tie went to the later column"
-        if n > 1:
+        if n > 1 and mask.shape[0] > 1:
             assert got["gain"][0] == -math.inf and got["feature"][0] == 0 \
                 and got["bin"][0] == 0, \
                 f"{what}: all-masked node not at index 0"
@@ -1177,12 +1184,21 @@ def k4_cost(c, r_active, r, k, n_slots, n_bins):
             2 * c * r_active + c * r_active * math.ceil(math.log2(k + 1)))
 
 
-def k5_cost(n, c, n_bins, mask_rows):
-    """Bytes: G and H read once, the mask's rows, the six (N,) outputs
-    (4 + 4 + 4 + 1 + 4 + 4 bytes a node). Operations: two cumsum adds
-    and ~22 flops for the two gains per (node, column, main bin)."""
-    return (8 * n * c * n_bins + 4 * mask_rows * c + 21 * n,
-            24 * n * c * (n_bins - 1))
+def k5_cost(n, n_bins, mask):
+    """What K5 needs of these inputs, node by node: G and H of column 0
+    and of each column switched on, read once (a masked-off column
+    other than 0 can never win); the mask's rows once; the six (N,)
+    outputs (4 + 4 + 4 + 1 + 4 + 4 bytes a node). Operations: two
+    cumsum adds and ~22 flops for the two gains per main bin of a column
+    switched on; a masked-off column 0 needs only its sums and bin 0's
+    gains (its totals and an all-masked node's default_left)."""
+    rows = mask.reshape(-1, mask.shape[-1]) > 0
+    per_row = n // rows.shape[0]
+    on = int(rows.sum()) * per_row
+    col0_off = int((~rows[:, 0]).sum()) * per_row
+    bm = n_bins - 1
+    return (8 * n_bins * (on + col0_off) + 4 * rows.numel() + 21 * n,
+            24 * bm * on + (2 * bm + 22) * col0_off)
 
 
 def launch_floor():
@@ -1199,22 +1215,25 @@ def launch_floor():
 
 
 # K5's timed shapes at the HIGGS widths, (N, mask rows): one tree's root
-# ((C,) mask) and leaf level (a mask a node), and a forest level of 10
+# ((C,) mask) and leaf level (the GBT builder's (1, C) mask, the
+# kernels line's shape, and a mask a node), and a forest level of 10
 # and of 20 trees ((T, C) masks)
-K5_TIMED = ((1, None), (32, 32), (320, 10), (640, 20))
+K5_TIMED = ((1, None), (32, 1), (32, 32), (320, 10), (640, 20))
 
 
 def k5_timing():
     """K5 at the builders' level shapes (C = 28, B = 64) by events and
     profiler, beside its plain version, its bound and the launch floor;
-    and its kernel time with 8, 16 and 32 warps a block, the evidence
-    for `best_splits._warps`."""
+    its kernel time with 8, 16 and 32 warps a block, the evidence for
+    `best_splits._warps`; and its kernel time under RF's SQRT feature
+    subsets."""
+    import torch
     from shifu_tpu_torch.ops import best_splits as bs
     rows = [launch_floor()]
     for n, m in K5_TIMED:
         g, h, mask = split_inputs(70 + n, n, "cuda", mask_rows=m)
         fn = lambda: bs.best_splits(g, h, mask, 1.0, 1.0)  # noqa: E731
-        bnd, by = bound_ms(*k5_cost(n, GBT_COLS, GBT_BINS, m or 1))
+        bnd, by = bound_ms(*k5_cost(n, GBT_BINS, mask))
         shape = f"N={n} C={GBT_COLS} B={GBT_BINS} mask {tuple(mask.shape)}"
         rows.append({"name": "best_splits", "shape": shape,
                      "ms": cuda_ms(fn, 200),
@@ -1223,12 +1242,36 @@ def k5_timing():
                      "plain_ms": cuda_ms(lambda: bs.best_splits_plain(
                          g, h, mask, 1.0, 1.0), 50),
                      "library_ms": None, "bound_ms": bnd, "bound_by": by})
-        for warps in (8, 16, 32):
-            rows.append({"name": "best_splits warps", "shape": shape,
-                         "warps": warps, "kernel_device_ms": kernel_device_ms(
-                             lambda: bs._launch(g, h, mask, m or 1,  # noqa
-                                                1.0, 1.0, warps),
-                             200, "best_splits_kernel")})
+        chosen = bs._warps
+        try:
+            for warps in (8, 16, 32):
+                bs._warps = lambda n_, dev_, w=warps: w
+                rows.append({"name": "best_splits warps", "shape": shape,
+                             "warps": warps,
+                             "kernel_device_ms": kernel_device_ms(
+                                 fn, 200, "best_splits_kernel")})
+        finally:
+            bs._warps = chosen
+    # RF's SQRT feature subsets: 5 of 28 columns on in each tree's row
+    from shifu_tpu_torch.models import gbdt
+    on = gbdt.feature_subset_count("SQRT", GBT_COLS)
+    for n, m in K5_TIMED[1:]:
+        if m == n:
+            continue
+        g, h, _ = split_inputs(70 + n, n, "cuda", mask_rows=m)
+        gen = torch.Generator(device="cuda").manual_seed(5 + n)
+        mask = torch.zeros((m, GBT_COLS), device="cuda")
+        for i in range(m):
+            mask[i, torch.randperm(GBT_COLS, generator=gen,
+                                   device="cuda")[:on]] = 1.0
+        bnd, by = bound_ms(*k5_cost(n, GBT_BINS, mask))
+        rows.append({"name": "best_splits sqrt", "shape": f"N={n} C="
+                     f"{GBT_COLS} B={GBT_BINS} mask {tuple(mask.shape)}, "
+                     f"{on} columns on a row",
+                     "kernel_device_ms": kernel_device_ms(
+                         lambda: bs.best_splits(g, h, mask, 1.0, 1.0),  # noqa
+                         200, "best_splits_kernel"),
+                     "bound_ms": bnd, "bound_by": by})
     return rows
 
 
@@ -1417,11 +1460,13 @@ def phase_train_timing(report, t_start):
     for row in sweep:
         print("  timing " + json.dumps(row))
     # the kernels line: K3 (on the builders' uint8 bins) and K4 at the
-    # leaf level (S = 32), K5 at N = 32
+    # leaf level (S = 32), K5 at the GBT leaf level (N = 32, one mask)
     for row in sweep:
         if (row["name"] in ("level_hist", "level_hist_fused")
                 and "S=32" in row["shape"]) \
-                or (row["name"] == "best_splits" and "N=32 " in row["shape"]):
+                or (row["name"] == "best_splits"
+                    and row["shape"].startswith("N=32 ")
+                    and row["shape"].endswith(f"mask (1, {GBT_COLS})")):
             report[row["name"]].update({k: row[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     report["train_sweep"] = sweep
@@ -1596,6 +1641,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--serve-walls"]:
         print(json.dumps({"serve_walls_ms": serve_walls()}))
+        return 0
+    if sys.argv[1:] == ["--k5-timing"]:
+        print(json.dumps({"k5_timing": k5_timing()}))
         return 0
     print("phase 1: build")
     phase_build()

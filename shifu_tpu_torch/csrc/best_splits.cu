@@ -39,17 +39,19 @@
 // (column, bin) cells, each keeping its best by the `beats` order (a
 // total order, so the order of arrival does not matter), and a shuffle
 // argmax and one pass over the warp winners in shared memory pick the
-// node's split. Where not one column fits, or whole columns would walk
-// the node's bins more than twice as often, a tile holds at most a
-// warp's columns in segments, summed twice: once for the totals, once
+// node's split. Only where not one column fits does a tile hold at most
+// a warp's columns in segments, summed twice: once for the totals, once
 // for the scores (`plan`). Masked-off columns other than column 0 can
 // never win (their gains are -inf and column 0, bin 0 always holds a
-// -inf candidate of a lower index), so they are neither summed nor
-// scored. What bounds it on an H100: it reads 8·N·C·B bytes once
-// (458,752 B at N = 32, C = 28, B = 64: 0.14 µs at 3.35 TB/s) and does
-// ~24 operations per cell, four of them IEEE divisions; at the
-// builders' sizes the launch, the loads' latency, the B-1 dependent
-// adds and the divisions set its time, not bytes.
+// -inf candidate of a lower index), so they are neither read, summed
+// nor scored; a masked-off column 0 is read and summed for its totals
+// and scores only its bin 0 (an all-masked node's default_left). What
+// bounds it on an H100: it reads 8·B bytes of G and H for column 0 and
+// each column switched on, once (at most 458,752 B at N = 32, C = 28,
+// B = 64: 0.14 µs at 3.35 TB/s) and does ~24 operations per such
+// cell, four of them IEEE divisions; at the builders' sizes the launch,
+// the loads' latency, the B-1 dependent adds and the divisions set its
+// time, not bytes.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -171,6 +173,15 @@ best_splits_kernel(const float* __restrict__ g,     // (n, c, b)
   Best best{neg_inf(), INT_MAX, 0};
   for (int c0 = 0; c0 < c; c0 += ct) {
     const int cols = min(ct, c - c0);
+    // (the previous tile's last barrier lies after its every read of
+    // `state`)
+    float st_own = -1.f;  // the state of thread tid's column
+    if (tid < cols) {
+      const int col = c0 + tid;
+      st_own = mrow[col] > 0.f ? 1.f : col == 0 ? 0.f : -1.f;
+      state[tid] = st_own;
+    }
+    __syncthreads();
     // with several segments, pass 0 sums each column for its totals
     // first; pass 1 sums again and scores
     for (int pass = n_seg > 1 ? 0 : 1; pass < 2; ++pass) {
@@ -181,8 +192,8 @@ best_splits_kernel(const float* __restrict__ g,     // (n, c, b)
         const int n_cells = cols * len;
         const float* gt = gn + (size_t)c0 * b + base;
         const float* ht = hn + (size_t)c0 * b + base;
-        // stage: the block copies the tile's (column, bin) cells, COPY a
-        // thread in flight at once
+        // stage: the block copies the (column, bin) cells of the tile's
+        // columns that it reads, COPY a thread in flight at once
         for (int e0 = tid; e0 < n_cells; e0 += COPY * threads) {
           float vg[COPY], vh[COPY];
           int at[COPY];
@@ -192,9 +203,11 @@ best_splits_kernel(const float* __restrict__ g,     // (n, c, b)
             at[q] = -1;
             if (e < n_cells) {
               const int k = e / len, j = e - k * len;
-              vg[q] = gt[(size_t)k * b + j];
-              vh[q] = ht[(size_t)k * b + j];
-              at[q] = k * stride + j;
+              if (state[k] >= 0.f) {
+                vg[q] = gt[(size_t)k * b + j];
+                vh[q] = ht[(size_t)k * b + j];
+                at[q] = k * stride + j;
+              }
             }
           }
 #pragma unroll
@@ -204,23 +217,22 @@ best_splits_kernel(const float* __restrict__ g,     // (n, c, b)
               sums_h[at[q]] = vh[q];
             }
         }
-        if (tid < cols) {
-          const int col = c0 + tid;
-          if (s == 0) state[tid] = mrow[col] > 0.f ? 1.f : col == 0 ? 0.f
-                                                                    : -1.f;
-          if (totals && s == n_seg - 1) {
-            tot[2 * ct + tid] = gn[(size_t)col * b + bm];
-            tot[3 * ct + tid] = hn[(size_t)col * b + bm];
-          }
-        }
         __syncthreads();
         // a thread a column adds its bins in order
-        if (tid < cols && state[tid] >= 0.f) {
+        if (st_own >= 0.f) {
+          const bool last = totals && s == n_seg - 1;
+          float g_miss = 0.f, h_miss = 0.f;  // loaded ahead of the adds
+          if (last) {
+            g_miss = gn[(size_t)(c0 + tid) * b + bm];
+            h_miss = hn[(size_t)(c0 + tid) * b + bm];
+          }
           left_sums(sums_g + tid * stride, sums_h + tid * stride, len, sg,
                     sh);
-          if (totals && s == n_seg - 1) {
-            const float g_tot = __fadd_rn(sg, tot[2 * ct + tid]);
-            const float h_tot = __fadd_rn(sh, tot[3 * ct + tid]);
+          if (last) {
+            tot[2 * ct + tid] = g_miss;
+            tot[3 * ct + tid] = h_miss;
+            const float g_tot = __fadd_rn(sg, g_miss);
+            const float h_tot = __fadd_rn(sh, h_miss);
             tot[tid] = g_tot;
             tot[ct + tid] = h_tot;
             tot[4 * ct + tid] = __fdiv_rn(__fmul_rn(g_tot, g_tot),
@@ -238,7 +250,8 @@ best_splits_kernel(const float* __restrict__ g,     // (n, c, b)
         int k = tid / len, j = tid - k * len;
         for (int e = tid; e < n_cells; e += threads) {
           const float st = state[k];
-          if (st >= 0.f) {
+          // a masked-off column 0 scores only bin 0
+          if (st > 0.f || (st == 0.f && base + j == 0)) {
             const float gl = sums_g[k * stride + j];
             const float hl = sums_h[k * stride + j];
             const float g_tot = tot[k], h_tot = tot[ct + k];
@@ -288,21 +301,16 @@ best_splits_kernel(const float* __restrict__ g,     // (n, c, b)
 }
 
 // The tile for C columns of B bins on `threads` threads: whole columns,
-// as many as fit the budget, when that walks the node's bins no more
-// often than segments do; else a warp's worth of columns (at most) in
-// segments that fit, summed twice (totals, then scores).
+// as many as fit the budget (at most a thread each); where not one
+// fits, a warp's worth of columns (at most) in segments that fit,
+// summed twice (totals, then scores).
 Tile plan(int c, int b, int threads) {
   const int bm = b - 1;
   const int per_col = 8 * (bm | 1) + 24;  // two odd runs, six per column
   const int fit = SMEM_BUDGET / per_col;
   const int ct_one = c < threads ? c : threads;
+  if (fit >= 1) return Tile{fit < ct_one ? fit : ct_one, bm, bm | 1};
   const int ct_seg = ct_one < 32 ? ct_one : 32;
-  if (fit >= 1) {
-    const int ct = fit < ct_one ? fit : ct_one;
-    const int tiles_one = (c + ct - 1) / ct;
-    const int tiles_seg = (c + ct_seg - 1) / ct_seg;
-    if (tiles_one <= 2 * tiles_seg) return Tile{ct, bm, bm | 1};
-  }
   int stride = (SMEM_BUDGET / ct_seg - 24) / 8;
   if (!(stride & 1)) --stride;
   return Tile{ct_seg, stride, stride};

@@ -12,12 +12,13 @@ B) G/H histograms (missing bin last) and a (C,) or (M, C) feature mask
 
 Kernel: `csrc/best_splits.cu`, CUDA C++ for sm_90a. It replaces
 `_split_kernel` / `best_splits_pallas` (shifu_tpu/ops/pallas_split.py:
-64,144): one block per node stages its columns in shared memory, one
-thread a column adds the left sums, every thread scores (column, bin)
-cells, and a shuffle argmax picks the split; one launch writes every
-output tensor. Ties keep the EARLIEST flat index c·(B-1)+b; an
-all-masked node resolves to index 0 with `default_left` from column 0,
-bin 0 — both are written into the saved model file. The kernel adds
+64,144): one block per node stages the columns it reads (column 0 and
+those switched on) in shared memory, one thread a column adds the left
+sums, every thread scores (column, bin) cells, and a shuffle argmax
+picks the split; one launch writes every output tensor. Ties keep the
+EARLIEST flat index c·(B-1)+b; an all-masked node resolves to index 0
+with `default_left` from column 0, bin 0 — both are written into the
+saved model file. The kernel adds
 each column's left sums in sequential f32 order; the plain version's
 `torch.cumsum` may add in another order (on the CPU it accumulates in
 double), so the two agree exactly on integer-valued histograms and
@@ -134,14 +135,14 @@ def _sms(device: torch.device) -> int:
 def _warps(n: int, device: torch.device) -> int:
     """Warps a node's block: 32 while every node has an SM to itself
     (the block's latency is the level's), 8 once nodes share SMs (small
-    blocks pack them); `chip_smoke.k5_timing` measures both against 16."""
+    blocks pack them); `chip_smoke.k5_timing` measures both against 16
+    by putting another `_warps` in its place."""
     return 32 if n <= _sms(device) else 8
 
 
-def _launch(g, h, feature_mask, m: int, lam: float, min_inst: float,
-            warps: Optional[int] = None) -> Dict[str, torch.Tensor]:
-    """One K5 launch writing the dict's tensors; `warps` overrides
-    `_warps` (the timing sweeps of chip_smoke.py compare them)."""
+def _launch(g, h, feature_mask, m: int, lam: float,
+            min_inst: float) -> Dict[str, torch.Tensor]:
+    """One K5 launch writing the dict's tensors."""
     for name, t in (("g", g), ("h", h), ("feature_mask", feature_mask)):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise TypeError(f"{name} must be a contiguous float32 "
@@ -166,7 +167,7 @@ def _launch(g, h, feature_mask, m: int, lam: float, min_inst: float,
         out["bin"].data_ptr(), out["gain"].data_ptr(),
         out["default_left"].data_ptr(), out["g_tot"].data_ptr(),
         out["h_tot"].data_ptr(), n, c, b, float(lam), float(min_inst),
-        warps or _warps(n, dev), _build.raw_stream(dev))
+        _warps(n, dev), _build.raw_stream(dev))
     _build.check(rc, "best_splits", lib.best_splits_error_string)
     launches += 1
     return out

@@ -338,9 +338,10 @@ def _k5_cases():
 
 
 def _k5_mask_rows(n):
-    """A (C,) mask at N = 1, a forest's (T, C) masks at N = 320 and 640
-    (10 and 20 trees), a mask a node otherwise."""
-    return {1: None, 320: 10, 640: 20}.get(n, n)
+    """The mask forms at N nodes: (C,) at N = 1, a forest's (T, C) masks
+    at N = 320 and 640 (10 and 20 trees), and at N = 32 the GBT
+    builder's one (1, C) row for every node and a mask a node."""
+    return {1: [None], 32: [1, 32], 320: [10], 640: [20]}[n]
 
 
 @pytest.mark.parametrize("n", [1, 32, 640])
@@ -362,14 +363,29 @@ def test_best_splits_shapes_bit_exact(cuda, n, c, b):
     """Real-valued histograms against the sequential-f32 reference and
     integer-valued ones against the plain version, bit for bit, over
     tiles of one column up to all of a node's, and columns of 1 to
-    1,023 main bins (in one shared-memory segment or several)."""
-    m = _k5_mask_rows(n)
+    1,023 main bins, each in one shared-memory segment."""
+    for m in _k5_mask_rows(n):
+        for integer in (False, True):
+            g, h, mask = cs.split_inputs(n + c + b, n, cuda, c, b, integer,
+                                         m)
+            got = best_splits.best_splits(g, h, mask, 1.0, 2.0)
+            want = (best_splits.best_splits_plain if integer
+                    else cs.k5_sequential)(g, h, mask, 1.0, 2.0)
+            assert cs.same_bits(got, want) == [], (integer,
+                                                   tuple(mask.shape))
+
+
+@pytest.mark.parametrize("c", [1, 33])
+def test_best_splits_segments_when_no_column_fits(cuda, c):
+    """6,143 main bins: not one column's sums fit shared memory, so each
+    column goes in segments, summed twice (totals, then scores), bit
+    for bit all the same."""
     for integer in (False, True):
-        g, h, mask = cs.split_inputs(n + c + b, n, cuda, c, b, integer, m)
+        g, h, mask = cs.split_inputs(c, 4, cuda, c, 6144, integer)
         got = best_splits.best_splits(g, h, mask, 1.0, 2.0)
         want = (best_splits.best_splits_plain if integer
                 else cs.k5_sequential)(g, h, mask, 1.0, 2.0)
-        assert cs.same_bits(got, want) == [], (integer, tuple(mask.shape))
+        assert cs.same_bits(got, want) == [], integer
 
 
 @pytest.mark.parametrize("c", [40, 300])
@@ -441,14 +457,16 @@ def test_best_splits_forest_masks_equal_per_node_masks(cuda):
         g, h, per_node, 1.0, 2.0)) == []
 
 
-def test_best_splits_warps_and_launch_count(cuda):
+def test_best_splits_warps_and_launch_count(cuda, monkeypatch):
     """Every warps-a-block setting gives the same bits; each call is one
     launch."""
     g, h, mask = cs.split_inputs(7, 320, cuda, 300, 256, False, 10)
     want = cs.k5_sequential(g, h, mask, 1.0, 2.0)
     for warps in (1, 8, 16, 32):
+        monkeypatch.setattr(best_splits, "_warps",
+                            lambda n, dev, w=warps: w)
         before = best_splits.launches
-        got = best_splits._launch(g, h, mask, 10, 1.0, 2.0, warps)
+        got = best_splits.best_splits(g, h, mask, 1.0, 2.0)
         assert best_splits.launches == before + 1
         assert cs.same_bits(got, want) == [], warps
 
