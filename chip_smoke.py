@@ -43,8 +43,10 @@ result line is printed):
    its plain version (C = 28, B = 64), on real-valued ones against
    `k5_sequential`, the sequential-f32 reference (C = 28 and 300, B =
    64 and 256); every output bit for bit;
-8. the training main path: model sets of 28 numeric columns and
-   262,144 rows written with the port's own config writers, trained by
+8. the training main path: a raw pipe-delimited table of 28 numeric
+   columns and 262,144 rows from a seed, turned into `ColumnConfig.json`
+   and `tmp/CleanedData` by the port's own `init → stats → norm` on the
+   card, copied into one model set a configuration, and trained by
    `python -m shifu_tpu_torch --dir <set> train` on the card and with
    `--device cpu` (RF 10 trees and one-round squared-loss GBT
    bit-exact; 10-tree log-loss GBT, also through K4 with
@@ -67,7 +69,15 @@ result line is printed):
    device's idle share, per-level host and device times, and one
    level's split step counted in launches (the search, then the fold);
    11,000,000 rows × 20 trees when the projected time fits half the
-   limit.
+   limit;
+10. `init → stats → norm` (maxNumBin 63, EqualPositive; ZSCALE, then
+   WOE) as `python -m shifu_tpu_torch` processes on the card and on a
+   copy with `--device cpu`, over a raw table of the HIGGS widths plus 2
+   categorical, a weight and a meta column (262,144 rows, 2 % missing
+   tokens): ColumnConfig.json equal but for the f32 sums (mean/std and
+   weighted bin sums within rtol 1e-5, skewness/kurtosis atol 1e-4),
+   CleanedData and the WOE block equal, the ZSCALE block within 1e-5;
+   each step's JSON line (device, rows, read and total seconds).
 
 The last lines are the per-kernel launch line, the kernel JSON line,
 the card's name and power limit, and the result object.
@@ -75,7 +85,8 @@ the card's name and power limit, and the result object.
 `python3 chip_smoke.py --train-walls` times only the 2M × 10 builds
 (and the split step's host time a level), `--serve-walls` only both
 services' closed loop at 1 and 512 rows, `--k5-timing` only phase 9's
-K5 rows. They call only functions that older trees of the port have
+K5 rows, `--pipeline-walls` only `init`/`stats`/`norm` on the card at
+2,000,000 rows of phase 10's table (read and compute seconds a step). They call only functions that older trees of the port have
 too, so the script copied into the root of an older tree times that
 tree: run the two in turns on one card.
 """
@@ -882,64 +893,263 @@ def phase_k5(report, device="cuda"):
     report["best_splits"] = {"max_abs_err": err}
 
 
-def write_model_set(root, alg, params, seed, rows, valid_rate):
-    """A model set from a seed, with the port's own writers: 28 numeric
-    HIGGS-like columns with stats bin boundaries (63 bins → 64 with the
-    missing slot), a binary target, and `tmp/CleanedData`."""
-    from shifu_tpu_torch.config.column_config import (
-        ColumnBinning, ColumnConfig, ColumnFlag, save_column_configs)
-    from shifu_tpu_torch.config.model_config import ModelConfig
-    from shifu_tpu_torch.fileio import atomic_write
-    rng = np.random.default_rng(seed)
+def raw_table(rng, rows, extras):
+    """The HIGGS-shaped raw table as string columns: 28 numeric columns
+    (`bench.py:171-174`) whose label depends on a few of them, with
+    `extras` 2 categorical columns, a weight and a meta column too; 2 %
+    of the values are the missing token "?". Floats are written with
+    their shortest float32 text, so `strtof` reads back the same bits.
+    Returns (names, columns, x, y)."""
     x = rng.normal(0, 1, (rows, GBT_COLS)).astype(np.float32)
     logit = (x[:, 0] - 0.8 * x[:, 1] + 0.5 * x[:, 2] * x[:, 3]
              + np.where(x[:, 4] > 0.5, 1.0, -0.3)
              + rng.logistic(0, 1, rows))
     y = (logit > 0).astype(np.float32)
     x[rng.random(x.shape) < 0.02] = np.nan
+    text = np.where(np.isnan(x), "?", x.astype(str))
     names = [f"f{j}" for j in range(GBT_COLS)]
-    qs = np.linspace(0, 1, GBT_BINS - 1)[1:-1]
-    ccs = []
-    for j, name in enumerate(names):
-        cuts = np.nanquantile(x[:, j], qs)
-        ccs.append(ColumnConfig(
-            columnNum=j, columnName=name,
-            columnBinning=ColumnBinning(
-                length=len(cuts) + 1,
-                binBoundary=[-math.inf] + [float(v) for v in cuts])))
-    ccs.append(ColumnConfig(columnNum=GBT_COLS, columnName="label",
-                            columnFlag=ColumnFlag.Target))
-    os.makedirs(os.path.join(root, "tmp", "CleanedData"))
+    cols = [text[:, j] for j in range(GBT_COLS)]
+    if extras:
+        cats = np.array(["aa", "bb", "cc", "dd", "ee"])
+        for j in range(2):
+            p = np.where(y[:, None] > 0.5, [0.4, 0.3, 0.15, 0.1, 0.05],
+                         [0.1, 0.15, 0.2, 0.25, 0.3])
+            pick = (rng.random(rows)[:, None] > np.cumsum(p, 1)).sum(1)
+            c = cats[np.minimum(pick, 4)].astype("<U2")
+            c[rng.random(rows) < 0.02] = "?"
+            names.append(f"c{j}")
+            cols.append(c)
+        names += ["w", "id"]
+        cols += [np.round(rng.uniform(0.5, 2.0, rows), 4).astype(str),
+                 np.arange(rows).astype(str)]
+    names.append("label")
+    cols.append(np.where(y > 0.5, "1", "0"))
+    return names, cols, x, y
+
+
+def write_model_set(root, alg, params, seed, rows, valid_rate,
+                    extras=False):
+    """A model set as a user starts one: raw pipe-delimited data with a
+    `.pig_header` under ``data/`` and `ModelConfig.json`, from a seed;
+    `init → stats → norm` make the rest. Its paths are absolute, so a
+    copy without ``data/`` reads the same raw files. Returns the raw
+    table's bytes."""
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    from shifu_tpu_torch.fileio import atomic_write
+    data_dir = os.path.join(root, "data")
+    os.makedirs(data_dir)
+    names, cols, _, _ = raw_table(np.random.default_rng(seed), rows,
+                                  extras)
+    body = "\n".join("|".join(r) for r in np.stack(cols, 1).tolist())
+    with atomic_write(os.path.join(data_dir, "part-00000")) as f:
+        f.write(body + "\n")
+    with atomic_write(os.path.join(data_dir, ".pig_header")) as f:
+        f.write("|".join(names) + "\n")
+    data_set = {"dataPath": data_dir, "dataDelimiter": "|",
+                "headerPath": os.path.join(data_dir, ".pig_header"),
+                "targetColumnName": "label", "posTags": ["1"],
+                "negTags": ["0"]}
+    if extras:
+        cols_dir = os.path.join(root, "columns")
+        os.makedirs(cols_dir, exist_ok=True)
+        for fname, names_in in (("categorical.column.names", "c0\nc1\n"),
+                                ("meta.column.names", "id\n")):
+            with atomic_write(os.path.join(cols_dir, fname)) as f:
+                f.write(names_in)
+        data_set.update({
+            "weightColumnName": "w",
+            "categoricalColumnNameFile": os.path.join(
+                cols_dir, "categorical.column.names"),
+            "metaColumnNameFile": os.path.join(cols_dir,
+                                               "meta.column.names")})
     ModelConfig.from_dict({
-        "basic": {"name": f"smoke{alg}"},
-        "dataSet": {"targetColumnName": "label", "posTags": ["1"],
-                    "negTags": ["0"]},
-        "stats": {"maxNumBin": GBT_BINS - 1},
+        "basic": {"name": f"smoke{alg}"}, "dataSet": data_set,
+        "stats": {"maxNumBin": GBT_BINS - 1,
+                  "binningMethod": "EqualPositive"},
+        "normalize": {"normType": "ZSCALE"},
         "train": {"algorithm": alg, "validSetRate": valid_rate,
                   "params": params}}).save(root)
-    save_column_configs(ccs, root)
-    clean = os.path.join(root, "tmp", "CleanedData")
-    np.savez(os.path.join(clean, "data.npz"), dense=x,
-             index=np.zeros((rows, 0), np.int32), tags=y,
-             weights=np.ones(rows, np.float32))
-    with atomic_write(os.path.join(clean, "meta.json")) as f:
-        json.dump({"denseNames": names, "indexNames": []}, f)
-    return x, y
+    return len(body) + 1
 
 
-def run_train(root, device, env_extra=None):
-    """`python -m shifu_tpu_torch --dir root train --device D` as a
-    subprocess; returns its JSON report line."""
+def set_config(root, section, **fields):
+    """Rewrite fields of one ModelConfig section (e.g. the norm type or
+    the train params) through the port's own config writer."""
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    path = os.path.join(root, "ModelConfig.json")
+    with open(path) as f:
+        d = json.load(f)
+    d.setdefault(section, {}).update(fields)
+    ModelConfig.from_dict(d).save(root)
+
+
+def run_step(root, verb, device=None, env_extra=None):
+    """`python -m shifu_tpu_torch --dir root <verb> [--device D]` as a
+    subprocess; returns its JSON line."""
     env = dict(os.environ)
     env.update(env_extra or {})
+    args = [verb] if device is None else [verb, "--device", device]
     proc = subprocess.run(
-        [sys.executable, "-m", "shifu_tpu_torch", "--dir", root, "train",
-         "--device", device], capture_output=True, text=True, env=env,
-        cwd=os.path.dirname(os.path.abspath(__file__)), timeout=600)
+        [sys.executable, "-m", "shifu_tpu_torch", "--dir", root, *args],
+        capture_output=True, text=True, env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)), timeout=900)
     if proc.returncode != 0:
-        raise RuntimeError(f"train --device {device} on {root} failed "
+        raise RuntimeError(f"{verb} --device {device} on {root} failed "
                            f"(rc {proc.returncode}):\n{proc.stderr[-4000:]}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def run_pipeline(root, device, norms=("ZSCALE",)):
+    """`init`, `stats` and one `norm` a norm type, each in its own
+    process; returns their JSON lines (norm lines keyed by type). With
+    several norm types, each type's NormalizedData is kept as
+    ``tmp/NormalizedData.<type>``."""
+    import shutil
+    lines = {"init": run_step(root, "init"),
+             "stats": run_step(root, "stats", device)}
+    for nt in norms:
+        set_config(root, "normalize", normType=nt)
+        lines[f"norm {nt}"] = run_step(root, "norm", device)
+        if len(norms) > 1:
+            out = os.path.join(root, "tmp", "NormalizedData")
+            shutil.move(out, f"{out}.{nt}")
+    return lines
+
+
+# ColumnConfig fields held card against CPU within (rtol, atol): the f32
+# sums and the metrics of the weighted sums (KS is in percent); every
+# other field must be equal
+CC_TOL = {"mean": (1e-5, 0.0), "stdDev": (1e-5, 0.0),
+          "binWeightedPos": (1e-5, 0.0), "binWeightedNeg": (1e-5, 0.0),
+          "skewness": (0.0, 1e-4), "kurtosis": (0.0, 1e-4),
+          "binWeightedWoe": (1e-5, 1e-6), "weightedKs": (1e-5, 1e-4),
+          "weightedIv": (1e-5, 1e-6), "weightedWoe": (1e-5, 1e-6)}
+
+
+def compare_column_configs(card_root, cpu_root):
+    """ColumnConfig.json card against CPU under `CC_TOL`; the weighted
+    metrics must also be the host function of the card's own weighted
+    sums (rtol 1e-9). Returns each tolerance field's largest relative
+    difference; raises, naming every field out of tolerance."""
+    from shifu_tpu_torch.ops.stats import column_metrics
+    with open(os.path.join(card_root, "ColumnConfig.json")) as f:
+        card = json.load(f)
+    with open(os.path.join(cpu_root, "ColumnConfig.json")) as f:
+        cpu = json.load(f)
+    assert [c["columnName"] for c in card] == [c["columnName"] for c in cpu]
+    worst, bad = {k: 0.0 for k in CC_TOL}, []
+    for a, b in zip(card, cpu):
+        name = a["columnName"]
+        for k in a:
+            if k not in ("columnStats", "columnBinning") and a[k] != b[k]:
+                bad.append(f"{name}.{k}: {a[k]} vs {b[k]}")
+        fields = {**a["columnStats"], **a["columnBinning"]}
+        ref = {**b["columnStats"], **b["columnBinning"]}
+        for k, v in fields.items():
+            w = ref[k]
+            if k in CC_TOL and v is not None and w is not None:
+                va, vb = np.asarray(v, float), np.asarray(w, float)
+                rtol, atol = CC_TOL[k]
+                if va.size:
+                    worst[k] = max(worst[k], float(np.nanmax(
+                        np.abs(va - vb) / np.maximum(np.abs(vb), 1e-30))))
+                if not np.allclose(va, vb, rtol=rtol, atol=atol,
+                                   equal_nan=True):
+                    bad.append(f"{name}.{k}: {v} vs {w}")
+            elif v != w:
+                bad.append(f"{name}.{k}: {v} vs {w}")
+        if fields["binWeightedPos"] is not None:
+            wks, wiv, wwoe, wbin = column_metrics(fields["binWeightedPos"],
+                                                  fields["binWeightedNeg"])
+            for k, want in (("weightedKs", wks), ("weightedIv", wiv),
+                            ("weightedWoe", wwoe)):
+                if want is not None and abs(fields[k] - want) > \
+                        1e-9 * abs(want):
+                    bad.append(f"{name}.{k} is not its sums' metric")
+            if not np.allclose(fields["binWeightedWoe"], wbin, rtol=1e-9,
+                               atol=1e-12):
+                bad.append(f"{name}.binWeightedWoe is not its sums' WOE")
+    print("  ColumnConfig.json card vs CPU, largest relative difference: "
+          + json.dumps(worst))
+    assert not bad, "ColumnConfig.json card vs CPU:\n" + "\n".join(bad[:20])
+    return worst
+
+
+def compare_npz(card_dir, cpu_dir, exact):
+    """One npz layout card against CPU: every array equal, except the
+    dense block of a z-score family (atol 1e-5, rtol 1e-5); meta.json
+    equal. Returns the dense block's largest absolute difference."""
+    a = np.load(os.path.join(card_dir, "data.npz"))
+    b = np.load(os.path.join(cpu_dir, "data.npz"))
+    assert set(a) == set(b), (card_dir, set(a), set(b))
+    err = 0.0
+    for k in b:
+        assert a[k].shape == b[k].shape and a[k].dtype == b[k].dtype, k
+        if k == "dense" and not exact:
+            np.testing.assert_allclose(a[k], b[k], atol=1e-5, rtol=1e-5)
+        else:
+            assert np.array_equal(a[k], b[k], equal_nan=True), \
+                f"{card_dir}: {k} differs between card and CPU"
+        if k == "dense" and a[k].size:
+            err = float(np.nanmax(np.abs(a[k] - b[k])))
+    metas = []
+    for d in (card_dir, cpu_dir):
+        with open(os.path.join(d, "meta.json")) as f:
+            metas.append(json.load(f))
+    assert metas[0] == metas[1], f"{card_dir}: meta.json differs"
+    return err
+
+
+def phase_pipeline(report, workdir, device="cuda", rows=TRAIN_ROWS):
+    """`init → stats → norm` (ZSCALE, then WOE) on the card against the
+    port's CPU twin, on the HIGGS widths plus 2 categorical, a weight
+    and a meta column at `rows` rows."""
+    import shutil
+    card = os.path.join(workdir, "card")
+    raw_bytes = write_model_set(card, "GBT", {}, 77, rows, 0.1, extras=True)
+    cpu = os.path.join(workdir, "cpu")
+    shutil.copytree(card, cpu, ignore=shutil.ignore_patterns("data"))
+    norms = ("ZSCALE", "WOE")
+    lines = {"card": run_pipeline(card, device, norms),
+             "cpu": run_pipeline(cpu, "cpu", norms)}
+    for where, steps in lines.items():
+        for step, line in steps.items():
+            print(f"  {where} {step}: {json.dumps(line)}")
+    for step, line in lines["card"].items():
+        assert line["rows"] == rows or step == "init", (step, line)
+    worst = compare_column_configs(card, cpu)
+    errs = {}
+    for sub, exact in (("CleanedData", True),
+                       *((f"NormalizedData.{nt}", nt == "WOE")
+                         for nt in norms)):
+        errs[sub] = compare_npz(os.path.join(card, "tmp", sub),
+                                os.path.join(cpu, "tmp", sub), exact)
+    print("  npz layouts card = CPU; dense max |card - CPU|: "
+          + json.dumps(errs))
+    report["pipeline"] = {"rows": rows, "raw_bytes": raw_bytes,
+                          "steps": lines, "dense_err": errs,
+                          "weighted_rel_err": worst}
+
+
+def pipeline_walls(rows=HIGGS_ROWS):
+    """`init`, `stats` and `norm` (ZSCALE) on the card at `rows` rows of
+    phase 10's table: each step's read and compute seconds (its wall
+    seconds less the raw read; the process start and the card's context
+    are outside both)."""
+    out = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        root = os.path.join(workdir, "walls")
+        t0 = time.perf_counter()
+        raw_bytes = write_model_set(root, "GBT", {}, 77, rows, 0.1,
+                                    extras=True)
+        write_s = time.perf_counter() - t0
+        for step, line in run_pipeline(root, "cuda").items():
+            read = line.get("read_seconds", 0.0)
+            out[step] = {"rows": line["rows"], "read_s": read,
+                         "compute_s": line["seconds"] - read,
+                         "seconds": line["seconds"]}
+    return {"rows": rows, "columns": GBT_COLS + 5, "raw_bytes": raw_bytes,
+            "write_s": write_s, "steps": out}
 
 
 def _model_file(root, kind):
@@ -988,24 +1198,39 @@ def phase_train_main_path(report, workdir, device="cuda", rows=TRAIN_ROWS):
         "gbt_log": ("GBT", {"TreeNum": 10, "MaxDepth": TRAIN_DEPTH,
                             "LearningRate": TRAIN_LR, "Loss": "log"}, 0.1),
     }
-    data = {}
+    # one raw table; the port's init → stats → norm on the card make
+    # its ColumnConfig.json and CleanedData, which every set then trains
+    # from (a copy a set, its train section rewritten)
+    import shutil
+    base = os.path.join(workdir, "base")
+    write_model_set(base, "GBT", {}, 40, rows, 0.1)
+    for step, line in run_pipeline(base, device).items():
+        print(f"  {step} on {line['device']}: {json.dumps(line)}")
+    keep = shutil.ignore_patterns("data")
     for name, (alg, params, vr) in sets.items():
         for where in ("card", "cpu"):
-            data[name] = write_model_set(
-                os.path.join(workdir, f"{name}_{where}"), alg, params, 40,
-                rows, vr)
+            d = os.path.join(workdir, f"{name}_{where}")
+            shutil.copytree(base, d, ignore=keep)
+            set_config(d, "train", algorithm=alg, params=params,
+                       validSetRate=vr)
     fused_root = os.path.join(workdir, "gbt_log_fused")
-    write_model_set(fused_root, *sets["gbt_log"][:2], 40, rows, 0.1)
+    shutil.copytree(base, fused_root, ignore=keep)
+    set_config(fused_root, "train", algorithm="GBT",
+               params=sets["gbt_log"][1], validSetRate=0.1)
+    clean = np.load(os.path.join(base, "tmp", "CleanedData", "data.npz"))
+    data = {"gbt_log": (clean["dense"], clean["tags"])}
 
     # each `train` run reports its kernels' launches (its process's
     # counters start at zero and are read before and after the run);
     # the main path's counts are the card runs' sums
     runs = {}
     for name in sets:
-        runs[name] = run_train(os.path.join(workdir, f"{name}_card"), device)
-        runs[name + "_cpu"] = run_train(os.path.join(workdir, f"{name}_cpu"),
+        runs[name] = run_step(os.path.join(workdir, f"{name}_card"),
+                              "train", device)
+        runs[name + "_cpu"] = run_step(os.path.join(workdir, f"{name}_cpu"),
+                                       "train",
                                         "cpu")
-    runs["gbt_log_fused"] = run_train(fused_root, device,
+    runs["gbt_log_fused"] = run_step(fused_root, "train", device,
                                       {"SHIFU_TPU_HIST_FUSED": "1"})
     launches = {k: sum(r["launches"][k] for n, r in runs.items()
                        if not n.endswith("_cpu"))
@@ -1645,6 +1870,9 @@ def main() -> int:
     if sys.argv[1:] == ["--k5-timing"]:
         print(json.dumps({"k5_timing": k5_timing()}))
         return 0
+    if sys.argv[1:] == ["--pipeline-walls"]:
+        print(json.dumps({"pipeline_walls": pipeline_walls()}))
+        return 0
     print("phase 1: build")
     phase_build()
     report = {}
@@ -1667,6 +1895,9 @@ def main() -> int:
         phase_train_main_path(report, workdir)
     print("phase 9: training timing at the HIGGS widths")
     phase_train_timing(report, t_start)
+    print("phase 10: init -> stats -> norm on the card vs the CPU twin")
+    with tempfile.TemporaryDirectory() as workdir:
+        phase_pipeline(report, workdir)
     print(f"total: {time.monotonic() - t_start:.1f} s on {smi}")
 
     kernels = []

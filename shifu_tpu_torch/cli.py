@@ -1,9 +1,21 @@
-"""Command line of the port — the `serve` and `train` verbs of
-`shifu_tpu/cli.py` (single model set; the registry fleet comes later).
+"""Command line of the port — the `init`, `stats`, `norm`, `train` and
+`serve` verbs of `shifu_tpu/cli.py` (single model set; the registry
+fleet comes later).
 
+    python -m shifu_tpu_torch --dir <model-set> init
+    python -m shifu_tpu_torch --dir <model-set> stats [--device cuda|cpu]
+    python -m shifu_tpu_torch --dir <model-set> norm [--device cuda|cpu]
+    python -m shifu_tpu_torch --dir <model-set> train [--device cuda|cpu]
     python -m shifu_tpu_torch --dir <model-set> serve [--port P]
         [--no-http] [--duration-s S] [--device cuda|cpu]
-    python -m shifu_tpu_torch --dir <model-set> train [--device cuda|cpu]
+
+`init` writes ColumnConfig.json from the header and a sample read (no
+device work); `stats` fills it with binning and statistics; `norm`
+writes `tmp/NormalizedData` and `tmp/CleanedData`. Each prints one JSON
+line: the step, the device, the rows, the wall seconds, and for
+`stats`/`norm` the seconds spent reading the raw table. The `stats`
+variants `-correlation`, `-psi`, `-rebin`, `-seg` and `-seg-merge` are
+not ported yet and raise, naming their ROADMAP item.
 
 `serve` serves every model spec under ``<model-set>/models`` (the
 `PathFinder.models_path()` rule) until SIGTERM/SIGINT or `--duration-s`,
@@ -59,6 +71,68 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def _step_line(step: str, device: str, report: dict, t0: float) -> None:
+    import time
+    line = {"step": step, "device": device, "rows": report.get("rows"),
+            "seconds": time.perf_counter() - t0}
+    if "read_s" in report:
+        line["read_seconds"] = report["read_s"]
+    print(json.dumps(line))
+
+
+def cmd_init(args) -> int:
+    import time
+
+    from shifu_tpu_torch.processor import init as init_proc
+    from shifu_tpu_torch.processor.base import ProcessorContext
+    t0 = time.perf_counter()
+    report: dict = {}
+    rc = init_proc.run(ProcessorContext.load(os.path.abspath(args.dir)),
+                       report=report)
+    _step_line("init", "host", report, t0)
+    return rc
+
+
+def _device_step(step: str, run, args) -> int:
+    """Run `stats` or `norm` on `--device` (its clock starts once the
+    card's context exists) and print its JSON line."""
+    import time
+
+    import torch
+
+    from shifu_tpu_torch import resolve_device
+    from shifu_tpu_torch.processor.base import ProcessorContext
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        torch.zeros(1, device=dev)
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    report: dict = {}
+    rc = run(ProcessorContext.load(os.path.abspath(args.dir)), device=dev,
+             report=report)
+    _step_line(step, str(dev), report, t0)
+    return rc
+
+
+_STATS_LEFT_OUT = {"correlation": "A4", "psi": "A4", "rebin": "A4",
+                   "seg": "A8", "seg_merge": "A8", "base_only": "A8"}
+
+
+def cmd_stats(args) -> int:
+    from shifu_tpu_torch.processor import stats as stats_proc
+    for flag, item in _STATS_LEFT_OUT.items():
+        if getattr(args, flag) not in (None, False):
+            raise NotImplementedError(
+                f"stats -{flag.replace('_', '-')} is not ported yet "
+                f"(ROADMAP {item})")
+    return _device_step("stats", stats_proc.run, args)
+
+
+def cmd_norm(args) -> int:
+    from shifu_tpu_torch.processor import norm as norm_proc
+    return _device_step("norm", norm_proc.run, args)
+
+
 def cmd_train(args) -> int:
     import time
 
@@ -90,6 +164,23 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="shifu_tpu_torch")
     ap.add_argument("--dir", default=".", help="model-set directory")
     sub = ap.add_subparsers(dest="command", required=True)
+    sub.add_parser("init", help="build ColumnConfig from header") \
+        .set_defaults(fn=cmd_init)
+    p = sub.add_parser("stats", help="column stats + binning")
+    for flag in ("correlation", "psi", "rebin", "seg-merge", "base-only"):
+        p.add_argument(f"-{flag}", f"--{flag}", action="store_true",
+                       help="not ported yet (raises)")
+    p.add_argument("-seg", type=int, default=None,
+                   help="not ported yet (raises)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device for the column math (default cuda)")
+    p.set_defaults(fn=cmd_stats)
+    for alias in ("norm", "normalize"):
+        p = sub.add_parser(alias, help="normalize data")
+        p.add_argument("--device", default="cuda",
+                       help="torch device for the transforms (default "
+                            "cuda)")
+        p.set_defaults(fn=cmd_norm)
     p = sub.add_parser("serve", help="low-latency scorer service")
     p.add_argument("--port", type=int, default=None,
                    help="HTTP port (default SHIFU_TPU_SERVE_PORT; "

@@ -1,7 +1,9 @@
-"""Environment knobs the serving and tree-training slices read.
+"""Environment knobs the serving, tree-training and stats/norm slices read.
 
 A copy of the reading half of `shifu_tpu/config/environment.py` for the
-four serving knobs and the two tree-build knobs: same names, same
+four serving knobs, the two tree-build knobs and the four streaming
+triggers of stats and norm (which the port honours by raising: the
+streaming steps are ROADMAP A6): same names, same
 defaults, and the same warn-and-run parsing (a malformed value logs a
 warning and falls back to the default instead of failing the process).
 The JAX package's routing and TPU-dispatch knobs (`SHIFU_TPU_HIST`,
@@ -43,6 +45,14 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
          "1 = GBT level builds bin numeric values inside the histogram "
          "kernel (no materialized bin-index matrix); needs FusedBins "
          "inputs from gbdt.make_fused_inputs"),
+    Knob("SHIFU_TPU_STATS_CHUNK_ROWS", None,
+         "explicit stats streaming chunk rows; 0 forces resident"),
+    Knob("SHIFU_TPU_STATS_STREAM_BYTES", 2 * 1024 ** 3,
+         "raw-bytes threshold that auto-triggers streaming stats"),
+    Knob("SHIFU_TPU_NORM_CHUNK_ROWS", None,
+         "explicit norm streaming chunk rows; 0 forces resident"),
+    Knob("SHIFU_TPU_NORM_STREAM_BYTES", 2 * 1024 ** 3,
+         "raw-bytes threshold that auto-triggers streaming norm"),
 )}
 
 
@@ -51,6 +61,12 @@ def _require(name: str) -> Knob:
     if k is None:
         raise KeyError(f"{name} is not a knob of shifu_tpu_torch")
     return k
+
+
+def knob_raw(name: str) -> Optional[str]:
+    """The knob's raw environment value (None when unset)."""
+    _require(name)
+    return os.environ.get(name)
 
 
 def knob_int(name: str, default: Optional[int] = None) -> Optional[int]:

@@ -409,6 +409,32 @@ def _route_level(cfg: TreeConfig, trees, binsT, node_of_row, depth: int):
                            2 ** depth)
 
 
+def _bin_routed(vals: torch.Tensor, cuts: torch.Tensor,
+                feat_idx: torch.Tensor) -> torch.Tensor:
+    """Σ(v >= cut) of each routed value against its own column's
+    ascending (C, K) cuts, by binary lifting (the rule of
+    `csrc/binning.cuh`): ⌈log2(K+1)⌉ steps of one (T, R) gather each,
+    taking a step when the cut it lands on is <= v. Each column's cuts
+    are padded with NaN to the span the steps can reach, and a NaN cut
+    is <= no value, so no step needs a bound check. No (T, R, K) tensor
+    of cuts is formed."""
+    c, k = cuts.shape
+    step = 1
+    while 2 * step <= k:
+        step *= 2
+    span = 2 * step - 1 if k else 0
+    padded = torch.full((c, span), torch.nan, dtype=cuts.dtype,
+                        device=cuts.device)
+    padded[:, :k] = cuts
+    flat = padded.reshape(-1)
+    pos = feat_idx * span        # column start + the cuts counted so far
+    while k and step > 0:
+        take = flat[step - 1:][pos] <= vals
+        pos.add_(take, alpha=step)
+        step //= 2
+    return pos - feat_idx * span
+
+
 def _route_level_at(cfg: TreeConfig, trees, binsT, node_of_row,
                     level_offset: int, n_level: int):
     """trees: (T, n_nodes) arrays, node_of_row: (T, R) int64. The gather
@@ -420,8 +446,7 @@ def _route_level_at(cfg: TreeConfig, trees, binsT, node_of_row,
     feat_idx = node_feat.clamp(min=0).long()
     if isinstance(binsT, FusedBins):
         vals = torch.gather(binsT.valuesT, 0, feat_idx)           # (T, R)
-        cuts = binsT.cuts[feat_idx]                               # (T, R, K)
-        row_bin = (vals[..., None] >= cuts).sum(dim=-1)
+        row_bin = _bin_routed(vals, binsT.cuts, feat_idx)
         row_bin = torch.clamp(row_bin, max=cfg.n_bins - 2)
         row_bin = torch.where(torch.isnan(vals), cfg.n_bins - 1, row_bin)
     else:

@@ -1,22 +1,27 @@
-"""Shared processor lifecycle — the loading half of
-`shifu_tpu/processor/base.py` (`ProcessorContext.load`,
-`require_columns`, lines 35-81).
+"""Shared processor lifecycle — the port's copy of `ProcessorContext`
+from `shifu_tpu/processor/base.py` (`load`, `validate`,
+`save_column_configs`, `require_columns`).
 
-`validate()` (the `config/inspector.py` probe) and the `step_guard`
-completion manifests are not ported yet; the processors of this slice
-run without them.
+The `step_guard` completion manifests are not ported yet (ROADMAP A8):
+a step of the port always runs, and its outputs are written through
+`fileio.atomic_write` / `atomic_path`.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from dataclasses import dataclass, field
 from typing import List
 
 from shifu_tpu_torch.config.column_config import (ColumnConfig,
-                                                  load_column_configs)
+                                                  load_column_configs,
+                                                  save_column_configs)
+from shifu_tpu_torch.config.inspector import ModelStep, probe
 from shifu_tpu_torch.config.model_config import ModelConfig
 from shifu_tpu_torch.config.path_finder import PathFinder
+
+log = logging.getLogger("shifu_tpu_torch")
 
 
 @dataclass
@@ -36,6 +41,19 @@ class ProcessorContext:
         if need_columns and os.path.exists(cc_path):
             ccs = load_column_configs(cc_path)
         return cls(model_config=mc, column_configs=ccs, path_finder=pf)
+
+    def validate(self, step: ModelStep) -> None:
+        res = probe(self.model_config, step)
+        for w in res.warnings:
+            log.warning("config: %s", w)
+        if not res.status:
+            raise ValueError(
+                f"ModelConfig validation failed for step {step.value}: "
+                + "; ".join(res.causes))
+
+    def save_column_configs(self) -> None:
+        save_column_configs(self.column_configs,
+                            self.path_finder.column_config_path())
 
     def require_columns(self) -> None:
         if not self.column_configs:

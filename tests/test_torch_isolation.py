@@ -1,14 +1,19 @@
-"""The port stands alone: it imports neither JAX nor the JAX package.
+"""The port stands alone: it imports neither JAX nor the JAX package,
+and neither pandas nor pyarrow, which the card machine is not known to
+have.
 
 The runtime check runs in a subprocess, because this test process has
 JAX loaded already (tests/conftest.py imports it). The source scan
-covers every file of `shifu_tpu_torch/` and `chip_smoke.py`.
+covers every file of `shifu_tpu_torch/` and `chip_smoke.py`; the
+mutable-static scan covers the CUDA sources and the C reader.
 """
 
 import os
 import re
 import subprocess
 import sys
+
+import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -19,6 +24,10 @@ import torch
 import shifu_tpu_torch.cli, shifu_tpu_torch.weights, shifu_tpu_torch._build
 import shifu_tpu_torch.serve.http
 import shifu_tpu_torch.processor.train, shifu_tpu_torch.fileio
+import shifu_tpu_torch.processor.init, shifu_tpu_torch.processor.stats
+import shifu_tpu_torch.processor.norm, shifu_tpu_torch.data.native_reader
+import shifu_tpu_torch.data.segment, shifu_tpu_torch.data.sampling
+import shifu_tpu_torch.config.inspector, shifu_tpu_torch.train.grid_search
 from shifu_tpu_torch.models import gbdt
 from shifu_tpu_torch.ops import best_splits, level_hist
 from shifu_tpu_torch.eval.scorer import Scorer
@@ -48,9 +57,18 @@ y = (bins[:, 0] > 3).astype(np.float32)
 trees = gbdt.build_rf(gbdt.TreeConfig(max_depth=2, n_bins=8), bins, y,
                       np.ones_like(y), 2, "ALL", 1.0, 0, device="cpu")
 assert trees["feature"].shape == (2, 7)
+from shifu_tpu_torch.config.inspector import ModelStep, probe
+from shifu_tpu_torch.config.model_config import ModelConfig
+from shifu_tpu_torch.data.purifier import DataPurifier
+from shifu_tpu_torch.data.reader import Table
+for step in ModelStep:
+    probe(ModelConfig.from_dict({"basic": {"name": "x"}}), step)
+t = Table({"a": np.array(["1", "2", "3"]), "b": np.array(["x", "y", "x"])})
+assert DataPurifier("a > 1 && b == 'x'").apply(t).tolist() == \
+    [False, False, True]
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.")
-             or m == "shifu_tpu" or m.startswith("shifu_tpu."))
+             if m.split(".")[0] in ("jax", "shifu_tpu", "pandas",
+                                    "pyarrow"))
 print("BAD", bad)
 sys.exit(1 if bad else 0)
 """
@@ -76,6 +94,12 @@ _PKG_IMPORT = re.compile(
     r"|__import__\(\s*[\"']\bshifu_tpu\b(?!_torch)", re.M)
 
 
+# pandas and pyarrow: the card machine is not known to have them
+_FOREIGN_IMPORT = re.compile(
+    r"^\s*(import|from)\s+(pandas|pyarrow)\b"
+    r"|(import_module|__import__)\(\s*[\"'](pandas|pyarrow)\b", re.M)
+
+
 def _port_sources():
     pkg = os.path.join(REPO, "shifu_tpu_torch")
     out = [os.path.join(REPO, "chip_smoke.py")]
@@ -92,6 +116,17 @@ def test_source_scan_finds_no_jax_or_jax_package_import():
             text = f.read()
         assert not _JAX_IMPORT.search(text), f"{path} imports jax"
         assert not _PKG_IMPORT.search(text), f"{path} imports shifu_tpu"
+        assert not _FOREIGN_IMPORT.search(text), \
+            f"{path} imports pandas or pyarrow"
+
+
+def test_foreign_import_pattern():
+    for bad in ("import pandas as pd", "  from pyarrow import parquet",
+                "importlib.import_module('pandas')", "__import__(\"pyarrow\")"):
+        assert _FOREIGN_IMPORT.search(bad), bad
+    for fine in ("import pandasx", "# pandas is not imported",
+                 "x = 'pandas'"):
+        assert not _FOREIGN_IMPORT.search(fine), fine
 
 
 # a `static` declaration that is not a constant: process-wide state that
@@ -120,13 +155,39 @@ def test_kernel_sources_keep_no_mutable_static_state():
                  "static const float K = 1.f;", "// static int note;",
                  "static_assert(true);"):
         assert not _MUTABLE_STATIC.search(_code(fine)), fine
-    csrc = os.path.join(REPO, "shifu_tpu_torch", "csrc")
-    files = sorted(f for f in os.listdir(csrc)
-                   if f.endswith((".cu", ".cuh")))
-    assert len(files) >= 5, files
+    files = []
+    for sub, ext in (("csrc", (".cu", ".cuh")), ("native", (".c",))):
+        d = os.path.join(REPO, "shifu_tpu_torch", sub)
+        files += [os.path.join(d, f) for f in sorted(os.listdir(d))
+                  if f.endswith(ext)]
+    assert len(files) >= 6, files
     for f in files:
-        with open(os.path.join(csrc, f)) as fh:
+        with open(f) as fh:
             code = _code(fh.read())
         for i, line in enumerate(code.splitlines(), 1):
             assert not _MUTABLE_STATIC.search(line), \
                 f"{f}:{i}: mutable static state: {line.strip()}"
+
+
+def test_fast_reader_builds_with_cc_and_parses(tmp_path):
+    """The port's `native/fast_reader.c` builds with the host compiler
+    into a build directory of the caller's and parses one small file:
+    numeric columns to float32 (missing and junk NaN), the rest to
+    trimmed strings, blank lines skipped, the in-file header dropped."""
+    from shifu_tpu_torch.data import native_reader
+    build = str(tmp_path / "build")
+    lib = native_reader.build(build)
+    assert os.path.dirname(lib) == build and os.path.exists(lib)
+    assert native_reader.build(build) == lib            # built once
+    path = str(tmp_path / "part-00000")
+    with open(path, "w") as f:
+        f.write("a|b|c\n1.5| x |7\n\n?|y|1e3\r\n-2|z|abc\n")
+    t = native_reader.read_files_native([path], ["a", "b", "c"], "|",
+                                        ["a", "c"], skip_first_row_of=path,
+                                        build_dir=build)
+    assert t.columns == ["a", "b", "c"] and len(t) == 3
+    np.testing.assert_array_equal(
+        t["a"], np.array([1.5, np.nan, -2.0], np.float32))
+    np.testing.assert_array_equal(
+        t["c"], np.array([7.0, 1000.0, np.nan], np.float32))
+    assert t["b"].tolist() == ["x", "y", "z"]
