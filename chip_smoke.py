@@ -77,7 +77,29 @@ result line is printed):
    tokens): ColumnConfig.json equal but for the f32 sums (mean/std and
    weighted bin sums within rtol 1e-5, skewness/kurtosis atol 1e-4),
    CleanedData and the WOE block equal, the ZSCALE block within 1e-5;
-   each step's JSON line (device, rows, read and total seconds).
+   each step's JSON line (device, rows, read and total seconds); the
+   CPU twin's steps run beside the card's;
+11. the NN of phase 4's shape (600 → 512 → 256 → 1, weights from a
+   seed) over a raw table of 600 numeric columns and 65,536 rows (2 %
+   missing tokens) made into ColumnConfig.json by the port's `init` and
+   `stats` on the card: `eval` over the ZSCALE set (through K1) on the
+   card and with `--device cpu` (EvalScore.csv, the AUCs and the
+   buckets within 1e-5, or one row's share at a tie edge; `fused_score`
+   launched), `posttrain` timed on the card at full size and held
+   against the CPU on the first 4,096 rows (importance within 1e-4
+   relative, binAvgScore 1e-5).
+
+Phase 8 then registers a holdout table (262,144 rows, another seed) as
+eval set `holdout` of the card-trained RF and log-loss GBT sets and runs
+`posttrain` and `eval` as processes on the card and, beside it, on a
+`--device cpu` copy (the same model files): featureimportance.csv
+equal, binAvgScore within 1e-6 relative, EvalScore.csv, the AUCs, every
+bucket field and EvalConfusionMatrix.csv within 1e-6 (or one row's
+share where a tie group straddles a bucket edge), `fused_trees`
+launched in each card eval; on the GBT set also `eval -score`,
+`-confmat`, `-perf`, `-norm` (EvalNorm.csv within 1e-6) and `-audit
+-n 100` (line for line, scores within 1e-6). The K1/K2 launch counts
+of the kernels line add these card runs to phase 4's.
 
 The last lines are the per-kernel launch line, the kernel JSON line,
 the card's name and power limit, and the result object.
@@ -86,7 +108,10 @@ the card's name and power limit, and the result object.
 (and the split step's host time a level), `--serve-walls` only both
 services' closed loop at 1 and 512 rows, `--k5-timing` only phase 9's
 K5 rows, `--pipeline-walls` only `init`/`stats`/`norm` on the card at
-2,000,000 rows of phase 10's table (read and compute seconds a step). They call only functions that older trees of the port have
+2,000,000 rows of phase 10's table (read and compute seconds a step),
+`--eval-walls` only `eval` on the card over a 2,000,000-row eval file
+of phase 8's table with a GBT + RF ensemble (read, score and total
+seconds). They call only functions that older trees of the port have
 too, so the script copied into the root of an older tree times that
 tree: run the two in turns on one card.
 """
@@ -937,14 +962,9 @@ def write_model_set(root, alg, params, seed, rows, valid_rate,
     from shifu_tpu_torch.config.model_config import ModelConfig
     from shifu_tpu_torch.fileio import atomic_write
     data_dir = os.path.join(root, "data")
-    os.makedirs(data_dir)
     names, cols, _, _ = raw_table(np.random.default_rng(seed), rows,
                                   extras)
-    body = "\n".join("|".join(r) for r in np.stack(cols, 1).tolist())
-    with atomic_write(os.path.join(data_dir, "part-00000")) as f:
-        f.write(body + "\n")
-    with atomic_write(os.path.join(data_dir, ".pig_header")) as f:
-        f.write("|".join(names) + "\n")
+    raw_bytes = write_raw(data_dir, names, cols)
     data_set = {"dataPath": data_dir, "dataDelimiter": "|",
                 "headerPath": os.path.join(data_dir, ".pig_header"),
                 "targetColumnName": "label", "posTags": ["1"],
@@ -969,7 +989,26 @@ def write_model_set(root, alg, params, seed, rows, valid_rate,
         "normalize": {"normType": "ZSCALE"},
         "train": {"algorithm": alg, "validSetRate": valid_rate,
                   "params": params}}).save(root)
-    return len(body) + 1
+    return raw_bytes
+
+
+def write_raw(data_dir, names, cols, chunk=8192):
+    """One pipe-delimited part file of string columns (a list of 1-D
+    arrays, or one 2-D array of tokens), written `chunk` rows at a time,
+    with its `.pig_header`; returns the part file's bytes."""
+    from shifu_tpu_torch.fileio import atomic_write
+    os.makedirs(data_dir)
+    tokens = cols if isinstance(cols, np.ndarray) else np.stack(cols, 1)
+    n_bytes = 0
+    with atomic_write(os.path.join(data_dir, "part-00000")) as f:
+        for a in range(0, len(tokens), chunk):
+            body = "\n".join("|".join(r)
+                             for r in tokens[a:a + chunk].tolist()) + "\n"
+            f.write(body)
+            n_bytes += len(body)
+    with atomic_write(os.path.join(data_dir, ".pig_header")) as f:
+        f.write("|".join(names) + "\n")
+    return n_bytes
 
 
 def set_config(root, section, **fields):
@@ -983,33 +1022,78 @@ def set_config(root, section, **fields):
     ModelConfig.from_dict(d).save(root)
 
 
-def run_step(root, verb, device=None, env_extra=None):
-    """`python -m shifu_tpu_torch --dir root <verb> [--device D]` as a
-    subprocess; returns its JSON line."""
+def _start_step(root, verb, device, env_extra):
     env = dict(os.environ)
     env.update(env_extra or {})
-    args = [verb] if device is None else [verb, "--device", device]
-    proc = subprocess.run(
+    args = [verb] if isinstance(verb, str) else list(verb)
+    if device is not None:
+        args += ["--device", device]
+    return subprocess.Popen(
         [sys.executable, "-m", "shifu_tpu_torch", "--dir", root, *args],
-        capture_output=True, text=True, env=env,
-        cwd=os.path.dirname(os.path.abspath(__file__)), timeout=900)
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def _step_result(proc, what):
+    try:
+        out, err = proc.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
     if proc.returncode != 0:
-        raise RuntimeError(f"{verb} --device {device} on {root} failed "
-                           f"(rc {proc.returncode}):\n{proc.stderr[-4000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+        raise RuntimeError(f"{what} failed (rc {proc.returncode}):\n"
+                           f"{err[-4000:]}")
+    return json.loads(out.strip().splitlines()[-1])
 
 
-def run_pipeline(root, device, norms=("ZSCALE",)):
+def run_step(root, verb, device=None, env_extra=None):
+    """`python -m shifu_tpu_torch --dir root <verb> [--device D]` as a
+    subprocess (`verb` a word or a list of arguments); returns its JSON
+    line."""
+    return _step_result(_start_step(root, verb, device, env_extra),
+                        f"{verb} --device {device} on {root}")
+
+
+def in_parallel(*fns):
+    """Call each function on a thread of its own, all at once; return
+    their results in order (the first failure raises, after all have
+    ended). The chains of step processes that touch separate model sets
+    run side by side this way, for the gates: their step lines time a
+    shared host, so the step times come from `--eval-walls` and
+    `--pipeline-walls`."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(fns)) as pool:
+        futures = [pool.submit(fn) for fn in fns]
+        return [f.result() for f in futures]
+
+
+def run_twins(card_root, cpu_root, verb, device="cuda"):
+    """`verb` on `device` in `card_root` and with `--device cpu` in
+    `cpu_root`, the CPU twin started first and run beside the card one
+    on four threads, for the gates (`in_parallel` says where the step
+    times come from); returns (card line, CPU line)."""
+    cpu = _start_step(cpu_root, verb, "cpu", {"OMP_NUM_THREADS": "4"})
+    try:
+        card = run_step(card_root, verb, device)
+    except BaseException:
+        cpu.kill()
+        cpu.communicate()
+        raise
+    return card, _step_result(cpu, f"{verb} --device cpu on {cpu_root}")
+
+
+def run_pipeline(root, device, norms=("ZSCALE",), env_extra=None):
     """`init`, `stats` and one `norm` a norm type, each in its own
     process; returns their JSON lines (norm lines keyed by type). With
     several norm types, each type's NormalizedData is kept as
     ``tmp/NormalizedData.<type>``."""
     import shutil
-    lines = {"init": run_step(root, "init"),
-             "stats": run_step(root, "stats", device)}
+    lines = {"init": run_step(root, "init", env_extra=env_extra),
+             "stats": run_step(root, "stats", device, env_extra)}
     for nt in norms:
         set_config(root, "normalize", normType=nt)
-        lines[f"norm {nt}"] = run_step(root, "norm", device)
+        lines[f"norm {nt}"] = run_step(root, "norm", device, env_extra)
         if len(norms) > 1:
             out = os.path.join(root, "tmp", "NormalizedData")
             shutil.move(out, f"{out}.{nt}")
@@ -1110,8 +1194,11 @@ def phase_pipeline(report, workdir, device="cuda", rows=TRAIN_ROWS):
     cpu = os.path.join(workdir, "cpu")
     shutil.copytree(card, cpu, ignore=shutil.ignore_patterns("data"))
     norms = ("ZSCALE", "WOE")
-    lines = {"card": run_pipeline(card, device, norms),
-             "cpu": run_pipeline(cpu, "cpu", norms)}
+    # the CPU twin's steps run on four threads beside the card's
+    on_card, on_cpu = in_parallel(
+        lambda: run_pipeline(card, device, norms),
+        lambda: run_pipeline(cpu, "cpu", norms, {"OMP_NUM_THREADS": "4"}))
+    lines = {"card": on_card, "cpu": on_cpu}
     for where, steps in lines.items():
         for step, line in steps.items():
             print(f"  {where} {step}: {json.dumps(line)}")
@@ -1223,15 +1310,26 @@ def phase_train_main_path(report, workdir, device="cuda", rows=TRAIN_ROWS):
     # each `train` run reports its kernels' launches (its process's
     # counters start at zero and are read before and after the run);
     # the main path's counts are the card runs' sums
+    # the CPU twins run on four threads beside the card runs
+    def card_runs():
+        out = {name: run_step(os.path.join(workdir, f"{name}_card"),
+                              "train", device) for name in sets}
+        out["gbt_log_fused"] = run_step(fused_root, "train", device,
+                                        {"SHIFU_TPU_HIST_FUSED": "1"})
+        return out
+
+    def cpu_runs():
+        return {name + "_cpu": run_step(os.path.join(workdir,
+                                                     f"{name}_cpu"),
+                                        "train", "cpu",
+                                        {"OMP_NUM_THREADS": "4"})
+                for name in sets}
+    on_card, on_cpu = in_parallel(card_runs, cpu_runs)
     runs = {}
     for name in sets:
-        runs[name] = run_step(os.path.join(workdir, f"{name}_card"),
-                              "train", device)
-        runs[name + "_cpu"] = run_step(os.path.join(workdir, f"{name}_cpu"),
-                                       "train",
-                                        "cpu")
-    runs["gbt_log_fused"] = run_step(fused_root, "train", device,
-                                      {"SHIFU_TPU_HIST_FUSED": "1"})
+        runs[name] = on_card[name]
+        runs[name + "_cpu"] = on_cpu[name + "_cpu"]
+    runs["gbt_log_fused"] = on_card["gbt_log_fused"]
     launches = {k: sum(r["launches"][k] for n, r in runs.items()
                        if not n.endswith("_cpu"))
                 for k in ("level_hist", "level_hist_fused", "best_splits")}
@@ -1505,26 +1603,32 @@ def kernels_between_markers(fn):
     those between two marker kernels (`torch.cuda._sleep`'s spin
     kernel) on the card's timeline. Padding launches before and after
     keep the counted window away from the trace's ends, where the
-    profiler may miss the records of a short window's kernels."""
+    profiler may miss the records of a short window's kernels; a trace
+    that lost a marker's record is taken again, up to three times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     pad = torch.zeros(1, device="cuda")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            pad.add_(1.0)
-        torch.cuda._sleep(1000)
-        fn()
-        torch.cuda._sleep(1000)
-        for _ in range(100):
-            pad.add_(1.0)
+    for attempt in range(3):
         torch.cuda.synchronize()
-    evs = sorted((ev.time_range.start, ev.name) for ev in prof.events()
-                 if ev.device_type == DeviceType.CUDA)
-    marks = [i for i, (_, name) in enumerate(evs) if "spin_kernel" in name]
-    assert len(marks) == 2, f"found {len(marks)} marker kernels"
-    return [name for _, name in evs[marks[0] + 1:marks[1]]]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                pad.add_(1.0)
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda._sleep(1000)
+            for _ in range(100):
+                pad.add_(1.0)
+            torch.cuda.synchronize()
+        evs = sorted((ev.time_range.start, ev.name) for ev in prof.events()
+                     if ev.device_type == DeviceType.CUDA)
+        marks = [i for i, (_, name) in enumerate(evs)
+                 if "spin_kernel" in name]
+        if len(marks) == 2:
+            return [name for _, name in evs[marks[0] + 1:marks[1]]]
+        print(f"  (trace {attempt + 1}: {len(marks)} marker kernels among "
+              f"{len(evs)} kernel records; taken again)")
+    raise AssertionError(f"found {len(marks)} marker kernels")
 
 
 def split_step_launches(cfg, t=20, p=32, seed=75):
@@ -1831,6 +1935,513 @@ def train_walls(repeats=3):
     return walls, [row["host_ms"] for row in per_level["split"]]
 
 
+# ---------------------------------------------------------------------------
+# The scoring slice: posttrain and eval, card against CPU
+# ---------------------------------------------------------------------------
+
+EVAL_ROWS = 262_144         # phase 8's holdout set
+NN_EVAL_ROWS = 65_536       # phase 11's raw table, 600 numeric columns
+NN_POST_CPU_ROWS = 4_096    # phase 11's posttrain held against the CPU
+AUCS = ("areaUnderRoc", "weightedAreaUnderRoc", "areaUnderPr")
+
+
+def add_eval_set(root, name, data_dir):
+    """Register `data_dir` (a part file and its `.pig_header`) as eval
+    set `name` of the model set, its dataSet otherwise the model's."""
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    path = os.path.join(root, "ModelConfig.json")
+    with open(path) as f:
+        d = json.load(f)
+    ds = dict(d["dataSet"], dataPath=data_dir,
+              headerPath=os.path.join(data_dir, ".pig_header"))
+    d["evals"] = [e for e in d.get("evals") or [] if e["name"] != name] \
+        + [{"name": name, "dataSet": ds}]
+    ModelConfig.from_dict(d).save(root)
+
+
+def _digit(token):
+    """One unit in the last printed digit of a %.6f / %.6g token."""
+    mant, _, exp = token.lower().partition("e")
+    dec = len(mant.partition(".")[2])
+    return 10.0 ** (int(exp or 0) - dec)
+
+
+def _within(x, y, lim, share=0.0):
+    """0 when `x` and `y` are within `lim`, 1 when only within `share`
+    more (one row's share at a tie edge); raises otherwise."""
+    if x == y or (math.isnan(x) and math.isnan(y)):
+        return 0
+    if abs(x - y) <= lim * (1 + 1e-9):
+        return 0
+    if abs(x - y) <= lim + share * (1 + 1e-6):
+        return 1
+    raise AssertionError(f"{x!r} vs {y!r} (tolerance {lim}, one row "
+                         f"{share})")
+
+
+def _close(a, b, tol, share=0.0):
+    """`_within` for two printed numbers, whose tolerance is at least a
+    unit of their last printed digit."""
+    return _within(float(a), float(b), max(tol, _digit(a), _digit(b)),
+                   share)
+
+
+def _lines(path):
+    with open(path) as f:
+        return f.read().splitlines()
+
+
+def score_counts(path):
+    """(n_pos, n_neg, weighted pos, weighted neg, max weight) of an
+    EvalScore.csv: what one row can move a bucket field by."""
+    head = _lines(path)[0].split(",")
+    data = np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2)
+    tag, w = data[:, head.index("tag")], data[:, head.index("weight")]
+    pos = tag > 0.5
+    return (int(pos.sum()), int((~pos).sum()), float(w[pos].sum()),
+            float(w[~pos].sum()), float(w.max()))
+
+
+def _row_share(field, row, depth, counts):
+    n_pos, n_neg, w_pos, w_neg, w_max = counts
+    rec, wrec = 1.0 / max(n_pos, 1), w_max / max(w_pos, 1e-12)
+    if field == "weightedPrecision":
+        top = row["weightedRecall"] * w_pos / max(row[field], 1e-12)
+        return w_max / top if top > 0 else 1.0
+    return {"recall": rec, "weightedRecall": wrec,
+            "fpr": 1.0 / max(n_neg, 1), "weightedFpr": w_max / max(w_neg,
+                                                                     1e-12),
+            "precision": 1.0 / max(depth * (n_pos + n_neg), 1.0),
+            "liftUnit": rec / depth, "liftWeight": wrec / depth,
+            }.get(field, 0.0)
+
+
+def compare_perf(a, b, tol, counts, score_scale):
+    """EvalPerformance dicts: the AUCs within `tol`; every bucket field
+    within `tol` (binLowestScore within tol·scoreScale) or one row's
+    share; scoreStatus equal but for max/min score (within `tol`).
+    Returns (largest AUC difference, fields off by one row)."""
+    auc_err = max(abs(a[k] - b[k]) for k in AUCS)
+    assert auc_err <= tol, [(k, a[k], b[k]) for k in AUCS]
+    edges = 0
+    for curve in ("pr", "roc", "gains"):
+        assert len(a[curve]) == len(b[curve]), curve
+        for i, (ra, rb) in enumerate(zip(a[curve], b[curve])):
+            depth = b["gains"][i]["actionRate"]
+            for k, v in rb.items():
+                lim = tol * (score_scale if k == "binLowestScore" else 1.0)
+                edges += _within(ra[k], v, lim,
+                                 _row_share(k, rb, depth, counts))
+    if "scoreStatus" in b:
+        sa, sb = a["scoreStatus"], b["scoreStatus"]
+        for k in sb:
+            if k in ("maxScore", "minScore"):
+                assert abs(sa[k] - sb[k]) <= tol, (k, sa[k], sb[k])
+            else:
+                assert sa[k] == sb[k], (k, sa[k], sb[k])
+    return auc_err, edges
+
+
+def compare_score_csv(a_path, b_path, tol):
+    """EvalScore.csv: header, tag and weight columns identical text, the
+    score columns within `tol`. Returns the largest score difference."""
+    la, lb = _lines(a_path), _lines(b_path)
+    assert la[0] == lb[0], (la[0], lb[0])
+    assert len(la) == len(lb), (len(la), len(lb))
+    for ra, rb in zip(la[1:], lb[1:]):
+        assert ra.split(",", 2)[:2] == rb.split(",", 2)[:2], (ra, rb)
+    if len(la) == 1:
+        return 0.0
+    xa = np.loadtxt(a_path, delimiter=",", skiprows=1, ndmin=2)[:, 2:]
+    xb = np.loadtxt(b_path, delimiter=",", skiprows=1, ndmin=2)[:, 2:]
+    err = float(np.max(np.abs(xa - xb)))
+    assert err <= tol + 1e-6 * (1 + 1e-6), f"EvalScore.csv: {err}"
+    return err
+
+
+def compare_confusion(a_path, b_path, tol, counts):
+    """EvalConfusionMatrix.csv: thresholds within `tol`, counts equal,
+    weighted counts within `tol` relative — or one row apart (1 and
+    the largest weight) at a tie edge. Returns the fields off by a
+    row."""
+    la, lb = _lines(a_path), _lines(b_path)
+    assert la[0] == lb[0] and len(la) == len(lb), (len(la), len(lb))
+    edges = 0
+    for ra, rb in zip(la[1:], lb[1:]):
+        for j, (x, y) in enumerate(zip(ra.split(","), rb.split(","))):
+            if j == 0:
+                edges += _close(x, y, tol)
+            elif j <= 4:
+                edges += _close(x, y, 0.0, 1.0)
+            else:
+                edges += _close(x, y, tol * abs(float(y)), counts[4])
+    return edges
+
+
+def compare_gain_csv(a_path, b_path, tol, counts, score_scale):
+    la, lb = _lines(a_path), _lines(b_path)
+    assert la[0] == lb[0] and len(la) == len(lb)
+    names = lb[0].split(",")
+    edges = 0
+    for ra, rb in zip(la[1:], lb[1:]):
+        row = dict(zip(names, map(float, rb.split(","))))
+        for k, x, y in zip(names, ra.split(","), rb.split(",")):
+            lim = tol * (score_scale if k == "binLowestScore" else 1.0)
+            edges += _close(x, y, lim, _row_share(k, row, row["actionRate"],
+                                                  counts))
+    return edges
+
+
+def compare_eval_dir(a_root, b_root, name, tol, score_scale=1000.0,
+                     files=("score", "perf", "confusion", "gain")):
+    """One eval set's outputs under ``evals/<name>/`` of two model sets
+    (`b_root` the reference): EvalScore.csv, EvalPerformance.json,
+    EvalConfusionMatrix.csv, gainchart.csv. Returns the largest score
+    and AUC differences and the bucket fields off by one row."""
+    da = os.path.join(a_root, "evals", name)
+    db = os.path.join(b_root, "evals", name)
+    counts = score_counts(os.path.join(db, "EvalScore.csv"))
+    out = {"score_err": compare_score_csv(
+        os.path.join(da, "EvalScore.csv"), os.path.join(db, "EvalScore.csv"),
+        tol)}
+    edges = 0
+    if "perf" in files:
+        with open(os.path.join(da, "EvalPerformance.json")) as f:
+            pa = json.load(f)
+        with open(os.path.join(db, "EvalPerformance.json")) as f:
+            pb = json.load(f)
+        out["auc_err"], e = compare_perf(pa, pb, tol, counts, score_scale)
+        out["auc"] = pb["areaUnderRoc"]
+        edges += e
+    if "confusion" in files:
+        edges += compare_confusion(
+            os.path.join(da, "EvalConfusionMatrix.csv"),
+            os.path.join(db, "EvalConfusionMatrix.csv"), tol, counts)
+    if "gain" in files:
+        edges += compare_gain_csv(os.path.join(da, "gainchart.csv"),
+                                  os.path.join(db, "gainchart.csv"), tol,
+                                  counts, score_scale)
+    out["tie_edges"] = edges
+    return out
+
+
+def compare_eval_norm(a_path, b_path, tol):
+    """EvalNorm.csv: header, tag and weight identical text, the values
+    within `tol`. Returns the largest difference."""
+    la, lb = _lines(a_path), _lines(b_path)
+    assert la[0] == lb[0] and len(la) == len(lb), (len(la), len(lb))
+    for ra, rb in zip(la[1:], lb[1:]):
+        assert ra.split(",", 2)[:2] == rb.split(",", 2)[:2], (ra, rb)
+    if len(la) == 1:
+        return 0.0
+    xa = np.loadtxt(a_path, delimiter=",", skiprows=1, ndmin=2)
+    xb = np.loadtxt(b_path, delimiter=",", skiprows=1, ndmin=2)
+    err = float(np.max(np.abs(xa - xb)))
+    assert err <= tol + 1e-6 * (1 + 1e-6), f"EvalNorm.csv: {err}"
+    return err
+
+
+def compare_audit(a_path, b_path, tol):
+    """The audit file line for line: every field identical text but the
+    scores (the trailing model columns and finalScore), within `tol`."""
+    la, lb = _lines(a_path), _lines(b_path)
+    assert la[0] == lb[0] and len(la) == len(lb), (len(la), len(lb))
+    head = lb[0].split("|")
+    n_score = sum(1 for h in head if h.startswith("model")) + 1
+    for ra, rb in zip(la[1:], lb[1:]):
+        fa, fb = ra.split("|"), rb.split("|")
+        assert fa[:-n_score] == fb[:-n_score], (ra, rb)
+        for x, y in zip(fa[-n_score:], fb[-n_score:]):
+            _close(x, y, tol)
+    return len(lb) - 1
+
+
+def compare_posttrain(a_root, b_root, imp_rtol, bin_rtol):
+    """featureimportance.csv (the same columns; values equal, or within
+    `imp_rtol` relative) and ColumnConfig.json (binAvgScore within
+    `bin_rtol` relative, every other field equal). Returns the largest
+    relative differences."""
+    def importance(root):
+        rows = _lines(os.path.join(root, "featureimportance.csv"))
+        assert rows[0] == "column,importance"
+        return {r.split(",")[0]: float(r.split(",")[1]) for r in rows[1:]}
+    ia, ib = importance(a_root), importance(b_root)
+    assert set(ia) == set(ib), (set(ia) ^ set(ib))
+    imp = max(abs(ia[k] - v) / max(abs(v), 1e-30) for k, v in ib.items())
+    assert imp <= imp_rtol, f"featureimportance.csv: {imp}"
+    with open(os.path.join(a_root, "ColumnConfig.json")) as f:
+        ca = json.load(f)
+    with open(os.path.join(b_root, "ColumnConfig.json")) as f:
+        cb = json.load(f)
+    worst = 0.0
+    for x, y in zip(ca, cb):
+        xa = x["columnBinning"].pop("binAvgScore", None)
+        yb = y["columnBinning"].pop("binAvgScore", None)
+        assert x == y, f"ColumnConfig {y['columnName']} moved"
+        assert (xa is None) == (yb is None), y["columnName"]
+        if yb is not None:
+            va, vb = np.asarray(xa, float), np.asarray(yb, float)
+            assert va.shape == vb.shape, y["columnName"]
+            worst = max(worst, float(np.max(
+                np.abs(va - vb) / np.maximum(np.abs(vb), 1e-30))))
+    assert worst <= bin_rtol, f"binAvgScore: {worst}"
+    return {"importance_rel": imp, "bin_avg_rel": worst}
+
+
+def phase_posttrain_eval(report, workdir, device="cuda", rows=EVAL_ROWS):
+    """Phase 8's second half: a holdout table from another seed is
+    registered as eval set `holdout` of the card-trained RF and log-loss
+    GBT sets; `posttrain` then `eval` run on the card and, on a copy of
+    the set (the same model files), with `--device cpu`; on the GBT set
+    also `eval -score`, `-confmat`, `-perf`, `-norm` and `-audit -n
+    100`. Every output is held card against CPU. The two sets' chains,
+    and then the split steps' three chains, run side by side."""
+    import shutil
+    holdout = os.path.join(workdir, "holdout")
+    names, cols, _, _ = raw_table(np.random.default_rng(41), rows, False)
+    write_raw(holdout, names, cols)
+
+    def roots(name):
+        return (os.path.join(workdir, f"{name}_card"),
+                os.path.join(workdir, f"{name}_card_cpu"))
+
+    def chain(name, verbs):
+        """The twin runs of `verbs` in order; returns {step: lines}."""
+        card, cpu = roots(name)
+        out = {}
+        for verb in verbs:
+            key = f"{name} {verb if isinstance(verb, str) else ' '.join(verb)}"
+            line_card, line_cpu = run_twins(card, cpu, verb, device)
+            out[key] = {"card": line_card, "cpu": line_cpu}
+        return out
+
+    def set_chain(name):
+        card, cpu = roots(name)
+        out = chain(name, ("posttrain", "eval"))
+        line = out[f"{name} eval"]["card"]
+        assert line["rows"] == rows, line
+        assert line["launches"]["fused_trees"] > 0, \
+            f"{name}: eval on the card launched no fused_trees"
+        errs = {**compare_posttrain(card, cpu, 0.0, 1e-6),
+                **compare_eval_dir(card, cpu, "holdout", 1e-6)}
+        return out, errs
+
+    for name in ("rf", "gbt_log"):
+        card, cpu = roots(name)
+        add_eval_set(card, "holdout", holdout)
+        shutil.copytree(card, cpu)
+    runs, errs = {}, {}
+    for name, (out, err) in zip(("rf", "gbt_log"), in_parallel(
+            lambda: set_chain("rf"), lambda: set_chain("gbt_log"))):
+        runs.update(out)
+        errs[name] = err
+
+    # the split steps and the exports, once, on the GBT set
+    card, cpu = roots("gbt_log")
+    for root in (card, cpu):
+        shutil.rmtree(os.path.join(root, "evals"))
+    for out in in_parallel(
+            lambda: chain("gbt_log", (["eval", "-score"],
+                                      ["eval", "-confmat"],
+                                      ["eval", "-perf"])),
+            lambda: chain("gbt_log", (["eval", "-norm"],)),
+            lambda: chain("gbt_log", (["eval", "-audit", "-n", "100"],))):
+        runs.update(out)
+    for key, lines in runs.items():
+        for where, line in lines.items():
+            print(f"  {key}: {where} {json.dumps(line)}")
+    split = compare_eval_dir(card, cpu, "holdout", 1e-6)
+    split["norm_err"] = compare_eval_norm(
+        os.path.join(card, "evals", "holdout", "EvalNorm.csv"),
+        os.path.join(cpu, "evals", "holdout", "EvalNorm.csv"), 1e-6)
+    audit = os.path.join("tmp", "smokeGBT_holdout_audit.data")
+    split["audit_rows"] = compare_audit(os.path.join(card, audit),
+                                        os.path.join(cpu, audit), 1e-6)
+    assert split["audit_rows"] == 100, split
+    errs["gbt_log split steps"] = split
+    for name, err in errs.items():
+        print(f"  {name}: card = CPU within 1e-6: {json.dumps(err)}")
+    launches = sum(lines["card"]["launches"]["fused_trees"]
+                   for lines in runs.values())
+    report["fused_trees"]["launches"] += launches
+    report["eval_trees"] = {"rows": rows, "runs": runs, "errors": errs}
+
+
+def nn_raw_table(rng, rows, c=NN_IN):
+    """`c` numeric columns and a label, 2 % of the values the missing
+    token "?": values are multiples of 0.001 in [-9.999, 9.999], their
+    text taken from a table, so 39M cells format in seconds. Returns
+    (names, 2-D token array)."""
+    x = np.clip(np.round(rng.normal(0, 1.5, (rows, c)) * 1000),
+                -9999, 9999).astype(np.int32)
+    logit = (x[:, 0] - 0.7 * x[:, 1] + 0.4 * x[:, 2]) / 1500.0 \
+        + rng.logistic(0, 1, rows)
+    lut = np.array([f"{k / 1000:.3f}" for k in range(-9999, 10000)])
+    tok = lut[x + 9999]
+    tok[rng.random(tok.shape) < 0.02] = "?"
+    label = np.where(logit > 0, "1", "0")
+    names = [f"v{j}" for j in range(c)] + ["label"]
+    return names, np.concatenate([tok, label[:, None]], axis=1)
+
+
+def nn_model_set(root, names, tokens, seed, device="cuda"):
+    """A model set of the NN shape the services serve (600 → 512 → 256
+    → 1, `serving_sets`' spec), ZSCALE normalization, its raw table as
+    both the training data and eval set `Eval1`; `init` and `stats`
+    (maxNumBin 63) on the card; the weights from `seed`, saved with the
+    port's `save_model` as models/model0.nn."""
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    from shifu_tpu_torch.models.spec import save_model
+    data_dir = os.path.join(root, "data")
+    write_raw(data_dir, names, tokens)
+    data_set = {"dataPath": data_dir, "dataDelimiter": "|",
+                "headerPath": os.path.join(data_dir, ".pig_header"),
+                "targetColumnName": "label", "posTags": ["1"],
+                "negTags": ["0"]}
+    ModelConfig.from_dict({
+        "basic": {"name": "smokeNN"}, "dataSet": data_set,
+        "stats": {"maxNumBin": GBT_BINS - 1,
+                  "binningMethod": "EqualPositive"},
+        "normalize": {"normType": "ZSCALE", "stdDevCutOff": CUTOFF},
+        "train": {"algorithm": "NN"},
+        "evals": [{"name": "Eval1", "dataSet": data_set}]}).save(root)
+    lines = {"init": run_step(root, "init"),
+             "stats": run_step(root, "stats", device)}
+    save_model(os.path.join(root, "models", "model0.nn"), "nn",
+               {"spec": {"input_dim": NN_IN, "hidden_dims": list(NN_HIDDEN),
+                         "activations": ["relu", "relu"]}},
+               nn_params(np.random.default_rng(seed)))
+    return lines
+
+
+def phase_nn_eval(report, workdir, device="cuda", rows=NN_EVAL_ROWS,
+                  cpu_rows=NN_POST_CPU_ROWS):
+    """Phase 11: eval of the wide NN over a ZSCALE set through K1, card
+    against CPU, then posttrain timed on the card; beside them,
+    posttrain held against the CPU on a copy of the set whose raw file
+    holds the first `cpu_rows` rows."""
+    import shutil
+    t0 = time.perf_counter()
+    names, tokens = nn_raw_table(np.random.default_rng(81), rows)
+    root = os.path.join(workdir, "nn")
+    steps = nn_model_set(root, names, tokens, 82, device)
+    print(f"  raw table, init and stats: {time.perf_counter() - t0:.1f} s "
+          + json.dumps(steps))
+    cpu = os.path.join(workdir, "nn_cpu")
+    shutil.copytree(root, cpu, ignore=shutil.ignore_patterns("data"))
+    small = os.path.join(workdir, "nn_small")
+    shutil.copytree(root, small, ignore=shutil.ignore_patterns("data"))
+    write_raw(os.path.join(small, "data"), names, tokens[:cpu_rows])
+    set_config(small, "dataSet", dataPath=os.path.join(small, "data"),
+               headerPath=os.path.join(small, "data", ".pig_header"))
+    small_cpu = os.path.join(workdir, "nn_small_cpu")
+    shutil.copytree(small, small_cpu, ignore=shutil.ignore_patterns("data"))
+    setup_s = time.perf_counter() - t0
+
+    def full_size():
+        lines = run_twins(root, cpu, "eval", device)
+        return lines, run_step(root, "posttrain", device)
+    ((card_line, cpu_line), post), (small_card, small_line) = in_parallel(
+        full_size, lambda: run_twins(small, small_cpu, "posttrain", device))
+    for where, line in (("card", card_line), ("cpu", cpu_line)):
+        print(f"  eval {where}: {json.dumps(line)}")
+    print(f"  posttrain card, {rows} rows: {json.dumps(post)}")
+    print(f"  posttrain {cpu_rows} rows: card {json.dumps(small_card)}, "
+          f"cpu {json.dumps(small_line)}")
+    assert card_line["rows"] == rows, card_line
+    assert card_line["launches"]["fused_score"] > 0, \
+        "NN eval on the card launched no fused_score"
+    errs = compare_eval_dir(root, cpu, "Eval1", 1e-5)
+    print("  NN eval card = CPU within 1e-5: " + json.dumps(errs))
+    post_err = compare_posttrain(small, small_cpu, 1e-4, 1e-5)
+    print("  NN posttrain card = CPU: " + json.dumps(post_err))
+    report["fused_score"]["launches"] += card_line["launches"]["fused_score"]
+    report["eval_nn"] = {"rows": rows, "setup_s": setup_s, "steps": steps,
+                         "eval": {"card": card_line, "cpu": cpu_line},
+                         "posttrain": post, "errors": errs,
+                         "posttrain_small": {"card": small_card,
+                                             "cpu": small_line,
+                                             "errors": post_err}}
+
+
+def eval_walls(rows=HIGGS_ROWS, reps=2):
+    """The step times of `posttrain` and `eval`, each process with the
+    host to itself (the main run holds them against their CPU twins
+    side by side, so its step lines time a shared host). Phase 8's sets
+    (GBT 10 trees, log loss; RF 10 trees; trained by the port on the
+    card from 262,144 rows) with its 262,144-row holdout: `posttrain`,
+    `eval`, and on the GBT `eval -score` and `-norm`; phase 11's NN at
+    65,536 × 600: `eval` and `posttrain`; then `eval` of the GBT + RF
+    ensemble over a `rows`-row file of phase 8's table. Each card step
+    runs `reps` times in turns, then once with `--device cpu` (the NN's
+    `posttrain` there on its first 4,096 rows). Returns each step's
+    JSON lines. It calls only the CLI verbs, so it times another tree
+    of the package as well (`python3 chip_smoke.py --eval-walls` from a
+    copy of that tree with this script in its root)."""
+    import shutil
+    out = {}
+
+    def timed(key, root, verb, cpu_root=None):
+        lines = [run_step(root, verb, "cuda") for _ in range(reps)]
+        lines.append(run_step(cpu_root or root, verb, "cpu"))
+        out[key] = {"card": lines[:-1], "cpu": lines[-1]}
+        print(f"  {key}: " + json.dumps(out[key]))
+
+    with tempfile.TemporaryDirectory() as workdir:
+        gbt = os.path.join(workdir, "gbt")
+        write_model_set(gbt, "GBT", {"TreeNum": 10, "MaxDepth": TRAIN_DEPTH,
+                                     "LearningRate": TRAIN_LR,
+                                     "Loss": "log"}, 40, TRAIN_ROWS, 0.1)
+        run_pipeline(gbt, "cuda")
+        rf = os.path.join(workdir, "rf")
+        shutil.copytree(gbt, rf, ignore=shutil.ignore_patterns("data"))
+        set_config(rf, "train", algorithm="RF", validSetRate=0.0,
+                   params={"TreeNum": 10, "MaxDepth": TRAIN_DEPTH,
+                           "FeatureSubsetStrategy": "SQRT"})
+        for root in (gbt, rf):
+            run_step(root, "train", "cuda")
+        ens = os.path.join(workdir, "ens")
+        shutil.copytree(gbt, ens, ignore=shutil.ignore_patterns("data"))
+        shutil.copy(os.path.join(rf, "models", "model0.rf"),
+                    os.path.join(ens, "models", "model1.rf"))
+
+        holdout = os.path.join(workdir, "holdout")
+        names, cols, _, _ = raw_table(np.random.default_rng(41), EVAL_ROWS,
+                                      False)
+        write_raw(holdout, names, cols)
+        for name, root in (("gbt", gbt), ("rf", rf)):
+            add_eval_set(root, "holdout", holdout)
+            timed(f"{name} posttrain", root, "posttrain")
+            timed(f"{name} eval", root, "eval")
+        timed("gbt eval -score", gbt, ["eval", "-score"])
+        timed("gbt eval -norm", gbt, ["eval", "-norm"])
+
+        names, tokens = nn_raw_table(np.random.default_rng(81), NN_EVAL_ROWS)
+        nn = os.path.join(workdir, "nn")
+        nn_model_set(nn, names, tokens, 82)
+        small = os.path.join(workdir, "nn_small")
+        shutil.copytree(nn, small, ignore=shutil.ignore_patterns("data"))
+        write_raw(os.path.join(small, "data"), names,
+                  tokens[:NN_POST_CPU_ROWS])
+        set_config(small, "dataSet", dataPath=os.path.join(small, "data"),
+                   headerPath=os.path.join(small, "data", ".pig_header"))
+        timed("nn eval", nn, "eval")
+        timed("nn posttrain", nn, "posttrain", cpu_root=small)
+
+        t0 = time.perf_counter()
+        data = os.path.join(workdir, "walls")
+        names, cols, _, _ = raw_table(np.random.default_rng(43), rows, False)
+        raw_bytes = write_raw(data, names, cols)
+        write_s = time.perf_counter() - t0
+        add_eval_set(ens, "walls", data)
+        line = run_step(ens, "eval", "cuda")
+    out["ensemble eval"] = {
+        "rows": line["rows"], "raw_bytes": raw_bytes, "write_s": write_s,
+        "read_s": line["read_seconds"], "score_s": line["score_seconds"],
+        "seconds": line["seconds"], "launches": line["launches"]}
+    return out
+
+
 SOURCES = {
     "fused_score": ("shifu_tpu_torch/csrc/fused_score.cu",
                     "shifu_tpu/ops/pallas_score.py:110"),
@@ -1873,31 +2484,43 @@ def main() -> int:
     if sys.argv[1:] == ["--pipeline-walls"]:
         print(json.dumps({"pipeline_walls": pipeline_walls()}))
         return 0
-    print("phase 1: build")
+    if sys.argv[1:] == ["--eval-walls"]:
+        print(json.dumps({"eval_walls": eval_walls()}))
+        return 0
+
+    def header(text):
+        print(f"{text} ({time.monotonic() - t_start:.0f} s)")
+
+    header("phase 1: build")
     phase_build()
     report = {}
-    print("phase 2: K1 fused_score vs plain")
+    header("phase 2: K1 fused_score vs plain")
     phase_k1(report)
-    print("phase 3: K2 fused_trees vs plain")
+    header("phase 3: K2 fused_trees vs plain")
     phase_k2(report)
-    print("phase 4: main path (two services on the card vs CPU twins)")
+    header("phase 4: main path (two services on the card vs CPU twins)")
     with tempfile.TemporaryDirectory() as workdir:
         phase_main_path(report, workdir)
-    print("phase 5: timing (CUDA events)")
+    header("phase 5: timing (CUDA events)")
     phase_timing(report)
     print("services: " + json.dumps(report["services"]))
-    print("phase 6: K3 level_hist and K4 level_hist_fused vs plain")
+    header("phase 6: K3 level_hist and K4 level_hist_fused vs plain")
     phase_k3_k4(report)
-    print("phase 7: K5 best_splits vs plain")
+    header("phase 7: K5 best_splits vs plain")
     phase_k5(report)
-    print("phase 8: train main path (card vs CPU, then serve)")
+    header("phase 8: train main path (card vs CPU, then serve, posttrain "
+           "and eval)")
     with tempfile.TemporaryDirectory() as workdir:
         phase_train_main_path(report, workdir)
-    print("phase 9: training timing at the HIGGS widths")
+        phase_posttrain_eval(report, workdir)
+    header("phase 9: training timing at the HIGGS widths")
     phase_train_timing(report, t_start)
-    print("phase 10: init -> stats -> norm on the card vs the CPU twin")
+    header("phase 10: init -> stats -> norm on the card vs the CPU twin")
     with tempfile.TemporaryDirectory() as workdir:
         phase_pipeline(report, workdir)
+    header("phase 11: NN eval through K1 and posttrain, card vs CPU")
+    with tempfile.TemporaryDirectory() as workdir:
+        phase_nn_eval(report, workdir)
     print(f"total: {time.monotonic() - t_start:.1f} s on {smi}")
 
     kernels = []

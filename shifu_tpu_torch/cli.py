@@ -1,11 +1,17 @@
-"""Command line of the port — the `init`, `stats`, `norm`, `train` and
-`serve` verbs of `shifu_tpu/cli.py` (single model set; the registry
-fleet comes later).
+"""Command line of the port — the `init`, `stats`, `norm`, `train`,
+`posttrain`, `eval` and `serve` verbs of `shifu_tpu/cli.py` (single
+model set; the registry fleet comes later).
 
     python -m shifu_tpu_torch --dir <model-set> init
     python -m shifu_tpu_torch --dir <model-set> stats [--device cuda|cpu]
     python -m shifu_tpu_torch --dir <model-set> norm [--device cuda|cpu]
     python -m shifu_tpu_torch --dir <model-set> train [--device cuda|cpu]
+    python -m shifu_tpu_torch --dir <model-set> posttrain
+        [--device cuda|cpu]
+    python -m shifu_tpu_torch --dir <model-set> eval [-run NAME]
+        [-list | -new NAME | -delete NAME | -norm | -audit [-n N]
+         | -score [NAME] | -confmat [NAME] | -perf [NAME]]
+        [--device cuda|cpu]
     python -m shifu_tpu_torch --dir <model-set> serve [--port P]
         [--no-http] [--duration-s S] [--device cuda|cpu]
 
@@ -16,6 +22,15 @@ line: the step, the device, the rows, the wall seconds, and for
 `stats`/`norm` the seconds spent reading the raw table. The `stats`
 variants `-correlation`, `-psi`, `-rebin`, `-seg` and `-seg-merge` are
 not ported yet and raise, naming their ROADMAP item.
+
+`posttrain` writes `binAvgScore` into ColumnConfig.json and
+`featureimportance.csv`; `eval` scores the eval sets and writes their
+outputs under `evals/<name>/` (the flags pick one step, in the JAX
+package's order). Both print one JSON line: the step, the device, the
+rows, the wall seconds, the seconds reading the raw set and in
+`Scorer.score`, and the launches of the scoring kernels (`fused_score`,
+`fused_trees`) during the run. `eval -list`, `-new` and `-delete` do no
+device work and report the device as "host".
 
 `serve` serves every model spec under ``<model-set>/models`` (the
 `PathFinder.models_path()` rule) until SIGTERM/SIGINT or `--duration-s`,
@@ -160,6 +175,83 @@ def cmd_train(args) -> int:
     return rc
 
 
+def _scoring_step(step: str, run, args) -> int:
+    """Run a `posttrain` or `eval` step on `--device` (its clock starts
+    once the card's context exists) and print its JSON line, with the
+    rise of the scoring kernels' launch counters."""
+    import time
+
+    import torch
+
+    from shifu_tpu_torch import resolve_device
+    from shifu_tpu_torch.ops import fused_score, fused_trees
+    from shifu_tpu_torch.processor.base import ProcessorContext
+
+    def counts():
+        return {"fused_score": fused_score.launches,
+                "fused_trees": fused_trees.launches}
+
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        torch.zeros(1, device=dev)
+        torch.cuda.synchronize(dev)
+    before = counts()
+    t0 = time.perf_counter()
+    report: dict = {}
+    rc = run(ProcessorContext.load(os.path.abspath(args.dir)), dev, report)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    print(json.dumps({
+        "step": step, "device": str(dev), "rows": report.get("rows"),
+        "seconds": time.perf_counter() - t0,
+        "read_seconds": report.get("read_s", 0.0),
+        "score_seconds": report.get("score_s", 0.0),
+        "launches": {k: v - before[k] for k, v in counts().items()}}))
+    return rc
+
+
+def cmd_posttrain(args) -> int:
+    from shifu_tpu_torch.processor import posttrain as p
+    return _scoring_step(
+        "posttrain", lambda ctx, dev, rep: p.run(ctx, device=dev,
+                                                 report=rep), args)
+
+
+def cmd_eval(args) -> int:
+    """The flags' dispatch order of `shifu_tpu/cli.py`'s `cmd_eval`."""
+    import time
+
+    from shifu_tpu_torch.processor import eval as p
+    from shifu_tpu_torch.processor.base import ProcessorContext
+    for flag, fn in (("list", lambda ctx: p.run_list(ctx)),
+                     ("new", lambda ctx: p.run_new(ctx, args.new)),
+                     ("delete", lambda ctx: p.run_delete(ctx, args.delete))):
+        if getattr(args, flag):
+            t0 = time.perf_counter()
+            rc = fn(ProcessorContext.load(os.path.abspath(args.dir)))
+            _step_line(f"eval -{flag}", "host", {}, t0)
+            return rc
+    if args.norm:
+        step, name, fn = "eval -norm", args.run, p.run_norm
+    elif args.audit:
+        step, name = "eval -audit", args.run
+
+        def fn(ctx, eval_name, device, report):
+            return p.run_audit(ctx, eval_name, n_records=args.n,
+                               device=device, report=report)
+    elif args.score is not False:
+        step, name, fn = "eval -score", args.score or args.run, p.run_score
+    elif args.confmat is not False:
+        step, name, fn = ("eval -confmat", args.confmat or args.run,
+                          p.run_confmat)
+    elif args.perf is not False:
+        step, name, fn = "eval -perf", args.perf or args.run, p.run_perf
+    else:
+        step, name, fn = "eval", args.run, p.run
+    return _scoring_step(step, lambda ctx, dev, rep: fn(
+        ctx, name, device=dev, report=rep), args)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="shifu_tpu_torch")
     ap.add_argument("--dir", default=".", help="model-set directory")
@@ -181,6 +273,38 @@ def build_parser() -> argparse.ArgumentParser:
                        help="torch device for the transforms (default "
                             "cuda)")
         p.set_defaults(fn=cmd_norm)
+    p = sub.add_parser("posttrain", help="bin-average scores + feature "
+                                         "importance")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to score on (default cuda)")
+    p.set_defaults(fn=cmd_posttrain)
+    p = sub.add_parser("eval", help="evaluate models")
+    p.add_argument("-run", "--run", default=None, metavar="EVAL_NAME")
+    p.add_argument("-list", "--list", action="store_true",
+                   help="list configured eval sets")
+    p.add_argument("-new", "--new", default=None, metavar="EVAL_NAME",
+                   help="create a new eval set")
+    p.add_argument("-delete", "--delete", default=None,
+                   metavar="EVAL_NAME", help="delete an eval set")
+    p.add_argument("-score", "--score", nargs="?", const=None,
+                   default=False, metavar="EVAL_NAME",
+                   help="scoring only (EvalScore.csv, no metrics)")
+    p.add_argument("-confmat", "--confmat", nargs="?", const=None,
+                   default=False, metavar="EVAL_NAME",
+                   help="confusion matrix from an existing score file")
+    p.add_argument("-perf", "--perf", nargs="?", const=None,
+                   default=False, metavar="EVAL_NAME",
+                   help="performance curves from an existing score file")
+    p.add_argument("-norm", "--norm", action="store_true",
+                   help="export normalized eval data instead of scoring")
+    p.add_argument("-audit", "--audit", action="store_true",
+                   help="score and write an audit sample with raw "
+                        "variable values (eval -audit)")
+    p.add_argument("-n", "--n", type=int, default=100,
+                   help="audit record count (eval -audit -n N)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to score on (default cuda)")
+    p.set_defaults(fn=cmd_eval)
     p = sub.add_parser("serve", help="low-latency scorer service")
     p.add_argument("--port", type=int, default=None,
                    help="HTTP port (default SHIFU_TPU_SERVE_PORT; "

@@ -1,9 +1,10 @@
-"""Environment knobs the serving, tree-training and stats/norm slices read.
+"""Environment knobs of the port's serving, training and pipeline steps.
 
 A copy of the reading half of `shifu_tpu/config/environment.py` for the
-four serving knobs, the two tree-build knobs and the four streaming
-triggers of stats and norm (which the port honours by raising: the
-streaming steps are ROADMAP A6): same names, same
+four serving knobs, the two tree-build knobs and the streaming
+triggers of stats, norm, eval and the analysis steps (stats, norm and a
+resident eval honour theirs by raising: the streaming steps are ROADMAP
+A6; posttrain and `eval -norm`/`-score` read in chunks): same names, same
 defaults, and the same warn-and-run parsing (a malformed value logs a
 warning and falls back to the default instead of failing the process).
 The JAX package's routing and TPU-dispatch knobs (`SHIFU_TPU_HIST`,
@@ -53,6 +54,14 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
          "explicit norm streaming chunk rows; 0 forces resident"),
     Knob("SHIFU_TPU_NORM_STREAM_BYTES", 2 * 1024 ** 3,
          "raw-bytes threshold that auto-triggers streaming norm"),
+    Knob("SHIFU_TPU_EVAL_CHUNK_ROWS", None,
+         "explicit eval streaming chunk rows; 0 forces resident"),
+    Knob("SHIFU_TPU_EVAL_STREAM_BYTES", 2 * 1024 ** 3,
+         "raw-bytes threshold that auto-triggers streaming eval"),
+    Knob("SHIFU_TPU_ANALYSIS_CHUNK_ROWS", None,
+         "explicit analysis-step chunk rows; 0 forces resident"),
+    Knob("SHIFU_TPU_ANALYSIS_STREAM_BYTES", 2 * 1024 ** 3,
+         "raw-bytes threshold that auto-triggers sampled analysis"),
 )}
 
 

@@ -38,12 +38,22 @@ class ColumnarDataset:
     vocabs: List[List[str]]            # per categorical column
     tags: np.ndarray                   # (R,) float32
     weights: np.ndarray                # (R,) float32
+    meta: Dict[str, np.ndarray] = field(default_factory=dict)  # as strings
     task_tags: np.ndarray = field(
         default_factory=lambda: np.zeros((0, 0), np.float32))
 
     @property
     def num_rows(self) -> int:
         return len(self.tags)
+
+    def cleaned_codes(self) -> np.ndarray:
+        """Category codes with missing → the vocab_len slot: the cleaned
+        form tree models train on and score."""
+        if not self.cat_codes.shape[1]:
+            return self.cat_codes
+        vlen = np.asarray([len(v) for v in self.vocabs], np.int32)
+        return np.where(self.cat_codes < 0, vlen[None, :],
+                        self.cat_codes).astype(np.int32)
 
     def select(self, row_mask: np.ndarray) -> "ColumnarDataset":
         return ColumnarDataset(
@@ -53,6 +63,7 @@ class ColumnarDataset:
             cat_codes=self.cat_codes[row_mask],
             vocabs=self.vocabs, tags=self.tags[row_mask],
             weights=self.weights[row_mask],
+            meta={k: v[row_mask] for k, v in self.meta.items()},
             task_tags=(self.task_tags[row_mask] if self.task_tags.size
                        else self.task_tags))
 

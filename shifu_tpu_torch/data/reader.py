@@ -19,18 +19,24 @@ Two routes, picked by the input as in the JAX package:
   two-character token), `\\r\\n` and lone `\\r` line ends, blank and
   whitespace-only lines skipped, short rows padded with "".
 
+`iter_raw_table` yields the text route's tables in chunks, as the JAX
+package's chunked reader does for delimited text (eval's audit and
+chunked reads, posttrain past the size trigger).
+
 Not ported: parquet input (needs pyarrow; ROADMAP A9), remote
-filesystems and the pod-sharded read (A8), and the chunked iterators of
-the streaming steps (A6); parquet and remote paths raise and name their
-queue item. Of pandas' compressions only gzip and bz2 are read.
+filesystems, the pod-sharded read and the sharded/broadcast chunk
+iterators (A8); parquet and remote paths raise and name their queue
+item. Of pandas' compressions only gzip and bz2 are read.
 """
 
 from __future__ import annotations
 
 import glob
+import itertools
 import os
 import re
-from typing import Dict, Iterable, List, Mapping, Optional, Sequence
+from typing import (Dict, Iterable, Iterator, List, Mapping, Optional,
+                    Sequence)
 
 import numpy as np
 
@@ -185,49 +191,74 @@ def _table_layout(mc, ds):
     return ds, header, files, files[0], has_header_line, simple
 
 
-def _text_rows(path: str, skip: int, limit: Optional[int]) -> List[str]:
+def _iter_text_lines(path: str, skip: int) -> Iterator[str]:
     """The data lines of one file: `skip` leading lines dropped, blank
-    and whitespace-only lines skipped (pandas' skip_blank_lines), at
-    most `limit` lines."""
-    out: List[str] = []
-    if limit is not None and limit <= 0:
-        return out
+    and whitespace-only lines skipped (pandas' skip_blank_lines)."""
     with _opener_for(path)(path) as f:
         for i, line in enumerate(f):
             if i < skip:
                 continue
             if line.endswith("\n"):
                 line = line[:-1]
-            if not line.strip(" \t"):
-                continue
-            out.append(line)
-            if limit is not None and len(out) >= limit:
-                break
-    return out
+            if line.strip(" \t"):
+                yield line
 
 
-def read_text_file(path: str, names: Sequence[str], delim: str,
-                   skip: int = 0, limit: Optional[int] = None) -> Table:
-    """One delimited file as all-string columns — pandas'
-    ``read_csv(sep=delim, header=None, names=names, dtype=str,
-    na_filter=False, quoting=3, skiprows=skip, nrows=limit)``. A row
-    with more fields than `names` raises, as pandas' tokenizer does."""
+def _rows_table(rows: List[str], names: Sequence[str], delim: str,
+                path: str, first_row: int = 0) -> Table:
+    """Data lines as all-string columns; a row with more fields than
+    `names` raises, as pandas' tokenizer does, and short rows are padded
+    with ""."""
     n = len(names)
-    rows = _text_rows(path, skip, limit)
     if not rows:
         return Table({c: np.zeros(0, dtype="<U1") for c in names}, 0)
     counts = np.fromiter((line.count(delim) for line in rows), np.int64,
                          len(rows))
     if counts.max() > n - 1:
         i = int(np.argmax(counts > n - 1))
-        raise ValueError(f"{path}: data row {i + 1} has {counts[i] + 1} "
-                         f"fields, the header {n}")
+        raise ValueError(f"{path}: data row {first_row + i + 1} has "
+                         f"{counts[i] + 1} fields, the header {n}")
     if counts.min() < n - 1:      # short rows: pad with ""
         rows = [line + delim * (n - 1 - int(k))
                 for line, k in zip(rows, counts)]
     flat = delim.join(rows).split(delim)
     return Table({c: np.asarray(flat[j::n], dtype=str)
                   for j, c in enumerate(names)}, len(rows))
+
+
+def read_text_file(path: str, names: Sequence[str], delim: str,
+                   skip: int = 0, limit: Optional[int] = None) -> Table:
+    """One delimited file as all-string columns — pandas'
+    ``read_csv(sep=delim, header=None, names=names, dtype=str,
+    na_filter=False, quoting=3, skiprows=skip, nrows=limit)``."""
+    lines = _iter_text_lines(path, skip)
+    if limit is not None:
+        lines = itertools.islice(lines, max(limit, 0))
+    return _rows_table(list(lines), names, delim, path)
+
+
+def iter_raw_table(mc, ds=None, chunk_rows: int = 2_000_000
+                   ) -> Iterator[Table]:
+    """Yield `Table`s of at most `chunk_rows` all-string rows across
+    the part files, the header line skipped in the first file only:
+    the chunks of the JAX package's `iter_raw_table` over delimited
+    text (pandas' ``read_csv(..., chunksize=chunk_rows)`` a file, so a
+    file's last chunk may be short), row for row. Sequential, like the
+    JAX package with SHIFU_TPU_PREFETCH_DEPTH=0."""
+    ds, header, files, first_file, has_header_line, simple = \
+        _table_layout(mc, ds)
+    names = simple if simple is not None else list(header)
+    delim = ds.dataDelimiter or "|"
+    for path in files:
+        skip = 1 if (has_header_line and path == first_file) else 0
+        lines = _iter_text_lines(path, skip)
+        done = 0
+        while True:
+            rows = list(itertools.islice(lines, chunk_rows))
+            if not rows:
+                break
+            yield _rows_table(rows, names, delim, path, done)
+            done += len(rows)
 
 
 def read_raw_table(mc, ds=None, max_rows: Optional[int] = None,

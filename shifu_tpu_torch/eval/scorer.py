@@ -6,11 +6,15 @@ the NORMALIZED dense block, or — when the caller passes `norm` and the
 raw numeric block matches the input width — the RAW block through the
 fused normalize + first-layer kernel; tree models read the cleaned raw
 blocks through the fused ensemble kernel. The wdl / mtl / tf kinds
-raise NotImplementedError until their slices are ported.
+raise NotImplementedError until their slice is ported (ROADMAP A5), and
+so does multi-class scoring (`score_multiclass`, with the multi-class
+trainer, A3). `resolve_generic_models` expands an eval set's
+`customPaths` entry into model paths.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -21,8 +25,7 @@ from shifu_tpu_torch.models import gbdt
 from shifu_tpu_torch.models.spec import list_models, load_model
 from shifu_tpu_torch.ops import fused_score
 
-_LATER = {"wdl": "the WDL/MTL slice", "mtl": "the WDL/MTL slice",
-          "tf": "the eval-processor slice"}
+_LATER = {"wdl": "ROADMAP A5", "mtl": "ROADMAP A5", "tf": "ROADMAP A5"}
 
 
 def _as_f32(block, device: torch.device) -> torch.Tensor:
@@ -72,6 +75,25 @@ def convert_tree_score(raw: np.ndarray, strategy: str) -> np.ndarray:
     if s == "CUTOFF":
         return np.clip(raw, 0.0, 1.0)
     return raw
+
+
+def resolve_generic_models(path: str) -> List[str]:
+    """An eval `customPaths` modelsPath / genericModelsPath entry →
+    concrete model paths: a SavedModel dir is one model; a directory is
+    scanned for spec files and SavedModel subdirectories; a file is a
+    spec. SavedModels then raise when loaded (the `tf` kind, ROADMAP
+    A5)."""
+    if os.path.isdir(path):
+        if os.path.exists(os.path.join(path, "saved_model.pb")):
+            return [path]
+        out = list(list_models(path))
+        for name in sorted(os.listdir(path)):
+            sub = os.path.join(path, name)
+            if os.path.isdir(sub) and sub not in out and \
+                    os.path.exists(os.path.join(sub, "saved_model.pb")):
+                out.append(sub)
+        return out
+    return [path] if os.path.exists(path) else []
 
 
 class Scorer:

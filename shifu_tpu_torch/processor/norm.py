@@ -76,19 +76,35 @@ def norm_sample_flags(mc, df: Table, seed: int,
                         purpose="norm-sample", keep_pos=keep_pos)
 
 
-def load_dataset_for_columns(mc, ccs: List[ColumnConfig],
-                             cols: List[ColumnConfig],
-                             norm_sampling: bool = False,
-                             sample_seed: int = 12306) -> ColumnarDataset:
-    """Read raw data and build columnar blocks for `cols`, categorical
-    vocabularies pinned to ColumnConfig binCategory so codes line up
-    with the stats step."""
-    df = read_raw_table(mc, numeric_columns=[
+def read_for_columns(mc, ccs: List[ColumnConfig], ds_conf=None) -> Table:
+    """The raw table `load_dataset_for_columns` reads when it is given
+    none: the candidate numeric columns through the C parser."""
+    return read_raw_table(mc, ds=ds_conf, numeric_columns=[
         c.columnName for c in ccs
         if c.is_candidate and not c.is_categorical and not c.is_segment])
+
+
+def load_dataset_for_columns(mc, ccs: List[ColumnConfig],
+                             cols: List[ColumnConfig],
+                             ds_conf=None,
+                             apply_filter: bool = True,
+                             extra_columns: Optional[List[str]] = None,
+                             df: Optional[Table] = None,
+                             norm_sampling: bool = False,
+                             sample_seed: int = 12306) -> ColumnarDataset:
+    """Read raw data (from `ds_conf`, default the model's dataSet) and
+    build columnar blocks for `cols`, categorical vocabularies pinned to
+    ColumnConfig binCategory so codes line up with the stats step. `df`
+    short-circuits the read (a chunk of a chunked read);
+    `apply_filter=False` skips the filter for a table already filtered;
+    `extra_columns` (champion score columns) land in `meta` as stripped
+    strings, aligned with the built rows."""
+    if df is None:
+        df = read_for_columns(mc, ccs, ds_conf)
+    ds_conf = ds_conf or mc.dataSet
     keep = np.ones(len(df), bool)
-    if mc.dataSet.filterExpressions:
-        keep &= DataPurifier(mc.dataSet.filterExpressions).apply(df)
+    if apply_filter and ds_conf.filterExpressions:
+        keep &= DataPurifier(ds_conf.filterExpressions).apply(df)
     if norm_sampling:
         # flags key on the raw row index, before the filter
         samp = norm_sample_flags(mc, df, sample_seed)
@@ -105,7 +121,15 @@ def load_dataset_for_columns(mc, ccs: List[ColumnConfig],
                                       only_bases=bases)
     vocabs = {c.columnNum: (c.columnBinning.binCategory or [])
               for c in cols if c.is_categorical}
-    return build_columnar(mc, _restrict(ccs, cols), df, vocabs=vocabs)
+    dset = build_columnar(mc, _restrict(ccs, cols), df, vocabs=vocabs)
+    if extra_columns:
+        from shifu_tpu_torch.data.dataset import valid_tag_mask
+        from shifu_tpu_torch.data.reader import string_column
+        valid = valid_tag_mask(mc, df)
+        for name in extra_columns:
+            if name in df:
+                dset.meta[name] = string_column(df[name])[valid]
+    return dset
 
 
 def _restrict(ccs: List[ColumnConfig], cols: List[ColumnConfig]):
@@ -204,7 +228,7 @@ def load_normalized(path: str) -> Tuple[Dict[str, np.ndarray], Dict]:
 
 def norm_chunk_rows(ctx: ProcessorContext) -> int:
     """0 = resident: the JAX package's norm streaming trigger."""
-    from shifu_tpu_torch.processor.stats import chunk_rows_for
+    from shifu_tpu_torch.processor.chunking import chunk_rows_for
     return chunk_rows_for(ctx, ("shifu.norm.chunkRows",
                                 "SHIFU_TPU_NORM_CHUNK_ROWS"),
                           "SHIFU_TPU_NORM_STREAM_BYTES",
@@ -248,15 +272,9 @@ def run(ctx: ProcessorContext, dataset: Optional[ColumnarDataset] = None,
 
     # cleaned data for tree algorithms: raw numeric (NaN = missing) +
     # category codes with missing → the vocab_len slot
-    if dataset.cat_codes.shape[1]:
-        vlen = np.asarray([len(v) for v in dataset.vocabs], np.int32)
-        codes = np.where(dataset.cat_codes < 0, vlen[None, :],
-                         dataset.cat_codes).astype(np.int32)
-    else:
-        codes = dataset.cat_codes
     clean = NormResult(
         dense=dataset.numeric, dense_names=dataset.num_names,
-        index=codes, index_names=dataset.cat_names,
+        index=dataset.cleaned_codes(), index_names=dataset.cat_names,
         index_vocab_sizes=[len(v) + 1 for v in dataset.vocabs])
     save_normalized(ctx.path_finder.cleaned_data_path(), clean,
                     dataset.tags, dataset.weights,

@@ -26,46 +26,19 @@ import numpy as np
 import torch
 
 from shifu_tpu_torch.config.column_config import ColumnConfig
-from shifu_tpu_torch.config.environment import knob_int, knob_raw
+from shifu_tpu_torch.config.environment import knob_raw
 from shifu_tpu_torch.config.inspector import ModelStep
 from shifu_tpu_torch.data import segment
 from shifu_tpu_torch.data.dataset import ColumnarDataset, build_columnar
 from shifu_tpu_torch.data.purifier import DataPurifier
-from shifu_tpu_torch.data.reader import Table, expand_data_files, \
-    read_raw_table
+from shifu_tpu_torch.data.reader import Table, read_raw_table
 from shifu_tpu_torch.ops import stats as stats_ops
 from shifu_tpu_torch.ops.binning import cap_categories, \
     compute_numeric_binning
 from shifu_tpu_torch.processor.base import ProcessorContext
+from shifu_tpu_torch.processor.chunking import chunk_rows_for
 
 log = logging.getLogger("shifu_tpu_torch")
-
-def chunk_rows_for(ctx, env_keys, byte_env: str, data_path: str,
-                   label: str, default_rows: int = 2_000_000) -> int:
-    """The JAX package's streaming trigger (`processor/chunking.
-    chunk_rows_for`): 0 = resident. Explicit through any of `env_keys`
-    (first set wins; '0' forces resident); automatic when the raw
-    files' estimated decompressed size passes the `byte_env` knob
-    (default 2 GB; gzip/bz2 parts count 6×)."""
-    for k in env_keys:
-        v = knob_raw(k) if k.startswith("SHIFU_TPU_") else os.environ.get(k)
-        if v is not None and str(v).strip() != "":
-            try:
-                return max(int(float(v)), 0)
-            except (TypeError, ValueError):
-                raise ValueError(
-                    f"{label} chunkRows must be an integer, got {v!r}")
-    try:
-        files = expand_data_files(ctx.model_config.resolve_path(data_path))
-        total = sum((os.path.getsize(p) if os.path.exists(p) else 0)
-                    * (6 if p.endswith((".gz", ".bz2")) else 1)
-                    for p in files)
-    except (OSError, FileNotFoundError, ValueError, RuntimeError) as e:
-        log.warning("%s: could not estimate raw data size (%s) — "
-                    "streaming auto-trigger disabled, resident read", label,
-                    e)
-        return 0
-    return default_rows if total > knob_int(byte_env) else 0
 
 
 def stats_chunk_rows(ctx: ProcessorContext) -> int:

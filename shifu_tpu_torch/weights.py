@@ -103,11 +103,10 @@ def to_torch(kind: str, meta: Dict[str, Any], params: Any,
         return _ensemble(kind, meta, params, dev)
     if kind in ("wdl", "mtl"):
         raise NotImplementedError(
-            f"model kind {kind!r} is not ported yet (the WDL/MTL slice)")
+            f"model kind {kind!r} is not ported yet (ROADMAP A5)")
     if kind == "tf":
         raise NotImplementedError(
-            "the `tf` SavedModel kind is not ported yet (the "
-            "eval-processor slice)")
+            "the `tf` SavedModel kind is not ported yet (ROADMAP A5)")
     raise ValueError(f"unknown model kind {kind!r}")
 
 

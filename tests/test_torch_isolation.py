@@ -28,6 +28,11 @@ import shifu_tpu_torch.processor.init, shifu_tpu_torch.processor.stats
 import shifu_tpu_torch.processor.norm, shifu_tpu_torch.data.native_reader
 import shifu_tpu_torch.data.segment, shifu_tpu_torch.data.sampling
 import shifu_tpu_torch.config.inspector, shifu_tpu_torch.train.grid_search
+import shifu_tpu_torch.processor.eval, shifu_tpu_torch.processor.posttrain
+import shifu_tpu_torch.processor.varselect, shifu_tpu_torch.processor.chunking
+import shifu_tpu_torch.eval.model_runner, shifu_tpu_torch.eval.gain_chart
+from shifu_tpu_torch.eval import csv_out
+from shifu_tpu_torch.ops import metrics
 from shifu_tpu_torch.models import gbdt
 from shifu_tpu_torch.ops import best_splits, level_hist
 from shifu_tpu_torch.eval.scorer import Scorer
@@ -66,6 +71,11 @@ for step in ModelStep:
 t = Table({"a": np.array(["1", "2", "3"]), "b": np.array(["x", "y", "x"])})
 assert DataPurifier("a > 1 && b == 'x'").apply(t).tolist() == \
     [False, False, True]
+perf = metrics.performance_result(out["mean"], np.array([0, 1, 0, 1, 1]),
+                                  np.ones(5), device="cpu")
+assert 0.0 <= perf["areaUnderRoc"] <= 1.0
+assert csv_out.format_block([np.arange(2), np.ones(2)], ["%d", "%.1f"]) \
+    == "0,1.0\n1,1.0"
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "shifu_tpu", "pandas",
                                     "pyarrow"))

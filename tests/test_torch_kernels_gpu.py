@@ -570,3 +570,29 @@ def test_level_loop_never_waits_for_the_card(cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert node.shape == (3, 30_000)
     assert bool(trees["is_leaf"][:, cfg.n_internal:].all())
+
+
+def test_eval_and_posttrain_on_card_match_cpu(cuda, tmp_path):
+    """`posttrain` and `eval` of a GBT set trained by the port on the card,
+    as processes on the card and on a `--device cpu` copy: the outputs
+    held as `chip_smoke.py` phase 8 holds them (1e-6, or one row's share
+    at a tie edge), `fused_trees` launched on the card."""
+    import shutil
+    root = str(tmp_path / "card")
+    cs.write_model_set(root, "GBT", {"TreeNum": 3, "MaxDepth": 4,
+                                     "LearningRate": 0.2, "Loss": "log"},
+                       61, 4000, 0.1)
+    cs.run_pipeline(root, "cuda")
+    cs.run_step(root, "train", "cuda")
+    names, cols, _, _ = cs.raw_table(np.random.default_rng(62), 3000, False)
+    cs.write_raw(str(tmp_path / "holdout"), names, cols)
+    cs.add_eval_set(root, "holdout", str(tmp_path / "holdout"))
+    cpu = str(tmp_path / "cpu")
+    shutil.copytree(root, cpu)
+    for verb in ("posttrain", "eval"):
+        card, _ = cs.run_twins(root, cpu, verb)
+        assert card["device"] == "cuda"
+        assert card["launches"]["fused_trees"] > 0
+    cs.compare_posttrain(root, cpu, 0.0, 1e-6)
+    out = cs.compare_eval_dir(root, cpu, "holdout", 1e-6)
+    assert out["auc_err"] <= 1e-6

@@ -117,9 +117,9 @@ def test_read_raw_table_max_rows(tmp_path, layout, max_rows):
     assert len(got) == min(max_rows, 240)
 
 
-def test_read_raw_table_multi_part_and_in_file_header(tmp_path):
-    """Two part files, the header taken from the first line of the first
-    part (empty headerPath)."""
+def _two_parts(tmp_path):
+    """A synth set whose data are two part files, the header taken from
+    the first line of the first part (empty headerPath)."""
     import json
     root = _model_set(tmp_path, 13, n_rows=400)
     data = os.path.join(root, "data")
@@ -137,10 +137,39 @@ def test_read_raw_table_multi_part_and_in_file_header(tmp_path):
     mc["dataSet"]["headerPath"] = ""
     with open(path, "w") as f:
         json.dump(mc, f)
+    return root
+
+
+def test_read_raw_table_multi_part_and_in_file_header(tmp_path):
+    """Two part files, the header taken from the first line of the first
+    part (empty headerPath)."""
+    root = _two_parts(tmp_path)
     for kw in ({}, {"numeric_columns": NUM}, {"max_rows": 150}):
         want = jread(JModelConfig.load(root), **kw)
         got = read_raw_table(ModelConfig.load(root), **kw)
         _assert_tables(got, want)
+
+
+@pytest.mark.parametrize("chunk_rows", [1, 37, 100, 5000])
+def test_iter_raw_table_chunks_match_jax(tmp_path, monkeypatch, chunk_rows):
+    """The chunked reader over two part files with the header line in the
+    first only (and a blank line in the second): the port's chunks are
+    the JAX iterator's, row for row."""
+    from shifu_tpu.data.reader import iter_raw_table as jiter
+    from shifu_tpu_torch.data.reader import iter_raw_table
+    monkeypatch.setenv("SHIFU_TPU_PREFETCH_DEPTH", "0")
+    root = _two_parts(tmp_path)
+    part = os.path.join(root, "data", "part-00001")
+    with open(part) as f:
+        lines = f.read().splitlines()
+    with open(part, "w") as f:
+        f.write("\n".join(lines[:50] + ["   "] + lines[50:]) + "\n")
+    want = list(jiter(JModelConfig.load(root), chunk_rows=chunk_rows))
+    got = list(iter_raw_table(ModelConfig.load(root), chunk_rows=chunk_rows))
+    assert [len(t) for t in got] == [len(df) for df in want]
+    assert sum(len(t) for t in got) == 320
+    for t, df in zip(got, want):
+        _assert_tables(t, df)
 
 
 def test_text_route_reproduces_pandas_tokenizing(tmp_path):

@@ -342,3 +342,127 @@ def test_train_verb_matches_jax_train(tmp_path, capsys, monkeypatch, alg,
                          "cpu"]) == 0
         _, _, fused = load_model(os.path.join(fused_root, name))
         _exact(fused["trees"], params["trees"])
+
+
+def _six_sums(g, h, f, b, lam):
+    """(G, H) left, right and total of candidate split (feature f, after
+    main bin b) at one node's f64 histograms, with missing values sent
+    the way that scores higher; returns (gain, sums)."""
+    gm, hm = g[f, -1], h[f, -1]
+    gl, hl = g[f, :b + 1].sum(), h[f, :b + 1].sum()
+    gt, ht = g[f].sum(), h[f].sum()
+    best = None
+    for l_g, l_h in ((gl + gm, hl + hm), (gl, hl)):
+        r_g, r_h = gt - l_g, ht - l_h
+        gain = l_g ** 2 / (l_h + lam) + r_g ** 2 / (r_h + lam) \
+            - gt ** 2 / (ht + lam)
+        if best is None or gain > best[0]:
+            best = (gain, (l_g, l_h, r_g, r_h, gt, ht))
+    return best
+
+
+def _node_histograms_f64(binsT, node_of_row, grad, hess, t, nid, n_bins):
+    """f64 G/H histograms of global node `nid` of tree `t`, summed from
+    the rows at that node."""
+    at = (node_of_row[t] == nid).numpy()
+    bins = binsT.long().numpy()[:, at]
+    g = np.zeros((bins.shape[0], n_bins))
+    h = np.zeros_like(g)
+    for c in range(bins.shape[0]):
+        np.add.at(g[c], bins[c], grad[t].numpy()[at].astype(np.float64))
+        np.add.at(h[c], bins[c], hess[t].numpy()[at].astype(np.float64))
+    return g, h
+
+
+def test_c_port_3_is_a_rounding_tie(tmp_path, capsys, monkeypatch):
+    """C-port-3: on synth seed 72 (RF 5 trees, depth 4, TWOTHIRDS,
+    weighted rows) one node's two best candidate splits, adjacent bins
+    of one feature with gains 1.61886, cut the node's rows the same way:
+    no row lies in the bin between them. Summed exactly (f64 from the
+    node's rows) their gains are equal, so the first-occurrence argmax
+    takes the lower bin; the f32 histograms the search sees (the right
+    child is parent − left) leave a residue in that empty bin, and it
+    takes the other. Which bin a package picks is the rounding of its
+    histogram sums, and the models' eval AUC (the JAX package's train +
+    eval against the port's own init → stats → norm → train → eval)
+    agrees within 1e-3."""
+    from shifu_tpu.processor import eval as jeval
+    from shifu_tpu.processor import train as jtrain
+    from shifu_tpu.processor.base import ProcessorContext
+    from shifu_tpu_torch.models import gbdt as port_gbdt
+    from tests.test_torch_stats import make_sets, run_jax, run_port
+    root, port_root = make_sets(tmp_path, 72, n_rows=1200, algorithm="RF",
+                                train_params=PARAMS["RF"])
+    run_jax(root)
+    assert jtrain.run(ProcessorContext.load(root)) == 0
+    assert jeval.run(ProcessorContext.load(root)) == 0
+    run_port(port_root)
+
+    levels, rows_at = [], []
+    search = port_gbdt.split_op.best_splits
+    child = port_gbdt._child_level_histograms
+
+    def spy(g, h, mask, lam, min_inst):
+        levels.append((g.double(), h.double(), mask, lam, min_inst))
+        return search(g, h, mask, lam, min_inst)
+
+    def child_spy(cfg, binsT, node_of_row, grad, hess, depth, *a, **k):
+        rows_at.append((binsT, node_of_row.clone(), grad.clone(),
+                        hess.clone(), depth))
+        return child(cfg, binsT, node_of_row, grad, hess, depth, *a, **k)
+    monkeypatch.setattr(port_gbdt.split_op, "best_splits", spy)
+    monkeypatch.setattr(port_gbdt, "_child_level_histograms", child_spy)
+    assert cli.main(["--dir", port_root, "train", "--device", "cpu"]) == 0
+    monkeypatch.undo()
+
+    # every node's two best distinct candidates, gains in f64 from the
+    # f32 histograms the search saw
+    ties = []
+    for lvl, (g, h, mask, lam, min_inst) in enumerate(levels):
+        n, c, b = g.shape
+        rows = mask.reshape(-1, c).repeat_interleave(
+            n // mask.reshape(-1, c).shape[0], 0)
+        for i in range(n):
+            cands = []
+            for f in np.flatnonzero(rows[i].numpy() > 0):
+                for k in range(b - 2):
+                    gain, sums = _six_sums(g[i].numpy(), h[i].numpy(), f,
+                                           k, lam)
+                    if min(sums[1], sums[3]) >= min_inst:
+                        cands.append((gain, f, k, sums))
+            cands.sort(key=lambda x: -x[0])
+            distinct = [x for x in cands if x[0] != cands[0][0]]
+            if cands and distinct and cands[0][0] > 0:
+                ties.append((cands[0], distinct[0], lam, lvl, i))
+    # the node filed as C-port-3: a near tie (gains within 1e-5
+    # relative) whose best gain is 1.61886
+    near = [t for t in ties if t[0][0] - t[1][0] < 1e-5 * t[0][0]]
+    a, b2, lam, lvl, i = min(near, key=lambda t: abs(t[0][0] - 1.61886))
+    assert abs(a[0] - 1.61886) < 1e-4 and a[1] == b2[1], (a[:3], b2[:3])
+    f, lo, hi = a[1], min(a[2], b2[2]), max(a[2], b2[2])
+    assert hi == lo + 1
+
+    g32, h32 = levels[lvl][0][i].numpy(), levels[lvl][1][i].numpy()
+    binsT, node_of_row, grad, hess, depth = rows_at[lvl]
+    t, p = divmod(i, levels[lvl][0].shape[0] // node_of_row.shape[0])
+    g64, h64 = _node_histograms_f64(binsT, node_of_row, grad, hess, t,
+                                    2 ** depth - 1 + p, g32.shape[1])
+    assert g64[f, hi] == 0 and h64[f, hi] == 0     # no row between them
+    exact = [_six_sums(g64, h64, f, k, lam)[0] for k in (lo, hi)]
+    seen = [_six_sums(g32, h32, f, k, lam)[0] for k in (lo, hi)]
+    print(f"C-port-3 node: feature {f}, bins {lo} / {hi}; exact gains "
+          f"{exact[0]:.9g} / {exact[1]:.9g}, from the f32 histograms "
+          f"{seen[0]:.9g} / {seen[1]:.9g} (bin {hi} residue "
+          f"G {g32[f, hi]:.3g}, H {h32[f, hi]:.3g})")
+    assert exact[0] == exact[1]              # the argmax takes bin lo
+    assert seen[1] > seen[0]                 # rounding makes it bin hi
+    assert a[2] == hi
+
+    assert cli.main(["--dir", port_root, "eval", "--device", "cpu"]) == 0
+    aucs = []
+    for r in (port_root, root):
+        with open(os.path.join(r, "evals", "Eval1",
+                               "EvalPerformance.json")) as f:
+            aucs.append(json.load(f)["areaUnderRoc"])
+    print(f"eval areaUnderRoc: port {aucs[0]:.9g}, JAX {aucs[1]:.9g}")
+    assert abs(aucs[0] - aucs[1]) <= 1e-3, aucs
