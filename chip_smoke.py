@@ -87,7 +87,23 @@ result line is printed):
    buckets within 1e-5, or one row's share at a tie edge; `fused_score`
    launched), `posttrain` timed on the card at full size and held
    against the CPU on the first 4,096 rows (importance within 1e-4
-   relative, binAvgScore 1e-5).
+   relative, binAvgScore 1e-5);
+12. the NN/LR trainer: phase 11's set gets `norm` ZSCALE on the card at
+   full size and on its first 8,192 rows (the CPU twins' cut); on those
+   rows `train` on the card and with `--device cpu` from the same
+   matrix: the wide NN (600 → 512 → 256 → 1, relu, 2 Poisson bags, 20
+   epochs) under B and M (per-epoch train/val errors within 1e-5 of the
+   curve's largest value, best epochs equal, every saved array within
+   1e-4 of its largest entry), LR 600 → 1 under R and the NN under ADAM
+   (each bag's best val error within 1e-3 relative: sign-driven rules
+   part on near-zero gradients); at 65,536 rows the card trains the NN
+   (ADAM) and LR (R), and `eval` of each runs on the card (through K1,
+   `fused_score` launched) and on a CPU twin with phase 11's gates; a
+   3-class table of the HIGGS widths (16,384 rows, a 16,384-row holdout,
+   `init → stats → norm` on the card): NATIVE and ONEVSALL NNs (28 → 64
+   → 3, momentum) trained and `eval -run` on the card and the CPU (class
+   scores within 1e-4, the C×C matrix within one row's share); then
+   `nn_train_walls` (below) in a process of its own.
 
 Phase 8 then registers a holdout table (262,144 rows, another seed) as
 eval set `holdout` of the card-trained RF and log-loss GBT sets and runs
@@ -99,7 +115,8 @@ share where a tie group straddles a bucket edge), `fused_trees`
 launched in each card eval; on the GBT set also `eval -score`,
 `-confmat`, `-perf`, `-norm` (EvalNorm.csv within 1e-6) and `-audit
 -n 100` (line for line, scores within 1e-6). The K1/K2 launch counts
-of the kernels line add these card runs to phase 4's.
+of the kernels line add these card runs, and phases 11's and 12's card
+evals, to phase 4's.
 
 The last lines are the per-kernel launch line, the kernel JSON line,
 the card's name and power limit, and the result object.
@@ -111,7 +128,13 @@ K5 rows, `--pipeline-walls` only `init`/`stats`/`norm` on the card at
 2,000,000 rows of phase 10's table (read and compute seconds a step),
 `--eval-walls` only `eval` on the card over a 2,000,000-row eval file
 of phase 8's table with a GBT + RF ensemble (read, score and total
-seconds). They call only functions that older trees of the port have
+seconds), `--nn-train-walls` only phase 12's timing: `train_nn` on the
+card at the wide shape (300,000 × 600 → 512 → 256, 2 and 102 epochs)
+and the flagship (2,000,000 × 32 → 64, 2 and 32 epochs), `bench.py`'s
+two-length method (row·epochs/s, ms an epoch, the f32 peak share by
+`bench.py`'s FLOPs a row), launches an epoch between marker kernels,
+the idle share over five profiled epochs, and five epochs under
+`torch.cuda.set_sync_debug_mode("error")`. They call only functions that older trees of the port have
 too, so the script copied into the root of an older tree times that
 tree: run the two in turns on one card.
 """
@@ -2125,6 +2148,63 @@ def compare_eval_dir(a_root, b_root, name, tol, score_scale=1000.0,
     return out
 
 
+def compare_multiclass_eval(a_root, b_root, name, tol, rows=1):
+    """A multi-class eval set's outputs of two model sets (`b_root` the
+    reference): EvalScore.csv (header, tag and weight text identical,
+    class scores within `tol`, the predicted class the same on all but
+    `rows` rows), the weighted C×C EvalConfusionMatrix.csv (labels
+    equal, each cell within the weight of the rows whose prediction
+    moved, at most `rows` rows: one row's share each) and
+    EvalPerformance.json (records and classes equal, accuracy and the
+    per-class fields within those rows' share). Returns the largest
+    score difference, the rows whose prediction moved and the
+    accuracy."""
+    da = os.path.join(a_root, "evals", name)
+    db = os.path.join(b_root, "evals", name)
+    sa, sb = (os.path.join(d, "EvalScore.csv") for d in (da, db))
+    la, lb = _lines(sa), _lines(sb)
+    assert la[0] == lb[0] and la[0].endswith(",predicted"), (la[0], lb[0])
+    assert len(la) == len(lb), (len(la), len(lb))
+    for ra, rb in zip(la[1:], lb[1:]):
+        assert ra.split(",", 2)[:2] == rb.split(",", 2)[:2], (ra, rb)
+    xa = np.loadtxt(sa, delimiter=",", skiprows=1, ndmin=2)
+    xb = np.loadtxt(sb, delimiter=",", skiprows=1, ndmin=2)
+    err = float(np.max(np.abs(xa[:, 2:-1] - xb[:, 2:-1]))) if len(xa) \
+        else 0.0
+    assert err <= tol + 1e-6 * (1 + 1e-6), f"EvalScore.csv: {err}"
+    moved = xa[:, -1] != xb[:, -1]
+    assert int(moved.sum()) <= rows, f"{int(moved.sum())} predictions moved"
+    share = float(xb[moved, 1].sum())
+    ca, cb = (_lines(os.path.join(d, "EvalConfusionMatrix.csv"))
+              for d in (da, db))
+    assert len(ca) == len(cb) and ca[0] == cb[0], (ca[0], cb[0])
+    for ra, rb in zip(ca[1:], cb[1:]):
+        fa, fb = ra.split(","), rb.split(",")
+        assert fa[0] == fb[0], (ra, rb)
+        for a, b in zip(fa[1:], fb[1:]):
+            _close(a, b, 1e-6 * abs(float(b)), share)
+    with open(os.path.join(da, "EvalPerformance.json")) as f:
+        pa = json.load(f)
+    with open(os.path.join(db, "EvalPerformance.json")) as f:
+        pb = json.load(f)
+    assert (pa["records"], pa["classes"]) == (pb["records"], pb["classes"])
+    total = float(xb[:, 1].sum())
+    _within(pa["accuracy"], pb["accuracy"], 1e-6, share / max(total, 1e-12))
+    for qa, qb in zip(pa["perClass"], pb["perClass"]):
+        assert qa["tag"] == qb["tag"], (qa, qb)
+        _within(qa["support"], qb["support"], 1e-6 * qb["support"])
+        # a moved row shifts its weight between a row and a column of
+        # the matrix: precision, recall and f1 by at most twice that
+        # weight over the smaller of the two sums
+        tp = qb["recall"] * qb["support"]
+        col = tp / qb["precision"] if qb["precision"] > 0 else qb["support"]
+        lim = 2 * share / max(min(qb["support"], col), 1e-12)
+        for k in ("precision", "recall", "f1"):
+            _within(qa[k], qb[k], 1e-6, lim)
+    return {"score_err": err, "moved_rows": int(moved.sum()),
+            "accuracy": pb["accuracy"]}
+
+
 def compare_eval_norm(a_path, b_path, tol):
     """EvalNorm.csv: header, tag and weight identical text, the values
     within `tol`. Returns the largest difference."""
@@ -2143,11 +2223,12 @@ def compare_eval_norm(a_path, b_path, tol):
 
 def compare_audit(a_path, b_path, tol):
     """The audit file line for line: every field identical text but the
-    scores (the trailing model columns and finalScore), within `tol`."""
+    scores (the trailing model or class columns and finalScore), within
+    `tol`."""
     la, lb = _lines(a_path), _lines(b_path)
     assert la[0] == lb[0] and len(la) == len(lb), (len(la), len(lb))
     head = lb[0].split("|")
-    n_score = sum(1 for h in head if h.startswith("model")) + 1
+    n_score = sum(1 for h in head if h.startswith(("model", "class"))) + 1
     for ra, rb in zip(la[1:], lb[1:]):
         fa, fb = ra.split("|"), rb.split("|")
         assert fa[:-n_score] == fb[:-n_score], (ra, rb)
@@ -2442,6 +2523,391 @@ def eval_walls(rows=HIGGS_ROWS, reps=2):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The NN/LR trainer: train on the card, eval through K1, timing
+# ---------------------------------------------------------------------------
+
+NN_TRAIN_CPU_ROWS = 8_192   # phase 12's card-vs-CPU sets: the first rows
+NN_TRAIN_EPOCHS = 20
+MC_ROWS = 16_384            # phase 12's 3-class table, the HIGGS widths
+# (rows, columns, hidden, activation, lr, (short, long) epochs): the
+# repo's two NN training shapes, as `bench.py` times them (1 bag, ADAM,
+# 5 % validation, no early stop)
+NN_TRAIN_SHAPES = {
+    "wide": (300_000, 600, (512, 256), "relu", 0.02, (2, 102)),  # :90-94
+    "flagship": (2_000_000, 32, (64,), "tanh", 0.05, (2, 32)),   # :76-80
+}
+
+
+def nn_train_fields(alg, prop, lr, hidden=NN_HIDDEN, bags=2,
+                    epochs=NN_TRAIN_EPOCHS, **params):
+    """`train` section of phase 12's sets: the wide NN (relu, sigmoid
+    head) or LR, 2 Poisson bags, 10 % validation, no early stop; `params`
+    join train#params."""
+    params.update(Propagation=prop, LearningRate=lr)
+    if alg == "NN":
+        params.update(NumHiddenLayers=len(hidden),
+                      NumHiddenNodes=list(hidden),
+                      ActivationFunc=["relu"] * len(hidden))
+    return {"algorithm": alg, "numTrainEpochs": epochs, "baggingNum": bags,
+            "baggingWithReplacement": True, "baggingSampleRate": 1.0,
+            "validSetRate": 0.1, "params": params}
+
+
+def copy_config(src, dst):
+    """A model set holding `src`'s ModelConfig.json and ColumnConfig.json
+    (its data paths stay `src`'s)."""
+    import shutil
+    os.makedirs(dst)
+    for f in ("ModelConfig.json", "ColumnConfig.json"):
+        shutil.copy(os.path.join(src, f), os.path.join(dst, f))
+    return dst
+
+
+def copy_normalized(src, dst):
+    """`copy_config` plus `src`'s tmp/NormalizedData: a twin that trains
+    on the very matrix `src` trains on."""
+    import shutil
+    copy_config(src, dst)
+    shutil.copytree(os.path.join(src, "tmp", "NormalizedData"),
+                    os.path.join(dst, "tmp", "NormalizedData"))
+    return dst
+
+
+def head_rows(src_dir, dst_dir, n):
+    """The header and first `n` rows of `src_dir`'s part file."""
+    import itertools
+    import shutil
+    os.makedirs(dst_dir)
+    shutil.copy(os.path.join(src_dir, ".pig_header"), dst_dir)
+    with open(os.path.join(src_dir, "part-00000")) as f, \
+            open(os.path.join(dst_dir, "part-00000"), "w") as g:
+        g.writelines(itertools.islice(f, n))
+
+
+def model_arrays(root):
+    from shifu_tpu_torch.models.spec import list_models, load_model
+    return [load_model(p)[2] for p in list_models(os.path.join(root,
+                                                               "models"))]
+
+
+def compare_training(card, cpu, card_root, cpu_root, curve_rel=None,
+                     param_abs=None, best_rel=None):
+    """Card and CPU `train` lines and model files of one configuration:
+    per-epoch train/val errors within `curve_rel` of each curve's largest
+    value and best epochs equal, every saved parameter within `param_abs`
+    (absolute: a bias near zero has no scale of its own); or
+    (sign-driven and adaptive rules, which part on near-zero gradients)
+    each bag's best validation error within `best_rel` relative.
+    Returns the largest differences (params also relative to each
+    array's largest entry)."""
+    out = {"best_val": [card["best_val_error"], cpu["best_val_error"]],
+           "best_epoch": [card["best_epoch"], cpu["best_epoch"]]}
+    if best_rel is not None:
+        rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in
+                  zip(card["best_val_error"], cpu["best_val_error"]))
+        assert rel <= best_rel, f"best val error {rel} apart"
+        out["best_val_rel"] = rel
+        return out
+    assert card["best_epoch"] == cpu["best_epoch"], out
+    curve = 0.0
+    for key in ("train_errors", "val_errors"):
+        for a, b in zip(card[key], cpu[key]):
+            a, b = np.asarray(a), np.asarray(b)
+            curve = max(curve, float(np.abs(a - b).max() / np.abs(b).max()))
+    assert curve <= curve_rel, f"curves {curve} apart"
+    par, rel = 0.0, 0.0
+    for ma, mb in zip(model_arrays(card_root), model_arrays(cpu_root)):
+        for la, lb in zip(ma, mb):
+            for k in lb:
+                d = float(np.abs(la[k] - lb[k]).max())
+                par = max(par, d)
+                rel = max(rel, d / max(float(np.abs(lb[k]).max()), 1e-30))
+    assert par <= param_abs, f"params {par} apart"
+    out.update(curve_rel=curve, param_abs=par, param_rel=rel)
+    return out
+
+
+def mc_raw_table(rng, rows, c=GBT_COLS):
+    """A 3-class table of the HIGGS widths: `c` numeric columns (2 %
+    missing) and a label c0/c1/c2 cut from a noisy score of a few of
+    them."""
+    x = rng.normal(0, 1, (rows, c)).astype(np.float32)
+    score = x[:, 0] - 0.8 * x[:, 1] + 0.5 * x[:, 2] * x[:, 3] \
+        + rng.logistic(0, 0.5, rows)
+    label = np.array(["c0", "c1", "c2"])[np.digitize(score, [-0.6, 0.6])]
+    x[rng.random(x.shape) < 0.02] = np.nan
+    text = np.where(np.isnan(x), "?", x.astype(str))
+    names = [f"f{j}" for j in range(c)] + ["label"]
+    return names, np.concatenate([text, label[:, None]], axis=1)
+
+
+def mc_model_set(root, workdir, device="cuda"):
+    """The 3-class model set: raw table and holdout (eval set `Eval1`)
+    from seeds, `init → stats → norm` (ZSCALE) on the card."""
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    data_dir = os.path.join(root, "data")
+    write_raw(data_dir, *mc_raw_table(np.random.default_rng(83), MC_ROWS))
+    holdout = os.path.join(workdir, "mc_holdout")
+    write_raw(holdout, *mc_raw_table(np.random.default_rng(84), MC_ROWS))
+    data_set = {"dataPath": data_dir, "dataDelimiter": "|",
+                "headerPath": os.path.join(data_dir, ".pig_header"),
+                "targetColumnName": "label", "posTags": ["c0"],
+                "negTags": ["c1", "c2"]}
+    ModelConfig.from_dict({
+        "basic": {"name": "smokeMC"}, "dataSet": data_set,
+        "stats": {"maxNumBin": GBT_BINS - 1,
+                  "binningMethod": "EqualPositive"},
+        "normalize": {"normType": "ZSCALE", "stdDevCutOff": CUTOFF},
+        "train": {"algorithm": "NN"},
+        "evals": [{"name": "Eval1", "dataSet": dict(
+            data_set, dataPath=holdout,
+            headerPath=os.path.join(holdout, ".pig_header"))}]}).save(root)
+    return run_pipeline(root, device)
+
+
+def phase_nn_train(report, workdir, device="cuda", cpu_rows=NN_TRAIN_CPU_ROWS,
+                   walls=True):
+    """Phase 12: the NN/LR trainer on the card. Phase 11's set (its
+    600-column table, `init` and `stats` done on the card) gets `norm`
+    ZSCALE on the card, at full size and on its first `cpu_rows` rows.
+    On those rows `train` runs on the card and with `--device cpu` from
+    the same matrix: the wide NN under B and M (curves within 1e-5,
+    params within 1e-4), LR under R and the NN under ADAM (best val error
+    within 1e-3). At full size the card trains the NN (ADAM) and LR (R),
+    and `eval` of each runs on the card (through K1) and on a CPU twin
+    with phase 11's gates. Then a 3-class table of the HIGGS widths:
+    NATIVE and ONEVSALL NNs trained and evaluated on the card and the
+    CPU (the C×C matrix within one row's share). Last, `nn_train_walls`
+    (card only)."""
+    t0 = time.perf_counter()
+    nn = os.path.join(workdir, "nn")
+    big = copy_config(nn, os.path.join(workdir, "nn_train"))
+    small = copy_config(nn, os.path.join(workdir, "nn_train_small"))
+    head_rows(os.path.join(nn, "data"), os.path.join(small, "data"),
+              cpu_rows)
+    set_config(small, "dataSet", dataPath=os.path.join(small, "data"),
+               headerPath=os.path.join(small, "data", ".pig_header"))
+    mc = os.path.join(workdir, "mc")
+    norm_big, norm_small, mc_steps = in_parallel(
+        lambda: run_step(big, "norm", device),
+        lambda: run_step(small, "norm", device),
+        lambda: mc_model_set(mc, workdir, device))
+    print(f"  norm, card: {json.dumps(norm_big)} {json.dumps(norm_small)}")
+    print(f"  3-class set: {json.dumps(mc_steps)}")
+
+    configs = {"NN B": nn_train_fields("NN", "B", 0.1),
+               "NN M": nn_train_fields("NN", "M", 0.05, Momentum=0.5),
+               "LR R": nn_train_fields("LR", "R", 0.1),
+               "NN ADAM": nn_train_fields("NN", "ADAM", 0.002)}
+    gates = {"NN B": {"curve_rel": 1e-5, "param_abs": 1e-4},
+             "NN M": {"curve_rel": 1e-5, "param_abs": 1e-4},
+             "LR R": {"best_rel": 1e-3}, "NN ADAM": {"best_rel": 1e-3}}
+
+    def twins(name):
+        key = name.replace(" ", "_")
+        card = copy_normalized(small, os.path.join(workdir, key))
+        cpu = copy_normalized(small, os.path.join(workdir, key + "_cpu"))
+        for root in (card, cpu):
+            set_config(root, "train", **configs[name])
+        return run_twins(card, cpu, "train", device) + (card, cpu)
+
+    def full(name):
+        root = copy_normalized(big, os.path.join(workdir, "full_" + name))
+        set_config(root, "train", **configs[name])
+        line = run_step(root, "train", device)
+        cpu = copy_config(root, root + "_cpu")
+        import shutil
+        shutil.copytree(os.path.join(root, "models"),
+                        os.path.join(cpu, "models"))
+        return line, run_twins(root, cpu, "eval", device), root, cpu
+
+    def mc_twins(method):
+        card = copy_normalized(mc, os.path.join(workdir, "mc_" + method))
+        cpu = copy_normalized(mc, os.path.join(workdir, "mc_cpu_" + method))
+        for root in (card, cpu):
+            set_config(root, "train", multiClassifyMethod=method,
+                       **nn_train_fields("NN", "M", 0.1, hidden=(64,),
+                                         bags=1 if method == "ONEVSALL"
+                                         else 2, Momentum=0.5))
+        lines = run_twins(card, cpu, "train", device)
+        return lines, run_twins(card, cpu, "eval", device), card, cpu
+
+    results = in_parallel(
+        lambda: [twins("NN B"), twins("NN M")],
+        lambda: [twins("LR R"), twins("NN ADAM")],
+        lambda: [full("NN ADAM"), full("LR R")],
+        lambda: [mc_twins("NATIVE"), mc_twins("ONEVSALL")])
+    setup_s = time.perf_counter() - t0
+    out = {"norm": [norm_big, norm_small], "mc_steps": mc_steps,
+           "twins": {}, "full": {}, "multiclass": {}}
+    for name, (card, cpu, card_root, cpu_root) in zip(
+            configs, results[0] + results[1]):
+        print(f"  train {name}, {cpu_rows} rows: card {json.dumps(card)}")
+        print(f"  train {name}, {cpu_rows} rows: cpu {json.dumps(cpu)}")
+        assert card["device"].startswith(device) and card["bags"] == 2
+        errs = compare_training(card, cpu, card_root, cpu_root,
+                                **gates[name])
+        print(f"  {name} card = CPU: {json.dumps(errs)}")
+        out["twins"][name] = {"card": card, "cpu": cpu, "errors": errs}
+    for name, (line, (card_eval, cpu_eval), root, cpu) in zip(
+            ("NN ADAM", "LR R"), results[2]):
+        print(f"  train {name}, {line['rows']} rows, card: "
+              + json.dumps({k: v for k, v in line.items()
+                            if not k.endswith("_errors")}))
+        print(f"  eval of it: card {json.dumps(card_eval)}, "
+              f"cpu {json.dumps(cpu_eval)}")
+        assert card_eval["launches"]["fused_score"] > 0, \
+            f"eval of the card-trained {name} launched no fused_score"
+        errs = compare_eval_dir(root, cpu, "Eval1", 1e-5)
+        print(f"  {name} eval card = CPU within 1e-5: {json.dumps(errs)}")
+        report["fused_score"]["launches"] += \
+            card_eval["launches"]["fused_score"]
+        out["full"][name] = {"train": line, "eval": {"card": card_eval,
+                                                     "cpu": cpu_eval},
+                             "errors": errs}
+    for method, ((card, cpu), (card_eval, cpu_eval), croot, cpu_root) in zip(
+            ("NATIVE", "ONEVSALL"), results[3]):
+        print(f"  3-class {method} train: card {json.dumps(card)}, "
+              f"cpu {json.dumps(cpu)}")
+        print(f"  3-class {method} eval: card {json.dumps(card_eval)}, "
+              f"cpu {json.dumps(cpu_eval)}")
+        # two trainings (card, CPU) whose f32 sums part at 1e-7 an epoch:
+        # class scores within 1e-4, the C×C matrix within a row's share
+        errs = compare_multiclass_eval(croot, cpu_root, "Eval1", 1e-4,
+                                       rows=1)
+        print(f"  3-class {method} eval card = CPU: {json.dumps(errs)}")
+        out["multiclass"][method] = {"train": {"card": card, "cpu": cpu},
+                                     "eval": {"card": card_eval,
+                                              "cpu": cpu_eval},
+                                     "errors": errs}
+    out["setup_and_gates_s"] = setup_s
+    if walls:
+        out["walls"] = nn_train_walls_process()
+    report["nn_train"] = out
+
+
+def nn_train_walls_process():
+    """`nn_train_walls` in a process of its own (`--nn-train-walls`): its
+    profiler windows lose kernel records in a process that has traced
+    the earlier phases, and its timings should not inherit their
+    allocator state. Returns its result."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--nn-train-walls"],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = proc.stdout.strip().splitlines()
+    for line in lines:
+        if line.startswith("  nn train walls"):
+            print(line)
+    if proc.returncode != 0:
+        raise RuntimeError(f"--nn-train-walls failed (rc {proc.returncode})"
+                           f":\n{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])["nn_train_walls"]
+
+
+def _flops_per_row(dims):
+    """`bench.py:54-57`: training FLOPs a row, forward 2·Σ d_i·d_{i+1},
+    backward about twice that."""
+    return 3 * sum(2 * a * b for a, b in zip(dims[:-1], dims[1:]))
+
+
+def nn_train_walls(shapes=NN_TRAIN_SHAPES, device="cuda"):
+    """The trainer's speed at the repo's two NN training shapes, card
+    only, `bench.py`'s method: `train_nn` (1 bag, ADAM, 5 % validation,
+    no early stop, rows from a seed) at a short and a long epoch count,
+    so the host→device copy and the result fetch cancel in the
+    difference. Per shape: row·epochs/s, ms an epoch, the share of the
+    card's f32 peak by `bench.py`'s FLOPs a row, the launches an epoch
+    (kernels between markers, three epochs less one, halved), the
+    device's idle share over five profiled epochs, and that five epochs
+    run with `torch.cuda.set_sync_debug_mode("error")` (no host sync in
+    the loop)."""
+    import torch
+    from shifu_tpu_torch import weights
+    from shifu_tpu_torch.config.model_config import ModelTrainConf
+    from shifu_tpu_torch.models import nn as nn_mod
+    from shifu_tpu_torch.train import trainer
+    from shifu_tpu_torch.train.optimizers import optimizer_from_params
+    out = {}
+    for name, (rows, cols, hidden, act, lr, (short, long_)) in \
+            shapes.items():
+        rng = np.random.default_rng(85)
+        x = rng.standard_normal((rows, cols), dtype=np.float32)
+        beta = rng.standard_normal(cols).astype(np.float32)
+        y = (x @ beta / np.sqrt(cols) * 2.0 + rng.standard_normal(rows)
+             > 0).astype(np.float32)
+        w = np.ones(rows, np.float32)
+        params = {"NumHiddenLayers": len(hidden),
+                  "NumHiddenNodes": list(hidden),
+                  "ActivationFunc": [act] * len(hidden),
+                  "Propagation": "ADAM", "LearningRate": lr}
+        conf = ModelTrainConf()
+        conf.params, conf.baggingNum, conf.validSetRate = params, 1, 0.05
+        conf.earlyStoppingRounds, conf.convergenceThreshold = 0, 0.0
+        walls = {}
+        for epochs in (short, short, long_):     # the first call warms up
+            conf.numTrainEpochs = epochs
+            t0 = time.perf_counter()
+            res = trainer.train_nn(conf, x, y, w, seed=1, device=device)
+            walls[epochs] = time.perf_counter() - t0
+        d_wall = walls[long_] - walls[short]
+        d_epochs = long_ - short
+        n_train = res.rows
+        spec = res.spec
+        flops = _flops_per_row(spec.layer_dims) * n_train * d_epochs
+
+        # the epoch loop itself, on inputs already on the card
+        dev = torch.device(device)
+        tr, va = trainer.split_validation(rows, 0.05, 1)
+        xt, yt = (torch.as_tensor(a).to(dev) for a in (x[tr], y[tr]))
+        xv, yv = (torch.as_tensor(a).to(dev) for a in (x[va], y[va]))
+        wt = torch.ones((1, len(yt)), device=dev)
+        wv = torch.ones(len(yv), device=dev)
+        stacked = [{k: v.to(dev) for k, v in layer.items()} for layer in
+                   weights.stack_nn_params([nn_mod.init_params(
+                       spec, torch.Generator().manual_seed(1))])]
+        mask = [{k: torch.ones_like(v[0]) for k, v in layer.items()}
+                for layer in stacked]
+        opt = optimizer_from_params(params)
+
+        def run(n, stacked=stacked, opt=opt, spec=spec, xt=xt, yt=yt,
+                wt=wt, xv=xv, yv=yv, wv=wv, mask=mask):
+            carry = trainer.init_train_carry(opt, stacked)
+            return trainer.train_bags_carry(
+                lambda p, i, w_, g: nn_mod.loss_fn(spec, p, *i, w_, g),
+                lambda p, i, w_: nn_mod.mse(spec, p, *i, w_), opt, n, 0,
+                0.0, carry, (xt, yt), wt, (xv, yv), wv, mask)
+        run(2)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run(5)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        one = len(kernels_between_markers(lambda: run(1)))
+        three = len(kernels_between_markers(lambda: run(3)))
+        wall_ms, dev_ms = device_busy(lambda: run(5))
+        out[name] = {
+            "rows": rows, "train_rows": n_train, "dims": spec.layer_dims,
+            "epochs": [short, long_],
+            "wall_s": {str(k): v for k, v in walls.items()},
+            "row_epochs_per_s": n_train * d_epochs / d_wall,
+            "ms_per_epoch": d_wall / d_epochs * 1e3,
+            "f32_peak_share": flops / d_wall / F32_PEAK,
+            "flops_per_row": _flops_per_row(spec.layer_dims),
+            "launches_per_epoch": (three - one) / 2,
+            "launches_one_epoch_run": one,
+            "profiled_5_epochs_ms": wall_ms, "device_ms": dev_ms,
+            "idle_share": 1 - dev_ms / wall_ms,
+            "sync_free_epochs": 5, "best_val": float(res.best_val[0])}
+        print(f"  nn train walls {name}: " + json.dumps(out[name]))
+        del x, xt, xv
+        torch.cuda.empty_cache()
+    return out
+
+
 SOURCES = {
     "fused_score": ("shifu_tpu_torch/csrc/fused_score.cu",
                     "shifu_tpu/ops/pallas_score.py:110"),
@@ -2487,6 +2953,9 @@ def main() -> int:
     if sys.argv[1:] == ["--eval-walls"]:
         print(json.dumps({"eval_walls": eval_walls()}))
         return 0
+    if sys.argv[1:] == ["--nn-train-walls"]:
+        print(json.dumps({"nn_train_walls": nn_train_walls()}))
+        return 0
 
     def header(text):
         print(f"{text} ({time.monotonic() - t_start:.0f} s)")
@@ -2521,6 +2990,9 @@ def main() -> int:
     header("phase 11: NN eval through K1 and posttrain, card vs CPU")
     with tempfile.TemporaryDirectory() as workdir:
         phase_nn_eval(report, workdir)
+        header("phase 12: NN/LR trainer on the card vs CPU, eval through "
+               "K1, multi-class, timing")
+        phase_nn_train(report, workdir)
     print(f"total: {time.monotonic() - t_start:.1f} s on {smi}")
 
     kernels = []

@@ -35,11 +35,15 @@ device work and report the device as "host".
 `serve` serves every model spec under ``<model-set>/models`` (the
 `PathFinder.models_path()` rule) until SIGTERM/SIGINT or `--duration-s`,
 then prints the service stats as one JSON line. `train` trains the
-model set's GBT/RF/DT algorithm from `tmp/CleanedData` into
-``models/model<bag>.{gbt,rf}`` and prints one JSON line: the algorithm,
-the device, the wall seconds and the launches of each training kernel
-during the run. `--device` defaults to the card and raises when there
-is none.
+model set's algorithm — GBT/RF/DT from `tmp/CleanedData` into
+``models/model<bag>.{gbt,rf}``, NN/LR/SVM/TENSORFLOW from
+`tmp/NormalizedData` into ``models/model<bag>.{nn,lr}`` — and prints one
+JSON line: the algorithm, the device, the wall seconds and the launches
+of each tree-training kernel during the run; for the dense family also
+the training rows, the bags, the epochs, the trainer's seconds and each
+saved model's best validation error, best epoch and per-epoch train and
+validation errors; its clock starts once the card's context exists.
+`--device` defaults to the card and raises when there is none.
 """
 
 from __future__ import annotations
@@ -151,6 +155,8 @@ def cmd_norm(args) -> int:
 def cmd_train(args) -> int:
     import time
 
+    import torch
+
     from shifu_tpu_torch import resolve_device
     from shifu_tpu_torch.ops import best_splits, level_hist
     from shifu_tpu_torch.processor import train as train_proc
@@ -162,16 +168,20 @@ def cmd_train(args) -> int:
 
     dev = resolve_device(args.device)
     ctx = ProcessorContext.load(os.path.abspath(args.dir))
-    before = counts()
-    t0 = time.perf_counter()
-    rc = train_proc.run(ctx, device=dev)
     if dev.type == "cuda":
-        import torch
+        torch.zeros(1, device=dev)
         torch.cuda.synchronize(dev)
-    print(json.dumps({
-        "algorithm": ctx.model_config.train.algorithm.value,
-        "device": str(dev), "seconds": time.perf_counter() - t0,
-        "launches": {k: v - before[k] for k, v in counts().items()}}))
+    before = counts()
+    report: dict = {}
+    t0 = time.perf_counter()
+    rc = train_proc.run(ctx, device=dev, report=report)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    line = {"algorithm": ctx.model_config.train.algorithm.value,
+            "device": str(dev), "seconds": time.perf_counter() - t0,
+            "launches": {k: v - before[k] for k, v in counts().items()}}
+    line.update(report)
+    print(json.dumps(line))
     return rc
 
 
@@ -317,8 +327,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (default cuda)")
     p.set_defaults(fn=cmd_serve)
-    p = sub.add_parser("train", help="train the model set's GBT/RF/DT "
-                                     "algorithm")
+    p = sub.add_parser("train", help="train the model set's algorithm")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda)")
     p.set_defaults(fn=cmd_train)

@@ -1,7 +1,9 @@
 """Environment knobs of the port's serving, training and pipeline steps.
 
 A copy of the reading half of `shifu_tpu/config/environment.py` for the
-four serving knobs, the two tree-build knobs and the streaming
+four serving knobs, the two tree-build knobs, the two NN compute-dtype
+knobs, the two resilience knobs `train` refuses (ROADMAP A8) and the
+streaming
 triggers of stats, norm, eval and the analysis steps (stats, norm and a
 resident eval honour theirs by raising: the streaming steps are ROADMAP
 A6; posttrain and `eval -norm`/`-score` read in chunks): same names, same
@@ -46,6 +48,19 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
          "1 = GBT level builds bin numeric values inside the histogram "
          "kernel (no materialized bin-index matrix); needs FusedBins "
          "inputs from gbdt.make_fused_inputs"),
+    Knob("SHIFU_TPU_NN_COMPUTE", "float32",
+         "NN forward/backward compute dtype (float32 | bfloat16)"),
+    Knob("SHIFU_TPU_COMPUTE_DTYPE", None,
+         "default compute dtype for NN forward+backward (float32 | "
+         "bfloat16); params/optimizer state stay f32 and matmuls "
+         "accumulate in f32. Per-model train params and "
+         "SHIFU_TPU_NN_COMPUTE override it"),
+    Knob("SHIFU_TPU_MAX_RESTARTS", 0,
+         "supervised in-process restarts around the train step (the "
+         "port refuses a value above 0: ROADMAP A8)"),
+    Knob("SHIFU_TPU_RESUME", "0",
+         "1 = skip steps whose completion manifest matches inputs (the "
+         "port's train refuses it: ROADMAP A8)"),
     Knob("SHIFU_TPU_STATS_CHUNK_ROWS", None,
          "explicit stats streaming chunk rows; 0 forces resident"),
     Knob("SHIFU_TPU_STATS_STREAM_BYTES", 2 * 1024 ** 3,
@@ -76,6 +91,11 @@ def knob_raw(name: str) -> Optional[str]:
     """The knob's raw environment value (None when unset)."""
     _require(name)
     return os.environ.get(name)
+
+
+def knob_is_set(name: str) -> bool:
+    v = knob_raw(name)
+    return v is not None and v.strip() != ""
 
 
 def knob_int(name: str, default: Optional[int] = None) -> Optional[int]:

@@ -1,6 +1,6 @@
 """Vectorized CSV writing for eval outputs — the port's copy of
-`format_block` and `write_rows` from `shifu_tpu/eval/csv_out.py`
-(`write_csv` serves only the multi-class paths, ROADMAP A3).
+`format_block`, `write_rows` and `write_csv` from
+`shifu_tpu/eval/csv_out.py`.
 
 Each row is rendered by one printf-style format of the joined column
 formats ("%s" columns through `astype(str)` first, as `np.char.mod`
@@ -17,6 +17,8 @@ from __future__ import annotations
 from typing import IO, List, Sequence
 
 import numpy as np
+
+from shifu_tpu_torch.fileio import atomic_write
 
 
 def format_block(columns: Sequence[np.ndarray],
@@ -45,3 +47,11 @@ def write_rows(f: IO[str], columns: Sequence[np.ndarray],
         block = format_block([c[a:b] for c in columns], fmts, sep=sep)
         if block:
             f.write(block + "\n")
+
+
+def write_csv(path: str, header: Sequence[str],
+              columns: Sequence[np.ndarray], fmts: Sequence[str],
+              chunk_rows: int = 1_000_000) -> None:
+    with atomic_write(path) as f:
+        f.write(",".join(header) + "\n")
+        write_rows(f, columns, fmts, chunk_rows=chunk_rows)

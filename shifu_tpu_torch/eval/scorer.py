@@ -5,17 +5,19 @@
 the NORMALIZED dense block, or — when the caller passes `norm` and the
 raw numeric block matches the input width — the RAW block through the
 fused normalize + first-layer kernel; tree models read the cleaned raw
-blocks through the fused ensemble kernel. The wdl / mtl / tf kinds
-raise NotImplementedError until their slice is ported (ROADMAP A5), and
-so does multi-class scoring (`score_multiclass`, with the multi-class
-trainer, A3). `resolve_generic_models` expands an eval set's
-`customPaths` entry into model paths.
+blocks through the fused ensemble kernel. `Scorer.score_multiclass`
+scores a multi-class ensemble (NATIVE softmax models and ONEVSALL
+binary models) over the normalized block. The wdl / mtl / tf kinds
+raise NotImplementedError until their slice is ported (ROADMAP A5).
+`resolve_generic_models` expands an eval set's `customPaths` entry into
+model paths.
 """
 
 from __future__ import annotations
 
+import logging
 import os
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +26,8 @@ from shifu_tpu_torch import resolve_device, weights
 from shifu_tpu_torch.models import gbdt
 from shifu_tpu_torch.models.spec import list_models, load_model
 from shifu_tpu_torch.ops import fused_score
+
+log = logging.getLogger("shifu_tpu_torch")
 
 _LATER = {"wdl": "ROADMAP A5", "mtl": "ROADMAP A5", "tf": "ROADMAP A5"}
 
@@ -143,3 +147,51 @@ class Scorer:
         out["median"] = np.median(stack, axis=0)
         out["final"] = out.get(self.selector, out["mean"])
         return out
+
+    def score_multiclass(self, dense, index=None, raw_dense=None,
+                         raw_codes=None) -> Tuple[np.ndarray, np.ndarray]:
+        """Multi-class ensemble → ((N, C) class scores, (N,) argmax
+        predicted class). NATIVE models contribute their softmax rows;
+        ONEVSALL models (meta `ovaClass`) fill their class's column —
+        `Scorer`'s per-tag max-score pick for classification."""
+        native, ova = [], {}
+        n_classes = 0
+        for kind, meta, model in self.models:
+            s = score_matrix(kind, meta, model, dense, index,
+                             raw_dense=raw_dense, raw_codes=raw_codes)
+            if "ovaClass" in meta:
+                c = int(meta["ovaClass"])
+                ova.setdefault(c, []).append(np.asarray(s).reshape(-1))
+                n_classes = max(n_classes, c + 1,
+                                len(meta.get("classes") or []))
+            else:
+                if s.ndim == 1:
+                    raise ValueError(
+                        "binary model in a multi-class eval — retrain "
+                        "with multi-class tags")
+                native.append(s)
+                n_classes = max(n_classes, s.shape[1])
+        if not native and not ova:
+            raise ValueError(
+                "no models loaded for multi-class scoring — check the "
+                "models directory and that training completed")
+        parts = []
+        if native:
+            if any(s.shape[1] < n_classes for s in native):
+                # models trained against different tag sets: pad with
+                # zero columns so the matrices stack
+                log.warning(
+                    "multi-class models disagree on class count "
+                    "(%s vs %d); padding narrower score matrices with "
+                    "zeros", sorted({s.shape[1] for s in native}), n_classes)
+                native = [np.pad(s, ((0, 0), (0, n_classes - s.shape[1])))
+                          if s.shape[1] < n_classes else s for s in native]
+            parts.append(np.mean(np.stack(native, axis=0), axis=0))
+        if ova:
+            n_rows = len(next(iter(ova.values()))[0])
+            probs = np.zeros((n_rows, n_classes), np.float32)
+            for c, ss in ova.items():
+                probs[:, c] = np.mean(np.stack(ss, axis=0), axis=0)
+            parts.append(probs)
+        scores = np.mean(np.stack(parts, axis=0), axis=0)
+        return scores, np.argmax(scores, axis=1).astype(np.int32)

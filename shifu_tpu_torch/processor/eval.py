@@ -14,10 +14,17 @@ Each entry point takes a `report` dict that receives the rows scored
 (``rows``), the seconds spent reading the raw set (``read_s``) and in
 `Scorer.score` (``score_s``); `cli.py` prints them.
 
+A multi-class model set (more than two tags) is scored by
+`Scorer.score_multiclass` on the resident path: `eval -run` writes the
+per-class EvalScore.csv, the weighted C×C EvalConfusionMatrix.csv and
+the accuracy and per-class precision/recall/F1 in
+EvalPerformance.json; `-score` and `-audit` write its class columns;
+`-confmat`/`-perf` refuse it (binary-model steps).
+
 Not ported, each raising and naming its ROADMAP item: the streaming
 `run_one` of an eval set past the size trigger, with its score
-histogram (A6); the multi-class paths (A3, with the trainer of their
-models). The port is one process, so every output is written by it
+histogram, and the streaming multi-class eval (A6). The port is one
+process, so every output is written by it
 (the JAX package's `_opath` multi-host writers are A8), and it writes
 no health-store metrics (A7) and no `step_guard` manifest (A8).
 """
@@ -72,12 +79,6 @@ def _clock(report: Optional[Report], key: str) -> Iterator[None]:
 def _count_rows(report: Optional[Report], n: int) -> None:
     if report is not None:
         report["rows"] = report.get("rows", 0) + int(n)
-
-
-def _multiclass(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"eval {what} of a multi-class model set is not ported yet "
-        "(ROADMAP A3, with the multi-class trainer)")
 
 
 def _eval_by_name(ctx, eval_name):
@@ -139,11 +140,19 @@ def _score_dataset(mc: ModelConfig, scorer: Scorer, dset, cols,
                    ) -> Dict[str, np.ndarray]:
     """Normalize + ensemble-score one built ColumnarDataset (`cols` =
     the selected-candidate ColumnConfigs the normalization runs over),
-    on the scorer's device."""
-    if mc.is_multi_classification:
-        raise _multiclass("scoring")
+    on the scorer's device. A multi-class set → {"class<c>": (N,)
+    scores, "final": the predicted class index}."""
     result = norm_proc.normalize_columns(mc, cols, dset,
                                          device=scorer.device)
+    if mc.is_multi_classification:
+        with _clock(report, "score_s"):
+            probs, pred = scorer.score_multiclass(
+                result.dense, result.index if result.index.size else None,
+                raw_dense=dset.numeric, raw_codes=dset.cleaned_codes())
+        _count_rows(report, dset.num_rows)
+        scores = {f"class{c}": probs[:, c] for c in range(probs.shape[1])}
+        scores["final"] = pred.astype(np.float32)
+        return scores
     # plain-zscore runs advertise (mean, std) so the NN path fuses
     # normalize + first matmul over the raw block (kernel K1)
     norm = None
@@ -335,8 +344,6 @@ def run_audit(ctx: ProcessorContext, eval_name: Optional[str] = None,
     dev = resolve_device(device)
     mc = ctx.model_config
     ctx.require_columns()
-    if mc.is_multi_classification:
-        raise _multiclass("-audit")
     for ec in _eval_by_name(ctx, eval_name):
         ds = effective_dataset_conf(mc, ec)
         purifier = DataPurifier(ds.filterExpressions) \
@@ -358,7 +365,8 @@ def run_audit(ctx: ProcessorContext, eval_name: Optional[str] = None,
         scores = _score_dataset(mc, _make_scorer(ctx, ec, dev), dset,
                                 norm_cols, report)
         tags, weights = dset.tags, dset.weights
-        score_cols = sorted(k for k in scores if k.startswith("model"))
+        prefix = "class" if mc.is_multi_classification else "model"
+        score_cols = sorted(k for k in scores if k.startswith(prefix))
 
         n = min(n_records, len(tags))
         tmp_dir = os.path.join(ctx.path_finder.root, "tmp")
@@ -431,9 +439,13 @@ def run_one(ctx: ProcessorContext, ec: EvalConfig,
     t0 = time.time()
     dev = resolve_device(device)
     mc = ctx.model_config
-    if mc.is_multi_classification:
-        raise _multiclass("-run")
     chunk_rows = eval_chunk_rows(ctx, ec)
+    if chunk_rows and mc.is_multi_classification:
+        raise NotImplementedError(
+            f"eval {ec.name}: the multi-class set is past the streaming "
+            f"trigger (chunk rows {chunk_rows}); the streaming multi-class "
+            "eval is not ported yet (ROADMAP A6) — set "
+            "SHIFU_TPU_EVAL_CHUNK_ROWS=0 to force the resident path")
     if chunk_rows:
         raise NotImplementedError(
             f"eval {ec.name}: the set is past the streaming trigger (chunk "
@@ -441,6 +453,8 @@ def run_one(ctx: ProcessorContext, ec: EvalConfig,
             "(ROADMAP A6) — set SHIFU_TPU_EVAL_CHUNK_ROWS=0 to force the "
             "resident path")
     scores, tags, weights, dset = score_eval_set(ctx, ec, dev, report)
+    if mc.is_multi_classification:
+        return _finish_multiclass(ctx, ec, scores, tags, weights, t0)
     final = scores["final"]
 
     base = ctx.path_finder.eval_base_path(ec.name)
@@ -503,6 +517,71 @@ def run_one(ctx: ProcessorContext, ec: EvalConfig,
              "health-store metrics (ROADMAP A7)", ec.name, len(final),
              perf["areaUnderRoc"], perf["weightedAreaUnderRoc"],
              time.time() - t0)
+    return perf
+
+
+def _finish_multiclass(ctx: ProcessorContext, ec: EvalConfig,
+                       scores: Dict[str, np.ndarray], tags: np.ndarray,
+                       weights: np.ndarray, t0: float) -> Dict:
+    """Multi-class eval outputs: per-class score columns, the weighted
+    C×C confusion matrix, accuracy and per-class precision/recall/F1
+    (`ConfusionMatrix.computeConfusionMatixForMultipleClassification`)."""
+    n_c = len(ctx.model_config.class_tags)
+    true = tags.astype(np.int32)
+    os.makedirs(ctx.path_finder.eval_base_path(ec.name), exist_ok=True)
+    pred = _write_class_scores(ctx.path_finder.eval_score_path(ec.name),
+                               scores, [f"class{c}" for c in range(n_c)],
+                               tags, weights)
+    # weighted C×C confusion matrix: rows = actual, cols = predicted
+    cm = np.zeros((n_c, n_c), np.float64)
+    np.add.at(cm, (true, pred), weights)
+    return _write_multiclass_outputs(ctx, ec, cm, int(len(pred)), t0)
+
+
+def _write_class_scores(path: str, scores: Dict[str, np.ndarray],
+                        class_cols: List[str], tags: np.ndarray,
+                        weights: np.ndarray) -> np.ndarray:
+    """A multi-class EvalScore.csv: tag, weight, the class columns and
+    the predicted class; returns the predictions."""
+    pred = scores["final"].astype(np.int32)
+    csv_out.write_csv(
+        path, ["tag", "weight"] + class_cols + ["predicted"],
+        [tags.astype(np.int32), weights] + [scores[c] for c in class_cols]
+        + [pred], ["%d", "%.6g"] + ["%.6f"] * len(class_cols) + ["%d"])
+    return pred
+
+
+def _write_multiclass_outputs(ctx: ProcessorContext, ec: EvalConfig,
+                              cm: np.ndarray, records: int,
+                              t0: float) -> Dict:
+    """Confusion csv + performance json from the weighted C×C matrix."""
+    classes = ctx.model_config.class_tags
+    n_c = len(classes)
+    with atomic_write(ctx.path_finder.eval_confusion_path(ec.name)) as f:
+        f.write("actual\\predicted," + ",".join(str(c) for c in classes)
+                + "\n")
+        for a in range(n_c):
+            f.write(str(classes[a]) + ","
+                    + ",".join(f"{v:.6g}" for v in cm[a]) + "\n")
+    total = float(cm.sum())
+    acc = float(np.trace(cm) / max(total, 1e-12))
+    per_class = []
+    for c in range(n_c):
+        tp = float(cm[c, c])
+        fp = float(cm[:, c].sum() - tp)
+        fn = float(cm[c].sum() - tp)
+        prec = tp / max(tp + fp, 1e-12)
+        rec = tp / max(tp + fn, 1e-12)
+        per_class.append({
+            "tag": str(classes[c]), "precision": prec, "recall": rec,
+            "f1": 2 * prec * rec / max(prec + rec, 1e-12),
+            "support": float(cm[c].sum())})
+    perf = {"accuracy": acc, "records": records,
+            "classes": [str(c) for c in classes], "perClass": per_class}
+    with atomic_write(ctx.path_finder.eval_performance_path(ec.name)) as f:
+        json.dump(perf, f, indent=1)
+    log.info("eval[%s]: %d rows, multi-class accuracy=%.4f in %.2fs",
+             ec.name, records, acc, time.time() - t0)
     return perf
 
 
@@ -579,12 +658,24 @@ def run_score(ctx: ProcessorContext, eval_name: Optional[str] = None,
     mc = ctx.model_config
     ctx.validate(ModelStep.EVAL)
     ctx.require_columns()
-    if mc.is_multi_classification:
-        raise _multiclass("-score")
     for ec in _eval_by_name(ctx, eval_name):
         os.makedirs(ctx.path_finder.eval_base_path(ec.name), exist_ok=True)
         chunk_rows = eval_chunk_rows(ctx, ec)
         scorer = _make_scorer(ctx, ec, dev)
+        if mc.is_multi_classification:
+            # per-class probability columns + argmax, like run_one's
+            # score block (resident: no mean/max ensemble columns)
+            dset, cols = _build_eval_dataset(ctx, ec, want_meta=False,
+                                             report=report)
+            scores = _score_dataset(mc, scorer, dset, cols, report)
+            pred = _write_class_scores(
+                ctx.path_finder.eval_score_path(ec.name), scores,
+                sorted(k for k in scores if k.startswith("class")),
+                dset.tags, dset.weights)
+            log.info("eval[%s] -score → %s (%d rows, multi-class)",
+                     ec.name, ctx.path_finder.eval_score_path(ec.name),
+                     len(pred))
+            continue
         n = 0
         with atomic_write(ctx.path_finder.eval_score_path(ec.name)) as f:
             w = _ScoreCsvWriter(f)

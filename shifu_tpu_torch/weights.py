@@ -13,13 +13,16 @@ lists/dicts of numpy arrays) and builds the port's scoring object:
   the host for the start-up check's plain walk, and the statics.
 
 `from_torch` goes back to the numpy params, so a converted model saves
-with `save_model` unchanged.
+with `save_model` unchanged. `stack_nn_params` carries NN params (the
+JAX package's numpy layout: one network, a list of networks, or
+bag-stacked arrays) into the trainer's bag-stacked tensors, and
+`unstack_nn_params` goes back to one numpy network per bag.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -108,6 +111,46 @@ def to_torch(kind: str, meta: Dict[str, Any], params: Any,
         raise NotImplementedError(
             "the `tf` SavedModel kind is not ported yet (ROADMAP A5)")
     raise ValueError(f"unknown model kind {kind!r}")
+
+
+def _tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(torch.float32)
+    return torch.as_tensor(np.array(a, np.float32))
+
+
+def stack_nn_params(params: Any, n_bags: Optional[int] = None
+                    ) -> List[Dict[str, torch.Tensor]]:
+    """NN params → the trainer's layout: one dict a layer whose ``w`` is
+    (B, in, out) and ``b`` (B, out), f32. `params` is one network
+    (``[{"w": (in, out), "b": (out,)}, ...]``, repeated to `n_bags`
+    bags), a list of networks (stacked in order), or already
+    bag-stacked; numpy arrays or tensors (which keep their device)."""
+    if params and isinstance(params[0], (list, tuple)):
+        return [{k: torch.stack([_tensor(net[i][k]) for net in params])
+                 for k in params[0][i]} for i in range(len(params[0]))]
+    layers = [{k: _tensor(v) for k, v in layer.items()} for layer in params]
+    if layers[0]["w"].dim() == 3:
+        if n_bags is not None and layers[0]["w"].shape[0] != n_bags:
+            raise ValueError(f"params stack {layers[0]['w'].shape[0]} bags, "
+                             f"want {n_bags}")
+        return layers
+    if n_bags is None:
+        raise ValueError("one network's params need n_bags to stack")
+    return [{k: v.unsqueeze(0).repeat((n_bags,) + (1,) * v.dim())
+             for k, v in layer.items()} for layer in layers]
+
+
+def unstack_nn_params(stacked: List[Dict[str, torch.Tensor]]
+                      ) -> List[List[Dict[str, np.ndarray]]]:
+    """The trainer's bag-stacked params → one numpy network a bag, the
+    layout `save_model` writes and the JAX package's `load_model`
+    reads."""
+    host = [{k: v.detach().cpu().numpy() for k, v in layer.items()}
+            for layer in stacked]
+    n_bags = host[0]["w"].shape[0]
+    return [[{k: v[b] for k, v in layer.items()} for layer in host]
+            for b in range(n_bags)]
 
 
 def from_torch(model) -> Any:

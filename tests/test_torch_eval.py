@@ -25,8 +25,9 @@ other, then holds every output against the JAX package's with
   column, and `-new` / `-list` / `-delete`;
 - an eval set's `customPaths.modelsPath` models join the ensemble;
 - `-norm` and `-score` read in chunks equal the resident run byte for
-  byte; the streaming `eval` and the multi-class paths raise and name
-  ROADMAP A6 / A3.
+  byte; the streaming `eval`, binary and multi-class, raises and names
+  ROADMAP A6 (the resident multi-class paths are held in
+  `test_torch_train_dense.py`).
 """
 
 import json
@@ -288,9 +289,9 @@ def test_streaming_and_multiclass_paths_raise(sets, tmp_path, monkeypatch):
     multi = make_model_set(tmp_path / "multi", np.random.default_rng(97),
                            n_rows=300, n_classes=3)
     assert cli.main(["--dir", multi, "init"]) == 0
-    for args in ([], ["-score"], ["-audit"]):
-        with pytest.raises(NotImplementedError, match="A3"):
-            port(multi, "eval", *args)
+    monkeypatch.setenv("SHIFU_TPU_EVAL_CHUNK_ROWS", "37")
+    with pytest.raises(NotImplementedError, match="multi-class.*A6"):
+        port(multi, "eval")
 
 
 @pytest.mark.parametrize("alg", ["GBT", "NN", "LR"])

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package,
-and neither pandas nor pyarrow, which the card machine is not known to
-have.
+nor JAX's optimizer, network and checkpoint libraries (optax, flax,
+orbax), and neither pandas nor pyarrow, which the card machine is not
+known to have.
 
 The runtime check runs in a subprocess, because this test process has
 JAX loaded already (tests/conftest.py imports it). The source scan
@@ -38,6 +39,7 @@ from shifu_tpu_torch.ops import best_splits, level_hist
 from shifu_tpu_torch.eval.scorer import Scorer
 from shifu_tpu_torch.models.spec import save_model
 from shifu_tpu_torch.serve.service import ScorerService
+from shifu_tpu_torch.train import optimizers, trainer
 root = sys.argv[1]
 rng = np.random.default_rng(0)
 save_model(root + "/model0.nn", "nn",
@@ -76,9 +78,16 @@ perf = metrics.performance_result(out["mean"], np.array([0, 1, 0, 1, 1]),
 assert 0.0 <= perf["areaUnderRoc"] <= 1.0
 assert csv_out.format_block([np.arange(2), np.ones(2)], ["%d", "%.1f"]) \
     == "0,1.0\n1,1.0"
+from shifu_tpu_torch.config.model_config import ModelTrainConf
+conf = ModelTrainConf()
+conf.params = {"NumHiddenNodes": [4], "Propagation": "ADAM"}
+conf.numTrainEpochs, conf.baggingNum = 3, 2
+res = trainer.train_nn(conf, x, (x[:, 0] > 0).astype(np.float32),
+                       np.ones(5, np.float32), device="cpu")
+assert res.val_errors.shape == (2, 3)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "shifu_tpu", "pandas",
-                                    "pyarrow"))
+                                    "pyarrow", "optax", "flax", "orbax"))
 print("BAD", bad)
 sys.exit(1 if bad else 0)
 """
@@ -104,10 +113,12 @@ _PKG_IMPORT = re.compile(
     r"|__import__\(\s*[\"']\bshifu_tpu\b(?!_torch)", re.M)
 
 
-# pandas and pyarrow: the card machine is not known to have them
+# pandas and pyarrow: the card machine is not known to have them; optax,
+# flax and orbax: JAX's own libraries
 _FOREIGN_IMPORT = re.compile(
-    r"^\s*(import|from)\s+(pandas|pyarrow)\b"
-    r"|(import_module|__import__)\(\s*[\"'](pandas|pyarrow)\b", re.M)
+    r"^\s*(import|from)\s+(pandas|pyarrow|optax|flax|orbax)\b"
+    r"|(import_module|__import__)\(\s*[\"'](pandas|pyarrow|optax|flax"
+    r"|orbax)\b", re.M)
 
 
 def _port_sources():
@@ -127,15 +138,18 @@ def test_source_scan_finds_no_jax_or_jax_package_import():
         assert not _JAX_IMPORT.search(text), f"{path} imports jax"
         assert not _PKG_IMPORT.search(text), f"{path} imports shifu_tpu"
         assert not _FOREIGN_IMPORT.search(text), \
-            f"{path} imports pandas or pyarrow"
+            f"{path} imports pandas, pyarrow, optax, flax or orbax"
 
 
 def test_foreign_import_pattern():
     for bad in ("import pandas as pd", "  from pyarrow import parquet",
-                "importlib.import_module('pandas')", "__import__(\"pyarrow\")"):
+                "importlib.import_module('pandas')", "__import__(\"pyarrow\")",
+                "import optax", "from flax import linen",
+                "import orbax.checkpoint as ocp",
+                "importlib.import_module('optax')"):
         assert _FOREIGN_IMPORT.search(bad), bad
     for fine in ("import pandasx", "# pandas is not imported",
-                 "x = 'pandas'"):
+                 "x = 'pandas'", "import optaxy", "# optax semantics"):
         assert not _FOREIGN_IMPORT.search(fine), fine
 
 
