@@ -103,7 +103,33 @@ result line is printed):
    `init → stats → norm` on the card): NATIVE and ONEVSALL NNs (28 → 64
    → 3, momentum) trained and `eval -run` on the card and the CPU (class
    scores within 1e-4, the C×C matrix within one row's share); then
-   `nn_train_walls` (below) in a process of its own.
+   `nn_train_walls` (below) in a process of its own;
+13. varselect, the stats flags, export and encode, card against a CPU
+   twin that runs the same verbs in two processes (`--cpu-verbs`)
+   beside the card's: phase 10's table with a `month` cohort and a
+   `day` date column (262,144 rows): `init` and `stats` with DateStats
+   (within 1e-5 of each metric's scale, DateStats.csv also within one
+   unit of its sixth printed digit), then from one ColumnConfig.json
+   `stats -correlation` (Pearson within 1e-5), `-psi` (each psi within
+   1e-6), `-rebin -n 5` (ColumnConfig.json equal), `export -t
+   columnstats/woemapping/woe/correlation` (byte-equal; correlation
+   within 1e-5), varselect KS, IV, MIX, PARETO (filterNum 15), `-f`,
+   `-list`, `-reset` and FI (RF 10 trees, depth 6, 64 bins; selections
+   equal, K3 and K5 counted between marker kernels), V (20 nets × 5
+   generations from the same initial weights, on the table's first
+   32,768 rows: each generation's best validation error within 1e-4
+   relative, selection equal but for a near-tie swap it reports; then
+   on the card at full size); SE, ST and `-r 1` on phase 12's 8,192-row
+   cut of the 600-column table (se.0 within 1e-4 of the largest delta,
+   selection equal but at the cut's tie), then SE on the card at
+   65,536 rows; `export -t pmml` of phase 8's card-trained RF and GBT
+   and phase 12's LR, `-t baggingpmml` of its 2-bag wide NN: byte-equal
+   to the CPU twin's, conformant, and `evaluate_pmml` over 4,096 raw
+   holdout rows within 1e-6 (trees, through K2) or 1e-5 (NN/LR, through
+   K1) of `Scorer.score` on the card; `export -t bagging` (zip members
+   equal) and a `convert` round trip; `encode` of phase 8's GBT
+   (part-00000 byte-equal); `new`, `save`, `switch` and `show` on a
+   copy of phase 8's GBT set (the restored files equal the saved ones).
 
 Phase 8 then registers a holdout table (262,144 rows, another seed) as
 eval set `holdout` of the card-trained RF and log-loss GBT sets and runs
@@ -115,8 +141,9 @@ share where a tie group straddles a bucket edge), `fused_trees`
 launched in each card eval; on the GBT set also `eval -score`,
 `-confmat`, `-perf`, `-norm` (EvalNorm.csv within 1e-6) and `-audit
 -n 100` (line for line, scores within 1e-6). The K1/K2 launch counts
-of the kernels line add these card runs, and phases 11's and 12's card
-evals, to phase 4's.
+of the kernels line add these card runs, phases 11's and 12's card
+evals and phase 13's PMML check to phase 4's, and the K3/K5 counts
+phase 13's FI run to phase 8's.
 
 The last lines are the per-kernel launch line, the kernel JSON line,
 the card's name and power limit, and the result object.
@@ -134,7 +161,10 @@ and the flagship (2,000,000 × 32 → 64, 2 and 32 epochs), `bench.py`'s
 two-length method (row·epochs/s, ms an epoch, the f32 peak share by
 `bench.py`'s FLOPs a row), launches an epoch between marker kernels,
 the idle share over five profiled epochs, and five epochs under
-`torch.cuda.set_sync_debug_mode("error")`. They call only functions that older trees of the port have
+`torch.cuda.set_sync_debug_mode("error")`; `--varselect-walls` only
+phase 13's card steps, each a process with the host to itself, twice:
+`stats -correlation` at 262,144 × 30, `varsel` FI, `encode` of its RF,
+SE at 65,536 × 600 and `export -t baggingpmml` of a 2-bag wide NN. They call only functions that older trees of the port have
 too, so the script copied into the root of an older tree times that
 tree: run the two in turns on one card.
 """
@@ -975,18 +1005,38 @@ def raw_table(rng, rows, extras):
     return names, cols, x, y
 
 
+def cohort_columns(rng, names, cols):
+    """Phase 13's two meta columns, put before the label: `month`, the
+    PSI cohort (six months, the later ones rarer and drifting in f0),
+    and `day`, the DateStats date (60 days)."""
+    rows = len(cols[0])
+    month = rng.choice(6, rows, p=[0.25, 0.2, 0.2, 0.15, 0.1, 0.1])
+    day = rng.integers(0, 60, rows)
+    f0 = cols[0].copy()
+    shift = (month >= 4) & (f0 != "?")
+    f0[shift] = (f0[shift].astype(np.float32) + np.float32(0.5)).astype(str)
+    cols = [f0] + cols[1:-1] + [
+        np.array([f"2024-{m + 1:02d}" for m in range(6)])[month],
+        np.array([f"2024-d{d:02d}" for d in range(60)])[day], cols[-1]]
+    return names[:-1] + ["month", "day", names[-1]], cols
+
+
 def write_model_set(root, alg, params, seed, rows, valid_rate,
-                    extras=False):
+                    extras=False, cohorts=False):
     """A model set as a user starts one: raw pipe-delimited data with a
     `.pig_header` under ``data/`` and `ModelConfig.json`, from a seed;
     `init → stats → norm` make the rest. Its paths are absolute, so a
-    copy without ``data/`` reads the same raw files. Returns the raw
-    table's bytes."""
+    copy without ``data/`` reads the same raw files. With `cohorts`
+    (and `extras`), the table gains phase 13's `month` and `day` meta
+    columns, named as `stats#psiColumnName` and `dataSet#dateColumnName`.
+    Returns the raw table's bytes."""
     from shifu_tpu_torch.config.model_config import ModelConfig
     from shifu_tpu_torch.fileio import atomic_write
     data_dir = os.path.join(root, "data")
-    names, cols, _, _ = raw_table(np.random.default_rng(seed), rows,
-                                  extras)
+    rng = np.random.default_rng(seed)
+    names, cols, _, _ = raw_table(rng, rows, extras)
+    if cohorts:
+        names, cols = cohort_columns(rng, names, cols)
     raw_bytes = write_raw(data_dir, names, cols)
     data_set = {"dataPath": data_dir, "dataDelimiter": "|",
                 "headerPath": os.path.join(data_dir, ".pig_header"),
@@ -995,8 +1045,9 @@ def write_model_set(root, alg, params, seed, rows, valid_rate,
     if extras:
         cols_dir = os.path.join(root, "columns")
         os.makedirs(cols_dir, exist_ok=True)
+        meta = "id\nmonth\nday\n" if cohorts else "id\n"
         for fname, names_in in (("categorical.column.names", "c0\nc1\n"),
-                                ("meta.column.names", "id\n")):
+                                ("meta.column.names", meta)):
             with atomic_write(os.path.join(cols_dir, fname)) as f:
                 f.write(names_in)
         data_set.update({
@@ -1005,11 +1056,13 @@ def write_model_set(root, alg, params, seed, rows, valid_rate,
                 cols_dir, "categorical.column.names"),
             "metaColumnNameFile": os.path.join(cols_dir,
                                                "meta.column.names")})
+    stats = {"maxNumBin": GBT_BINS - 1, "binningMethod": "EqualPositive"}
+    if cohorts:
+        data_set["dateColumnName"] = "day"
+        stats["psiColumnName"] = "month"
     ModelConfig.from_dict({
         "basic": {"name": f"smoke{alg}"}, "dataSet": data_set,
-        "stats": {"maxNumBin": GBT_BINS - 1,
-                  "binningMethod": "EqualPositive"},
-        "normalize": {"normType": "ZSCALE"},
+        "stats": stats, "normalize": {"normType": "ZSCALE"},
         "train": {"algorithm": alg, "validSetRate": valid_rate,
                   "params": params}}).save(root)
     return raw_bytes
@@ -1045,16 +1098,21 @@ def set_config(root, section, **fields):
     ModelConfig.from_dict(d).save(root)
 
 
-def _start_step(root, verb, device, env_extra):
+def _spawn(args, env_extra=None):
+    """`python <args>` from the repo's root, its output piped."""
     env = dict(os.environ)
     env.update(env_extra or {})
+    return subprocess.Popen(
+        [sys.executable, *args], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def _start_step(root, verb, device, env_extra):
     args = [verb] if isinstance(verb, str) else list(verb)
     if device is not None:
         args += ["--device", device]
-    return subprocess.Popen(
-        [sys.executable, "-m", "shifu_tpu_torch", "--dir", root, *args],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
+    return _spawn(["-m", "shifu_tpu_torch", "--dir", root, *args], env_extra)
 
 
 def _step_result(proc, what):
@@ -1091,19 +1149,38 @@ def in_parallel(*fns):
         return [f.result() for f in futures]
 
 
+# a CPU twin runs on four threads beside the card's steps
+CPU_TWIN_ENV = {"OMP_NUM_THREADS": "4"}
+
+
+def beside(procs, card_fn):
+    """Call `card_fn` while the CPU twin's processes run (`procs`, each
+    a (process, what) pair from `_spawn`); returns (its result, each
+    process's JSON line). A failure on either side kills every twin
+    process still running."""
+    cpu = []
+    try:
+        card = card_fn()
+        for proc, what in procs:
+            cpu.append(_step_result(proc, what))
+    except BaseException:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        raise
+    return card, cpu
+
+
 def run_twins(card_root, cpu_root, verb, device="cuda"):
     """`verb` on `device` in `card_root` and with `--device cpu` in
-    `cpu_root`, the CPU twin started first and run beside the card one
-    on four threads, for the gates (`in_parallel` says where the step
-    times come from); returns (card line, CPU line)."""
-    cpu = _start_step(cpu_root, verb, "cpu", {"OMP_NUM_THREADS": "4"})
-    try:
-        card = run_step(card_root, verb, device)
-    except BaseException:
-        cpu.kill()
-        cpu.communicate()
-        raise
-    return card, _step_result(cpu, f"{verb} --device cpu on {cpu_root}")
+    `cpu_root`, the CPU twin started first and run `beside` the card one,
+    for the gates (`in_parallel` says where the step times come from);
+    returns (card line, CPU line)."""
+    cpu = _start_step(cpu_root, verb, "cpu", CPU_TWIN_ENV)
+    card, (line,) = beside([(cpu, f"{verb} --device cpu on {cpu_root}")],
+                           lambda: run_step(card_root, verb, device))
+    return card, line
 
 
 def run_pipeline(root, device, norms=("ZSCALE",), env_extra=None):
@@ -1220,7 +1297,7 @@ def phase_pipeline(report, workdir, device="cuda", rows=TRAIN_ROWS):
     # the CPU twin's steps run on four threads beside the card's
     on_card, on_cpu = in_parallel(
         lambda: run_pipeline(card, device, norms),
-        lambda: run_pipeline(cpu, "cpu", norms, {"OMP_NUM_THREADS": "4"}))
+        lambda: run_pipeline(cpu, "cpu", norms, CPU_TWIN_ENV))
     lines = {"card": on_card, "cpu": on_cpu}
     for where, steps in lines.items():
         for step, line in steps.items():
@@ -1345,7 +1422,7 @@ def phase_train_main_path(report, workdir, device="cuda", rows=TRAIN_ROWS):
         return {name + "_cpu": run_step(os.path.join(workdir,
                                                      f"{name}_cpu"),
                                         "train", "cpu",
-                                        {"OMP_NUM_THREADS": "4"})
+                                        CPU_TWIN_ENV)
                 for name in sets}
     on_card, on_cpu = in_parallel(card_runs, cpu_runs)
     runs = {}
@@ -2908,6 +2985,696 @@ def nn_train_walls(shapes=NN_TRAIN_SHAPES, device="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: varselect, the stats flags, export and encode
+# ---------------------------------------------------------------------------
+
+VS_ROWS = 262_144           # phase 13's HIGGS table with month and day
+PMML_ROWS = 4_096           # raw holdout rows the PMML documents score
+VS_FILTER_NUM = 15          # of the HIGGS table's 30 candidates
+V_CPU_ROWS = 32_768         # V card against CPU on the table's first rows
+SE_TRAIN = {"algorithm": "NN", "numTrainEpochs": 20, "baggingNum": 1,
+            "validSetRate": 0.1,
+            "params": {"NumHiddenLayers": 1, "NumHiddenNodes": [64],
+                       "ActivationFunc": ["tanh"], "Propagation": "B",
+                       "LearningRate": 0.1}}
+FI_TRAIN = {"algorithm": "RF", "validSetRate": 0.0, "params": {
+    "TreeNum": 10, "MaxDepth": TRAIN_DEPTH, "FeatureSubsetStrategy": "SQRT"}}
+# verbs whose parser takes --device
+_DEVICE_VERBS = ("stats", "norm", "varsel", "varselect", "train",
+                 "posttrain", "eval", "export", "encode")
+
+
+def run_verbs(steps, device):
+    """Each (root, args) of `steps` through `cli.main` in this process,
+    with ``--device`` where the verb takes one; returns each step's JSON
+    line, the lines it printed before it under ``printed``."""
+    import contextlib
+    import io
+    from shifu_tpu_torch import cli
+    out = []
+    for root, args in steps:
+        buf = io.StringIO()
+        extra = ["--device", device] if args[0] in _DEVICE_VERBS else []
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["--dir", root, *args, *extra])
+        lines = buf.getvalue().strip().splitlines()
+        line = json.loads(lines[-1])
+        line.update(rc=rc, printed=lines[:-1])
+        out.append(line)
+    return out
+
+
+def start_cpu_verbs(steps, workdir):
+    """`run_verbs(steps, "cpu")` in a process of its own (`--cpu-verbs`),
+    for `beside`: returns (process, what)."""
+    path = os.path.join(workdir, f"cpu_steps_{len(os.listdir(workdir))}.json")
+    with open(path, "w") as f:
+        json.dump(steps, f)
+    return (_spawn([os.path.abspath(__file__), "--cpu-verbs", path],
+                   CPU_TWIN_ENV), f"--cpu-verbs {path}")
+
+
+def vs_model_set(root, rows):
+    """Phase 13's set: phase 10's HIGGS widths (28 numeric + 2
+    categorical, weight, meta) with the `month` cohort and `day` date
+    columns, RF (10 trees, depth 6, SQRT) as its algorithm."""
+    raw_bytes = write_model_set(root, "RF", FI_TRAIN["params"], 77, rows,
+                                0.0, extras=True, cohorts=True)
+    set_config(root, "varSelect", filterNum=VS_FILTER_NUM)
+    return raw_bytes
+
+
+def read_csv_rows(path):
+    with open(path) as f:
+        return [line.rstrip("\n").split(",") for line in f]
+
+
+def compare_date_stats(card_path, cpu_path, rtol=1e-5):
+    """DateStats.csv card against CPU: the same (date, column) rows; each
+    printed value within `rtol` of its scale (the larger of |value| and
+    the largest |value| of that metric and column over the dates: a mean
+    near zero has no scale of its own) plus one unit of its sixth
+    printed digit (`%.6g`). Returns the largest difference in units of
+    the scale."""
+    a, b = read_csv_rows(card_path), read_csv_rows(cpu_path)
+    assert a[0] == b[0] and len(a) == len(b)
+    assert [r[:2] for r in a] == [r[:2] for r in b]
+    cols = np.asarray([r[1] for r in b[1:]])
+    va = np.asarray([[float(v) for v in r[2:]] for r in a[1:]])
+    vb = np.asarray([[float(v) for v in r[2:]] for r in b[1:]])
+    finite = np.isfinite(vb)
+    same = (va == vb) | ~finite
+    scale = np.abs(np.where(finite, vb, 0.0))
+    for c in np.unique(cols):
+        rows = cols == c
+        scale[rows] = np.maximum(scale[rows], scale[rows].max(axis=0))
+    mag = np.maximum(np.abs(np.where(finite, va, 0)), scale)
+    unit = 10.0 ** (np.floor(np.log10(np.maximum(mag, 1e-300))) - 5)
+    diff = np.where(same, 0.0, np.abs(va - vb))
+    assert (diff <= rtol * scale + unit).all(), \
+        "DateStats.csv card vs CPU beyond tolerance"
+    return float((diff / np.maximum(scale, 1e-30)).max())
+
+
+def date_stats_arrays(root, device):
+    """`datestat.compute_date_stats` of the set's stats rows on
+    `device`, as `stats` computes them."""
+    from shifu_tpu_torch.data.dataset import build_columnar, valid_tag_mask
+    from shifu_tpu_torch.data.reader import string_column
+    from shifu_tpu_torch.processor import datestat
+    from shifu_tpu_torch.processor import stats as stats_proc
+    from shifu_tpu_torch.processor.base import ProcessorContext
+    ctx = ProcessorContext.load(root)
+    mc = ctx.model_config
+    df = stats_proc._resident_frame(ctx, 12306)
+    dset = build_columnar(mc, [c for c in ctx.column_configs
+                               if not c.is_segment], df)
+    dates = string_column(df[datestat.date_column_name(mc)])[
+        valid_tag_mask(mc, df)]
+    uniq, ids = np.unique(dates, return_inverse=True)
+    return datestat.compute_date_stats(dset.numeric, dset.tags,
+                                       ids.reshape(-1), len(uniq), device)
+
+
+def compare_date_arrays(a, b, rtol=1e-5):
+    """DateStats card against CPU before printing: each metric within
+    `rtol` of the larger of its value and the largest |value| of that
+    metric in its column (a mean near zero has no scale of its own: its
+    f32 sum parts by the sum's rounding). Returns the largest such
+    difference."""
+    err = 0.0
+    for k in b:
+        scale = np.maximum(np.abs(b[k]), np.nanmax(
+            np.where(np.isfinite(b[k]), np.abs(b[k]), 0.0), axis=0))
+        same_inf = (a[k] == b[k]) & ~np.isfinite(b[k])
+        d = np.where(same_inf, 0.0, np.abs(a[k] - b[k])
+                     / np.maximum(scale, 1e-30))
+        err = max(err, float(np.max(d)))
+    assert err <= rtol, f"DateStats card vs CPU {err}"
+    return err
+
+
+def compare_corr(card_path, cpu_path, tol=1e-5):
+    a, b = read_csv_rows(card_path), read_csv_rows(cpu_path)
+    assert a[0] == b[0] and [r[0] for r in a] == [r[0] for r in b]
+    va = np.asarray([[float(v) for v in r[1:]] for r in a[1:]])
+    vb = np.asarray([[float(v) for v in r[1:]] for r in b[1:]])
+    err = float(np.abs(va - vb).max())
+    assert err <= tol, f"correlation card vs CPU {err}"
+    return err
+
+
+def column_configs(root):
+    with open(os.path.join(root, "ColumnConfig.json")) as f:
+        return json.load(f)
+
+
+def selection(root):
+    return [c["columnName"] for c in column_configs(root) if c["finalSelect"]]
+
+
+def same_bytes(a, b, what):
+    with open(a, "rb") as f, open(b, "rb") as g:
+        assert f.read() == g.read(), f"{what}: card and CPU files differ"
+
+
+def se_file(root):
+    with open(os.path.join(root, "varsel", "se.0")) as f:
+        return dict((n, float(v)) for n, v in
+                    (line.split("\t") for line in f))
+
+
+def compare_se(card, cpu, filter_num, tol=1e-4):
+    """se.0 deltas card against CPU within `tol` of the largest; the
+    selections equal, except columns whose delta lies within that
+    tolerance of the cut (the `filter_num`-th delta)."""
+    a, b = se_file(card), se_file(cpu)
+    assert set(a) == set(b)
+    scale = max(abs(v) for v in b.values())
+    err = max(abs(a[k] - b[k]) for k in b) / scale
+    assert err <= tol, f"se.0 deltas {err} of the largest apart"
+    cut = sorted(b.values(), reverse=True)[min(filter_num, len(b)) - 1]
+    diff = set(selection(card)) ^ set(selection(cpu))
+    near = {k for k in diff if abs(b[k] - cut) <= tol * scale}
+    assert diff == near, f"selections differ beyond the cut's tie: {diff}"
+    return {"delta_rel": err, "flipped_at_cut": sorted(diff)}
+
+
+def compare_voted(card_line, cpu_line, card, cpu, rtol=1e-4):
+    """V card against CPU: each generation's best validation error within
+    `rtol` relative and the selections equal; a one-column swap is
+    accepted only where the final population's errors agree within
+    `rtol` (a near tie in the vote), and then reported."""
+    g_card = np.asarray(card_line["generations"])
+    g_cpu = np.asarray(cpu_line["generations"])
+    rel = float(np.max(np.abs(g_card - g_cpu) / np.abs(g_cpu)))
+    assert rel <= rtol, f"V best errors {g_card} vs {g_cpu}"
+    out = {"generations_rel": rel, "card": g_card.tolist(),
+           "cpu": g_cpu.tolist()}
+    diff = set(selection(card)) ^ set(selection(cpu))
+    if diff:
+        fa = np.asarray(card_line["final_errors"])
+        fb = np.asarray(cpu_line["final_errors"])
+        final_rel = float(np.max(np.abs(fa - fb) / np.abs(fb)))
+        print(f"  V: selections differ in {sorted(diff)}; final errors "
+              f"card {fa.tolist()} cpu {fb.tolist()}")
+        assert len(diff) == 2 and final_rel <= rtol, \
+            f"V selections differ in {sorted(diff)}"
+        out["near_tie_swap"] = sorted(diff)
+    return out
+
+
+def zip_members(path):
+    import zipfile
+    with zipfile.ZipFile(path) as z:
+        return {n: z.read(n) for n in z.namelist()}
+
+
+def model_copy(src, dst):
+    """`copy_config(src, dst)` with `src`'s models/."""
+    import shutil
+    copy_config(src, dst)
+    shutil.copytree(os.path.join(src, "models"), os.path.join(dst, "models"))
+    return dst
+
+
+def pmml_scores(root, twin, records_table, n):
+    """Each PMML document of `root` (one parse a document): byte-equal to
+    the CPU twin's (in `twin`), its `validate_structure` problems, and
+    its `evaluate_pmml` scores over the first `n` rows of a raw table.
+    Returns (problems, scores)."""
+    import xml.etree.ElementTree as ET
+    from shifu_tpu_torch import pmml
+    from shifu_tpu_torch.data.reader import Table
+    recs = Table({k: np.where(records_table[k][:n] == "?", "",
+                              records_table[k][:n])
+                  for k in records_table.columns})
+    d = os.path.join(root, "pmmls")
+    problems, scores = [], []
+    for f in sorted(os.listdir(d)):
+        same_bytes(os.path.join(d, f), os.path.join(twin, "pmmls", f),
+                   f"pmml {f}")
+        doc = ET.parse(os.path.join(d, f)).getroot()
+        problems += pmml.validate_structure(doc)
+        scores.append(pmml.evaluate_pmml(doc, recs))
+    return problems, scores
+
+
+def card_scores(root, table, n, device):
+    """`Scorer.score`'s mean on the card over the same rows, normalized
+    as posttrain does; returns (scores, K1 launches, K2 launches)."""
+    from shifu_tpu_torch.config.column_config import load_column_configs
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    from shifu_tpu_torch.eval.scorer import Scorer
+    from shifu_tpu_torch.ops import fused_score, fused_trees
+    from shifu_tpu_torch.processor import norm as norm_proc
+    mc = ModelConfig.load(root)
+    ccs = load_column_configs(os.path.join(root, "ColumnConfig.json"))
+    cols = norm_proc.selected_candidates(ccs)
+    from shifu_tpu_torch.data.reader import Table
+    head = Table({k: table[k][:n] for k in table.columns})
+    dset = norm_proc.load_dataset_for_columns(mc, ccs, cols, df=head)
+    res = norm_proc.normalize_columns(mc, cols, dset, device=device)
+    scorer = Scorer.from_dir(os.path.join(root, "models"), device=device)
+    # a plain z-score set advertises its (mean, std), as eval does, so
+    # the NN/LR path reads the raw block through K1
+    norm = None if res.zscore_params is None else {
+        "mean": res.zscore_params[0], "std": res.zscore_params[1],
+        "cutoff": mc.normalize.stdDevCutOff}
+    k1, k2 = fused_score.launches, fused_trees.launches
+    out = scorer.score(res.dense, res.index if res.index.size else None,
+                       raw_dense=dset.numeric,
+                       raw_codes=dset.cleaned_codes(), norm=norm)["mean"]
+    return out, fused_score.launches - k1, fused_trees.launches - k2
+
+
+def manage_round_trip(src, workdir):
+    """`new`, then `save v1` / an edit (`varsel -reset`) / `save v2` /
+    `switch v1` / `show` on a copy of `src`: the restored files equal
+    the v1 snapshot."""
+    def files(root, skip=".shifu-versions"):
+        out = {}
+        for d, dirs, fs in os.walk(root):
+            dirs[:] = [x for x in dirs if x != skip]
+            for f in fs:
+                p = os.path.join(d, f)
+                with open(p, "rb") as h:
+                    out[os.path.relpath(p, root)] = h.read()
+        return out
+    root = model_copy(src, os.path.join(workdir, "manage"))
+    lines = run_verbs([(workdir, ["new", "scaffold"]),
+                       (root, ["save", "v1"])], "cpu")
+    v1 = files(root)
+    lines += run_verbs([(root, ["varsel", "-reset"]), (root, ["save", "v2"]),
+                        (root, ["switch", "v1"]), (root, ["show"])], "cpu")
+    assert all(line["rc"] == 0 for line in lines), lines
+    assert files(root) == v1, "switch v1 did not restore the v1 files"
+    assert lines[-1]["versions"] == ["master", "v1", "v2"], lines[-1]
+    assert os.path.exists(os.path.join(workdir, "scaffold",
+                                       "ModelConfig.json"))
+    return [{k: v for k, v in line.items() if k != "printed"}
+            for line in lines]
+
+
+def count_kernels(names, *parts):
+    return sum(1 for n in names if any(p in n for p in parts))
+
+
+def phase_varselect_export(report, w8, w11, device="cuda", rows=VS_ROWS,
+                           v_rows=V_CPU_ROWS, se_full_rows=NN_EVAL_ROWS,
+                           pmml_rows=PMML_ROWS):
+    """Phase 13: varselect, the stats flags, export and encode on the
+    card against the CPU twin. `w8` holds phase 8's sets (the card-trained
+    RF and log-loss GBT, the holdout table), `w11` phases 11 and 12's
+    (the 600-column table and its card-trained LR and 2-bag wide NN)."""
+    import shutil
+    t0 = time.perf_counter()
+    w13 = os.path.join(w11, "phase13")
+    os.makedirs(w13)
+    jobs = os.path.join(w13, "jobs")
+    os.makedirs(jobs)
+    hig = os.path.join(w13, "hig")
+    raw_bytes = vs_model_set(hig, rows)
+    hig_cpu = os.path.join(w13, "hig_cpu")
+    shutil.copytree(hig, hig_cpu, ignore=shutil.ignore_patterns("data"))
+    card, (cpu,) = beside(
+        [start_cpu_verbs([(hig_cpu, ["init"]), (hig_cpu, ["stats"])], jobs)],
+        lambda: run_verbs([(hig, ["init"]), (hig, ["stats"])], device))
+    assert card[1]["rows"] == rows == cpu[1]["rows"], (card, cpu)
+    date_err = compare_date_arrays(date_stats_arrays(hig, device),
+                                   date_stats_arrays(hig, "cpu"))
+    date_gap = compare_date_stats(_pf_path(hig, "date_stats_path"),
+                                  _pf_path(hig_cpu, "date_stats_path"))
+    print(f"  init + stats (DateStats): card {json.dumps(card[1])}, "
+          f"DateStats card = CPU within {date_err:.2e} of scale "
+          f"(DateStats.csv {date_gap:.2e})")
+    # the CPU twin takes the card's ColumnConfig.json: every flag and
+    # filter below starts from the same stats
+    shutil.copy(os.path.join(hig, "ColumnConfig.json"), hig_cpu)
+
+    # the jobs: (name, source set, edit) → a copy a side
+    def side_copy(name, src_card, src_cpu, edit=None, models=False):
+        out = []
+        for src, tag in ((src_card, "card"), (src_cpu, "cpu")):
+            dst = os.path.join(w13, f"{name}_{tag}")
+            (model_copy if models else copy_config)(src, dst)
+            if edit:
+                edit(dst)
+            out.append(dst)
+        return out
+
+    def vs(by, **fields):
+        return lambda d: set_config(d, "varSelect", filterBy=by, **fields)
+
+    sets = {f"vs_{by}": side_copy(f"vs_{by}", hig, hig_cpu, vs(by))
+            for by in ("KS", "IV", "MIX", "PARETO")}
+    # V's twins train on the table's first rows (a cut for the CPU twin
+    # only: 20 nets × 6 trainings); the card runs it at full size too
+    v_head = os.path.join(w13, "v_head")
+    head_rows(os.path.join(hig, "data"), v_head, v_rows)
+    v_conf = vs("V", wrapperNum=VS_FILTER_NUM, params={
+        "population_live_size": 20, "population_multiply_cnt": 5})
+
+    def v_cut(d):
+        v_conf(d)
+        set_config(d, "dataSet", dataPath=v_head,
+                   headerPath=os.path.join(v_head, ".pig_header"))
+    sets["vs_V"] = side_copy("vs_V", hig, hig_cpu, v_cut)
+    v_full = copy_config(hig, os.path.join(w13, "vs_V_full"))
+    v_conf(v_full)
+    sets["vs_FI"] = side_copy("vs_FI", hig, hig_cpu, vs("FI"))
+    sets["vs_edit"] = side_copy("vs_edit", hig, hig_cpu)
+    sets["rebin"] = side_copy("rebin", hig, hig_cpu)
+    for d in sets["vs_edit"]:
+        with open(os.path.join(d, "pick.txt"), "w") as f:
+            f.write("f0\nf3\nc1\n")
+    nn_small = os.path.join(w11, "nn_train_small")
+
+    def se_conf(by):
+        def edit(d):
+            set_config(d, "train", **SE_TRAIN)
+            set_config(d, "varSelect", filterBy=by, filterNum=300)
+        return edit
+    for by in ("SE", "ST", "R"):
+        sets[f"se_{by}"] = side_copy(f"se_{by}", nn_small, nn_small,
+                                     se_conf("SE" if by == "R" else by))
+    pmml_src = {"rf": os.path.join(w8, "rf_card"),
+                "gbt": os.path.join(w8, "gbt_log_card"),
+                "lr": os.path.join(w11, "full_LR R"),
+                "nn": os.path.join(w11, "full_NN ADAM")}
+    for k, src in pmml_src.items():
+        sets[f"pmml_{k}"] = side_copy(f"pmml_{k}", src, src, models=True)
+    sets["bagging"] = side_copy("bagging", pmml_src["nn"], pmml_src["nn"],
+                                models=True)
+    sets["encode"] = side_copy("encode", pmml_src["gbt"], pmml_src["gbt"],
+                               models=True)
+
+    def steps(i):
+        """Side i's steps in two independent groups (the CPU twin runs
+        each in a process of its own): the HIGGS table's flags, exports
+        and filters; then the 600-column SE sets, the exports of the
+        model files and encode."""
+        h = hig if i == 0 else hig_cpu
+        a = [(h, ["stats", "-correlation"]), (h, ["stats", "-psi"]),
+             (h, ["export", "-t", "columnstats"]),
+             (h, ["export", "-t", "woemapping"]),
+             (h, ["export", "-t", "woe"]),
+             (h, ["export", "-t", "correlation"])]
+        a += [(sets[f"vs_{by}"][i], ["varsel"])
+              for by in ("KS", "IV", "MIX", "PARETO", "V")]
+        e = sets["vs_edit"][i]
+        a += [(e, ["varsel", "-f", "pick.txt"]), (e, ["varsel", "-list"]),
+              (e, ["varsel", "-reset"])]
+        b = [(sets["rebin"][i], ["stats", "-rebin", "-n", "5"]),
+             (sets["se_SE"][i], ["varsel"]), (sets["se_ST"][i], ["varsel"]),
+             (sets["se_R"][i], ["varsel", "-r", "1"])]
+        b += [(sets[f"pmml_{k}"][i], ["export", "-t", "pmml"])
+              for k in ("rf", "gbt", "lr")]
+        b += [(sets["pmml_nn"][i], ["export", "-t", "baggingpmml"]),
+              (sets["bagging"][i], ["export", "-t", "bagging"]),
+              (sets["encode"][i], ["encode"])]
+        return a, b
+    fi_steps = [(sets["vs_FI"][i], ["varsel"]) for i in (0, 1)]
+    setup_s = time.perf_counter() - t0
+
+    (a0, b0), (a1, b1) = steps(0), steps(1)
+    fi = {}
+
+    def card_steps():
+        from shifu_tpu_torch.ops import best_splits, level_hist
+        card = run_verbs(a0, device)
+        # FI trains the RF on the card between marker kernels
+        before = (level_hist.launches + level_hist.fused_launches,
+                  best_splits.launches)
+        names = kernels_between_markers(
+            lambda: fi.setdefault("line", run_verbs(fi_steps[:1],
+                                                    device)[0]))
+        fi.update(k3k4=count_kernels(names, "level_hist"),
+                  k5=count_kernels(names, "best_splits"),
+                  counters=(level_hist.launches + level_hist.fused_launches
+                            - before[0], best_splits.launches - before[1]))
+        return card + [fi["line"]] + run_verbs(b0, device)
+    card, (cpu_a, cpu_b) = beside(
+        [start_cpu_verbs(a1 + fi_steps[1:], jobs), start_cpu_verbs(b1, jobs)],
+        card_steps)
+    cpu = cpu_a + cpu_b
+    names = [" ".join(a) + " " + os.path.basename(r)
+             for r, a in a0 + fi_steps[:1] + b0]
+    lines = dict(zip(names, zip(card, cpu)))
+    for name, (a, b) in lines.items():
+        assert a["rc"] == 0 and b["rc"] == 0, (name, a, b)
+        short = {k: v for k, v in a.items()
+                 if k not in ("printed", "final_errors")}
+        print(f"  {name}: card {json.dumps(short)}; CPU twin "
+              f"{b['seconds']:.2f} s")
+    errs = {"date_stats": date_err, "date_stats_csv": date_gap}
+    failed = []
+
+    def gate(name, fn):
+        """Run one gate; a failed one is printed and the phase goes on,
+        so a run reports every gate (the phase fails at its end)."""
+        try:
+            out = fn()
+        except AssertionError as e:
+            print(f"  GATE FAILED {name}: {e}")
+            failed.append(f"{name}: {e}")
+            return None
+        if out is not None:
+            errs[name] = out
+        return out
+
+    # 1. the stats flags and their exports
+    gate("correlation", lambda: compare_corr(
+        _pf_path(hig, "correlation_path"),
+        _pf_path(hig_cpu, "correlation_path")))
+
+    def psi_gate():
+        a, b = column_configs(hig), column_configs(hig_cpu)
+        psi = max(abs(x["columnStats"]["psi"] - y["columnStats"]["psi"])
+                  for x, y in zip(a, b)
+                  if y["columnStats"].get("psi") is not None)
+        assert psi <= 1e-6, f"psi card vs CPU {psi}"
+        assert [x["columnStats"].get("unitStats") for x in a] == \
+            [y["columnStats"].get("unitStats") for y in b]
+        return psi
+    gate("psi", psi_gate)
+
+    def files_gate():
+        assert column_configs(sets["rebin"][0]) == \
+            column_configs(sets["rebin"][1]), "rebin ColumnConfig differs"
+        for rel in ("woemapping.csv", "varwoe_info.txt"):
+            same_bytes(os.path.join(hig, rel), os.path.join(hig_cpu, rel),
+                       rel)
+        same_bytes(_pf_path(hig, "column_stats_export_path"),
+                   _pf_path(hig_cpu, "column_stats_export_path"),
+                   "columnstats")
+    gate("rebin and exports", files_gate)
+    print(f"  stats flags card = CPU: DateStats {date_err:.2e}, Pearson "
+          f"{errs.get('correlation')}, psi {errs.get('psi')}; rebin "
+          "ColumnConfig, columnstats, woemapping, woe")
+
+    # 2. varselect on the HIGGS table
+    def selections_gate():
+        for by in ("KS", "IV", "MIX", "PARETO", "FI"):
+            c, p = sets[f"vs_{by}"]
+            assert selection(c) == selection(p) and selection(c), \
+                f"{by}: {selection(c)} vs {selection(p)}"
+        listed = lines["varsel -list vs_edit_card"][0]["printed"]
+        assert listed == ["f0", "f3", "c1"], listed
+        assert selection(sets["vs_edit"][0]) == \
+            selection(sets["vs_edit"][1]) == []
+    gate("selections", selections_gate)
+    gate("V", lambda: compare_voted(lines["varsel vs_V_card"][0],
+                                    lines["varsel vs_V_card"][1],
+                                    *sets["vs_V"]))
+
+    def fi_gate():
+        assert fi["k3k4"] > 0 and fi["k5"] > 0, \
+            f"FI varselect launched K3/K4 {fi['k3k4']}, K5 {fi['k5']}"
+    gate("FI launches", fi_gate)
+    print(f"  varselect selections, -f/-list/-reset; V "
+          f"{json.dumps(errs.get('V'))}; FI between markers: K3/K4 "
+          f"{fi['k3k4']}, K5 {fi['k5']} (counters {fi['counters']})")
+
+    # 3. SE, ST and -r 1 on the 600-column set's first rows, then the
+    # card alone at the full table
+    for by in ("SE", "ST", "R"):
+        gate(f"se_{by}", lambda by=by: compare_se(*sets[f"se_{by}"], 300))
+    se_full = copy_config(os.path.join(w11, "nn"), os.path.join(w13,
+                                                                "se_full"))
+    se_conf("SE")(se_full)
+    se_line, v_line = run_verbs([(se_full, ["varsel"]), (v_full, ["varsel"])],
+                                device)
+    assert se_line["rows"] == se_full_rows, se_line
+    assert v_line["rows"] == rows and len(v_line["generations"]) == 5, \
+        v_line
+    print(f"  V on the card at {rows} rows: {v_line['seconds']:.2f} s, best "
+          f"errors {v_line['generations']}")
+    print("  SE/ST/-r 1 card = CPU: " + json.dumps(
+        {k: v for k, v in errs.items() if k.startswith("se_")})
+        + f"; SE on the card at {se_full_rows} x {NN_IN}: "
+        f"{se_line['seconds']:.2f} s")
+
+    # 4. export and convert
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    from shifu_tpu_torch.data.reader import read_raw_table
+    gbt_mc = ModelConfig.load(pmml_src["gbt"])
+    holdout = read_raw_table(gbt_mc, ds=gbt_mc.evals[0].dataSet,
+                             max_rows=pmml_rows)
+    nn_table = read_raw_table(ModelConfig.load(pmml_src["nn"]),
+                              max_rows=pmml_rows)
+    pm = {}
+    launched = {"fused_score": 0, "fused_trees": 0}
+    for k in ("rf", "gbt", "lr", "nn"):
+        c, p = sets[f"pmml_{k}"]
+        t_check = time.perf_counter()
+
+        table = holdout if k in ("rf", "gbt") else nn_table
+        problems, docs = pmml_scores(c, p, table, pmml_rows)
+
+        def docs_gate(problems=problems):
+            assert problems == [], problems
+        gate(f"pmml {k} conformance", docs_gate)
+        box = {}
+        kn = kernels_between_markers(lambda: box.setdefault(
+            "s", card_scores(c, table, pmml_rows, device)))
+        want, d1, d2 = box["s"]
+        launched["fused_score"] += d1
+        launched["fused_trees"] += d2
+        got = docs[0] if k == "nn" else np.mean(docs, axis=0)
+        kname = "fused_trees" if k in ("rf", "gbt") else "fused_score"
+        pm[k] = {"max_abs_err": float(np.abs(got - want).max()),
+                 "launches": count_kernels(kn, kname),
+                 "check_s": time.perf_counter() - t_check}
+
+        def score_gate(k=k, got=got, kname=kname):
+            tol = 1e-6 if k in ("rf", "gbt") else 1e-5
+            assert got.shape == (pmml_rows,) and np.isfinite(got).all()
+            assert pm[k]["max_abs_err"] <= tol, \
+                f"PMML {k}: {pm[k]['max_abs_err']} from Scorer.score"
+            assert pm[k]["launches"] > 0, f"PMML check {k}: no {kname}"
+        gate(f"pmml {k} scores", score_gate)
+
+    def bagging_gate():
+        name = os.path.join("onebagging", "smokeNN.bagging")
+        assert zip_members(os.path.join(sets["bagging"][0], name)) == \
+            zip_members(os.path.join(sets["bagging"][1], name)), \
+            "bagging zip members differ"
+    gate("bagging", bagging_gate)
+    from shifu_tpu_torch.models.spec import _flatten, load_model
+    spec = os.path.join(sets["bagging"][0], "models", "model0.nn")
+    conv = run_verbs([(w13, ["convert", spec, os.path.join(w13, "nn0")]),
+                      (w13, ["convert", os.path.join(w13, "nn0.zip"),
+                             os.path.join(w13, "nn0.back")])], device)
+
+    def convert_gate():
+        ka, ma, pa = load_model(spec)
+        kb, mb, pb = load_model(os.path.join(w13, "nn0.back"))
+        fa, fb = _flatten(pa), _flatten(pb)
+        assert (ka, ma) == (kb, mb) and set(fa) == set(fb)
+        assert all(np.array_equal(fa[x], fb[x]) for x in fa)
+    gate("convert", convert_gate)
+    print(f"  PMML files card = CPU and conformant; evaluate_pmml vs "
+          f"Scorer.score on the card: {json.dumps(pm)}; bagging; convert "
+          f"round trip")
+
+    # 5. encode, 6. new / save / switch / show
+    gate("encode", lambda: same_bytes(
+        os.path.join(sets["encode"][0], "encoded", "part-00000"),
+        os.path.join(sets["encode"][1], "encoded", "part-00000"),
+        "encode part-00000"))
+    manage = manage_round_trip(pmml_src["gbt"], os.path.join(w13, "mg"))
+    print("  encode part-00000 card vs CPU; new/save/switch/show restore "
+          "the saved tree")
+    assert not failed, "phase 13 gates failed:\n" + "\n".join(failed)
+
+    report["level_hist"]["launches"] += fi["counters"][0]
+    report["best_splits"]["launches"] += fi["counters"][1]
+    report["fused_score"]["launches"] += launched["fused_score"]
+    report["fused_trees"]["launches"] += launched["fused_trees"]
+    timed = {"se_65536x600_s": se_line["seconds"],
+             "v_s": v_line["seconds"],
+             "fi_rf_s": fi["line"]["seconds"],
+             "correlation_s": lines[f"stats -correlation hig"][0]["seconds"],
+             "baggingpmml_s":
+                 lines["export -t baggingpmml pmml_nn_card"][0]["seconds"],
+             "encode_s": lines["encode encode_card"][0]["seconds"]}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip() if device == "cuda" else "cpu"
+    print(f"  phase 13 card seconds (beside the CPU twin) on {smi}: "
+          + json.dumps(timed))
+    report["varselect_export"] = {
+        "rows": rows, "raw_bytes": raw_bytes, "setup_s": setup_s,
+        "errors": errs, "pmml": pm, "fi": {k: v for k, v in fi.items()
+                                           if k != "line"},
+        "seconds": timed, "manage": manage, "convert": conv,
+        "total_s": time.perf_counter() - t0}
+
+
+def _pf_path(root, what):
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    from shifu_tpu_torch.config.path_finder import PathFinder
+    return getattr(PathFinder(ModelConfig.load(root), root=root), what)()
+
+
+def varselect_walls(rows=VS_ROWS, se_rows=NN_EVAL_ROWS, reps=2):
+    """Phase 13's card timings, each step a process with the host to
+    itself, `reps` times: `stats -correlation` at `rows` × 30, `varsel`
+    FI (the RF, 10 trees), `encode` of that RF, SE at `se_rows` × 600
+    (the 64-unit quick NN) and `export -t baggingpmml` of a 2-bag wide
+    NN (600 → 512 → 256 → 1, weights from seeds). Returns each step's
+    lines."""
+    from shifu_tpu_torch.models.spec import save_model
+    out = {}
+    with tempfile.TemporaryDirectory() as w:
+        hig = os.path.join(w, "hig")
+        vs_model_set(hig, rows)
+        run_step(hig, "init")
+        run_step(hig, "stats", "cuda")
+        fi = copy_config(hig, os.path.join(w, "fi"))
+        set_config(fi, "varSelect", filterBy="FI")
+        nn = os.path.join(w, "nn")
+        names, tokens = nn_raw_table(np.random.default_rng(81), se_rows)
+        nn_model_set(nn, names, tokens, 82)
+        for bag in range(2):   # the 2-bag wide NN, its inputs named
+            save_model(os.path.join(nn, "models", f"model{bag}.nn"), "nn",
+                       {"spec": {"input_dim": NN_IN,
+                                 "hidden_dims": list(NN_HIDDEN),
+                                 "activations": ["relu", "relu"]},
+                        "inputNames": names[:NN_IN]},
+                       nn_params(np.random.default_rng(82 + bag)))
+        se = copy_config(nn, os.path.join(w, "se"))
+        set_config(se, "train", **SE_TRAIN)
+        set_config(se, "varSelect", filterBy="SE", filterNum=300)
+        enc = os.path.join(w, "enc")
+        steps = {"correlation": (hig, ["stats", "-correlation"]),
+                 "fi_rf": (fi, ["varsel"]), "encode": (enc, ["encode"]),
+                 "se": (se, ["varsel"]),
+                 "baggingpmml": (nn, ["export", "-t", "baggingpmml"])}
+        for rep in range(reps):
+            for name, (root, verb) in steps.items():
+                if name == "encode" and not os.path.exists(enc):
+                    # FI leaves 15 columns selected, fewer than its RF
+                    # reads: encode the RF over every candidate
+                    model_copy(fi, enc)
+                    run_step(enc, ["varsel", "-reset"], "cuda")
+                line = run_step(root, verb, "cuda")
+                out.setdefault(name, []).append(
+                    {k: line.get(k) for k in ("rows", "seconds", "device",
+                                              "launches", "columns")
+                     if k in line})
+                print(f"  varselect walls {name} {rep + 1}: "
+                      + json.dumps(out[name][-1]))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    return {"card": smi, "rows": rows, "se_rows": se_rows, "steps": out}
+
+
 SOURCES = {
     "fused_score": ("shifu_tpu_torch/csrc/fused_score.cu",
                     "shifu_tpu/ops/pallas_score.py:110"),
@@ -2928,6 +3695,13 @@ def main() -> int:
     except ImportError:
         print("chip_smoke: torch is not installed", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--cpu-verbs"]:
+        # phase 13's CPU twin: its steps' lines, no result line
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        with open(sys.argv[2]) as f:
+            steps = json.load(f)
+        print(json.dumps(run_verbs(steps, "cpu")))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
@@ -2956,6 +3730,9 @@ def main() -> int:
     if sys.argv[1:] == ["--nn-train-walls"]:
         print(json.dumps({"nn_train_walls": nn_train_walls()}))
         return 0
+    if sys.argv[1:] == ["--varselect-walls"]:
+        print(json.dumps({"varselect_walls": varselect_walls()}))
+        return 0
 
     def header(text):
         print(f"{text} ({time.monotonic() - t_start:.0f} s)")
@@ -2979,20 +3756,24 @@ def main() -> int:
     phase_k5(report)
     header("phase 8: train main path (card vs CPU, then serve, posttrain "
            "and eval)")
-    with tempfile.TemporaryDirectory() as workdir:
-        phase_train_main_path(report, workdir)
-        phase_posttrain_eval(report, workdir)
-    header("phase 9: training timing at the HIGGS widths")
-    phase_train_timing(report, t_start)
-    header("phase 10: init -> stats -> norm on the card vs the CPU twin")
-    with tempfile.TemporaryDirectory() as workdir:
-        phase_pipeline(report, workdir)
-    header("phase 11: NN eval through K1 and posttrain, card vs CPU")
-    with tempfile.TemporaryDirectory() as workdir:
-        phase_nn_eval(report, workdir)
-        header("phase 12: NN/LR trainer on the card vs CPU, eval through "
-               "K1, multi-class, timing")
-        phase_nn_train(report, workdir)
+    # phase 8's sets stay for phase 13's exports and encode
+    with tempfile.TemporaryDirectory() as w8:
+        phase_train_main_path(report, w8)
+        phase_posttrain_eval(report, w8)
+        header("phase 9: training timing at the HIGGS widths")
+        phase_train_timing(report, t_start)
+        header("phase 10: init -> stats -> norm on the card vs the CPU twin")
+        with tempfile.TemporaryDirectory() as workdir:
+            phase_pipeline(report, workdir)
+        header("phase 11: NN eval through K1 and posttrain, card vs CPU")
+        with tempfile.TemporaryDirectory() as workdir:
+            phase_nn_eval(report, workdir)
+            header("phase 12: NN/LR trainer on the card vs CPU, eval "
+                   "through K1, multi-class, timing")
+            phase_nn_train(report, workdir)
+            header("phase 13: varselect, stats flags, export and encode "
+                   "on the card vs the CPU twin")
+            phase_varselect_export(report, w8, workdir)
     print(f"total: {time.monotonic() - t_start:.1f} s on {smi}")
 
     kernels = []

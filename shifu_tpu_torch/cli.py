@@ -1,10 +1,15 @@
-"""Command line of the port — the `init`, `stats`, `norm`, `train`,
-`posttrain`, `eval` and `serve` verbs of `shifu_tpu/cli.py` (single
-model set; the registry fleet comes later).
+"""Command line of the port — the verbs of `shifu_tpu/cli.py` for one
+model set (the registry fleet, the DAG verbs and the health plane come
+later).
 
+    python -m shifu_tpu_torch --dir <dir> new <name>
     python -m shifu_tpu_torch --dir <model-set> init
     python -m shifu_tpu_torch --dir <model-set> stats [--device cuda|cpu]
+        [-correlation | -psi | -rebin [-vars a,b] [-n N] [-ivr R]
+         [-bic C]]
     python -m shifu_tpu_torch --dir <model-set> norm [--device cuda|cpu]
+    python -m shifu_tpu_torch --dir <model-set> varsel [-r N]
+        [-reset | -list | -f FILE] [--device cuda|cpu]
     python -m shifu_tpu_torch --dir <model-set> train [--device cuda|cpu]
     python -m shifu_tpu_torch --dir <model-set> posttrain
         [--device cuda|cpu]
@@ -12,16 +17,34 @@ model set; the registry fleet comes later).
         [-list | -new NAME | -delete NAME | -norm | -audit [-n N]
          | -score [NAME] | -confmat [NAME] | -perf [NAME]]
         [--device cuda|cpu]
+    python -m shifu_tpu_torch --dir <model-set> export [-t TYPE]
+        [--device cuda|cpu]
+    python -m shifu_tpu_torch --dir <model-set> encode [--device cuda|cpu]
+    python -m shifu_tpu_torch --dir <model-set> convert SRC OUT
+    python -m shifu_tpu_torch --dir <model-set> save [NAME] | switch NAME
+        | show
     python -m shifu_tpu_torch --dir <model-set> serve [--port P]
         [--no-http] [--duration-s S] [--device cuda|cpu]
 
-`init` writes ColumnConfig.json from the header and a sample read (no
-device work); `stats` fills it with binning and statistics; `norm`
-writes `tmp/NormalizedData` and `tmp/CleanedData`. Each prints one JSON
-line: the step, the device, the rows, the wall seconds, and for
-`stats`/`norm` the seconds spent reading the raw table. The `stats`
-variants `-correlation`, `-psi`, `-rebin`, `-seg` and `-seg-merge` are
-not ported yet and raise, naming their ROADMAP item.
+`new` writes a model-set scaffold; `init` writes ColumnConfig.json from
+the header and a sample read (no device work); `stats` fills it with
+binning and statistics (and DateStats when `dataSet#dateColumnName` is
+set), `stats -correlation` writes correlation.csv, `stats -psi` each
+column's PSI over the `stats#psiColumnName` cohorts, and `stats -rebin`
+merges the recorded bins (host only); `norm` writes
+`tmp/NormalizedData` and `tmp/CleanedData`. Each prints one JSON line:
+the step, the device, the rows, the wall seconds, and for `stats`/`norm`
+the seconds spent reading the raw table. The `stats` variants `-seg`,
+`-seg-merge` and `-base-only` (the DAG's per-segment siblings) are not
+ported yet and raise, naming their ROADMAP item.
+
+`varsel` sets `finalSelect` by the model set's `varSelect#filterBy`:
+KS/IV/MIX/PARETO on the host; SE/ST/SC (quick NN training and column
+ablations), V (the voted wrapper's population training) and FI (a tree
+model trained through `norm` and `train`, kernels K3/K4 and K5) on
+`--device`. Its JSON line adds the filter, the columns selected, V's
+best validation error a generation, and the tree kernels' launches.
+`-reset`, `-list` and `-f` edit the selection on the host.
 
 `posttrain` writes `binAvgScore` into ColumnConfig.json and
 `featureimportance.csv`; `eval` scores the eval sets and writes their
@@ -31,6 +54,15 @@ rows, the wall seconds, the seconds reading the raw set and in
 `Scorer.score`, and the launches of the scoring kernels (`fused_score`,
 `fused_trees`) during the run. `eval -list`, `-new` and `-delete` do no
 device work and report the device as "host".
+
+`export -t` writes columnstats, woemapping, woe, pmml, baggingpmml,
+bagging and the ume types on the host, and correlation on `--device`;
+`-t tf` raises (ROADMAP A5). `encode` writes the tree-leaf encoding of
+the training set (`encoded/`) on `--device`; `convert` turns a model
+spec into an open zip bundle and back; `save`, `switch` and `show` keep
+versions of the model set under `.shifu-versions/`. `combo` and `test`
+run through the pipeline DAG, which is not ported yet: they raise
+(ROADMAP A8).
 
 `serve` serves every model spec under ``<model-set>/models`` (the
 `PathFinder.models_path()` rule) until SIGTERM/SIGINT or `--duration-s`,
@@ -90,13 +122,42 @@ def cmd_serve(args) -> int:
     return 0
 
 
-def _step_line(step: str, device: str, report: dict, t0: float) -> None:
+def _step_line(step: str, device: str, report: dict, t0: float,
+               **extra) -> None:
+    """One JSON line: the step, the device, the rows, the wall seconds,
+    the read seconds (``read_s``) and whatever else the step reported,
+    then `extra`."""
     import time
     line = {"step": step, "device": device, "rows": report.get("rows"),
             "seconds": time.perf_counter() - t0}
     if "read_s" in report:
         line["read_seconds"] = report["read_s"]
+    line.update({k: v for k, v in report.items()
+                 if k not in ("rows", "read_s")}, **extra)
     print(json.dumps(line))
+
+
+def _host_step(step: str, fn, args, load: bool = True) -> int:
+    """Run a host-only step (its arguments the loaded context, or None,
+    and a report dict) and print its JSON line with the device "host",
+    the step's rc and what it reported."""
+    import time
+
+    from shifu_tpu_torch.processor.base import ProcessorContext
+    t0 = time.perf_counter()
+    report: dict = {}
+    rc = fn(ProcessorContext.load(os.path.abspath(args.dir))
+            if load else None, report)
+    _step_line(step, "host", report, t0, rc=rc)
+    return rc
+
+
+def _card_clock(dev) -> None:
+    """Make the card's context before a step's clock starts."""
+    import torch
+    if dev.type == "cuda":
+        torch.zeros(1, device=dev)
+        torch.cuda.synchronize(dev)
 
 
 def cmd_init(args) -> int:
@@ -113,8 +174,8 @@ def cmd_init(args) -> int:
 
 
 def _device_step(step: str, run, args) -> int:
-    """Run `stats` or `norm` on `--device` (its clock starts once the
-    card's context exists) and print its JSON line."""
+    """Run a step on `--device` (its clock starts once the card's
+    context exists) and print its JSON line."""
     import time
 
     import torch
@@ -122,28 +183,36 @@ def _device_step(step: str, run, args) -> int:
     from shifu_tpu_torch import resolve_device
     from shifu_tpu_torch.processor.base import ProcessorContext
     dev = resolve_device(args.device)
-    if dev.type == "cuda":
-        torch.zeros(1, device=dev)
-        torch.cuda.synchronize(dev)
+    _card_clock(dev)
     t0 = time.perf_counter()
     report: dict = {}
     rc = run(ProcessorContext.load(os.path.abspath(args.dir)), device=dev,
              report=report)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
     _step_line(step, str(dev), report, t0)
     return rc
 
 
-_STATS_LEFT_OUT = {"correlation": "A4", "psi": "A4", "rebin": "A4",
-                   "seg": "A8", "seg_merge": "A8", "base_only": "A8"}
+_STATS_LEFT_OUT = ("seg", "seg_merge", "base_only")
 
 
 def cmd_stats(args) -> int:
+    from shifu_tpu_torch.processor import correlation, psi
     from shifu_tpu_torch.processor import stats as stats_proc
-    for flag, item in _STATS_LEFT_OUT.items():
+    for flag in _STATS_LEFT_OUT:
         if getattr(args, flag) not in (None, False):
             raise NotImplementedError(
-                f"stats -{flag.replace('_', '-')} is not ported yet "
-                f"(ROADMAP {item})")
+                f"stats -{flag.replace('_', '-')} (the pipeline DAG's "
+                "per-segment siblings) is not ported yet (ROADMAP A8)")
+    if args.correlation:
+        return _device_step("stats -correlation", correlation.run, args)
+    if args.psi:
+        return _device_step("stats -psi", psi.run, args)
+    if args.rebin:
+        return _host_step("stats -rebin", lambda ctx, _: stats_proc.run_rebin(
+            ctx, request_vars=args.vars, expect_bin_num=args.n,
+            iv_keep_ratio=args.ivr, min_inst_cnt=args.bic), args)
     return _device_step("stats", stats_proc.run, args)
 
 
@@ -152,25 +221,162 @@ def cmd_norm(args) -> int:
     return _device_step("norm", norm_proc.run, args)
 
 
+def _tree_kernel_counts() -> dict:
+    from shifu_tpu_torch.ops import best_splits, level_hist
+    return {"level_hist": level_hist.launches,
+            "level_hist_fused": level_hist.fused_launches,
+            "best_splits": best_splits.launches}
+
+
+_DEVICE_FILTERS = ("SE", "ST", "SC", "V", "FI")
+
+
+def cmd_varselect(args) -> int:
+    """`varsel`: the host edits (-reset, -list, -f) and the statistical
+    filters report the device "host"; SE/ST/SC, V and FI run on
+    `--device`, their line with the tree kernels' launches (FI)."""
+    import time
+
+    import torch
+
+    from shifu_tpu_torch import resolve_device
+    from shifu_tpu_torch.processor import varselect as p
+    from shifu_tpu_torch.processor.base import ProcessorContext
+    ctx = ProcessorContext.load(os.path.abspath(args.dir))
+    by = ctx.model_config.varSelect.filterBy.upper()
+    edit = args.reset or args.list or args.file
+    on_device = not edit and ctx.model_config.varSelect.filterEnable \
+        and by in _DEVICE_FILTERS
+    dev = resolve_device(args.device) if on_device else None
+    if dev is not None:
+        _card_clock(dev)
+    before = _tree_kernel_counts()
+    report: dict = {}
+    t0 = time.perf_counter()
+    rc = p.run(ctx, recursive=args.recursive, reset=args.reset,
+               list_only=args.list, select_file=args.file,
+               device=dev if dev is not None else "cpu", report=report)
+    if dev is not None and dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    _step_line("varselect", str(dev) if dev is not None else "host",
+               report, t0, filterBy=None if edit else by,
+               launches={k: v - before[k]
+                         for k, v in _tree_kernel_counts().items()})
+    return rc
+
+
+def cmd_export(args) -> int:
+    """`export -t TYPE`: correlation on `--device`, every other type a
+    host-side conversion (the ume types return 3 without their hook)."""
+    from shifu_tpu_torch.processor import export as p
+    if (args.type or "").lower() == "correlation":
+        return _device_step("export -t correlation", lambda ctx, device,
+                            report: p.run(ctx, "correlation", device=device,
+                                          report=report), args)
+    return _host_step(f"export -t {args.type}",
+                      lambda ctx, _: p.run(ctx, args.type), args)
+
+
+def cmd_encode(args) -> int:
+    from shifu_tpu_torch.processor import encode as p
+    return _device_step("encode", lambda ctx, device, report: p.run(
+        ctx, device=device, report=report), args)
+
+
+def cmd_convert(args) -> int:
+    """`convert SRC OUT` — model spec ↔ open zip bundle
+    (IndependentTreeModelUtils zip↔binary converter)."""
+    from shifu_tpu_torch.models.spec import bundle_to_spec, spec_to_bundle
+
+    def convert(_ctx, report) -> int:
+        src, dst = args.src, args.out
+        if src.endswith(".zip"):
+            report["out"] = bundle_to_spec(src, dst)
+        else:
+            report["out"] = spec_to_bundle(
+                src, dst if dst.endswith(".zip") else dst + ".zip")
+        log.info("convert: %s → %s", src, report["out"])
+        return 0
+    return _host_step("convert", convert, args, load=False)
+
+
+def cmd_new(args) -> int:
+    """`new <name>` — scaffold ModelConfig.json + columns/ under
+    ``--dir`` (CreateModelProcessor)."""
+    import time
+
+    from shifu_tpu_torch.config.model_config import ModelConfig
+
+    def new(_ctx, report) -> int:
+        root = os.path.join(args.dir, args.name)
+        if os.path.exists(os.path.join(root, "ModelConfig.json")):
+            log.error("model set %s already exists", args.name)
+            return 1
+        os.makedirs(os.path.join(root, "columns"), exist_ok=True)
+        mc = ModelConfig()
+        mc.basic.name = args.name
+        mc.basic.author = os.environ.get("USER", "user")
+        mc.basic.description = \
+            f"Created at {time.strftime('%Y-%m-%d %H:%M:%S')}"
+        mc.dataSet.dataPath = "./data"
+        mc.dataSet.metaColumnNameFile = "columns/meta.column.names"
+        mc.dataSet.categoricalColumnNameFile = \
+            "columns/categorical.column.names"
+        mc.varSelect.forceSelectColumnNameFile = \
+            "columns/forceselect.column.names"
+        mc.varSelect.forceRemoveColumnNameFile = \
+            "columns/forceremove.column.names"
+        mc.train.params = {"NumHiddenLayers": 1, "NumHiddenNodes": [50],
+                           "ActivationFunc": ["tanh"], "LearningRate": 0.1,
+                           "Propagation": "Q", "RegularizedConstant": 0.0}
+        mc.save(root)
+        for f in ("meta", "categorical", "forceselect", "forceremove"):
+            open(os.path.join(root, "columns", f + ".column.names"),
+                 "a").close()
+        log.info("created model set %s", root)
+        return 0
+    return _host_step("new", new, args, load=False)
+
+
+def cmd_save(args) -> int:
+    from shifu_tpu_torch.processor import manage
+    return _host_step("save", lambda ctx, _: manage.save(ctx, args.name),
+                      args)
+
+
+def cmd_switch(args) -> int:
+    from shifu_tpu_torch.processor import manage
+    return _host_step("switch", lambda ctx, _: manage.switch(ctx, args.name),
+                      args)
+
+
+def cmd_show(args) -> int:
+    from shifu_tpu_torch.processor import manage
+
+    def show(ctx, report) -> int:
+        report["versions"] = manage.list_versions(ctx)
+        return manage.show(ctx)
+    return _host_step("show", show, args)
+
+
+def cmd_dag_verb(args) -> int:
+    raise NotImplementedError(
+        f"`{args.command}` runs through the pipeline DAG (`run_dag`), "
+        "which is not ported yet (ROADMAP A8)")
+
+
 def cmd_train(args) -> int:
     import time
 
     import torch
 
     from shifu_tpu_torch import resolve_device
-    from shifu_tpu_torch.ops import best_splits, level_hist
     from shifu_tpu_torch.processor import train as train_proc
     from shifu_tpu_torch.processor.base import ProcessorContext
-    def counts():
-        return {"level_hist": level_hist.launches,
-                "level_hist_fused": level_hist.fused_launches,
-                "best_splits": best_splits.launches}
-
+    counts = _tree_kernel_counts
     dev = resolve_device(args.device)
     ctx = ProcessorContext.load(os.path.abspath(args.dir))
-    if dev.type == "cuda":
-        torch.zeros(1, device=dev)
-        torch.cuda.synchronize(dev)
+    _card_clock(dev)
     before = counts()
     report: dict = {}
     t0 = time.perf_counter()
@@ -202,9 +408,7 @@ def _scoring_step(step: str, run, args) -> int:
                 "fused_trees": fused_trees.launches}
 
     dev = resolve_device(args.device)
-    if dev.type == "cuda":
-        torch.zeros(1, device=dev)
-        torch.cuda.synchronize(dev)
+    _card_clock(dev)
     before = counts()
     t0 = time.perf_counter()
     report: dict = {}
@@ -266,17 +470,81 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="shifu_tpu_torch")
     ap.add_argument("--dir", default=".", help="model-set directory")
     sub = ap.add_subparsers(dest="command", required=True)
+
+    def device_flag(p, what):
+        p.add_argument("--device", default="cuda",
+                       help=f"torch device {what} (default cuda)")
+
+    p = sub.add_parser("new", help="create a model set")
+    p.add_argument("name")
+    p.set_defaults(fn=cmd_new)
     sub.add_parser("init", help="build ColumnConfig from header") \
         .set_defaults(fn=cmd_init)
     p = sub.add_parser("stats", help="column stats + binning")
-    for flag in ("correlation", "psi", "rebin", "seg-merge", "base-only"):
+    p.add_argument("-correlation", "--correlation", action="store_true",
+                   help="Pearson correlation of the selected columns")
+    p.add_argument("-psi", "--psi", action="store_true",
+                   help="PSI over the stats#psiColumnName cohorts")
+    p.add_argument("-rebin", "--rebin", action="store_true",
+                   help="merge existing bins for higher-IV coarse binning")
+    p.add_argument("-vars", "--vars", default=None,
+                   help="comma-separated columns to rebin")
+    p.add_argument("-n", type=int, default=-1,
+                   help="expected max bin number after rebin")
+    p.add_argument("-ivr", type=float, default=1.0,
+                   help="IV keep ratio while shrinking bins")
+    p.add_argument("-bic", type=int, default=0,
+                   help="minimum instance count per bin")
+    for flag in ("seg-merge", "base-only"):
         p.add_argument(f"-{flag}", f"--{flag}", action="store_true",
                        help="not ported yet (raises)")
     p.add_argument("-seg", type=int, default=None,
                    help="not ported yet (raises)")
-    p.add_argument("--device", default="cuda",
-                   help="torch device for the column math (default cuda)")
+    device_flag(p, "for the column math")
     p.set_defaults(fn=cmd_stats)
+    for alias in ("varsel", "varselect"):
+        p = sub.add_parser(alias, help="variable selection")
+        p.add_argument("-r", "--recursive", type=int, default=0)
+        p.add_argument("-reset", "--reset", action="store_true",
+                       help="reset all variables to finalSelect=false")
+        p.add_argument("-list", "--list", action="store_true",
+                       help="print currently selected variables")
+        p.add_argument("-f", "--file", default=None, metavar="FILE",
+                       help="select exactly the variables named in FILE")
+        device_flag(p, "for SE/ST/SC, V and FI")
+        p.set_defaults(fn=cmd_varselect)
+    p = sub.add_parser("export", help="export model/stats")
+    p.add_argument("-t", "--type", default="columnstats",
+                   choices=["columnstats", "correlation", "woemapping",
+                            "pmml", "tf", "bagging", "baggingpmml",
+                            "woe", "ume", "baggingume", "normume"])
+    device_flag(p, "for -t correlation")
+    p.set_defaults(fn=cmd_export)
+    p = sub.add_parser("encode", help="tree-leaf-path encode the dataset")
+    device_flag(p, "for the tree walk")
+    p.set_defaults(fn=cmd_encode)
+    p = sub.add_parser("convert", help="model spec ↔ open zip bundle")
+    p.add_argument("src", help="a model spec file or a .zip bundle")
+    p.add_argument("out", help="output path (.zip for bundles)")
+    p.set_defaults(fn=cmd_convert)
+    p = sub.add_parser("save", help="snapshot the model set")
+    p.add_argument("name", nargs="?", default=None)
+    p.set_defaults(fn=cmd_save)
+    p = sub.add_parser("switch", help="restore a model-set snapshot")
+    p.add_argument("name")
+    p.set_defaults(fn=cmd_switch)
+    sub.add_parser("show", help="list model-set snapshots") \
+        .set_defaults(fn=cmd_show)
+    p = sub.add_parser("combo", help="not ported yet (raises: the "
+                                     "pipeline DAG, ROADMAP A8)")
+    p.add_argument("-new", "--new", default=None, metavar="ALG1,ALG2,...")
+    for flag in ("init", "run", "eval", "resume"):
+        p.add_argument(f"-{flag}", f"--{flag}", action="store_true")
+    p.set_defaults(fn=cmd_dag_verb)
+    p = sub.add_parser("test", help="not ported yet (raises: the "
+                                    "pipeline DAG, ROADMAP A8)")
+    p.add_argument("-n", type=int, default=100)
+    p.set_defaults(fn=cmd_dag_verb)
     for alias in ("norm", "normalize"):
         p = sub.add_parser(alias, help="normalize data")
         p.add_argument("--device", default="cuda",

@@ -2,11 +2,12 @@
 
 A copy of the reading half of `shifu_tpu/config/environment.py` for the
 four serving knobs, the two tree-build knobs, the two NN compute-dtype
-knobs, the two resilience knobs `train` refuses (ROADMAP A8) and the
-streaming
-triggers of stats, norm, eval and the analysis steps (stats, norm and a
-resident eval honour theirs by raising: the streaming steps are ROADMAP
-A6; posttrain and `eval -norm`/`-score` read in chunks): same names, same
+knobs, the two resilience knobs `train` refuses (ROADMAP A8), the
+streaming triggers of stats, norm, eval and the analysis steps (stats,
+norm, a resident eval and varselect's analysis frame honour theirs by
+raising: the streaming steps are ROADMAP A6; posttrain, correlation,
+PSI and `eval -norm`/`-score` read in chunks or refuse), and the `export
+-t ume` exporter hook: same names, same
 defaults, and the same warn-and-run parsing (a malformed value logs a
 warning and falls back to the default instead of failing the process).
 The JAX package's routing and TPU-dispatch knobs (`SHIFU_TPU_HIST`,
@@ -77,6 +78,8 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
          "explicit analysis-step chunk rows; 0 forces resident"),
     Knob("SHIFU_TPU_ANALYSIS_STREAM_BYTES", 2 * 1024 ** 3,
          "raw-bytes threshold that auto-triggers sampled analysis"),
+    Knob("SHIFU_TPU_UME_EXPORTER", None,
+         "pkg.module:Class hook for `export -t ume` bundles"),
 )}
 
 

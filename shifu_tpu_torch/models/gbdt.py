@@ -187,14 +187,17 @@ def make_fused_inputs(tables: Dict[str, np.ndarray],
 
 
 def bin_dataset(tables: Dict[str, np.ndarray], dense, codes,
-                n_bins: int) -> np.ndarray:
+                n_bins: int, device: "str | torch.device" = "cpu"
+                ) -> np.ndarray:
     """Raw cleaned data → (R, Cn+Cc) int32 bin matrix, missing =
-    n_bins-1."""
+    n_bins-1; the numeric columns are binned on `device`."""
     parts = []
     if dense is not None and dense.shape[1]:
-        cuts = torch.as_tensor(np.asarray(tables["num_cuts"], np.float32))
+        cuts = torch.as_tensor(np.asarray(tables["num_cuts"], np.float32),
+                               device=device)
         idx = bin_index_numeric(
-            torch.as_tensor(np.asarray(dense, np.float32)), cuts).numpy()
+            torch.as_tensor(np.asarray(dense, np.float32), device=device),
+            cuts).cpu().numpy()
         n_cut_slots = tables["num_cuts"].shape[0] + 1  # missing slot id
         idx = np.where(idx >= n_cut_slots, n_bins - 1,
                        np.minimum(idx, n_bins - 2))
@@ -224,6 +227,15 @@ def _walk_trees(trees: Dict[str, torch.Tensor], binsT: torch.Tensor,
         nxt = 2 * node + torch.where(go_left, 1, 2)
         node = torch.where(stop, node, nxt)
     return node
+
+
+def leaf_indices(trees: Dict[str, torch.Tensor], binsT: torch.Tensor,
+                 max_depth: int, n_bins: int) -> torch.Tensor:
+    """(T, R) int32 landing leaf id of every row in every tree — the
+    tree-path encoding of `udf/EncodeDataUDF.java` (each record becomes
+    one categorical value per tree). binsT: (C, R). Plain PyTorch on the
+    tensors' device: the JAX walk is XLA, not a Pallas kernel."""
+    return _walk_trees(trees, binsT, max_depth, n_bins).to(torch.int32)
 
 
 def predict_trees(trees: Dict[str, torch.Tensor], binsT: torch.Tensor,

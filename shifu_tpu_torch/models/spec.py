@@ -3,11 +3,13 @@
 An .npz holding the parameter arrays plus a JSON header (kind, meta,
 format version). Both packages read and write the same files, so a
 model trained by the JAX package loads here unchanged and the other way
-round. numpy-only.
+round. numpy-only. `spec_to_bundle` / `bundle_to_spec` are `shifu
+convert`'s open zip bundle (meta.json + one .npy a parameter array).
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
 from typing import Any, Dict, List, Tuple
@@ -100,3 +102,35 @@ def list_models(models_dir: str) -> List[str]:
     return [os.path.join(models_dir, f)
             for f in sorted(os.listdir(models_dir), key=bag_index)
             if f.startswith("model") and not f.endswith(".json")]
+
+
+def spec_to_bundle(spec_path: str, out_zip: str) -> str:
+    """`shifu convert` (`util/IndependentTreeModelUtils.java`): repackage
+    a compact .npz spec as an open zip bundle — meta.json + one raw
+    little-endian .npy per parameter array — readable by any runtime
+    without numpy's npz container."""
+    import zipfile
+    kind, meta, params = load_model(spec_path)
+    flat = _flatten(params)
+    with zipfile.ZipFile(out_zip, "w", zipfile.ZIP_DEFLATED) as zf:
+        zf.writestr("meta.json", json.dumps(
+            {"format": FORMAT_VERSION, "kind": kind, "meta": meta,
+             "arrays": sorted(flat)}, indent=1))
+        for key in sorted(flat):
+            buf = io.BytesIO()
+            np.save(buf, np.asarray(flat[key]))
+            zf.writestr(f"arrays/{key}.npy", buf.getvalue())
+    return out_zip
+
+
+def bundle_to_spec(zip_path: str, out_spec: str) -> str:
+    """Inverse of spec_to_bundle: zip bundle → compact .npz spec."""
+    import zipfile
+    with zipfile.ZipFile(zip_path) as zf:
+        header = json.loads(zf.read("meta.json").decode())
+        flat = {}
+        for key in header["arrays"]:
+            flat[key] = np.load(io.BytesIO(zf.read(f"arrays/{key}.npy")),
+                                allow_pickle=False)
+    save_model(out_spec, header["kind"], header["meta"], _unflatten(flat))
+    return out_spec

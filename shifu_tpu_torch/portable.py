@@ -1,0 +1,314 @@
+"""Portable zero-dependency scorers — numpy-only model inference, the
+port's copy of `shifu_tpu/portable.py`.
+
+The reference's Independent*Model family
+(`core/dtrain/nn/IndependentNNModel.java:50-59`,
+`core/dtrain/dt/IndependentTreeModel.java:50-55,361,867`,
+`wdl/IndependentWDLModel.java`, `mtl/IndependentMTLModel`): classes that
+score a trained model spec with zero framework dependencies. This module
+imports ONLY numpy (and the stdlib); the model container format
+(`models/spec.py`) is a plain npz + JSON header, so a serving process
+can `pip install numpy` and score any model either package trains, the
+one-file `export -t bagging` container included.
+
+Scoring semantics mirror the scorers of both packages (same math, same
+missing-value conventions); `tests/test_torch_export.py` holds this copy
+against the JAX package's.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+# NOTE: no torch / package imports here — portability is the point.
+# The npz container is decoded locally (duplicating ~40 lines of
+# models/spec.py) so this file can be copied into a serving image alone.
+
+FORMAT_VERSION = 1
+
+
+# ---------------------------------------------------------------------------
+# Spec container decode (numpy-only copy of models/spec.load_model)
+# ---------------------------------------------------------------------------
+
+def _unflatten(flat: Dict[str, np.ndarray], prefix: str = "p") -> Any:
+    children: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, v in flat.items():
+        if key == prefix:
+            return v
+        rest = key[len(prefix) + 1:]
+        head = rest.split(".")[0]
+        children.setdefault(head, {})[key] = v
+    if not children:
+        return None
+    if all(k.isdigit() for k in children):
+        return [_unflatten(children[str(i)], f"{prefix}.{i}")
+                for i in range(len(children))]
+    return {k: _unflatten(children[k], f"{prefix}.{k}") for k in children}
+
+
+def load_model(path: str):
+    """Model spec → (kind, meta, params). numpy + stdlib only."""
+    with np.load(path, allow_pickle=False) as z:
+        header = json.loads(bytes(z["__header__"].tolist()).decode())
+        flat = {k: z[k] for k in z.files if k != "__header__"}
+    if header.get("format") != FORMAT_VERSION:
+        raise ValueError(f"unsupported model format {header.get('format')}")
+    return header["kind"], header["meta"], _unflatten(flat)
+
+
+# ---------------------------------------------------------------------------
+# Activations (numpy mirrors of models/nn.ACTIVATIONS)
+# ---------------------------------------------------------------------------
+
+def _sigmoid(x):
+    return 1.0 / (1.0 + np.exp(-np.clip(x, -60, 60)))
+
+
+ACTIVATIONS = {
+    "sigmoid": _sigmoid,
+    "tanh": np.tanh,
+    "relu": lambda x: np.maximum(x, 0.0),
+    "leakyrelu": lambda x: np.where(x >= 0, x, 0.01 * x),
+    "swish": lambda x: x * _sigmoid(x),
+    "gaussian": lambda x: np.exp(-np.square(x)),
+    "log": lambda x: np.where(x >= 0, np.log1p(x), -np.log1p(-x)),
+    "sin": np.sin,
+    "linear": lambda x: x,
+    "ptanh": np.tanh,
+}
+
+
+def _act(name: str):
+    fn = ACTIVATIONS.get(str(name).lower())
+    if fn is None:
+        raise ValueError(f"unknown activation {name!r}")
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# NN / LR (IndependentNNModel.compute analog)
+# ---------------------------------------------------------------------------
+
+def mlp_forward(spec: Dict[str, Any], params: List[Dict[str, np.ndarray]],
+                x: np.ndarray) -> np.ndarray:
+    acts = list(spec.get("activations", ()))
+    h = np.asarray(x, np.float32)
+    for i, layer in enumerate(params[:-1]):
+        h = h @ layer["w"] + layer["b"]
+        h = _act(acts[i])(h)
+    out = h @ params[-1]["w"] + params[-1]["b"]
+    oact = str(spec.get("output_activation", "sigmoid")).lower()
+    if oact == "softmax":  # NATIVE multi-class head
+        z = out - out.max(axis=-1, keepdims=True)
+        e = np.exp(z)
+        return e / e.sum(axis=-1, keepdims=True)
+    out = _act(oact)(out)
+    return out[..., 0] if int(spec.get("output_dim", 1)) == 1 else out
+
+
+# ---------------------------------------------------------------------------
+# GBT / RF (IndependentTreeModel.compute analog)
+# ---------------------------------------------------------------------------
+
+def bin_dataset(tables: Dict[str, np.ndarray], dense: Optional[np.ndarray],
+                codes: Optional[np.ndarray], n_bins: int) -> np.ndarray:
+    """Raw cleaned features → int32 bin matrix (missing = n_bins-1);
+    numpy mirror of models/gbdt.bin_dataset + ops/stats.bin_index_numeric
+    (left-closed bins: bin = #cuts <= v)."""
+    parts = []
+    if dense is not None and dense.shape[1]:
+        cuts = tables["num_cuts"]              # (B-1, Cn), +inf padded
+        v = np.asarray(dense, np.float32)
+        idx = (v[:, None, :] >= cuts[None, :, :]).sum(axis=1).astype(np.int32)
+        n_cut_slots = cuts.shape[0] + 1
+        idx = np.where(np.isnan(v), n_cut_slots, idx)
+        idx = np.where(idx >= n_cut_slots, n_bins - 1,
+                       np.minimum(idx, n_bins - 2))
+        parts.append(idx.astype(np.int32))
+    if codes is not None and codes.shape[1]:
+        cat_map = tables["cat_map"]
+        cc = codes.shape[1]
+        safe = np.clip(codes, 0, cat_map.shape[1] - 1)
+        mapped = cat_map[np.arange(cc)[None, :], safe]
+        mapped = np.where(codes < 0, n_bins - 1, mapped)
+        parts.append(mapped.astype(np.int32))
+    if not parts:
+        raise ValueError("no features to bin")
+    return np.concatenate(parts, axis=1)
+
+
+def _walk_tree(tree: Dict[str, np.ndarray], bins: np.ndarray,
+               max_depth: int, n_bins: int) -> np.ndarray:
+    """Vectorized per-row tree walk → landing node id (heap layout:
+    children of k at 2k+1 / 2k+2), same update rule as
+    models/gbdt.predict_trees."""
+    r = bins.shape[0]
+    node = np.zeros(r, np.int32)
+    for _ in range(max_depth):
+        feat = tree["feature"][node]
+        sbin = tree["bin"][node]
+        dl = tree["default_left"][node]
+        leaf = tree["is_leaf"][node]
+        row_bin = bins[np.arange(r), np.maximum(feat, 0)]
+        miss = row_bin == (n_bins - 1)
+        go_left = np.where(miss, dl, row_bin <= sbin)
+        nxt = 2 * node + np.where(go_left, 1, 2).astype(np.int32)
+        node = np.where(leaf | (feat < 0), node, nxt)
+    return node
+
+
+def tree_predict(meta: Dict[str, Any], params: Any,
+                 dense: Optional[np.ndarray],
+                 codes: Optional[np.ndarray]) -> np.ndarray:
+    cfg = meta["treeConfig"]
+    n_bins = int(cfg["n_bins"])
+    max_depth = int(cfg["max_depth"])
+    tables = {"num_cuts": np.asarray(params["tables"]["num_cuts"]),
+              "cat_map": np.asarray(params["tables"]["cat_map"])}
+    bins = bin_dataset(tables, dense, codes, n_bins)
+    trees = params["trees"]
+    n_trees = trees["feature"].shape[0]
+    per_tree = np.empty((n_trees, bins.shape[0]), np.float32)
+    for t in range(n_trees):
+        tree = {k: np.asarray(v[t]) for k, v in trees.items()}
+        per_tree[t] = tree["leaf_value"][
+            _walk_tree(tree, bins, max_depth, n_bins)]
+    if meta["kind"] == "rf":
+        return per_tree.mean(axis=0)
+    raw = float(cfg["learning_rate"]) * per_tree.sum(axis=0)
+    if str(cfg.get("loss", "squared")).startswith("log"):
+        return _sigmoid(raw)
+    return raw
+
+
+# ---------------------------------------------------------------------------
+# WDL (IndependentWDLModel.compute analog)
+# ---------------------------------------------------------------------------
+
+def wdl_forward(spec: Dict[str, Any], params: Dict[str, Any],
+                dense: Optional[np.ndarray],
+                idx: Optional[np.ndarray]) -> np.ndarray:
+    dense_dim = int(spec["dense_dim"])
+    n_cat = int(spec["n_cat"])
+    vocab = int(spec["vocab_size"])
+    n = dense.shape[0] if dense_dim else idx.shape[0]
+    logit = np.zeros(n, np.float32)
+    deep_in = [np.asarray(dense, np.float32)] if dense_dim else []
+    if n_cat:
+        cols = np.arange(n_cat)[None, :]
+        safe = np.clip(idx, 0, vocab - 1)
+        if spec.get("wide_enable", True):
+            logit = logit + params["wide_cat"][cols, safe].sum(axis=1)
+        emb = params["embed"][cols, safe]
+        deep_in.append(emb.reshape(n, -1))
+    if spec.get("wide_enable", True) and dense_dim:
+        logit = logit + dense @ params["wide_dense"]
+    logit = logit + params["wide_bias"]
+    if spec.get("deep_enable", True) and deep_in:
+        deep_spec = {"activations": list(spec["activations"]),
+                     "output_dim": 1, "output_activation": "linear"}
+        logit = logit + mlp_forward(deep_spec, params["deep"],
+                                    np.concatenate(deep_in, axis=1))
+    return _sigmoid(logit)
+
+
+# ---------------------------------------------------------------------------
+# MTL (per-task heads over a shared trunk)
+# ---------------------------------------------------------------------------
+
+def mtl_forward_tasks(spec: Dict[str, Any], params: Dict[str, Any],
+                      x: np.ndarray) -> np.ndarray:
+    hidden = list(spec["hidden_dims"])
+    acts = list(spec["activations"])
+    trunk_spec = {
+        "activations": acts[:-1] if hidden else [],
+        "output_dim": hidden[-1] if hidden else int(spec["input_dim"]),
+        "output_activation": acts[-1] if hidden else "linear",
+    }
+    h = mlp_forward(trunk_spec, params["trunk"], x)
+    if h.ndim == 1:
+        h = h[:, None]
+    logits = h @ params["heads_w"].T + params["heads_b"][None, :]
+    return _sigmoid(logits)
+
+
+# ---------------------------------------------------------------------------
+# Unified scorer
+# ---------------------------------------------------------------------------
+
+def score_model(kind: str, meta: Dict[str, Any], params: Any,
+                dense: Optional[np.ndarray] = None,
+                index: Optional[np.ndarray] = None,
+                raw_dense: Optional[np.ndarray] = None,
+                raw_codes: Optional[np.ndarray] = None) -> np.ndarray:
+    """One model spec → (N,) scores; same input contract as
+    eval/scorer.score_matrix (NN family reads normalized blocks, trees
+    read raw cleaned features)."""
+    if kind in ("nn", "lr"):
+        return mlp_forward(meta["spec"], params, dense)
+    if kind in ("gbt", "rf"):
+        rd = raw_dense if raw_dense is not None else dense
+        rc = raw_codes if raw_codes is not None else index
+        return tree_predict(meta, params, rd, rc)
+    if kind == "wdl":
+        return wdl_forward(meta["spec"], params, dense, index)
+    if kind == "mtl":
+        return mtl_forward_tasks(meta["spec"], params, dense).mean(axis=1)
+    if kind == "bagging":
+        # one-file bagging container (`export -t bagging`,
+        # ExportModelProcessor.java:140-174): assemble the members per
+        # the container's recorded strategy (Scorer assemble vocabulary)
+        parts = [score_model(m["kind"], m["meta"], params[f"m{i}"],
+                             dense=dense, index=index,
+                             raw_dense=raw_dense, raw_codes=raw_codes)
+                 for i, m in enumerate(meta["members"])]
+        stack = np.stack(parts, axis=0)
+        assemble = str(meta.get("assemble", "mean")).lower()
+        fns = {"mean": np.mean, "median": np.median, "max": np.max,
+               "min": np.min, "sum": np.sum}
+        if assemble not in fns:
+            raise ValueError(f"unknown assemble strategy {assemble!r}")
+        return fns[assemble](stack, axis=0)
+    raise ValueError(f"unknown model kind {kind!r}")
+
+
+class PortableScorer:
+    """Ensemble scorer over a models/ dir — numpy only. The serving-side
+    counterpart of eval/scorer.Scorer (same output keys)."""
+
+    def __init__(self, model_paths: List[str], score_selector: str = "mean"):
+        import os
+        if isinstance(model_paths, str):
+            d = model_paths
+
+            def bag_index(name):  # numeric sort: model10 after model9
+                digits = "".join(c for c in name.split(".")[0] if c.isdigit())
+                return (int(digits) if digits else -1, name)
+
+            model_paths = [os.path.join(d, f)
+                           for f in sorted(os.listdir(d), key=bag_index)
+                           if f.startswith("model") and not f.endswith(".json")]
+        self.models = [load_model(p) for p in model_paths]
+        self.selector = (score_selector or "mean").lower()
+        if not self.models:
+            raise FileNotFoundError("no model specs to score with")
+
+    def score(self, dense: Optional[np.ndarray] = None,
+              index: Optional[np.ndarray] = None,
+              raw_dense: Optional[np.ndarray] = None,
+              raw_codes: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
+        per_model = [score_model(kind, meta, params, dense, index,
+                                 raw_dense, raw_codes)
+                     for kind, meta, params in self.models]
+        stack = np.stack(per_model, axis=0)
+        out = {f"model{i}": s for i, s in enumerate(per_model)}
+        out["mean"] = stack.mean(axis=0)
+        out["max"] = stack.max(axis=0)
+        out["min"] = stack.min(axis=0)
+        out["median"] = np.median(stack, axis=0)
+        out["final"] = out.get(self.selector, out["mean"])
+        return out

@@ -1,8 +1,9 @@
 """Chunk sizes of the steps that read their raw set in chunks — the
 port's part of `shifu_tpu/processor/chunking.py`: the streaming trigger
-`chunk_rows_for` (shared with stats, norm and eval) and
-`analysis_chunk_rows` (posttrain). The sampled `analysis_frame` and the
-sharded readers stay with varselect (ROADMAP A4) and A8.
+`chunk_rows_for` (shared with stats, norm and eval),
+`analysis_chunk_rows` (posttrain) and `analysis_frame` (varselect). The
+sampled frame past the trigger (`sampled_frame`) is ROADMAP A6, and the
+sharded readers A8.
 """
 
 from __future__ import annotations
@@ -54,3 +55,17 @@ def analysis_chunk_rows(ctx) -> int:
                                 "SHIFU_TPU_ANALYSIS_CHUNK_ROWS"),
                           "SHIFU_TPU_ANALYSIS_STREAM_BYTES",
                           mc.dataSet.dataPath, "analysis")
+
+
+def analysis_frame(ctx):
+    """The raw table varselect's SE/ST/V/FI filters read: None when the
+    set fits resident (the step reads it whole). Past the trigger the
+    JAX package reads a uniform row sample (`sampled_frame`), which the
+    port has not yet: it raises."""
+    if analysis_chunk_rows(ctx):
+        raise NotImplementedError(
+            "varselect: the dataset is past the analysis trigger, where "
+            "the JAX package reads a sampled analysis frame; that frame "
+            "is not ported yet (ROADMAP A6) — set "
+            "SHIFU_TPU_ANALYSIS_CHUNK_ROWS=0 to read it whole")
+    return None

@@ -8,11 +8,18 @@ O(cols × bins) KS/IV/WOE math runs on the host in float64. Segment
 expansion (`dataSet#segExpressionFile`) and `stats.sampleRate` /
 `sampleNegOnly` run inline, as in the JAX package. No mesh: one device.
 
+When `dataSet#dateColumnName` is set, the same filtered and sampled
+rows feed DateStats (`processor/datestat.py`) on the same device.
+`run_rebin` is `stats -rebin`: it merges the recorded bins of each
+column on the host (`ops/rebin.py`), with no data pass. The
+`-correlation` and `-psi` variants are `processor/correlation.py` and
+`processor/psi.py`.
+
 Where the JAX package would take a path the port does not have yet,
 `run` raises and names the queue item instead of answering otherwise:
-the streaming stats of a dataset past the size trigger (ROADMAP A6),
-and DateStats (`dataSet#dateColumnName`, A4). The `-rebin`, `-seg`,
-`-seg-merge`, `-correlation` and `-psi` variants raise in the CLI.
+the streaming stats of a dataset past the size trigger (ROADMAP A6).
+The `-seg`, `-seg-merge` and `-base-only` variants (the DAG's
+per-segment siblings, A8) raise in the CLI.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from shifu_tpu_torch.ops import stats as stats_ops
 from shifu_tpu_torch.ops.binning import cap_categories, \
     compute_numeric_binning
 from shifu_tpu_torch.processor.base import ProcessorContext
+from shifu_tpu_torch.processor import datestat
 from shifu_tpu_torch.processor.chunking import chunk_rows_for
 
 log = logging.getLogger("shifu_tpu_torch")
@@ -53,10 +61,6 @@ def _explicitly_requested() -> bool:
                 or knob_raw("SHIFU_TPU_STATS_CHUNK_ROWS"))
 
 
-def date_column_name(mc) -> str:
-    return str(mc.dataSet._extras.get("dateColumnName") or "").strip()
-
-
 def run(ctx: ProcessorContext, dataset: Optional[ColumnarDataset] = None,
         seed: int = 12306, device: "str | torch.device" = "cuda",
         report: Optional[Dict[str, float]] = None) -> int:
@@ -69,19 +73,16 @@ def run(ctx: ProcessorContext, dataset: Optional[ColumnarDataset] = None,
     mc = ctx.model_config
     ctx.validate(ModelStep.STATS)
     ctx.require_columns()
-    if date_column_name(mc):
-        raise NotImplementedError(
-            "dataSet#dateColumnName: DateStats are not ported yet "
-            "(ROADMAP A4)")
     ccs = ctx.column_configs
     df = None
     exprs = segment.segment_expressions(mc)
     if dataset is None:
         chunk = stats_chunk_rows(ctx)
-        if chunk and not _explicitly_requested() and exprs:
+        if chunk and not _explicitly_requested() and \
+                (exprs or datestat.date_column_name(mc)):
             log.warning("stats: dataset exceeds the streaming threshold "
-                        "but segment expansion needs the resident path — "
-                        "running resident")
+                        "but segment expansion / DateStats need the "
+                        "resident path — running resident")
             chunk = 0
         if chunk:
             raise NotImplementedError(
@@ -117,6 +118,11 @@ def run(ctx: ProcessorContext, dataset: Optional[ColumnarDataset] = None,
             log.info("segment %d (%s): %d/%d rows", k, expr,
                      int(mask.sum()), len(df))
     ctx.save_column_configs()
+    # the per-date stats job (MapReducerStatsWorker.java:296-321) over
+    # this run's filtered + sampled rows
+    if datestat.date_column_name(mc):
+        datestat.run(ctx, df=df, dataset=dataset if df is not None else None,
+                     device=dev)
     if report is not None:
         report["rows"] = dataset.num_rows
     log.info("stats: %d rows, %d num + %d cat columns in %.2fs",
@@ -308,3 +314,31 @@ def _fill_categorical(cc: ColumnConfig, orig_vocab, vocab, j: int, counts,
         st.mean, st.stdDev = 0.0, 0.0
     st.ks, st.iv, st.woe = ks, iv, woe
     st.weightedKs, st.weightedIv, st.weightedWoe = wks, wiv, wwoe
+
+
+def run_rebin(ctx: ProcessorContext, request_vars: Optional[str] = None,
+              expect_bin_num: int = -1, iv_keep_ratio: float = 1.0,
+              min_inst_cnt: int = 0) -> int:
+    """`stats -rebin [-vars a,b] [-n N] [-ivr r] [-bic c]` — merge each
+    column's recorded bins into fewer, higher-IV bins, with no data
+    pass (StatsModelProcessor.java:173-218, doReBin:712)."""
+    from shifu_tpu_torch.ops.rebin import rebin_column
+    ctx.require_columns()
+    wanted = {v.strip() for v in (request_vars or "").split(",")
+              if v.strip()}
+    n_done = 0
+    for cc in ctx.column_configs:
+        if wanted and cc.columnName not in wanted:
+            continue
+        if not cc.is_candidate:
+            if wanted:
+                log.warning("column %s is not a good candidate, skip",
+                            cc.columnName)
+            continue
+        if rebin_column(cc, expect_bin_num=expect_bin_num,
+                        iv_keep_ratio=iv_keep_ratio,
+                        min_inst_cnt=min_inst_cnt):
+            n_done += 1
+    ctx.save_column_configs()
+    log.info("rebin: %d column(s) re-binned", n_done)
+    return 0

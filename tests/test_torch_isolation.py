@@ -32,6 +32,11 @@ import shifu_tpu_torch.config.inspector, shifu_tpu_torch.train.grid_search
 import shifu_tpu_torch.processor.eval, shifu_tpu_torch.processor.posttrain
 import shifu_tpu_torch.processor.varselect, shifu_tpu_torch.processor.chunking
 import shifu_tpu_torch.eval.model_runner, shifu_tpu_torch.eval.gain_chart
+import shifu_tpu_torch.processor.export, shifu_tpu_torch.processor.encode
+import shifu_tpu_torch.processor.manage, shifu_tpu_torch.processor.psi
+import shifu_tpu_torch.pmml, shifu_tpu_torch.portable
+from shifu_tpu_torch.ops import rebin
+from shifu_tpu_torch.processor import correlation, datestat
 from shifu_tpu_torch.eval import csv_out
 from shifu_tpu_torch.ops import metrics
 from shifu_tpu_torch.models import gbdt
@@ -85,6 +90,20 @@ conf.numTrainEpochs, conf.baggingNum = 3, 2
 res = trainer.train_nn(conf, x, (x[:, 0] > 0).astype(np.float32),
                        np.ones(5, np.float32), device="cpu")
 assert res.val_errors.shape == (2, 3)
+m, s, ss, p = correlation.pearson_moments(torch.as_tensor(x))
+assert correlation.pearson_from_moments(m, s, ss, p).shape == (3, 3)
+ds = datestat.compute_date_stats(x, np.ones(5), np.array([0, 1, 0, 1, 1]),
+                                 2, device="cpu")
+assert ds["count"].tolist() == [[2.0] * 3, [3.0] * 3]
+nodes = gbdt.leaf_indices(gbdt._trees_on(trees, "cpu"),
+                          torch.as_tensor(bins.T.copy()), 2, 8)
+assert nodes.shape == (2, 60)
+import shifu_tpu_torch.portable as portable
+from shifu_tpu_torch.models.spec import spec_to_bundle, bundle_to_spec
+spec_to_bundle(root + "/model0.nn", root + "/b.zip")
+bundle_to_spec(root + "/b.zip", root + "/back.nn")
+assert portable.score_model(*portable.load_model(root + "/back.nn"),
+                            dense=x).shape == (5,)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "shifu_tpu", "pandas",
                                     "pyarrow", "optax", "flax", "orbax"))

@@ -384,8 +384,8 @@ def test_stats_defaults_to_the_card(tmp_path, monkeypatch):
             cli.main(["--dir", port, verb])
 
 
-@pytest.mark.parametrize("flag", [["-correlation"], ["-psi"], ["-rebin"],
-                                  ["-seg", "1"], ["-seg-merge"]])
+@pytest.mark.parametrize("flag", [["-seg", "1"], ["-seg-merge"],
+                                  ["-base-only"]])
 def test_stats_variants_not_ported_raise(tmp_path, flag):
     from shifu_tpu_torch import cli
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
@@ -407,5 +407,11 @@ def test_stats_streaming_trigger_and_date_stats_raise(tmp_path,
     mc["dataSet"]["dateColumnName"] = "rowid"
     with open(path, "w") as f:
         json.dump(mc, f)
-    with pytest.raises(NotImplementedError, match="A4"):
-        run_port(port, ("stats",))
+    # DateStats are ported: the resident stats step writes them
+    # (tests/test_torch_stats_flags.py holds them against the JAX package)
+    run_port(port, ("stats",))
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    from shifu_tpu_torch.config.path_finder import PathFinder
+    out = PathFinder(ModelConfig.load(port), root=port).date_stats_path()
+    with open(out) as f:
+        assert f.readline().startswith("date,column,count,missing")
