@@ -129,7 +129,29 @@ result line is printed):
    K1) of `Scorer.score` on the card; `export -t bagging` (zip members
    equal) and a `convert` round trip; `encode` of phase 8's GBT
    (part-00000 byte-equal); `new`, `save`, `switch` and `show` on a
-   copy of phase 8's GBT set (the restored files equal the saved ones).
+   copy of phase 8's GBT set (the restored files equal the saved ones);
+14. WDL, MTL and `train#trainOnDisk`, card against a CPU twin: (a) WDL
+   at `bench.py:96-108`'s widths (13 dense, 26 categorical with ids
+   Zipf over 10,000 values, embed 16, deep 256 → 128) and (b) MTL at
+   `bench.py:110-119`'s (64 features, tasks `t0|t1|t2|t3`, tasks 1-3
+   untagged on 10 % of the rows, 128 → 64), each a 32,768-row raw table
+   through the port's `init → stats → norm` on the card, `train` (ADAM,
+   2 bags) on the card and the CPU from the same matrix (each bag's best
+   validation error within 1e-4 relative), `eval` and `posttrain` of the
+   card-trained models on both (scores within 1e-5; importance 1e-4,
+   binAvgScore 1e-5 relative) and `serve` over `POST /score` with
+   `dense` and `index` (within 1e-5); (c) `norm` with trainOnDisk on the
+   card and the CPU for a 65,536-row HIGGS table and copies of (a) and
+   (b) (every `.npy` file equal to the bit), then streaming NN, WDL and
+   MTL (best validation errors within 1e-4), log-loss GBT on both
+   row-state tiers (train log-loss within 1e-4, AUC 1e-3) and RF
+   (files equal to the bit) over 5-6 chunks; (d) the device-tier GBT
+   trained twice on the card: whether the files are equal and the
+   largest leaf difference (printed, not a gate). Then `--p14-walls` in
+   a process of its own: the streaming builders' K3/K5 launches between
+   marker kernels must equal (max_depth + 1) a chunk and max_depth a
+   tree on both tiers (and 7 / 6 with one chunk), and WDL/MTL at
+   500,000 rows and `build_gbt_streaming` at 2,000,000 × 28 are timed.
 
 Phase 8 then registers a holdout table (262,144 rows, another seed) as
 eval set `holdout` of the card-trained RF and log-loss GBT sets and runs
@@ -143,7 +165,8 @@ launched in each card eval; on the GBT set also `eval -score`,
 -n 100` (line for line, scores within 1e-6). The K1/K2 launch counts
 of the kernels line add these card runs, phases 11's and 12's card
 evals and phase 13's PMML check to phase 4's, and the K3/K5 counts
-phase 13's FI run to phase 8's.
+phase 13's FI run and phase 14's streaming tree trainings to phase
+8's.
 
 The last lines are the per-kernel launch line, the kernel JSON line,
 the card's name and power limit, and the result object.
@@ -164,7 +187,9 @@ the idle share over five profiled epochs, and five epochs under
 `torch.cuda.set_sync_debug_mode("error")`; `--varselect-walls` only
 phase 13's card steps, each a process with the host to itself, twice:
 `stats -correlation` at 262,144 × 30, `varsel` FI, `encode` of its RF,
-SE at 65,536 × 600 and `export -t baggingpmml` of a 2-bag wide NN. They call only functions that older trees of the port have
+SE at 65,536 × 600 and `export -t baggingpmml` of a 2-bag wide NN;
+`--p14-walls` only phase 14's launch counts and timings (it needs the
+WDL/MTL and streaming modules). The others call only functions that older trees of the port have
 too, so the script copied into the root of an older tree times that
 tree: run the two in turns on one card.
 """
@@ -3675,6 +3700,638 @@ def varselect_walls(rows=VS_ROWS, se_rows=NN_EVAL_ROWS, reps=2):
     return {"card": smi, "rows": rows, "se_rows": se_rows, "steps": out}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: WDL, MTL and train#trainOnDisk
+# ---------------------------------------------------------------------------
+
+P14_ROWS = 32_768           # the WDL/MTL sets: card against the CPU twin
+P14_HOLDOUT = 8_192         # their eval sets
+P14_STREAM_ROWS = 65_536    # phase 14 (c)'s HIGGS table (no weight column)
+# bench.py:96-108 and :110-119 (rows, short and long epochs for the walls)
+WDL_DENSE, WDL_CAT, WDL_VOCAB, WDL_EMBED = 13, 26, 10_000, 16
+WDL_HIDDEN = (256, 128)
+MTL_FEATURES, MTL_TASKS, MTL_HIDDEN = 64, 4, (128, 64)
+P14_WALL_ROWS, P14_WALL_EPOCHS = 500_000, (2, 22)
+STREAM_WALL_CHUNK = 262_144  # build_gbt_streaming at 2,000,000 × 28
+
+
+def wdl_raw_table(rng, rows, dense=WDL_DENSE, cat=WDL_CAT, vocab=WDL_VOCAB):
+    """The Criteo-like table: `dense` numeric columns and `cat`
+    categorical ones whose ids are drawn Zipf over `vocab` values (2 %
+    and 1 % missing), a label from a few dense columns and one effect a
+    category of the first four categorical columns."""
+    x = rng.normal(0, 1, (rows, dense)).astype(np.float32)
+    ids = (rng.zipf(1.2, (rows, cat)) - 1) % vocab
+    effect = np.random.default_rng(90).normal(0, 0.8, (4, vocab))
+    logit = x[:, 0] - 0.6 * x[:, 1] + 0.4 * x[:, 2] \
+        + sum(effect[j, ids[:, j]] for j in range(4)) \
+        + rng.logistic(0, 1, rows)
+    x[rng.random(x.shape) < 0.02] = np.nan
+    text = np.where(np.isnan(x), "?", x.astype(str))
+    cats = np.char.add("v", ids.astype(str))
+    cats[rng.random(cats.shape) < 0.01] = "?"
+    names = [f"d{j}" for j in range(dense)] + [f"c{j}" for j in range(cat)] \
+        + ["label"]
+    label = np.where(logit > 0, "1", "0")
+    return names, np.concatenate([text, cats, label[:, None]], axis=1)
+
+
+def mtl_raw_table(rng, rows, c=MTL_FEATURES, tasks=MTL_TASKS):
+    """`c` numeric columns (2 % missing) and `tasks` tag columns t0…,
+    each from its own noisy projection; tasks 1… lack a tag on 10 % of
+    the rows (task 0 always has one: norm keeps rows by it)."""
+    x = rng.normal(0, 1, (rows, c)).astype(np.float32)
+    beta = np.random.default_rng(91).normal(0, 1, (c, tasks))
+    score = x @ beta / np.sqrt(c) * 2 + rng.logistic(0, 1, (rows, tasks))
+    tags = np.where(score > 0, "1", "0")
+    tags[:, 1:][rng.random((rows, tasks - 1)) < 0.1] = "?"
+    x[rng.random(x.shape) < 0.02] = np.nan
+    text = np.where(np.isnan(x), "?", x.astype(str))
+    names = [f"f{j}" for j in range(c)] + [f"t{k}" for k in range(tasks)]
+    return names, np.concatenate([text, tags], axis=1)
+
+
+def p14_model_set(root, workdir, kind, device="cuda", rows=None):
+    """Phase 14's WDL or MTL model set: raw table and holdout (eval set
+    `Eval1`) from seeds, `init → stats → norm` on the card (ZSCALE_INDEX
+    for WDL, ZSCALE for MTL)."""
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    from shifu_tpu_torch.fileio import atomic_write
+    table = wdl_raw_table if kind == "WDL" else mtl_raw_table
+    data_dir = os.path.join(root, "data")
+    write_raw(data_dir, *table(np.random.default_rng(92), rows or P14_ROWS))
+    holdout = os.path.join(workdir, f"{kind.lower()}_holdout")
+    write_raw(holdout, *table(np.random.default_rng(93), P14_HOLDOUT))
+    target = "label" if kind == "WDL" else \
+        "|".join(f"t{k}" for k in range(MTL_TASKS))
+    data_set = {"dataPath": data_dir, "dataDelimiter": "|",
+                "headerPath": os.path.join(data_dir, ".pig_header"),
+                "targetColumnName": target, "posTags": ["1"],
+                "negTags": ["0"]}
+    if kind == "WDL":
+        cols_dir = os.path.join(root, "columns")
+        os.makedirs(cols_dir)
+        path = os.path.join(cols_dir, "categorical.column.names")
+        with atomic_write(path) as f:
+            f.write("".join(f"c{j}\n" for j in range(WDL_CAT)))
+        data_set["categoricalColumnNameFile"] = path
+    else:
+        cols_dir = os.path.join(root, "columns")
+        os.makedirs(cols_dir)
+        path = os.path.join(cols_dir, "meta.column.names")
+        with atomic_write(path) as f:
+            f.write("".join(f"t{k}\n" for k in range(1, MTL_TASKS)))
+        data_set["metaColumnNameFile"] = path
+    ModelConfig.from_dict({
+        "basic": {"name": f"smoke{kind}"}, "dataSet": data_set,
+        "stats": {"maxNumBin": GBT_BINS - 1,
+                  "binningMethod": "EqualPositive"},
+        "normalize": {"normType": "ZSCALE_INDEX" if kind == "WDL"
+                      else "ZSCALE", "stdDevCutOff": CUTOFF},
+        "train": p14_train_fields(kind),
+        "evals": [{"name": "Eval1", "dataSet": dict(
+            data_set, dataPath=holdout,
+            headerPath=os.path.join(holdout, ".pig_header"))}]}).save(root)
+    return run_pipeline(root, device, norms=(
+        "ZSCALE_INDEX" if kind == "WDL" else "ZSCALE",))
+
+
+def p14_train_fields(kind, epochs=6, **params):
+    """`train` of phase 14's sets: WDL (bench.py's embed 16, deep 256 →
+    128, relu) or MTL (128 → 64, relu), ADAM, 2 Poisson bags, 10 %
+    validation."""
+    hidden = WDL_HIDDEN if kind == "WDL" else MTL_HIDDEN
+    params.update(Propagation="ADAM", LearningRate=0.002,
+                  NumHiddenNodes=list(hidden),
+                  ActivationFunc=["relu"] * len(hidden))
+    if kind == "WDL":
+        params["EmbedSize"] = WDL_EMBED
+    return {"algorithm": kind, "numTrainEpochs": epochs, "baggingNum": 2,
+            "baggingWithReplacement": True, "baggingSampleRate": 1.0,
+            "validSetRate": 0.1, "params": params}
+
+
+def copy_tmp(src, dst):
+    """`copy_config` plus all of `src`'s tmp/ (both data layouts)."""
+    import shutil
+    copy_config(src, dst)
+    shutil.copytree(os.path.join(src, "tmp"), os.path.join(dst, "tmp"))
+    return dst
+
+
+def copy_models(src, dst):
+    """`copy_config` plus `src`'s models/: a twin that scores the very
+    model files `src` trained."""
+    import shutil
+    copy_config(src, dst)
+    shutil.copytree(os.path.join(src, "models"),
+                    os.path.join(dst, "models"))
+    return dst
+
+
+def compare_layout(card_root, cpu_root):
+    """Every `.npy` block and meta.json of both streaming layouts (card
+    `norm` against CPU `norm`): equal to the bit. Returns the files
+    compared."""
+    n = 0
+    for sub in ("NormalizedData", "CleanedData"):
+        da = os.path.join(card_root, "tmp", sub)
+        db = os.path.join(cpu_root, "tmp", sub)
+        names = sorted(f for f in os.listdir(db) if f.endswith(".npy"))
+        assert sorted(f for f in os.listdir(da) if f.endswith(".npy")) \
+            == names and "dense.npy" in names, (sub, names)
+        for name in names:
+            a, b = np.load(os.path.join(da, name)), np.load(
+                os.path.join(db, name))
+            assert a.dtype == b.dtype and a.shape == b.shape, (sub, name)
+            assert a.tobytes() == b.tobytes(), \
+                f"{sub}/{name} differs card vs CPU"
+            n += 1
+        with open(os.path.join(da, "meta.json")) as f:
+            ma = json.load(f)
+        with open(os.path.join(db, "meta.json")) as f:
+            assert json.load(f) == ma and ma["streaming"], sub
+    return n
+
+
+def p14_serve(root, blocks, tol, device="cuda"):
+    """The card's `ScorerService` behind `HttpFrontEnd` serves `root`'s
+    models; 512 rows in process and 64 over `POST /score`, each held
+    against a CPU service."""
+    from shifu_tpu_torch.serve.http import HttpFrontEnd
+    from shifu_tpu_torch.serve.service import ScorerService
+    models = os.path.join(root, "models")
+    gpu = ScorerService(models_dir=models, max_delay=0.002, device=device)
+    cpu = ScorerService(models_dir=models, max_delay=0.002, device="cpu")
+    front = None
+    try:
+        gpu.start()
+        cpu.start()
+        front = HttpFrontEnd(gpu, host="127.0.0.1", port=0).start()
+        rows = {k: v[:512] for k, v in blocks.items()}
+        got, want = gpu.submit(**rows), cpu.submit(**rows)
+        worst = 0.0
+        for k in want:
+            assert got[k].shape == (512,) and np.isfinite(got[k]).all()
+            np.testing.assert_allclose(got[k], want[k], **tol, err_msg=k)
+            worst = max(worst, float(np.abs(got[k] - want[k]).max()))
+        small = {k: v[:64] for k, v in blocks.items()}
+        over_http = _post("http://%s:%d" % front.address, small)
+        want = cpu.submit(**small)
+        for k in want:
+            np.testing.assert_allclose(np.asarray(over_http[k], np.float64),
+                                       want[k], **tol, err_msg=f"http {k}")
+        return {"max_abs_err": worst, "models": gpu.stats()["models"]}
+    finally:
+        if front is not None:
+            front.close()
+        gpu.close()
+        cpu.close()
+
+
+def p14_family(kind, workdir, device="cuda"):
+    """Phase 14 (a) or (b): the set through the port's pipeline on the
+    card; `train` on the card and with `--device cpu` from the same
+    matrix (each bag's best validation error within 1e-4 relative);
+    `eval` and `posttrain` of the card-trained models on the card and
+    on a CPU twin (scores within 1e-5; importance 1e-4, binAvgScore
+    1e-5 relative); `serve` of them (within 1e-5)."""
+    base = os.path.join(workdir, kind.lower())
+    steps = p14_model_set(base, workdir, kind, device)
+    card = copy_normalized(base, base + "_card")
+    cpu = copy_normalized(base, base + "_cpu")
+    t_card, t_cpu = run_twins(card, cpu, "train", device)
+    assert t_card["device"].startswith(device) and t_card["bags"] == 2
+    train_errs = compare_training(t_card, t_cpu, card, cpu, best_rel=1e-4)
+    twin = copy_models(card, card + "_twin")
+    e_card, e_cpu = run_twins(card, twin, "eval", device)
+    eval_errs = compare_eval_dir(card, twin, "Eval1", 1e-5)
+    p_card, p_cpu = run_twins(card, twin, "posttrain", device)
+    post_errs = compare_posttrain(card, twin, 1e-4, 1e-5)
+    data = np.load(os.path.join(base, "tmp", "NormalizedData", "data.npz"))
+    blocks = {"dense": data["dense"].astype(np.float32)}
+    if kind == "WDL":
+        blocks["index"] = data["index"].astype(np.int32)
+    served = p14_serve(card, blocks, dict(rtol=1e-5, atol=1e-5), device)
+    return {"pipeline": steps, "train": {"card": t_card, "cpu": t_cpu},
+            "train_errors": train_errs,
+            "eval": {"card": e_card, "cpu": e_cpu, "errors": eval_errs},
+            "posttrain": {"card": p_card, "cpu": p_cpu,
+                          "errors": post_errs},
+            "serve": served}
+
+
+def disk_layout(src, dst, device="cuda"):
+    """Phase 14 (c)'s `norm` with trainOnDisk on a copy of `src`'s
+    configs, on the card and with `--device cpu`: their `.npy` files
+    must be equal to the bit. Returns (card root, CPU root, the two
+    norm lines, the files compared)."""
+    card = copy_config(src, dst)
+    cpu = copy_config(src, dst + "_cpu")
+    for root in (card, cpu):
+        set_config(root, "train", trainOnDisk=True)
+    norm = run_twins(card, cpu, "norm", device)
+    return card, cpu, norm, compare_layout(card, cpu)
+
+
+def higgs_layout(workdir, device="cuda"):
+    """The HIGGS table of phase 14 (c) (phase 8's widths, no weight
+    column, 65,536 rows): `init` and `stats` on the card, then
+    `disk_layout`."""
+    hig = os.path.join(workdir, "stream_hig")
+    write_model_set(hig, "GBT", {}, 94, P14_STREAM_ROWS, 0.1)
+    run_step(hig, "init")
+    run_step(hig, "stats", device)
+    return disk_layout(hig, os.path.join(workdir, "disk_higgs"), device)
+
+
+P14_STREAM_TRAIN = {
+    # name: (layout, train section); ChunkRows gives ≥ 4 chunks
+    "NN": ("higgs", {"algorithm": "NN", "numTrainEpochs": 8,
+                     "baggingNum": 2, "baggingWithReplacement": True,
+                     "baggingSampleRate": 1.0, "validSetRate": 0.1,
+                     "params": {"NumHiddenLayers": 1,
+                                "NumHiddenNodes": [64],
+                                "ActivationFunc": ["tanh"],
+                                "Propagation": "ADAM", "LearningRate": 0.005,
+                                "ChunkRows": 12_000}}),
+    "WDL": ("wdl", dict(p14_train_fields("WDL", epochs=6, ChunkRows=6_000))),
+    "MTL": ("mtl", dict(p14_train_fields("MTL", epochs=6, ChunkRows=6_000))),
+    "GBT": ("higgs", {"algorithm": "GBT", "validSetRate": 0.1, "params": {
+        "TreeNum": 5, "MaxDepth": TRAIN_DEPTH, "LearningRate": TRAIN_LR,
+        "Loss": "log", "ChunkRows": 12_000}}),
+    "RF": ("higgs", {"algorithm": "RF", "validSetRate": 0.0, "params": {
+        "TreeNum": 5, "MaxDepth": TRAIN_DEPTH,
+        "FeatureSubsetStrategy": "SQRT", "ChunkRows": 12_000}}),
+}
+
+
+def stream_trains(workdir, layouts, device="cuda"):
+    """Phase 14 (c)'s streaming `train` runs, each on the card (from the
+    card's layout) and with `--device cpu` (from the CPU's): NN, WDL and
+    MTL (best validation errors within 1e-4 relative), GBT on both
+    row-state tiers (train log-loss within 1e-4 relative, AUC 1e-3, as
+    phase 8 holds log-loss GBT) and RF (model files equal to the bit);
+    the device-tier GBT then trains a second time on the card (phase 14
+    (d)). Three lanes, each a card run beside its CPU twin at a time:
+    more at once oversubscribe the host's cores. Returns {run: (card
+    line, CPU line, card root, CPU root)}."""
+    jobs = {}
+    for name, (layout, fields) in P14_STREAM_TRAIN.items():
+        for tier in (("1", "0") if name == "GBT" else (None,)):
+            run = name if tier is None else f"GBT tier {tier}"
+            key = run.replace(" ", "_")
+            card = copy_tmp(layouts[layout][0],
+                            os.path.join(workdir, f"st_{key}"))
+            cpu = copy_tmp(layouts[layout][1],
+                           os.path.join(workdir, f"st_{key}_cpu"))
+            for root in (card, cpu):
+                set_config(root, "train", **fields)
+            jobs[run] = (card, cpu, tier)
+
+    def one(run):
+        card, cpu, tier = jobs[run]
+        env = None if tier is None else \
+            {"SHIFU_TPU_GBT_RESIDENT_STATE": tier}
+        cpu_proc = _start_step(cpu, "train", "cpu",
+                               dict(CPU_TWIN_ENV, **(env or {})))
+        card_line, (cpu_line,) = beside(
+            [(cpu_proc, f"train --device cpu on {cpu}")],
+            lambda: run_step(card, "train", device, env))
+        out = [(run, (card_line, cpu_line, card, cpu))]
+        if run == "GBT tier 1":
+            again = copy_tmp(card, os.path.join(workdir, "st_GBT_again"))
+            out.append(("GBT tier 1, again", (
+                run_step(again, "train", device, env), None, again, None)))
+        return out
+    lanes = (("NN", "GBT tier 1"), ("WDL", "GBT tier 0"), ("MTL", "RF"))
+    done = in_parallel(*[lambda lane=lane: [r for run in lane
+                                            for r in one(run)]
+                         for lane in lanes])
+    return dict(r for lane in done for r in lane)
+
+
+def check_stream_trains(runs, device="cuda"):
+    """The gates of `stream_trains`; returns the differences."""
+    out = {}
+    for run, (card, cpu, card_root, cpu_root) in runs.items():
+        assert card["device"].startswith(device), run
+        if cpu is None:
+            continue
+        if run in ("NN", "WDL", "MTL"):
+            out[run] = compare_training(card, cpu, card_root, cpu_root,
+                                        best_rel=1e-4)
+        elif run == "RF":
+            _, ma, pa = _model_file(card_root, "rf")
+            _, mb, pb = _model_file(cpu_root, "rf")
+            assert ma == mb
+            for part in ("trees", "tables"):
+                for k in pb[part]:
+                    assert np.array_equal(pa[part][k], pb[part][k]), \
+                        f"streaming RF {part}.{k} differs card vs CPU"
+            out[run] = {"bit_exact": True}
+        else:
+            clean = np.load(os.path.join(cpu_root, "tmp", "CleanedData",
+                                         "data.npz"))
+            x, y = clean["dense"], clean["tags"]
+            ref = train_metrics(cpu_root, x, y)
+            loss, a = train_metrics(card_root, x, y)
+            assert abs(loss - ref[0]) <= 1e-4 * ref[0], \
+                f"{run}: train log-loss {loss} vs CPU {ref[0]}"
+            assert abs(a - ref[1]) <= 1e-3, f"{run}: AUC {a} vs {ref[1]}"
+            out[run] = {"log_loss": [loss, ref[0]], "auc": [a, ref[1]]}
+        launches = card.get("launches", {})
+        if run in ("GBT tier 1", "GBT tier 0", "RF"):
+            assert launches["level_hist"] > 0 and \
+                launches["best_splits"] > 0, f"{run}: {launches}"
+    return out
+
+
+def atomics_check(runs):
+    """Phase 14 (d): the streaming log-loss GBT (device tier) trained
+    twice on the card; whether the two model files are equal, and the
+    largest leaf difference if not (not a gate)."""
+    _, _, pa = _model_file(runs["GBT tier 1"][2], "gbt")
+    _, _, pb = _model_file(runs["GBT tier 1, again"][2], "gbt")
+    equal = all(np.array_equal(pa["trees"][k], pb["trees"][k])
+                for k in pb["trees"])
+    leaf = np.abs(pa["trees"]["leaf_value"] - pb["trees"]["leaf_value"])
+    return {"equal": equal, "max_leaf_diff": float(leaf.max()),
+            "max_leaf_rel": float(leaf.max() / np.abs(
+                pb["trees"]["leaf_value"]).max()),
+            "nodes_with_other_feature": int(np.sum(
+                pa["trees"]["feature"] != pb["trees"]["feature"]))}
+
+
+def phase_wdl_mtl_stream(report, workdir, device="cuda"):
+    """Phase 14: WDL and MTL at the bench.py widths trained, evaluated,
+    post-trained and served on the card against the CPU twin; the
+    trainOnDisk layouts and streaming trainers card against CPU; the
+    K3/K5 launches of the streaming builders (`p14_walls`); two card
+    runs of the streaming log-loss GBT."""
+    t0 = time.perf_counter()
+    wdl, mtl, higgs = in_parallel(
+        lambda: p14_family("WDL", workdir, device),
+        lambda: p14_family("MTL", workdir, device),
+        lambda: higgs_layout(workdir, device))
+    fam = {"WDL": wdl, "MTL": mtl}
+    for kind, r in fam.items():
+        print(f"  {kind} pipeline: {json.dumps(r['pipeline'])}")
+        print(f"  {kind} train card = CPU: {json.dumps(r['train_errors'])}"
+              f" (card {r['train']['card']['seconds']:.2f} s, CPU "
+              f"{r['train']['cpu']['seconds']:.2f} s)")
+        print(f"  {kind} eval card = CPU: {json.dumps(r['eval']['errors'])}")
+        print(f"  {kind} posttrain card = CPU: "
+              f"{json.dumps(r['posttrain']['errors'])}")
+        print(f"  {kind} serve: {json.dumps(r['serve'])}")
+    t_fam = time.perf_counter() - t0
+    layouts = dict(zip(("higgs", "wdl", "mtl"), [higgs] + in_parallel(
+        *[lambda k=k: disk_layout(os.path.join(workdir, k),
+                                  os.path.join(workdir, f"disk_{k}"), device)
+          for k in ("wdl", "mtl")])))
+    for name, (_, _, norm, n) in layouts.items():
+        print(f"  trainOnDisk norm {name}: {n} .npy files equal to the bit "
+              f"(card {norm[0]['seconds']:.2f} s, CPU "
+              f"{norm[1]['seconds']:.2f} s)")
+    runs = stream_trains(workdir, layouts, device)
+    for run, (card, cpu, _, _) in runs.items():
+        print(f"  streaming train {run}: card {card['seconds']:.2f} s "
+              f"launches {card['launches']}"
+              + (f", CPU {cpu['seconds']:.2f} s" if cpu else ""))
+    gates = check_stream_trains(runs, device)
+    print(f"  streaming card = CPU: {json.dumps(gates)}")
+    for run in ("GBT tier 1", "GBT tier 0", "RF", "GBT tier 1, again"):
+        for k in ("level_hist", "best_splits"):
+            report[k]["launches"] += runs[run][0]["launches"][k]
+    atomics = atomics_check(runs)
+    print(f"  two card runs of the streaming log-loss GBT: "
+          f"{json.dumps(atomics)}")
+    t_stream = time.perf_counter() - t0 - t_fam
+    walls = p14_walls_process()
+    report["phase14"] = {
+        "families": fam, "family_s": t_fam, "stream_s": t_stream,
+        "layouts": {k: v[2:] for k, v in layouts.items()},
+        "stream": {k: v[:2] for k, v in runs.items()},
+        "stream_gates": gates, "atomics": atomics, "walls": walls,
+        "seconds": time.perf_counter() - t0}
+
+
+def p14_walls_process():
+    """`p14_walls` in a process of its own (`--p14-walls`), for the
+    reasons `nn_train_walls_process` gives."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--p14-walls"],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = proc.stdout.strip().splitlines()
+    for line in lines:
+        if line.startswith("  p14 "):
+            print(line)
+    if proc.returncode != 0:
+        raise RuntimeError(f"--p14-walls failed (rc {proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])["p14_walls"]
+
+
+def family_walls(kind, device="cuda", rows=P14_WALL_ROWS,
+                 epochs=P14_WALL_EPOCHS):
+    """WDL or MTL at the bench.py widths on the card: `trainer.
+    train_bags` as `processor/train_wdl` calls it (1 bag, ADAM, 5 %
+    validation, rows from a seed), at a short and a long epoch count
+    (`bench.py`'s two-length method): row·epochs/s and ms an epoch;
+    launches an epoch between marker kernels and the idle share over
+    five profiled epochs of the epoch loop on inputs already on the
+    card; whether five epochs run under
+    `torch.cuda.set_sync_debug_mode("error")`."""
+    import torch
+    from shifu_tpu_torch.models import mtl, wdl
+    from shifu_tpu_torch.train import trainer
+    from shifu_tpu_torch.train.optimizers import optimizer_from_params
+    rng = np.random.default_rng(95)
+    params = {"Propagation": "ADAM", "LearningRate": 0.002}
+    if kind == "WDL":
+        dense = rng.standard_normal((rows, WDL_DENSE), dtype=np.float32)
+        idx = ((rng.zipf(1.2, (rows, WDL_CAT)) - 1)
+               % WDL_VOCAB).astype(np.int32)
+        y = (dense[:, 0] - 0.5 * dense[:, 1] + (idx[:, 0] % 3 == 0)
+             + rng.standard_normal(rows) > 0.5).astype(np.float32)
+        spec = wdl.WDLSpec(dense_dim=WDL_DENSE, n_cat=WDL_CAT,
+                           vocab_size=WDL_VOCAB + 1, embed_size=WDL_EMBED,
+                           hidden_dims=WDL_HIDDEN,
+                           activations=("relu",) * len(WDL_HIDDEN))
+        inputs = (dense, idx, y)
+        init = wdl.init_params
+
+        def loss(p, i, w_, g):
+            return wdl.loss_fn(spec, p, *i, w_)
+
+        def metric(p, i, w_):
+            return wdl.mse(spec, p, *i, w_)
+        flops_row = _flops_per_row(spec.deep_spec.layer_dims)
+    else:
+        x = rng.standard_normal((rows, MTL_FEATURES), dtype=np.float32)
+        beta = rng.standard_normal((MTL_FEATURES, MTL_TASKS))
+        y = (x @ beta + rng.standard_normal((rows, MTL_TASKS))
+             > 0).astype(np.float32)
+        y[:, 1:][rng.random((rows, MTL_TASKS - 1)) < 0.1] = np.nan
+        spec = mtl.MTLSpec(input_dim=MTL_FEATURES, n_tasks=MTL_TASKS,
+                           hidden_dims=MTL_HIDDEN,
+                           activations=("relu",) * len(MTL_HIDDEN))
+        inputs = (x, y)
+        init = mtl.init_params
+
+        def loss(p, i, w_, g):
+            return mtl.loss_fn(spec, p, *i, w_)
+
+        def metric(p, i, w_):
+            return mtl.mse(spec, p, *i, w_)
+        flops_row = _flops_per_row([MTL_FEATURES, *MTL_HIDDEN, MTL_TASKS])
+    tr, va = trainer.split_validation(rows, 0.05, 1)
+    n_train = int(tr.sum())
+    opt = optimizer_from_params(params)
+    walls = {}
+    for n_ep in (epochs[0], epochs[0], epochs[1]):   # the first warms up
+        stacked = trainer.initial_params(lambda g: init(spec, g), 1, 1)
+        mask = trainer.tree_map(lambda v: torch.ones_like(v[0]), stacked)
+        t0 = time.perf_counter()
+        trainer.train_bags(loss, metric, opt, n_ep, 0, 0.0, stacked,
+                           tuple(a[tr] for a in inputs),
+                           np.ones((1, n_train), np.float32),
+                           tuple(a[va] for a in inputs),
+                           np.ones(int(va.sum()), np.float32), mask,
+                           device=device)
+        walls[n_ep] = time.perf_counter() - t0
+    d_wall = walls[epochs[1]] - walls[epochs[0]]
+    d_epochs = epochs[1] - epochs[0]
+
+    dev = torch.device(device)
+    placed = tuple(torch.as_tensor(a[tr]).to(dev) for a in inputs)
+    vplaced = tuple(torch.as_tensor(a[va]).to(dev) for a in inputs)
+    wt = torch.ones((1, n_train), device=dev)
+    wv = torch.ones(int(va.sum()), device=dev)
+    stacked = trainer.tree_map(lambda v: v.to(dev), trainer.initial_params(
+        lambda g: init(spec, g), 1, 1))
+    mask = trainer.tree_map(lambda v: torch.ones_like(v[0]), stacked)
+
+    def run(n):
+        carry = trainer.init_train_carry(opt, stacked)
+        return trainer.train_bags_carry(loss, metric, opt, n, 0, 0.0, carry,
+                                        placed, wt, vplaced, wv, mask)
+    run(2)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run(5)
+        sync_free = True
+    except RuntimeError:
+        sync_free = False
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    one = len(kernels_between_markers(lambda: run(1)))
+    three = len(kernels_between_markers(lambda: run(3)))
+    wall_ms, dev_ms = device_busy(lambda: run(5))
+    out = {"rows": rows, "train_rows": n_train, "epochs": list(epochs),
+           "wall_s": {str(k): v for k, v in walls.items()},
+           "row_epochs_per_s": n_train * d_epochs / d_wall,
+           "ms_per_epoch": d_wall / d_epochs * 1e3,
+           "f32_peak_share_dense_layers": flops_row * n_train * d_epochs
+           / d_wall / F32_PEAK,
+           "launches_per_epoch": (three - one) / 2,
+           "profiled_5_epochs_ms": wall_ms, "device_ms": dev_ms,
+           "idle_share": 1 - dev_ms / wall_ms, "sync_free_5_epochs": sync_free}
+    print(f"  p14 {kind} walls: " + json.dumps(out))
+    del placed, vplaced
+    torch.cuda.empty_cache()
+    return out
+
+
+def stream_launches(device="cuda", rows=P14_STREAM_ROWS, chunks=4):
+    """K3 and K5 launches of one depth-6 streaming tree between marker
+    kernels, against §2's prediction: K3 7 a chunk and K5 6 a tree on
+    either row-state tier over `chunks` chunks, and K3 7, K5 6 on the
+    resident-state tier with one chunk (the resident builder's count).
+    Every count must equal the prediction."""
+    import torch
+    from shifu_tpu_torch.models import gbdt
+    rng = np.random.default_rng(96)
+    bins = rng.integers(0, GBT_BINS, (rows, GBT_COLS)).astype(np.uint8)
+    y = (bins[:, 0].astype(np.float32) + rng.normal(0, 8, rows)
+         > GBT_BINS / 2).astype(np.float32)
+    w = np.ones(rows, np.float32)
+    path = os.path.join(tempfile.mkdtemp(), "bins.npy")
+    np.save(path, bins)
+    mm = np.load(path, mmap_mode="r")
+    cfg = gbdt.TreeConfig(max_depth=TRAIN_DEPTH, n_bins=GBT_BINS,
+                          learning_rate=TRAIN_LR, loss="log")
+    out = {}
+    for tier, n_chunks in (("0", chunks), ("1", chunks), ("1", 1)):
+        os.environ["SHIFU_TPU_GBT_RESIDENT_STATE"] = tier
+        chunk_rows = -(-rows // n_chunks)
+        gbdt.build_gbt_streaming(cfg, mm, y, w, 1, chunk_rows=chunk_rows)
+        names = kernels_between_markers(lambda: gbdt.build_gbt_streaming(
+            cfg, mm, y, w, 1, chunk_rows=chunk_rows))
+        got = {"K3": count_kernels(names, "level_hist"),
+               "K5": count_kernels(names, "best_splits")}
+        want = {"K3": (TRAIN_DEPTH + 1) * n_chunks, "K5": TRAIN_DEPTH}
+        key = f"tier {tier}, {n_chunks} chunks"
+        assert got == want, f"{key}: launches {got}, predicted {want}"
+        out[key] = got
+    os.environ.pop("SHIFU_TPU_GBT_RESIDENT_STATE")
+    torch.cuda.synchronize()
+    return out
+
+
+def stream_walls(repeats=2):
+    """`build_gbt_streaming` at 2,000,000 × 28 (ChunkRows 262,144, both
+    row-state tiers) against the resident `build_gbt` at the same shape,
+    log loss, 10 trees, on the card alone: wall seconds after a one-tree
+    warm-up."""
+    import torch
+    from shifu_tpu_torch.models import gbdt
+    cfg = gbdt.TreeConfig(max_depth=TRAIN_DEPTH, n_bins=GBT_BINS,
+                          learning_rate=TRAIN_LR, loss="log")
+    _, binsT, _, y = _gbt_data(HIGGS_ROWS, "cuda")
+    w = torch.ones_like(y)
+    path = os.path.join(tempfile.mkdtemp(), "bins.npy")
+    np.save(path, binsT.cpu().numpy().T.astype(np.uint8))
+    mm = np.load(path, mmap_mode="r")
+    y_h, w_h = y.cpu().numpy(), w.cpu().numpy()
+    def streaming(tier):
+        def fn(n):
+            os.environ["SHIFU_TPU_GBT_RESIDENT_STATE"] = tier
+            return gbdt.build_gbt_streaming(cfg, mm, y_h, w_h, n,
+                                            chunk_rows=STREAM_WALL_CHUNK)
+        return fn
+    runs = {"resident build_gbt": lambda n: gbdt.build_gbt(cfg, binsT, y, w,
+                                                           n),
+            "streaming tier 1": streaming("1"),
+            "streaming tier 0": streaming("0")}
+    out = {}
+    for name, fn in runs.items():
+        fn(1)
+        out[name] = []
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(HIGGS_TREES)
+            torch.cuda.synchronize()
+            out[name].append(time.perf_counter() - t0)
+    os.environ.pop("SHIFU_TPU_GBT_RESIDENT_STATE", None)
+    out["chunks"] = -(-HIGGS_ROWS // STREAM_WALL_CHUNK)
+    print("  p14 streaming walls: " + json.dumps(out))
+    return out
+
+
+def p14_walls():
+    out = {"launches": stream_launches()}
+    print("  p14 streaming launches: " + json.dumps(out["launches"]))
+    out["wdl"] = family_walls("WDL")
+    out["mtl"] = family_walls("MTL")
+    out["stream"] = stream_walls()
+    return out
+
+
 SOURCES = {
     "fused_score": ("shifu_tpu_torch/csrc/fused_score.cu",
                     "shifu_tpu/ops/pallas_score.py:110"),
@@ -3730,6 +4387,9 @@ def main() -> int:
     if sys.argv[1:] == ["--nn-train-walls"]:
         print(json.dumps({"nn_train_walls": nn_train_walls()}))
         return 0
+    if sys.argv[1:] == ["--p14-walls"]:
+        print(json.dumps({"p14_walls": p14_walls()}))
+        return 0
     if sys.argv[1:] == ["--varselect-walls"]:
         print(json.dumps({"varselect_walls": varselect_walls()}))
         return 0
@@ -3774,6 +4434,9 @@ def main() -> int:
             header("phase 13: varselect, stats flags, export and encode "
                    "on the card vs the CPU twin")
             phase_varselect_export(report, w8, workdir)
+    header("phase 14: WDL, MTL and trainOnDisk on the card vs the CPU twin")
+    with tempfile.TemporaryDirectory() as workdir:
+        phase_wdl_mtl_stream(report, workdir)
     print(f"total: {time.monotonic() - t_start:.1f} s on {smi}")
 
     kernels = []

@@ -57,7 +57,7 @@ device work and report the device as "host".
 
 `export -t` writes columnstats, woemapping, woe, pmml, baggingpmml,
 bagging and the ume types on the host, and correlation on `--device`;
-`-t tf` raises (ROADMAP A5). `encode` writes the tree-leaf encoding of
+`-t tf` raises (it needs tensorflow). `encode` writes the tree-leaf encoding of
 the training set (`encoded/`) on `--device`; `convert` turns a model
 spec into an open zip bundle and back; `save`, `switch` and `show` keep
 versions of the model set under `.shifu-versions/`. `combo` and `test`
@@ -68,13 +68,15 @@ run through the pipeline DAG, which is not ported yet: they raise
 `PathFinder.models_path()` rule) until SIGTERM/SIGINT or `--duration-s`,
 then prints the service stats as one JSON line. `train` trains the
 model set's algorithm — GBT/RF/DT from `tmp/CleanedData` into
-``models/model<bag>.{gbt,rf}``, NN/LR/SVM/TENSORFLOW from
-`tmp/NormalizedData` into ``models/model<bag>.{nn,lr}`` — and prints one
-JSON line: the algorithm, the device, the wall seconds and the launches
-of each tree-training kernel during the run; for the dense family also
-the training rows, the bags, the epochs, the trainer's seconds and each
-saved model's best validation error, best epoch and per-epoch train and
-validation errors; its clock starts once the card's context exists.
+``models/model<bag>.{gbt,rf}``, NN/LR/SVM/TENSORFLOW, WDL and MTL from
+`tmp/NormalizedData` into ``models/model<bag>.{nn,lr,wdl,mtl}``; with
+`train#trainOnDisk` from the `.npy` layout `norm` wrote, a chunk at a
+time — and prints one JSON line: the algorithm, the device, the wall
+seconds and the launches of each tree-training kernel during the run;
+for the dense families also the training rows, the bags, the epochs,
+the trainer's seconds and each saved model's best validation error,
+best epoch and per-epoch train and validation errors; its clock starts
+once the card's context exists.
 `--device` defaults to the card and raises when there is none.
 """
 

@@ -6,8 +6,10 @@ knobs, the two resilience knobs `train` refuses (ROADMAP A8), the
 streaming triggers of stats, norm, eval and the analysis steps (stats,
 norm, a resident eval and varselect's analysis frame honour theirs by
 raising: the streaming steps are ROADMAP A6; posttrain, correlation,
-PSI and `eval -norm`/`-score` read in chunks or refuse), and the `export
--t ume` exporter hook: same names, same
+PSI and `eval -norm`/`-score` read in chunks or refuse), the `export
+-t ume` exporter hook, the host-assembly threads of the streaming
+trainers (`data/pipeline.map_prefetch`) and the row-state tier of the
+streaming GBT builder: same names, same
 defaults, and the same warn-and-run parsing (a malformed value logs a
 warning and falls back to the default instead of failing the process).
 The JAX package's routing and TPU-dispatch knobs (`SHIFU_TPU_HIST`,
@@ -80,6 +82,16 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
          "raw-bytes threshold that auto-triggers sampled analysis"),
     Knob("SHIFU_TPU_UME_EXPORTER", None,
          "pkg.module:Class hook for `export -t ume` bundles"),
+    Knob("SHIFU_TPU_PREFETCH_WORKERS", 2,
+         "host-assembly threads for map_prefetch; 0 = sequential"),
+    Knob("SHIFU_TPU_GBT_RESIDENT_STATE", "auto",
+         "streaming GBT row-state tier: 1 keeps node/pred/grad/hess on "
+         "the device (no host sync inside a level, one a round), 0 "
+         "forces the host-numpy state path, auto picks by the "
+         "SHIFU_TPU_GBT_STATE_BUDGET_MB fit"),
+    Knob("SHIFU_TPU_GBT_STATE_BUDGET_MB", 2048,
+         "device budget for resident streaming-GBT row state; auto mode "
+         "goes resident when ~24 B/train row + ~12 B/val row fits"),
 )}
 
 

@@ -1,14 +1,17 @@
 """Scorer — ensemble scoring over model specs, counterpart of
-`shifu_tpu/eval/scorer.py` for the nn / lr / gbt / rf kinds.
+`shifu_tpu/eval/scorer.py` for the nn / lr / gbt / rf / wdl / mtl
+kinds.
 
 `score_matrix` keeps the JAX package's contract: NN-family models read
 the NORMALIZED dense block, or — when the caller passes `norm` and the
 raw numeric block matches the input width — the RAW block through the
 fused normalize + first-layer kernel; tree models read the cleaned raw
-blocks through the fused ensemble kernel. `Scorer.score_multiclass`
+blocks through the fused ensemble kernel; WDL reads the normalized
+dense and index blocks, MTL the dense block (the mean over its
+tasks). `Scorer.score_multiclass`
 scores a multi-class ensemble (NATIVE softmax models and ONEVSALL
-binary models) over the normalized block. The wdl / mtl / tf kinds
-raise NotImplementedError until their slice is ported (ROADMAP A5).
+binary models) over the normalized block. The tf kind (a SavedModel)
+raises: it needs tensorflow.
 `resolve_generic_models` expands an eval set's `customPaths` entry into
 model paths.
 """
@@ -29,7 +32,6 @@ from shifu_tpu_torch.ops import fused_score
 
 log = logging.getLogger("shifu_tpu_torch")
 
-_LATER = {"wdl": "ROADMAP A5", "mtl": "ROADMAP A5", "tf": "ROADMAP A5"}
 
 
 def _as_f32(block, device: torch.device) -> torch.Tensor:
@@ -59,9 +61,10 @@ def score_matrix(kind: str, meta: Dict[str, Any], model: Any, dense,
         rd = raw_dense if raw_dense is not None else dense
         rc = raw_codes if raw_codes is not None else index
         out = gbdt.predict(meta, model, rd, rc)
-    elif kind in _LATER:
-        raise NotImplementedError(
-            f"model kind {kind!r} is not ported yet ({_LATER[kind]})")
+    elif kind in ("wdl", "mtl"):
+        out = model(dense, index)
+    elif kind == "tf":
+        raise NotImplementedError(weights.TF_REFUSAL)
     else:
         raise ValueError(f"unknown model kind {kind!r}")
     return out.cpu().numpy()
@@ -85,8 +88,8 @@ def resolve_generic_models(path: str) -> List[str]:
     """An eval `customPaths` modelsPath / genericModelsPath entry →
     concrete model paths: a SavedModel dir is one model; a directory is
     scanned for spec files and SavedModel subdirectories; a file is a
-    spec. SavedModels then raise when loaded (the `tf` kind, ROADMAP
-    A5)."""
+    spec. SavedModels then raise when loaded (the `tf` kind needs
+    tensorflow)."""
     if os.path.isdir(path):
         if os.path.exists(os.path.join(path, "saved_model.pb")):
             return [path]

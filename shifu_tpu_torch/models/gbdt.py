@@ -1,8 +1,9 @@
 """GBT / RF / DT tree ensembles — counterpart of the resident half of
 `shifu_tpu/models/gbdt.py`: inference (`TreeConfig`, `FusedBins`,
 `make_bin_tables`, `make_fused_inputs`, `bin_dataset`, `_walk_trees`,
-`predict_trees`, `predict`) and the level-wise builders (`build_tree`,
-`build_forest`, `build_gbt`, `build_gbt_bagged`, `build_rf`).
+`predict_trees`, `predict`), the level-wise builders (`build_tree`,
+`build_forest`, `build_gbt`, `build_gbt_bagged`, `build_rf`) and the
+streaming ones (`build_gbt_streaming`, `build_rf_streaming`).
 
 Trees keep the JAX layout: dicts of (T, n_nodes) arrays in a perfect
 binary tree (children of node i at 2i+1 / 2i+2). `predict` serves
@@ -20,7 +21,17 @@ arrays and one routing step of every row. The tensors' device picks the
 route: CUDA launches the kernels, CPU runs their plain versions. Only
 the JAX package's per-level builder is ported; its single-dispatch
 `fori_loop` variant (`SHIFU_TPU_TREE_SCAN`) exists to save XLA
-dispatches and is pinned bitwise to the per-level one.
+dispatches and is pinned bitwise to the per-level one (the streaming
+builder's one-chunk case, which the JAX package runs through that
+variant, runs the per-level builder here).
+
+The streaming builders (`train#trainOnDisk`) read a memory-mapped (R,
+C) bin matrix a chunk at a time: per level each chunk is routed and its
+partial histograms (K3) are summed over the chunks, then the sibling
+subtraction, then K5 once a level — K3 (max_depth + 1) times a chunk
+and K5 max_depth times a tree. The row state lives on the host (the
+routed nodes come back after every chunk) or, when it fits, on the
+device (`gbt_resident_state_mode`; no host read inside a level).
 
 The JAX package shards rows over its mesh, pads them with zero weight
 and reduces with `psum`; the port has one device and no padding, so
@@ -39,7 +50,7 @@ import numpy as np
 import torch
 
 from shifu_tpu_torch import resolve_device
-from shifu_tpu_torch.config.environment import knob_bool
+from shifu_tpu_torch.config.environment import knob_bool, knob_int, knob_str
 from shifu_tpu_torch.ops import best_splits as split_op
 from shifu_tpu_torch.ops import fused_trees, level_hist
 from shifu_tpu_torch.ops.stats import bin_index_numeric
@@ -802,3 +813,370 @@ def build_rf(cfg: TreeConfig, bins, y, weights, n_trees: int,
     trees = build_forest(cfg, jb, grad_T, hess_T, _f32(masks, dev),
                          subtract=_use_hist_subtract())
     return _to_numpy(trees)
+
+
+# ---------------------------------------------------------------------------
+# Out-of-core (streaming) builders — chunked histogram accumulation
+# ---------------------------------------------------------------------------
+
+def gbt_resident_state_mode(n_train: int, n_val: int = 0) -> bool:
+    """Row-state tier of the streaming GBT builder.
+    SHIFU_TPU_GBT_RESIDENT_STATE = 1 keeps the row state on the device,
+    0 on the host, auto (default) on the device when it fits
+    SHIFU_TPU_GBT_STATE_BUDGET_MB: ≈ 24 B a training row (node, pred,
+    grad, hess and the y/w copies the gradients read) + 12 B a
+    validation row. The bin matrix streams from disk either way."""
+    mode = knob_str("SHIFU_TPU_GBT_RESIDENT_STATE").lower()
+    if mode in ("0", "off", "false"):
+        return False
+    if mode in ("1", "on", "true"):
+        return True
+    budget = knob_int("SHIFU_TPU_GBT_STATE_BUDGET_MB") << 20
+    return n_train * 24 + n_val * 12 <= budget
+
+
+def _chunk_bins(bins_mm, a: int, b: int) -> np.ndarray:
+    """Rows [a, b) of the (R, C) bin matrix as the (C, rows) block the
+    histogram kernel reads: uint8 stays one byte, wider bins go int32."""
+    blk = np.ascontiguousarray(np.asarray(bins_mm[a:b]).T)
+    return blk if blk.dtype == np.uint8 else blk.astype(np.int32)
+
+
+def _stream_level_chunk(cfg: TreeConfig, trees, binsT_c, node_c, grad_c,
+                        hess_c, depth: int, half: bool):
+    """One chunk's work for one level: route the chunk's rows through
+    the previous level's splits, then this level's partial histograms
+    (K3) — histograms add over row chunks, so the level's G/H are the
+    sum of these partials. node_c, grad_c, hess_c: (1, rows). With
+    `half`, only the left children go through the kernel, at their
+    parents' slots (sibling subtraction)."""
+    if depth > 0:
+        node_c = _route_level(cfg, trees, binsT_c, node_c, depth - 1)
+    level_offset = 2 ** depth - 1
+    n_level = 2 ** depth
+    hist_node = node_c
+    if half:
+        hist_node = _left_half_nodes(node_c, level_offset, n_level)
+        n_level //= 2
+    g, h = _level_histograms(binsT_c, hist_node, grad_c, hess_c,
+                             level_offset, n_level, cfg.n_bins)
+    return node_c, g, h
+
+
+def _grow_streaming(cfg: TreeConfig, level_chunks, fm):
+    """The level loop shared by both row-state tiers: per level,
+    `level_chunks(trees, depth, half)` runs `_stream_level_chunk` over
+    every chunk and returns the summed partial histograms; then the
+    sibling subtraction, then the split search (K5) once a level, or
+    the final leaves. Returns the (1, n_nodes) tree arrays."""
+    trees = _empty_trees(cfg, 1, fm.device)
+    prev_g = prev_h = None
+    subtract = _use_hist_subtract()
+    for depth in range(cfg.max_depth + 1):
+        half = subtract and depth > 0 and prev_g is not None
+        g, h = level_chunks(trees, depth, half)
+        if half:
+            split = _parent_split_mask(trees["is_leaf"], trees["feature"],
+                                       depth)
+            g, h = _subtract_siblings(prev_g, prev_h, g, h, split,
+                                      2 ** depth)
+        prev_g, prev_h = (g, h) if subtract else (None, None)
+        if depth < cfg.max_depth:
+            _apply_level(cfg, trees, g, h, fm, depth)
+        else:
+            _final_leaves(cfg, trees, g, h)
+    return trees
+
+
+def _build_tree_streaming(cfg: TreeConfig, bins_mm, grad_of_chunk,
+                          node_host: np.ndarray, chunk_rows: int, fm,
+                          stager):
+    """Grow one tree over a bin matrix that never enters the device
+    whole, the row state on the host. bins_mm: (R, C) memory-mapped;
+    grad_of_chunk(a, b) → host (grad, hess); node_host: (R,) int32
+    scratch (zero at the start), left at every row's landing node. One
+    bins pass a level; each chunk's copy is issued before the previous
+    chunk's routed nodes come back."""
+    r = bins_mm.shape[0]
+    bounds = [(s, min(s + chunk_rows, r)) for s in range(0, r, chunk_rows)]
+
+    def put(bnd):
+        a, b = bnd
+        grad, hess = grad_of_chunk(a, b)
+        return (stager.put("bins", _chunk_bins(bins_mm, a, b)),
+                stager.put("node", node_host[None, a:b]).long(),
+                stager.put("grad", np.asarray(grad, np.float32)[None]),
+                stager.put("hess", np.asarray(hess, np.float32)[None]))
+
+    def level_chunks(trees, depth, half):
+        g_acc = h_acc = None
+        cur = put(bounds[0])
+        for ci, (a, b) in enumerate(bounds):
+            node_c, g, h = _stream_level_chunk(cfg, trees, *cur, depth,
+                                               half)
+            if ci + 1 < len(bounds):
+                cur = put(bounds[ci + 1])
+            node_host[a:b] = node_c[0].cpu().numpy()
+            g_acc = g if g_acc is None else g_acc + g
+            h_acc = h if h_acc is None else h_acc + h
+        return g_acc, h_acc
+    return _grow_streaming(cfg, level_chunks, fm)
+
+
+def _build_tree_streaming_device(cfg: TreeConfig, bins_put, n_chunks: int,
+                                 node_state, grad_state, hess_state, fm):
+    """The resident-state twin of `_build_tree_streaming`: node, grad
+    and hess stay on the device as one (1, rows) tensor a chunk, only
+    the bins stream in, and nothing inside a level is read on the host.
+    node_state is updated in place with each chunk's routed nodes."""
+    def level_chunks(trees, depth, half):
+        g_acc = h_acc = None
+        cur = bins_put(0)
+        for ci in range(n_chunks):
+            node_c, g, h = _stream_level_chunk(
+                cfg, trees, cur, node_state[ci], grad_state[ci],
+                hess_state[ci], depth, half)
+            if ci + 1 < n_chunks:
+                cur = bins_put(ci + 1)   # the copy overlaps the compute
+            node_state[ci] = node_c
+            g_acc = g if g_acc is None else g_acc + g
+            h_acc = h if h_acc is None else h_acc + h
+        return g_acc, h_acc
+    return _grow_streaming(cfg, level_chunks, fm)
+
+
+def _one(trees) -> Dict[str, torch.Tensor]:
+    return {k: v[0] for k, v in trees.items()}
+
+
+def _stack_host(trees: List[Dict[str, torch.Tensor]]):
+    return _to_numpy({k: torch.stack([t[k] for t in trees])
+                      for k in trees[0]})
+
+
+def _build_gbt_streaming_resident(cfg: TreeConfig, bins_mm, y_mm, w_mm,
+                                  n_trees: int, chunk_rows: int, fm,
+                                  init_trees, early_stop_window: int,
+                                  n_train: int, n_val: int, dev, stager):
+    """The device-resident row-state tier of `build_gbt_streaming`:
+    node/pred/grad/hess and the y/w the gradients read live on the
+    device, a tensor a chunk, for the whole build; the bins stream from
+    disk a chunk at a time (one chunk stays on the device across rounds
+    when the data is one chunk). Gradients and the log-loss sigmoid run
+    on the device, the boosting update is a gather of leaf values at
+    the routed nodes, and the round's validation error is summed on the
+    device and read once a round: no host read inside a level."""
+    r = n_train + n_val
+    bounds = [(s, min(s + chunk_rows, n_train))
+              for s in range(0, n_train, chunk_rows)]
+    vbounds = [(s, min(s + chunk_rows, r))
+               for s in range(n_train, r, chunk_rows)]
+    n_chunks = len(bounds)
+
+    def put_bins(a, b):
+        return stager.put("bins", _chunk_bins(bins_mm, a, b))
+
+    def col(src, a, b, key):
+        return stager.put(key, np.asarray(src[a:b], np.float32)[None])
+
+    y_dev = [col(y_mm, a, b, "y") for a, b in bounds]
+    w_dev = [col(w_mm, a, b, "w") for a, b in bounds]
+    pred_dev = [torch.zeros_like(t) for t in y_dev]
+    node_init = [torch.zeros(t.shape, dtype=torch.long, device=dev)
+                 for t in y_dev]
+    vy_dev = [col(y_mm, a, b, "vy") for a, b in vbounds]
+    vw_dev = [torch.ones_like(t) for t in vy_dev]   # unit val weights
+    vraw_dev = [torch.zeros_like(t) for t in vy_dev]
+    bins_resident = put_bins(*bounds[0]) if n_chunks == 1 else None
+
+    def bins_put(ci):
+        if bins_resident is not None:
+            return bins_resident
+        return put_bins(*bounds[ci])
+
+    def add_predict(tree1, binsT, raw):
+        return raw + cfg.learning_rate * predict_trees(
+            tree1, binsT, cfg.max_depth, cfg.n_bins)
+
+    trees: List[Dict[str, torch.Tensor]] = []
+    if init_trees is not None:
+        init = _trees_on(init_trees, dev)
+        for i in range(init["feature"].shape[0]):
+            tree1 = {k: v[i:i + 1] for k, v in init.items()}
+            trees.append(_one(tree1))
+            for ci in range(n_chunks):
+                pred_dev[ci] = add_predict(tree1, bins_put(ci), pred_dev[ci])
+            for vi, (a, b) in enumerate(vbounds):
+                vraw_dev[vi] = add_predict(tree1, put_bins(a, b),
+                                           vraw_dev[vi])
+    grad_state: List[Any] = [None] * n_chunks
+    hess_state: List[Any] = [None] * n_chunks
+    val_errs: List[float] = []
+    best_val, bad = np.inf, 0
+    for _ in range(n_trees):
+        node_state = list(node_init)
+        for ci in range(n_chunks):
+            grad_state[ci], hess_state[ci] = gbt_gradients(
+                y_dev[ci], pred_dev[ci], w_dev[ci], cfg.loss)
+        tree1 = _build_tree_streaming_device(
+            cfg, bins_put, n_chunks, node_state, grad_state, hess_state, fm)
+        trees.append(_one(tree1))
+        for ci in range(n_chunks):   # a leaf gather: no IO, no host read
+            pred_dev[ci] = pred_dev[ci] + cfg.learning_rate * torch.gather(
+                tree1["leaf_value"], 1, node_state[ci])
+        if n_val:
+            num = den = None
+            for vi, (a, b) in enumerate(vbounds):
+                vraw_dev[vi] = add_predict(tree1, put_bins(a, b),
+                                           vraw_dev[vi])
+                vp = torch.sigmoid(vraw_dev[vi]) \
+                    if cfg.loss.startswith("log") else vraw_dev[vi]
+                nm = torch.sum((vp - vy_dev[vi]) ** 2 * vw_dev[vi])
+                dn = torch.sum(vw_dev[vi])
+                num = nm if num is None else num + nm
+                den = dn if den is None else den + dn
+            # the round's one host read: early stop is a host decision
+            err = float(num / torch.clamp(den, min=1e-12))
+            val_errs.append(err)
+            if err < best_val - 1e-9:
+                best_val, bad = err, 0
+            else:
+                bad += 1
+                if early_stop_window and bad >= early_stop_window:
+                    break
+    return _stack_host(trees), val_errs
+
+
+def build_gbt_streaming(cfg: TreeConfig, bins_mm, y_mm, w_mm, n_trees: int,
+                        valid_rate: float = 0.0, chunk_rows: int = 1 << 20,
+                        feature_mask: Optional[np.ndarray] = None,
+                        init_trees: Optional[Any] = None,
+                        early_stop_window: int = 0,
+                        n_val: Optional[int] = None,
+                        device: "str | torch.device" = "cuda"):
+    """Out-of-core boosting on `device`: the (R, C) bin matrix (a
+    memmap) streams a chunk at a time, max_depth + 1 passes a tree. The
+    row state lives on the device when it fits
+    (`gbt_resident_state_mode`), else on the host at 8 bytes a row.
+    Validation is the trailing `n_val` rows (default valid_rate of
+    them), with unit weights. Returns (stacked numpy trees, per-round
+    val errors)."""
+    from shifu_tpu_torch.data.pipeline import Stager
+    dev = resolve_device(device)
+    r, c = bins_mm.shape
+    if n_val is None:
+        n_val = int(r * max(valid_rate, 0.0))
+    n_train = r - n_val
+    if n_train <= 0:
+        raise ValueError("streaming GBT needs at least one training row")
+    fm = _f32(feature_mask if feature_mask is not None
+              else np.ones(c, np.float32), dev)[None]
+    stager = Stager(dev)
+    if gbt_resident_state_mode(n_train, n_val):
+        return _build_gbt_streaming_resident(
+            cfg, bins_mm, y_mm, w_mm, n_trees, chunk_rows, fm, init_trees,
+            early_stop_window, n_train, n_val, dev, stager)
+
+    pred = np.zeros(n_train, np.float32)
+    vraw = np.zeros(n_val, np.float32)
+    node_host = np.zeros(n_train, np.int32)
+    trees: List[Dict[str, torch.Tensor]] = []
+    if init_trees is not None:
+        init = _trees_on(init_trees, dev)
+        for i in range(init["feature"].shape[0]):
+            tree1 = {k: v[i:i + 1] for k, v in init.items()}
+            trees.append(_one(tree1))
+            _accumulate_pred(cfg, tree1, bins_mm, pred, vraw, n_train,
+                             chunk_rows, stager)
+
+    def grad_of_chunk(a, b):
+        y_c = np.asarray(y_mm[a:b], np.float32)
+        w_c = np.asarray(w_mm[a:b], np.float32)
+        if cfg.loss.startswith("log"):
+            p = 1.0 / (1.0 + np.exp(-pred[a:b]))
+            return (p - y_c) * w_c, p * (1 - p) * w_c
+        return (pred[a:b] - y_c) * w_c, np.ones_like(y_c) * w_c
+
+    val_errs: List[float] = []
+    best_val, bad = np.inf, 0
+    for _ in range(n_trees):
+        node_host[:] = 0
+        tree1 = _build_tree_streaming(cfg, bins_mm[:n_train], grad_of_chunk,
+                                      node_host, chunk_rows, fm, stager)
+        trees.append(_one(tree1))
+        leaf = tree1["leaf_value"][0].cpu().numpy()
+        pred += cfg.learning_rate * leaf[node_host]
+        if n_val:
+            for a in range(n_train, r, chunk_rows):
+                b = min(a + chunk_rows, r)
+                contrib = predict_trees(
+                    tree1, stager.put("vbins", _chunk_bins(bins_mm, a, b)),
+                    cfg.max_depth, cfg.n_bins)[0].cpu().numpy()
+                vraw[a - n_train:b - n_train] += cfg.learning_rate * contrib
+            vy = np.asarray(y_mm[n_train:r], np.float32)
+            err = float(_val_error(torch.as_tensor(vraw),
+                                   torch.as_tensor(vy),
+                                   torch.ones(len(vy)), cfg.loss))
+            val_errs.append(err)
+            if err < best_val - 1e-9:
+                best_val, bad = err, 0
+            else:
+                bad += 1
+                if early_stop_window and bad >= early_stop_window:
+                    break
+    return _stack_host(trees), val_errs
+
+
+def _accumulate_pred(cfg: TreeConfig, tree1, bins_mm, pred, vraw,
+                     n_train: int, chunk_rows: int, stager) -> None:
+    """Add one tree's shrunk scores to the host train and val raw scores
+    by streaming the bin matrix (resuming from init_trees)."""
+    r = bins_mm.shape[0]
+    for a in range(0, r, chunk_rows):
+        b = min(a + chunk_rows, r)
+        contrib = cfg.learning_rate * predict_trees(
+            tree1, stager.put("vbins", _chunk_bins(bins_mm, a, b)),
+            cfg.max_depth, cfg.n_bins)[0].cpu().numpy()
+        if a < n_train:
+            hi = min(b, n_train)
+            pred[a:hi] += contrib[:hi - a]
+        if b > n_train:
+            lo = max(a, n_train)
+            vraw[lo - n_train:b - n_train] += contrib[lo - a:]
+
+
+def build_rf_streaming(cfg: TreeConfig, bins_mm, y_mm, w_mm, n_trees: int,
+                       subset_strategy: str, bagging_rate: float,
+                       seed: int, chunk_rows: int = 1 << 20,
+                       device: "str | torch.device" = "cuda"):
+    """Out-of-core random forest on `device`: trees build one after
+    another (the resident build grows them in lockstep over the whole
+    matrix), each with counter-based Poisson instance weights (numpy
+    Philox keyed ``seed + 104729·t`` at the chunk's first row) and a
+    feature subset from ``default_rng(seed)``."""
+    from shifu_tpu_torch.data.pipeline import Stager
+    dev = resolve_device(device)
+    r, c = bins_mm.shape
+    rng = np.random.default_rng(seed)
+    k = feature_subset_count(subset_strategy, c)
+    stager = Stager(dev)
+    node_host = np.zeros(r, np.int32)
+    trees = []
+    for t in range(n_trees):
+        mask = np.zeros(c, np.float32)
+        mask[rng.choice(c, size=k, replace=False)] = 1.0
+
+        def grad_of_chunk(a, b, t=t):
+            y_c = np.asarray(y_mm[a:b], np.float32)
+            w_c = np.asarray(w_mm[a:b], np.float32)
+            gen = np.random.Generator(np.random.Philox(
+                key=seed + 104729 * t, counter=a))
+            iw = gen.poisson(max(bagging_rate, 1e-6),
+                             b - a).astype(np.float32)
+            return -(y_c * w_c * iw), w_c * iw
+
+        node_host[:] = 0
+        trees.append(_one(_build_tree_streaming(
+            cfg, bins_mm, grad_of_chunk, node_host, chunk_rows,
+            _f32(mask, dev)[None], stager)))
+    return _stack_host(trees)

@@ -72,12 +72,14 @@ def save_model(path: str, kind: str, meta: Dict[str, Any],
 
 def load_model(path: str) -> Tuple[str, Dict[str, Any], Any]:
     """Read a model spec → (kind, meta, params). A TensorFlow SavedModel
-    directory raises: external `tf` models are ROADMAP A5."""
+    directory raises: external `tf` models need tensorflow (ROADMAP,
+    not queued until tensorflow is on the card machine)."""
     if os.path.isdir(path):
         if os.path.exists(os.path.join(path, "saved_model.pb")):
             raise NotImplementedError(
-                f"{path} is a TF SavedModel; the `tf` model kind is not "
-                "ported yet (ROADMAP A5)")
+                f"{path} is a TF SavedModel; the `tf` model kind needs "
+                "tensorflow (ROADMAP, not queued until tensorflow is on "
+                "the card machine)")
         raise ValueError(
             f"{path} is a directory but not a TF SavedModel "
             "(no saved_model.pb)")

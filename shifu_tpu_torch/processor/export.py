@@ -7,7 +7,8 @@ baggingpmml (one PMML averaging the NN bags), woe (per-variable WOE
 intervals), and ume / baggingume / normume through the
 SHIFU_TPU_UME_EXPORTER hook (rc 3 when it is absent). `tf` (a
 TensorFlow SavedModel, through jax2tf in the JAX package) raises: it
-comes with the `tf` model kind (ROADMAP A5).
+needs tensorflow (ROADMAP, not queued until tensorflow is on the card
+machine).
 
 Every type but correlation is a host-side file conversion. The port is
 one process, so no writer election and no `step_guard` manifest (A8).
@@ -61,9 +62,9 @@ def run(ctx: ProcessorContext, export_type: str = "columnstats",
         out = _export_pmml(ctx)
     elif et == "tf":
         raise NotImplementedError(
-            "export -t tf (a TensorFlow SavedModel of an NN spec) is not "
-            "ported: it comes with the `tf` model kind (ROADMAP A5); "
-            "export PMML or the portable spec instead")
+            "export -t tf (a TensorFlow SavedModel of an NN spec) needs "
+            "tensorflow (ROADMAP, not queued until tensorflow is on the "
+            "card machine); export PMML or the portable spec instead")
     elif et == "bagging":
         out = _export_bagging(ctx)
     elif et == "baggingpmml":

@@ -17,8 +17,9 @@ each block through `fileio.atomic_path` and meta.json last through
 `atomic_write`, so a reader never sees a meta that points at a
 half-written block.
 
-Not ported: the streaming norm of a dataset past the size trigger and
-the `train#trainOnDisk` `.npy` layout (ROADMAP A6) — both raise.
+With `train#trainOnDisk` both directories also get the streaming
+trainers' `.npy` layout (`save_normalized`). Not ported: the streaming
+norm of a dataset past the size trigger (ROADMAP A6), which raises.
 """
 
 from __future__ import annotations
@@ -189,28 +190,64 @@ def save_normalized(path: str, result: NormResult, tags: np.ndarray,
                     task_tags: Optional[np.ndarray] = None,
                     ptype: str = "FLOAT32",
                     streaming: bool = False) -> None:
-    """Write ``data.npz`` then ``meta.json`` under `path`."""
-    if streaming:
-        raise NotImplementedError(
-            "train#trainOnDisk: the streaming .npy layout is not ported "
-            "yet (ROADMAP A6)")
+    """Write ``data.npz`` then ``meta.json`` under `path`. With
+    `streaming` (train#trainOnDisk) the rows are first shuffled once by
+    ``default_rng(0x5F00D)`` (the streaming trainers take the trailing
+    rows as the validation set, so a label-sorted input must not make a
+    one-class one), and the blocks are also laid out as raw ``.npy``
+    files the trainers memory-map a chunk at a time: ``dense.npy``
+    (real f16 bytes under FLOAT16), ``tags.npy``, ``weights.npy``,
+    ``index.npy`` when there are categoricals and ``task_tags.npy`` for
+    a multi-task set."""
     os.makedirs(path, exist_ok=True)
+    index = result.index
+    shuffle_seed = None
+    if streaming:
+        shuffle_seed = 0x5F00D
+        perm = np.random.default_rng(shuffle_seed).permutation(
+            result.dense.shape[0] if result.dense.size else tags.shape[0])
+        result = NormResult(
+            dense=result.dense[perm] if result.dense.size else result.dense,
+            dense_names=result.dense_names,
+            index=index[perm] if index.size else index,
+            index_names=result.index_names,
+            index_vocab_sizes=result.index_vocab_sizes)
+        index = result.index
+        tags = tags[perm]
+        weights = weights[perm]
+        if task_tags is not None and task_tags.size:
+            task_tags = task_tags[perm]
     extra = {}
     if task_tags is not None and task_tags.size:
         extra["task_tags"] = task_tags.astype(np.float32)
     dense = apply_precision(result.dense, ptype)
+    # every block goes through a temporary name and a rename, meta.json
+    # last: a reader never sees a meta that points at a half-written
+    # block
     with atomic_path(os.path.join(path, "data.npz")) as tmp:
         np.savez_compressed(
-            tmp, dense=dense, index=result.index,
+            tmp, dense=dense, index=index,
             tags=tags.astype(np.float32),
             weights=weights.astype(np.float32), **extra)
+    if streaming:
+        blocks = {"dense": dense.astype(np.float16) if ptype == "FLOAT16"
+                  else dense,
+                  "tags": tags.astype(np.float32),
+                  "weights": weights.astype(np.float32)}
+        if index.size:
+            blocks["index"] = index.astype(np.int32)
+        if "task_tags" in extra:
+            blocks["task_tags"] = extra["task_tags"]
+        for name, block in blocks.items():
+            with atomic_path(os.path.join(path, f"{name}.npy")) as tmp:
+                np.save(tmp, np.ascontiguousarray(block))
     with atomic_write(os.path.join(path, "meta.json")) as f:
         json.dump({"denseNames": result.dense_names,
                    "indexNames": result.index_names,
                    "indexVocabSizes": result.index_vocab_sizes,
                    "precisionType": ptype,
-                   "streaming": False,
-                   "shuffleSeed": None}, f, indent=1)
+                   "streaming": bool(streaming),
+                   "shuffleSeed": shuffle_seed}, f, indent=1)
 
 
 def load_normalized_meta(path: str) -> Dict:
@@ -247,10 +284,6 @@ def run(ctx: ProcessorContext, dataset: Optional[ColumnarDataset] = None,
     mc = ctx.model_config
     ctx.validate(ModelStep.NORMALIZE)
     ctx.require_columns()
-    if mc.train.trainOnDisk:
-        raise NotImplementedError(
-            "train#trainOnDisk: the streaming .npy layout is not ported "
-            "yet (ROADMAP A6)")
     cols = selected_candidates(ctx.column_configs)
     if dataset is None:
         chunk = norm_chunk_rows(ctx)
@@ -268,7 +301,8 @@ def run(ctx: ProcessorContext, dataset: Optional[ColumnarDataset] = None,
     result = normalize_columns(mc, cols, dataset, device=dev)
     save_normalized(ctx.path_finder.normalized_data_path(), result,
                     dataset.tags, dataset.weights,
-                    task_tags=dataset.task_tags, ptype=precision_type(mc))
+                    task_tags=dataset.task_tags, ptype=precision_type(mc),
+                    streaming=mc.train.trainOnDisk)
 
     # cleaned data for tree algorithms: raw numeric (NaN = missing) +
     # category codes with missing → the vocab_len slot
@@ -278,7 +312,8 @@ def run(ctx: ProcessorContext, dataset: Optional[ColumnarDataset] = None,
         index_vocab_sizes=[len(v) + 1 for v in dataset.vocabs])
     save_normalized(ctx.path_finder.cleaned_data_path(), clean,
                     dataset.tags, dataset.weights,
-                    task_tags=dataset.task_tags)
+                    task_tags=dataset.task_tags,
+                    streaming=mc.train.trainOnDisk)
     if report is not None:
         report["rows"] = dataset.num_rows
     log.info("norm: %d rows → dense %s, index %s in %.2fs",

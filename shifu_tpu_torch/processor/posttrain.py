@@ -5,13 +5,14 @@ The port of `shifu_tpu/processor/posttrain.py`
 trained ensemble on `device`, average the score per (column, bin) into
 `columnBinning.binAvgScore`, and rank features into
 `featureimportance.csv` (tree models: split counts; NN/LR: the squared
-score deltas of column ablations, `varselect._sensitivity_kernel`).
+score deltas of column ablations, `varselect._sensitivity_kernel`;
+WDL/MTL: the same deltas from one scoring pass a column, a dense column
+zeroed or an index column set to its missing slot).
 
 Bin score sums/counts and squared ablation deltas are pure sums, so a
 raw set past the analysis trigger (`chunking.analysis_chunk_rows`) is
 read in chunks (`reader.iter_raw_table`) and merges exactly. The
-`step_guard` completion manifest is ROADMAP A8, and the WDL/MTL
-ablation A5.
+`step_guard` completion manifest is ROADMAP A8.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 
 from shifu_tpu_torch import resolve_device
 from shifu_tpu_torch.data.reader import iter_raw_table
-from shifu_tpu_torch.eval.scorer import Scorer
+from shifu_tpu_torch.eval.scorer import Scorer, score_matrix
 from shifu_tpu_torch.fileio import atomic_write
 from shifu_tpu_torch.ops import stats as stats_ops
 from shifu_tpu_torch.ops.normalize import build_numeric_table
@@ -139,8 +140,8 @@ def _add_bins(bin_sums, bin_cnts, cn: int, idx: np.ndarray,
 class _ImportanceAccumulator:
     """Tree models: split counts per feature
     (`CommonUtils.computeTreeModelFeatureImportance`) — no data needed.
-    NN/LR: squared ablation-delta sums, accumulated per chunk and
-    divided by the total row count at the end — identical to the
+    NN/LR/WDL/MTL: squared ablation-delta sums, accumulated per chunk
+    and divided by the total row count at the end — identical to the
     resident mean."""
 
     def __init__(self, scorer: Scorer):
@@ -148,13 +149,11 @@ class _ImportanceAccumulator:
         self.device = scorer.device
         self.sums: Dict[str, float] = {}
         self.n = 0
-        if self.kind not in ("gbt", "rf", "nn", "lr"):
-            raise NotImplementedError(
-                f"posttrain feature importance for model kind "
-                f"{self.kind!r} is not ported yet (ROADMAP A5)")
-
     def add_chunk(self, result) -> None:
         if self.kind in ("gbt", "rf"):
+            return
+        if self.kind in ("wdl", "mtl"):
+            self._add_ablations(result)
             return
         with torch.inference_mode():
             x = torch.as_tensor(result.dense, dtype=torch.float32,
@@ -166,6 +165,31 @@ class _ImportanceAccumulator:
         for name, d in zip(result.dense_names, deltas):
             self.sums[name] = self.sums.get(name, 0.0) + float(d)
         self.n += result.dense.shape[0]
+
+    def _add_ablations(self, result) -> None:
+        """WDL/MTL: one scoring pass a column through `score_matrix`,
+        the dense column zeroed or the index column set to its missing
+        slot (the JAX package's host loop)."""
+        def score(d, i):
+            return score_matrix(self.kind, self.meta, self.model, d, i)
+
+        dense = result.dense
+        index = result.index if result.index.size else None
+        base = score(dense, index)
+        for j, name in enumerate(result.dense_names):
+            wiped = dense.copy()
+            wiped[:, j] = 0.0
+            self.sums[name] = self.sums.get(name, 0.0) \
+                + float(np.sum((score(wiped, index) - base) ** 2))
+        if index is not None:
+            vocab_sizes = self.meta.get("indexVocabSizes") or \
+                [int(index[:, j].max()) + 1 for j in range(index.shape[1])]
+            for j, name in enumerate(result.index_names):
+                wiped = index.copy()
+                wiped[:, j] = vocab_sizes[j] - 1   # the missing slot
+                self.sums[name] = self.sums.get(name, 0.0) \
+                    + float(np.sum((score(dense, wiped) - base) ** 2))
+        self.n += dense.shape[0]
 
     def finalize(self) -> Dict[str, float]:
         if self.kind in ("gbt", "rf"):

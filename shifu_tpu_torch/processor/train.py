@@ -11,9 +11,15 @@ structure) and multi-class (NATIVE softmax head, or ONEVSALL: one binary
 model a class, meta `ovaClass`) run as in the JAX package, and the saved
 `models/model<i>.{nn,lr}` and `tmp/valerr.json` are its files.
 
-Not ported, each raising and naming its ROADMAP item: WDL/MTL (A5);
-`train#trainOnDisk`, the streaming trainer (A6); `CheckpointInterval >
-0` (orbax checkpoints of the carry), the supervised restart loop
+WDL and MTL train in `processor/train_wdl` and `processor/train_mtl`.
+With `train#trainOnDisk` every family trains from the `.npy` layout
+`norm` wrote, a chunk at a time (`train/streaming`, the streaming tree
+builders of `models/gbdt`); multi-class ignores it and trains resident,
+and `numKFold` with it raises, as in the JAX package.
+
+Not ported, each raising and naming its ROADMAP item:
+`CheckpointInterval > 0` (orbax checkpoints of the carry), the
+supervised restart loop
 (`SHIFU_TPU_MAX_RESTARTS > 0`) and the `step_guard` resume
 (`SHIFU_TPU_RESUME`) (A8). The JAX package's `_record_train_roofline`
 (its `profiling` records, A8) has no counterpart; `cli train` prints
@@ -85,9 +91,14 @@ def run(ctx: ProcessorContext, seed: int = 12306,
         if report is not None:
             report.update(_dense_report(results))
     elif alg in (Algorithm.WDL, Algorithm.MTL):
-        raise NotImplementedError(
-            f"training {alg.value} is not ported yet: it comes with the "
-            "WDL/MTL slice (ROADMAP A5)")
+        if alg is Algorithm.WDL:
+            from shifu_tpu_torch.processor import train_wdl
+            results = train_wdl.run_wdl(ctx, seed, resolve_device(device))
+        else:
+            from shifu_tpu_torch.processor import train_mtl
+            results = train_mtl.run_mtl(ctx, seed, resolve_device(device))
+        if report is not None:
+            report.update(_dense_report(results))
     else:
         raise ValueError(f"unsupported algorithm {alg}")
     log.info("train[%s] done in %.2fs", alg.value, time.time() - t0)
@@ -157,10 +168,16 @@ def _kind(alg: Algorithm) -> str:
 def _train_dense(ctx: ProcessorContext, seed: int,
                  device: torch.device) -> List[TrainResult]:
     mc = ctx.model_config
+    # streaming first: loading the npz here would read the whole table
+    # that trainOnDisk keeps out of memory (multi-class trains resident)
     if mc.train.trainOnDisk and not mc.is_multi_classification:
-        raise NotImplementedError(
-            "train#trainOnDisk (the streaming NN trainer) is not ported "
-            "yet (ROADMAP A6)")
+        if (mc.train.numKFold or 0) > 1:
+            raise ValueError(
+                "train#numKFold is not supported with trainOnDisk — the "
+                "streaming layout carries one fixed validation region; "
+                "run k-fold resident (drop trainOnDisk) or use "
+                "validSetRate instead")
+        return _train_dense_streaming(ctx, seed, device)
     data, _ = _load_dense_training_data(ctx)
     x = data["dense"].astype(np.float32)
     y = data["tags"].astype(np.float32)
@@ -329,6 +346,46 @@ def _save_dense_models(ctx: ProcessorContext, res: TrainResult,
         save_model(path, kind, spec_meta, params)
     log.info("saved %d %s model(s) under %s", len(res.params_per_bag),
              kind, ctx.path_finder.models_path())
+
+
+def _train_dense_streaming(ctx: ProcessorContext, seed: int,
+                           device: torch.device) -> List[TrainResult]:
+    """train#trainOnDisk: the normalized `.npy` layout streams as
+    memory-mapped row chunks (`train/streaming.train_nn_streaming`).
+    Grid search is a full-batch feature and is not expanded here, as in
+    the JAX package; continuous training starts from models/model0."""
+    from shifu_tpu_torch.train import streaming
+    mc = ctx.model_config
+    streaming.checkpoint_args(mc)
+    path = ctx.path_finder.normalized_data_path()
+    if not os.path.exists(os.path.join(path, "dense.npy")):
+        raise FileNotFoundError(
+            f"streaming layout not found at {path}; run `norm` with "
+            "train#trainOnDisk=true so dense.npy/tags.npy are written")
+    dense, tags, weights = streaming.mmap_layout(path, "dense", "tags",
+                                                 "weights")
+
+    def get_chunk(a, b):
+        # the stored dtype stays: an f16 layout widens on the device
+        y = np.asarray(tags[a:b], np.float32)
+        w = streaming.upsampled_weights(
+            y, np.asarray(weights[a:b], np.float32), mc.train.upSampleWeight)
+        return np.asarray(dense[a:b]), y, w
+
+    alg = mc.train.algorithm
+    spec = _make_spec(alg, mc.train.params, dense.shape[1])
+    init_params, fixed, gmask = _continuous_init(ctx, spec, seed)
+    chunk_rows, n_val = streaming.streaming_train_args(
+        mc, norm_proc.load_normalized_meta(path))
+    res = streaming.train_nn_streaming(
+        mc.train, get_chunk, len(tags), dense.shape[1], seed=seed,
+        spec=spec, chunk_rows=chunk_rows, init_params=init_params,
+        fixed_layers=fixed, grad_mask=gmask, n_val=n_val,
+        bag_labels=lambda a, b: np.asarray(tags[a:b], np.float32),
+        device=device)
+    _save_dense_models(ctx, res, alg)
+    _write_val_errors(ctx, res)
+    return [res]
 
 
 def _train_dense_ovr(ctx: ProcessorContext, x: np.ndarray, y: np.ndarray,

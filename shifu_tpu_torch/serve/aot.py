@@ -150,7 +150,7 @@ def plain_scores(kind: str, meta: Dict[str, Any], model: Any,
                        torch.as_tensor(norm["std"], dtype=torch.float32,
                                        device=dev),
                        float(norm["cutoff"]))
-    return score_matrix(kind, meta, model, dense)
+    return score_matrix(kind, meta, model, dense, kw["index"])
 
 
 def selfcheck(scorer: Any, proto: Dict[str, Optional[np.ndarray]],

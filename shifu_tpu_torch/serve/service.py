@@ -125,9 +125,17 @@ class ScorerService:
 
     def _default_proto(self) -> Optional[Dict[str, np.ndarray]]:
         for kind, meta, _ in self.scorer.models:
-            if kind in ("nn", "lr"):
+            if kind in ("nn", "lr", "mtl"):
                 dim = int(meta["spec"]["input_dim"])
                 return {"dense": np.zeros((1, dim), np.float32)}
+            if kind == "wdl":
+                spec = meta["spec"]
+                proto = {"dense": np.zeros((1, int(spec["dense_dim"])),
+                                           np.float32)}
+                if int(spec["n_cat"]):
+                    proto["index"] = np.zeros((1, int(spec["n_cat"])),
+                                              np.int32)
+                return proto
         return None
 
     # -- request path --------------------------------------------------

@@ -187,16 +187,66 @@ def _bag_where(mask: torch.Tensor, a: torch.Tensor,
     return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
 
 
-def _flat(params: List[dict]) -> List[torch.Tensor]:
-    return [v for layer in params for v in layer.values()]
+def _flat(params: Any) -> List[torch.Tensor]:
+    """The tensors of a nested dict/list of tensors in a fixed order:
+    lists in their order, dicts by sorted key (an NN's layer list, WDL's
+    ``embed``/``wide_*``/``deep`` dict, MTL's ``trunk``/``heads_*``)."""
+    if isinstance(params, dict):
+        return [v for k in sorted(params) for v in _flat(params[k])]
+    if isinstance(params, (list, tuple)):
+        return [v for p in params for v in _flat(p)]
+    return [params]
 
 
-def _unflat(like: List[dict], leaves: Sequence[torch.Tensor]) -> List[dict]:
+def _unflat(like: Any, leaves: Sequence[torch.Tensor]) -> Any:
+    """`like`'s structure over `leaves`, in `_flat`'s order."""
     it = iter(leaves)
-    return [{k: next(it) for k in layer} for layer in like]
+
+    def build(node):
+        if isinstance(node, dict):
+            out = {k: build(node[k]) for k in sorted(node)}
+            return {k: out[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return [build(p) for p in node]
+        return next(it)
+    return build(like)
 
 
-def init_train_carry(optimizer: Optimizer, stacked_params: List[dict],
+def tree_map(fn, params: Any) -> Any:
+    """`fn` over every tensor of a nested dict/list, structure kept."""
+    return _unflat(params, [fn(v) for v in _flat(params)])
+
+
+def unstack_params(stacked: Any) -> List[Any]:
+    """Bag-stacked params → one numpy model a bag."""
+    host = tree_map(lambda v: v.detach().cpu().numpy(), stacked)
+    n_bags = _flat(host)[0].shape[0]
+    return [tree_map(lambda v, b=b: v[b], host) for b in range(n_bags)]
+
+
+def stack_params(models: Sequence[Any]) -> Any:
+    """One model's params a bag (numpy or tensors, same structure) →
+    bag-stacked f32 tensors."""
+    leaves = [_flat(m) for m in models]
+    return _unflat(models[0], [
+        torch.stack([torch.tensor(np.asarray(v, np.float32))
+                     if not isinstance(v, torch.Tensor)
+                     else v.to(torch.float32) for v in vs])
+        for vs in zip(*leaves)])
+
+
+def initial_params(init_fn, seed: int, n_bags: int) -> Any:
+    """Bag-stacked initial params: `init_fn(generator)` a bag, in bag
+    order, from one CPU generator seeded by `seed` — the same numbers
+    for a card run and its CPU twin (a CUDA generator would give
+    others). The WDL, MTL and streaming trainers draw here, so a parity
+    test hands them the JAX package's draw by replacing this
+    function."""
+    gen = torch.Generator().manual_seed(int(seed))
+    return stack_params([init_fn(gen) for _ in range(n_bags)])
+
+
+def init_train_carry(optimizer: Optimizer, stacked_params: Any,
                      generator: Optional[torch.Generator] = None):
     """Fresh per-bag training carry: (params, optimizer state, best
     tracker, early-stop state, dropout generator); every parameter
@@ -217,12 +267,13 @@ def train_bags_carry(loss_fn, metric_fn, optimizer: Optimizer, n_epochs: int,
                      grad_mask, batch_order: Optional[torch.Tensor] = None):
     """The bag-stacked trainer: takes and returns the training carry,
     with each epoch's (B,) train and validation errors as lists of
-    device tensors (`train_bags_carry` of the JAX package).
+    device tensors (`train_bags_carry` of the JAX package). The params
+    are any nested dict/list of bag-first tensors (`_flat`).
 
     loss_fn(params, inputs, w, generator) → (B,) training losses;
     metric_fn(params, inputs, w) → (B,) validation errors. `grad_mask`
-    is one network's {0, 1} parameter list (fixed layers, continuous
-    training's absorbed indices). With `batch_order` ((epochs, B,
+    is one model's {0, 1} params of the same structure (fixed layers,
+    continuous training's absorbed indices). With `batch_order` ((epochs, B,
     n_batches) batch indices on the device), every row input arrives as
     (n_batches, rows/batch, ...) and `w_train_bags` as (B, n_batches,
     rows/batch): each epoch is a run of mini-batch updates, bag b taking
@@ -366,10 +417,8 @@ def train_bags(loss_fn, metric_fn, optimizer: Optimizer, n_epochs: int,
     val_inputs = tuple(_on(t, dev) for t in val_inputs)
     w_train_bags = _on(w_train_bags, dev).to(torch.float32)
     w_val = _on(w_val, dev).to(torch.float32)
-    stacked_params = [{k: _on(v, dev) for k, v in layer.items()}
-                      for layer in stacked_params]
-    grad_mask = [{k: _on(v, dev) for k, v in layer.items()}
-                 for layer in grad_mask]
+    stacked_params = tree_map(lambda v: _on(v, dev), stacked_params)
+    grad_mask = tree_map(lambda v: _on(v, dev), grad_mask)
 
     carry = init_train_carry(optimizer, stacked_params, dropout_generator)
     carry, train_errs, val_errs = train_bags_carry(

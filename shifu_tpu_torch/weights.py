@@ -10,7 +10,10 @@ lists/dicts of numpy arrays) and builds the port's scoring object:
 - gbt / rf → `TreeEnsemble`: the packed node block, its split-word and
   leaf planes (`fused_trees.pack_nodes`, built once) and fused cuts of the
   tree kernel on `device`, the host binning tables, the tree arrays on
-  the host for the start-up check's plain walk, and the statics.
+  the host for the start-up check's plain walk, and the statics;
+- wdl / mtl → `models.wdl.WDLModel` / `models.mtl.MTLModel`, the spec
+  and the params as tensors on `device`;
+- tf (a SavedModel) raises: it needs tensorflow.
 
 `from_torch` goes back to the numpy params, so a converted model saves
 with `save_model` unchanged. `stack_nn_params` carries NN params (the
@@ -27,11 +30,14 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from shifu_tpu_torch.models import gbdt
+from shifu_tpu_torch.models import gbdt, mtl, wdl
 from shifu_tpu_torch.models import nn as nn_mod
 from shifu_tpu_torch.ops import fused_score, fused_trees
 
 TREE_KEYS = ("feature", "bin", "default_left", "is_leaf", "leaf_value")
+
+TF_REFUSAL = ("the `tf` SavedModel kind needs tensorflow (ROADMAP, not "
+              "queued until tensorflow is on the card machine)")
 
 
 @dataclass
@@ -104,12 +110,12 @@ def to_torch(kind: str, meta: Dict[str, Any], params: Any,
         return mlp
     if kind in ("gbt", "rf"):
         return _ensemble(kind, meta, params, dev)
-    if kind in ("wdl", "mtl"):
-        raise NotImplementedError(
-            f"model kind {kind!r} is not ported yet (ROADMAP A5)")
+    if kind == "wdl":
+        return wdl.WDLModel(meta, params, dev)
+    if kind == "mtl":
+        return mtl.MTLModel(meta, params, dev)
     if kind == "tf":
-        raise NotImplementedError(
-            "the `tf` SavedModel kind is not ported yet (ROADMAP A5)")
+        raise NotImplementedError(TF_REFUSAL)
     raise ValueError(f"unknown model kind {kind!r}")
 
 
@@ -162,4 +168,7 @@ def from_torch(model) -> Any:
         trees = {k: v.cpu().numpy() for k, v in model.trees.items()}
         trees.update(model.extra)
         return {"trees": trees, "tables": dict(model.tables)}
+    if isinstance(model, (wdl.WDLModel, mtl.MTLModel)):
+        from shifu_tpu_torch.train.trainer import tree_map
+        return tree_map(lambda v: v.detach().cpu().numpy(), model.params)
     raise TypeError(f"not a port model: {type(model).__name__}")

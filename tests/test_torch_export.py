@@ -13,7 +13,8 @@ exported by both packages from the same files:
 - `columnstats`, `woemapping`, `woe` byte-equal, `bagging` with equal
   zip members (its npz stamps the write time), `portable` scores equal;
 - `convert` bundles with equal contents, and the round trip;
-- the UME hook's rc-3 contract and its call; `-t tf` raising (A5).
+- the UME hook's rc-3 contract and its call; `-t tf` raising (it needs
+  tensorflow: not queued until tensorflow is on the card machine).
 """
 
 import json
@@ -304,7 +305,8 @@ def test_ume_contract_and_tf_refusal(sets, tmp_path, monkeypatch,  # noqa
                                                   "normAsUme": True})]
     monkeypatch.setenv("SHIFU_TPU_UME_EXPORTER", "port_ume_plug:Missing")
     assert port(root, "export", "-t", "ume")[0] == 3
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError,
+                       match="not queued until tensorflow"):
         port(root, "export", "-t", "tf")
 
 

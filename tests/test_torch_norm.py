@@ -10,7 +10,8 @@
   on its text route, with a two-expression `segExpressionFile`,
   `stats.sampleRate` 0.5 with `sampleNegOnly`, `filterExpressions` and
   `cateMaxNumBin` 2: ColumnConfig.json (`test_torch_stats.
-  assert_column_configs`), both npz layouts and their meta.json;
+  assert_column_configs`), both npz layouts and their meta.json, and
+  with train#trainOnDisk the streaming `.npy` layout;
 - end to end: the port's own `init → stats → norm → train --device cpu`
   against the JAX package's four steps (GBT and RF), the model files
   held as `tests/test_torch_train_tree.py` holds the `train` verb.
@@ -178,20 +179,26 @@ def test_cli_prints_one_json_line_a_step(tmp_path, capsys):
 
 
 def test_norm_streaming_paths_raise(tmp_path, monkeypatch):
-    _, port = make_sets(tmp_path, 62, n_rows=300)
+    """The streaming norm past the size trigger still raises (A6); with
+    train#trainOnDisk the resident norm writes the streaming `.npy`
+    layout, held against the JAX package's files."""
+    from tests.test_torch_streaming import assert_layout
+    root, port = make_sets(tmp_path, 62, n_rows=300)
     run_port(port, ("init", "stats"))
     monkeypatch.setenv("SHIFU_TPU_NORM_CHUNK_ROWS", "100")
     with pytest.raises(NotImplementedError, match="A6"):
         run_port(port, ("norm",))
     monkeypatch.setenv("SHIFU_TPU_NORM_CHUNK_ROWS", "0")
-    path = os.path.join(port, "ModelConfig.json")
-    with open(path) as f:
-        mc = json.load(f)
-    mc["train"]["trainOnDisk"] = True
-    with open(path, "w") as f:
-        json.dump(mc, f)
-    with pytest.raises(NotImplementedError, match="A6"):
-        run_port(port, ("norm",))
+    for r in (root, port):
+        path = os.path.join(r, "ModelConfig.json")
+        with open(path) as f:
+            mc = json.load(f)
+        mc["train"]["trainOnDisk"] = True
+        with open(path, "w") as f:
+            json.dump(mc, f)
+    run_jax(root)
+    run_port(port, ("norm",))
+    assert_layout(root, port)
 
 
 @pytest.mark.parametrize("alg,seed", [("GBT", 21), ("RF", 22)])

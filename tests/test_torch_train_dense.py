@@ -24,8 +24,9 @@ against the JAX package's outputs (`chip_smoke.compare_multiclass_eval`:
 class scores within 1e-6, the same predictions, the C×C matrix and
 accuracy equal to the printed digit); `-confmat`/`-perf` refuse a
 multi-class set, as the JAX package does. The refusals that name their
-ROADMAP item (trainOnDisk A6, CheckpointInterval and the supervised
-restarts A8, WDL A5) and the card default.
+ROADMAP item (CheckpointInterval and the supervised restarts, A8) and
+the card default; trainOnDisk and WDL train now, held in
+`test_torch_streaming.py` and `test_torch_wdl_mtl.py`.
 """
 
 import dataclasses
@@ -326,10 +327,8 @@ def test_multiclass_train_and_eval_match_jax(sets, tmp_path, capsys,
 
 def test_refusals_name_their_roadmap_item(sets, tmp_path, monkeypatch):
     for i, (edit, item) in enumerate((
-            (lambda mc: mc["train"].update(trainOnDisk=True), "A6"),
             (lambda mc: mc["train"]["params"].update(CheckpointInterval=2),
-             "A8"),
-            (lambda mc: mc["train"].update(algorithm="WDL"), "A5"))):
+             "A8"),)):
         root = pair(sets("binary"), tmp_path / str(i), edit)[1]
         with pytest.raises(NotImplementedError, match=item):
             port(root, "train")
