@@ -35,7 +35,9 @@ result line is printed):
    K4 `level_hist_fused` against their plain versions at R = 2,000,000,
    C = 28, B = 64 for S = 1 and 32, with dump-slot rows and NaN/±inf
    values: integer grads exact, real ones within 1e-5·Σ|grad| per
-   slot; K4 equal to K3 over the same bins on integer grads;
+   slot; K4 equal to K3 over the same bins on integer grads; two
+   launches each of K3 (uint8, int32) and K4 at S = 32 on real-valued
+   grads bit-identical;
 7. K5 `best_splits` at N = 1 ((C,) mask), 32 (the GBT leaf level: one
    (1, C) mask for every node; and a mask a node) and 640 (a 20-tree
    forest level, (T, C) masks), with a tie planted across two
@@ -146,12 +148,26 @@ result line is printed):
    MTL (best validation errors within 1e-4), log-loss GBT on both
    row-state tiers (train log-loss within 1e-4, AUC 1e-3) and RF
    (files equal to the bit) over 5-6 chunks; (d) the device-tier GBT
-   trained twice on the card: whether the files are equal and the
-   largest leaf difference (printed, not a gate). Then `--p14-walls` in
+   trained twice on the card, and the same set trained resident
+   (`build_gbt`) twice: each pair's model files equal to the byte in
+   every member (K3/K4 add in fixed point). Then `--p14-walls` in
    a process of its own: the streaming builders' K3/K5 launches between
    marker kernels must equal (max_depth + 1) a chunk and max_depth a
    tree on both tiers (and 7 / 6 with one chunk), and WDL/MTL at
-   500,000 rows and `build_gbt_streaming` at 2,000,000 × 28 are timed.
+   500,000 rows and `build_gbt_streaming` at 2,000,000 × 28 are timed;
+15. past the trigger: phase 10's table with phase 13's cohorts (262,144
+   rows) under SHIFU_TPU_{STATS,NORM,EVAL,ANALYSIS}_CHUNK_ROWS = 32,768
+   (8 chunks), every step a process on the card beside its `--device
+   cpu` twin: the streaming `stats` (ColumnConfig.json equal but for the
+   float64 sums within 1e-9), `stats -correlation` (1e-5) and `-psi`
+   (1e-6), the streaming `norm` with trainOnDisk (every `.npy` file
+   equal to the bit), `varsel` KS and FI (selections equal, K3 and K5
+   counted between marker kernels), GBT and RF trained by the streaming
+   builders on the card, and the streaming `eval -run` of the GBT + RF
+   set (K2 launched, scores and metrics within 1e-6), of an NN over
+   ZSCALE (K1 launched, scores within 1e-5, AUCs 1e-6) and of a 3-class
+   NATIVE NN (32,768 rows, class scores within 1e-5, the C×C matrix
+   within one row's share).
 
 Phase 8 then registers a holdout table (262,144 rows, another seed) as
 eval set `holdout` of the card-trained RF and log-loss GBT sets and runs
@@ -165,8 +181,8 @@ launched in each card eval; on the GBT set also `eval -score`,
 -n 100` (line for line, scores within 1e-6). The K1/K2 launch counts
 of the kernels line add these card runs, phases 11's and 12's card
 evals and phase 13's PMML check to phase 4's, and the K3/K5 counts
-phase 13's FI run and phase 14's streaming tree trainings to phase
-8's.
+phase 13's FI run, phase 14's streaming tree trainings and phase 15's
+FI, GBT and RF runs to phase 8's (and phase 15's evals to K1/K2's).
 
 The last lines are the per-kernel launch line, the kernel JSON line,
 the card's name and power limit, and the result object.
@@ -189,13 +205,19 @@ phase 13's card steps, each a process with the host to itself, twice:
 `stats -correlation` at 262,144 × 30, `varsel` FI, `encode` of its RF,
 SE at 65,536 × 600 and `export -t baggingpmml` of a 2-bag wide NN;
 `--p14-walls` only phase 14's launch counts and timings (it needs the
-WDL/MTL and streaming modules). The others call only functions that older trees of the port have
+WDL/MTL and streaming modules); `--stream-walls` only `stats`, `norm`
+and `eval` (a 10-tree GBT) on the card at 2,000,000 rows of phase 10's
+table, resident and then streaming (ChunkRows 262,144), each step's
+read, compute and write seconds (it needs the streaming modules);
+`--k3-timing` only K3 (uint8, int32) and K4 at 2,000,000 × 28 × 64, S =
+1 and 32, on real-valued grads. The others call only functions that older trees of the port have
 too, so the script copied into the root of an older tree times that
 tree: run the two in turns on one card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -852,8 +874,50 @@ def phase_k3_k4(report, device="cuda", r=HIGGS_ROWS):
                 assert torch.equal(k3[0], k4[0]) and \
                     torch.equal(k3[1], k4[1]), "K4 differs from K3"
                 print(f"  K4 equals K3 over the same bins at S={s}")
+            elif s == max(HIST_SLOTS):
+                # fixed-point adds: a second launch gives the same bits
+                again = (lh.level_histograms(binsT, slot, grad, hess, s,
+                                             GBT_BINS),
+                         lh.level_histograms(binsT.to(torch.uint8), slot,
+                                             grad, hess, s, GBT_BINS),
+                         lh.level_histograms_fused(vals, cuts, slot, grad,
+                                                   hess, s, GBT_BINS))
+                for (name, how, got), two in zip(runs, again):
+                    assert torch.equal(got[0], two[0]) and \
+                        torch.equal(got[1], two[1]), \
+                        f"{name} ({how}): two launches differ at S={s}"
+                print(f"  two launches of each bit-identical at S={s} on "
+                      "real-valued grads")
     for name, e in errs.items():
         report[name] = {"max_abs_err": max(e)}
+
+
+def k3_timing(r=HIGGS_ROWS, iters=20):
+    """K3 (uint8 and int32 bins) and K4 at R × 28 × 64, S = 1 and 32, on
+    real-valued grads: the wrapper's ms by CUDA events and the kernel's
+    by `torch.profiler`. It calls only what older trees of the port have
+    too, so the script copied into an older tree times that tree's
+    kernels (`--k3-timing`)."""
+    import torch
+    from shifu_tpu_torch.ops import level_hist as lh
+    out = []
+    for s in HIST_SLOTS:
+        vals, cuts, binsT, slot, grad, hess = hist_inputs(7 + s, r, s,
+                                                          "cuda", False)
+        b8 = binsT.to(torch.uint8)
+        for name, fn in (
+                ("level_hist uint8", lambda: lh.level_histograms(
+                    b8, slot, grad, hess, s, GBT_BINS)),
+                ("level_hist int32", lambda: lh.level_histograms(
+                    binsT, slot, grad, hess, s, GBT_BINS)),
+                ("level_hist_fused", lambda: lh.level_histograms_fused(
+                    vals, cuts, slot, grad, hess, s, GBT_BINS))):
+            out.append({"name": name, "shape": f"R={r}x{GBT_COLS} S={s} "
+                        f"B={GBT_BINS}", "ms": cuda_ms(fn, iters),
+                        "kernel_device_ms": kernel_device_ms(
+                            fn, iters, "level_hist_kernel")})
+        del vals, cuts, binsT, b8, slot, grad, hess
+    return out
 
 
 def split_inputs(seed, n, device, c=GBT_COLS, n_bins=GBT_BINS,
@@ -1729,12 +1793,13 @@ def kernels_between_markers(fn):
     kernel) on the card's timeline. Padding launches before and after
     keep the counted window away from the trace's ends, where the
     profiler may miss the records of a short window's kernels; a trace
-    that lost a marker's record is taken again, up to three times."""
+    that lost a marker's record is taken again, up to six times (a
+    process that has traced many earlier phases loses one more often)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     pad = torch.zeros(1, device="cuda")
-    for attempt in range(3):
+    for attempt in range(6):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(20):
@@ -3562,15 +3627,22 @@ def phase_varselect_export(report, w8, w11, device="cuda", rows=VS_ROWS,
             assert problems == [], problems
         gate(f"pmml {k} conformance", docs_gate)
         box = {}
-        kn = kernels_between_markers(lambda: box.setdefault(
-            "s", card_scores(c, table, pmml_rows, device)))
+        kname = "fused_trees" if k in ("rf", "gbt") else "fused_score"
+        try:
+            kn = count_kernels(kernels_between_markers(lambda: box.setdefault(
+                "s", card_scores(c, table, pmml_rows, device))), kname)
+        except AssertionError as e:
+            # every trace lost a marker: the wrapper's launch counter
+            # (the first call's, in `box`) stands in for the kernel count
+            print(f"  PMML check {k}: {e}; the launch counter counts")
+            kn = None
         want, d1, d2 = box["s"]
         launched["fused_score"] += d1
         launched["fused_trees"] += d2
         got = docs[0] if k == "nn" else np.mean(docs, axis=0)
-        kname = "fused_trees" if k in ("rf", "gbt") else "fused_score"
         pm[k] = {"max_abs_err": float(np.abs(got - want).max()),
-                 "launches": count_kernels(kn, kname),
+                 "launches": kn if kn is not None else
+                 (d2 if k in ("rf", "gbt") else d1),
                  "check_s": time.perf_counter() - t_check}
 
         def score_gate(k=k, got=got, kname=kname):
@@ -4047,20 +4119,42 @@ def check_stream_trains(runs, device="cuda"):
     return out
 
 
-def atomics_check(runs):
-    """Phase 14 (d): the streaming log-loss GBT (device tier) trained
-    twice on the card; whether the two model files are equal, and the
-    largest leaf difference if not (not a gate)."""
-    _, _, pa = _model_file(runs["GBT tier 1"][2], "gbt")
-    _, _, pb = _model_file(runs["GBT tier 1, again"][2], "gbt")
-    equal = all(np.array_equal(pa["trees"][k], pb["trees"][k])
-                for k in pb["trees"])
-    leaf = np.abs(pa["trees"]["leaf_value"] - pb["trees"]["leaf_value"])
-    return {"equal": equal, "max_leaf_diff": float(leaf.max()),
-            "max_leaf_rel": float(leaf.max() / np.abs(
-                pb["trees"]["leaf_value"]).max()),
-            "nodes_with_other_feature": int(np.sum(
-                pa["trees"]["feature"] != pb["trees"]["feature"]))}
+def same_model_members(a, b):
+    """Whether two model files hold the same bytes in every member (the
+    npz container's member timestamps aside)."""
+    import zipfile
+    with zipfile.ZipFile(a) as za, zipfile.ZipFile(b) as zb:
+        names = sorted(za.namelist())
+        return names == sorted(zb.namelist()) and all(
+            za.read(n) == zb.read(n) for n in names)
+
+
+def atomics_check(runs, workdir, device="cuda"):
+    """Phase 14 (d), a gate: K3/K4 add in fixed point, so two card runs
+    of one model set write the same model. The streaming log-loss GBT
+    (device tier) trained twice, and the same set trained resident
+    (`build_gbt` over CleanedData/data.npz) twice: every member of each
+    pair of model files equal to the byte. Returns the resident runs'
+    card lines and the sizes compared."""
+    lines = []
+    pairs = {"streaming": (runs["GBT tier 1"][2],
+                           runs["GBT tier 1, again"][2])}
+    resident = []
+    for k in ("a", "b"):
+        root = copy_tmp(runs["GBT tier 1"][2],
+                        os.path.join(workdir, f"resident_gbt_{k}"))
+        set_config(root, "train", trainOnDisk=False)
+        lines.append(run_step(root, "train", device))
+        assert lines[-1]["launches"]["level_hist"] > 0, lines[-1]
+        resident.append(root)
+    pairs["resident"] = tuple(resident)
+    out = {}
+    for name, (a, b) in pairs.items():
+        pa, pb = (os.path.join(r, "models", "model0.gbt") for r in (a, b))
+        assert same_model_members(pa, pb), \
+            f"two card runs of the {name} log-loss GBT wrote different models"
+        out[name] = {"equal": True, "bytes": os.path.getsize(pa)}
+    return out, lines
 
 
 def phase_wdl_mtl_stream(report, workdir, device="cuda"):
@@ -4103,9 +4197,12 @@ def phase_wdl_mtl_stream(report, workdir, device="cuda"):
     for run in ("GBT tier 1", "GBT tier 0", "RF", "GBT tier 1, again"):
         for k in ("level_hist", "best_splits"):
             report[k]["launches"] += runs[run][0]["launches"][k]
-    atomics = atomics_check(runs)
-    print(f"  two card runs of the streaming log-loss GBT: "
-          f"{json.dumps(atomics)}")
+    atomics, resident = atomics_check(runs, workdir, device)
+    for line in resident:
+        for k in ("level_hist", "best_splits"):
+            report[k]["launches"] += line["launches"][k]
+    print(f"  two card runs each of the streaming and the resident log-loss "
+          f"GBT write equal models: {json.dumps(atomics)}")
     t_stream = time.perf_counter() - t0 - t_fam
     walls = p14_walls_process()
     report["phase14"] = {
@@ -4332,6 +4429,381 @@ def p14_walls():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the verbs past their size triggers (the streaming steps)
+# ---------------------------------------------------------------------------
+
+P15_ROWS = 262_144          # phase 10's table, with phase 13's cohorts
+P15_CHUNK = 32_768          # 8 chunks a pass
+P15_MC_ROWS = 32_768        # the 3-class table scored in chunks
+P15_ENV = {f"SHIFU_TPU_{k}_CHUNK_ROWS": str(P15_CHUNK)
+           for k in ("STATS", "NORM", "EVAL", "ANALYSIS")}
+P15_TREES = {
+    "GBT": {"TreeNum": 5, "MaxDepth": TRAIN_DEPTH, "LearningRate": TRAIN_LR,
+            "Loss": "log", "ChunkRows": P15_CHUNK},
+    "RF": {"TreeNum": 5, "MaxDepth": TRAIN_DEPTH,
+           "FeatureSubsetStrategy": "SQRT", "ChunkRows": P15_CHUNK}}
+# ColumnConfig fields of the streaming stats that come from float64 sums
+STREAM_FLOATS = {"mean", "stdDev", "skewness", "kurtosis", "min", "max",
+                 "median", "p25th", "p75th", "missingPercentage", "ks", "iv",
+                 "woe", "weightedKs", "weightedIv", "weightedWoe",
+                 "binWeightedPos", "binWeightedNeg", "binPosRate",
+                 "binCountWoe", "binWeightedWoe"}
+
+
+def compare_streaming_configs(card_root, cpu_root, rtol=1e-9):
+    """ColumnConfig.json of the streaming stats, card against CPU: every
+    field equal (bin boundaries and counts included) but those of
+    `STREAM_FLOATS`, float64 sums and what derives from them, within
+    `rtol` (an absolute 1e-9 near zero). Returns the largest relative
+    difference."""
+    card, cpu = column_configs(card_root), column_configs(cpu_root)
+    assert [c["columnName"] for c in card] == [c["columnName"] for c in cpu]
+    worst, bad = 0.0, []
+    for a, b in zip(card, cpu):
+        fields = {**a["columnStats"], **a["columnBinning"],
+                  **{k: v for k, v in a.items()
+                     if k not in ("columnStats", "columnBinning")}}
+        ref = {**b["columnStats"], **b["columnBinning"],
+               **{k: v for k, v in b.items()
+                  if k not in ("columnStats", "columnBinning")}}
+        for k, v in fields.items():
+            w = ref[k]
+            if k in STREAM_FLOATS and v is not None and w is not None:
+                va, vb = np.asarray(v, float), np.asarray(w, float)
+                if va.size:
+                    worst = max(worst, float(np.nanmax(
+                        np.abs(va - vb) / np.maximum(np.abs(vb), 1e-9))))
+                if not np.allclose(va, vb, rtol=rtol, atol=1e-9,
+                                   equal_nan=True):
+                    bad.append(f"{a['columnName']}.{k}: {v} vs {w}")
+            elif v != w:
+                bad.append(f"{a['columnName']}.{k}: {v} vs {w}")
+    assert not bad, "streaming ColumnConfig.json card vs CPU:\n" + \
+        "\n".join(bad[:20])
+    return worst
+
+
+@contextlib.contextmanager
+def _environ(extra):
+    """`extra` set in os.environ inside the block (for the steps this
+    process runs through `cli.main`), the old values back after."""
+    old = {k: os.environ.get(k) for k in extra}
+    os.environ.update(extra)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def p15_twins(card, cpu, verb, device="cuda", env=None):
+    """`verb` on the card and, beside it, with `--device cpu` on the CPU
+    twin, both under phase 15's chunk knobs (`env`); returns (card line,
+    CPU line)."""
+    env = dict(P15_ENV, **(env or {}))
+    proc = _start_step(cpu, verb, "cpu", dict(CPU_TWIN_ENV, **env))
+    card_line, (cpu_line,) = beside([(proc, f"{verb} --device cpu on {cpu}")],
+                                    lambda: run_step(card, verb, device, env))
+    return card_line, cpu_line
+
+
+def p15_nn_params(rng, dims):
+    """Xavier-uniform weights, small random biases, for `dims`."""
+    out = []
+    for fan_in, fan_out in zip(dims[:-1], dims[1:]):
+        lim = math.sqrt(6.0 / (fan_in + fan_out))
+        out.append({"w": rng.uniform(-lim, lim, (fan_in, fan_out))
+                    .astype(np.float32),
+                    "b": rng.normal(0, 0.01, fan_out).astype(np.float32)})
+    return out
+
+
+def p15_nn_set(root, card):
+    """An NN set over the table of `card` with ZSCALE and no categorical
+    column (c0 and c1 as meta: the fused first layer, K1), its
+    ColumnConfig.json the card's streaming stats with c0 and c1 flagged
+    meta, and a 28 → 64 → 1 NN from a seed."""
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    from shifu_tpu_torch.fileio import atomic_write
+    from shifu_tpu_torch.models.spec import save_model
+    with open(os.path.join(card, "ModelConfig.json")) as f:
+        d = json.load(f)
+    cols_dir = os.path.join(root, "columns")
+    os.makedirs(cols_dir)
+    with atomic_write(os.path.join(cols_dir, "meta.column.names")) as f:
+        f.write("id\nmonth\nday\nc0\nc1\n")
+    d["basic"] = {"name": "smokeP15NN"}
+    d["dataSet"].update(categoricalColumnNameFile="",
+                        metaColumnNameFile=os.path.join(
+                            cols_dir, "meta.column.names"))
+    d["normalize"] = {"normType": "ZSCALE", "stdDevCutOff": CUTOFF}
+    d["train"] = {"algorithm": "NN"}
+    ModelConfig.from_dict(d).save(root)
+    ccs = column_configs(card)
+    for c in ccs:
+        if c["columnName"] in ("c0", "c1"):
+            c["columnFlag"] = "Meta"
+    with atomic_write(os.path.join(root, "ColumnConfig.json")) as f:
+        json.dump(ccs, f, indent=1)
+    save_model(os.path.join(root, "models", "model0.nn"), "nn",
+               {"spec": {"input_dim": GBT_COLS, "hidden_dims": [64],
+                         "activations": ["relu"]}},
+               p15_nn_params(np.random.default_rng(153), [GBT_COLS, 64, 1]))
+
+
+def p15_mc_set(root, device="cuda", rows=P15_MC_ROWS):
+    """A 3-class set (phase 12's table at `rows` rows, scored as its own
+    eval set): `init` and the streaming `stats` on the card, a resident
+    `norm`, and a NATIVE NN (28 → 64 → 3) trained on the card for three
+    epochs."""
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    data_dir = os.path.join(root, "data")
+    write_raw(data_dir, *mc_raw_table(np.random.default_rng(152), rows))
+    data_set = {"dataPath": data_dir, "dataDelimiter": "|",
+                "headerPath": os.path.join(data_dir, ".pig_header"),
+                "targetColumnName": "label", "posTags": ["c0"],
+                "negTags": ["c1", "c2"]}
+    ModelConfig.from_dict({
+        "basic": {"name": "smokeP15MC"}, "dataSet": data_set,
+        "stats": {"maxNumBin": GBT_BINS - 1,
+                  "binningMethod": "EqualPositive"},
+        "normalize": {"normType": "ZSCALE", "stdDevCutOff": CUTOFF},
+        "train": dict(nn_train_fields("NN", "M", 0.1, hidden=(64,), bags=1,
+                                      epochs=3, Momentum=0.5),
+                      multiClassifyMethod="NATIVE"),
+        "evals": [{"name": "Eval1", "dataSet": data_set}]}).save(root)
+    resident = {"SHIFU_TPU_NORM_CHUNK_ROWS": "0"}
+    return {"init": run_step(root, "init", env_extra=P15_ENV),
+            "stats": run_step(root, "stats", device, P15_ENV),
+            "norm": run_step(root, "norm", device, dict(P15_ENV, **resident)),
+            "train": run_step(root, "train", device, P15_ENV)}
+
+
+def phase_past_trigger(report, workdir, device="cuda", rows=P15_ROWS,
+                       mc_rows=P15_MC_ROWS):
+    """Phase 15: every ported verb past its size trigger (the chunk knobs
+    of `P15_ENV`), each a `python -m shifu_tpu_torch` process on the card
+    beside its `--device cpu` twin."""
+    import shutil
+    t0 = time.perf_counter()
+    card = os.path.join(workdir, "p15")
+    raw_bytes = write_model_set(card, "GBT", P15_TREES["GBT"], 150, rows,
+                                0.1, extras=True, cohorts=True)
+    set_config(card, "train", trainOnDisk=True)
+    set_config(card, "normalize", normType="WOE")
+    set_config(card, "varSelect", filterNum=15)
+    add_eval_set(card, "p15", os.path.join(card, "data"))
+    lines = {"init": (run_step(card, "init", env_extra=P15_ENV), None)}
+    cpu = os.path.join(workdir, "p15_cpu")
+    shutil.copytree(card, cpu, ignore=shutil.ignore_patterns("data"))
+    errs, failed = {}, []
+
+    def gate(name, fn):
+        """One gate; a failed one is printed and the phase goes on, so the
+        run reports every gate (the phase fails at its end)."""
+        try:
+            errs[name] = fn()
+        except AssertionError as e:
+            print(f"  GATE FAILED {name}: {e}")
+            failed.append(f"{name}: {e}")
+
+    def step(verb):
+        name = verb if isinstance(verb, str) else " ".join(verb)
+        lines[name] = p15_twins(card, cpu, verb, device)
+        assert lines[name][0]["rows"] == rows, (name, lines[name][0])
+        return name
+
+    mc = os.path.join(workdir, "p15_mc")
+
+    def flags():
+        """`stats`, then its three readers side by side."""
+        step("stats")
+        gate("stats", lambda: compare_streaming_configs(card, cpu))
+        in_parallel(lambda: step(["stats", "-correlation"]),
+                    lambda: step(["stats", "-psi"]), lambda: step("norm"))
+    mc_steps = in_parallel(lambda: p15_mc_set(mc, device, mc_rows),
+                           flags)[0]
+    gate("correlation", lambda: compare_corr(
+        _pf_path(card, "correlation_path"),
+        _pf_path(cpu, "correlation_path")))
+
+    def psi_gate():
+        a, b = column_configs(card), column_configs(cpu)
+        psi = max(abs(x["columnStats"]["psi"] - y["columnStats"]["psi"])
+                  for x, y in zip(a, b)
+                  if y["columnStats"].get("psi") is not None)
+        assert psi <= 1e-6, f"psi card vs CPU {psi}"
+        with open(_pf_path(card, "psi_path")) as f, \
+                open(_pf_path(cpu, "psi_path")) as g:
+            assert f.read().split("\n")[0] == g.read().split("\n")[0]
+        return psi
+    gate("psi", psi_gate)
+    gate("norm layout", lambda: compare_layout(card, cpu))
+
+    # varsel on copies (KS on the host; FI trains an RF through the
+    # streaming norm and builder, K3 and K5 counted between markers)
+    # beside the streaming GBT and RF trainings on the card
+    vs = {}
+    for by in ("KS", "FI"):
+        pair = [copy_config(r, os.path.join(workdir, f"p15_vs_{by}_{w}"))
+                for r, w in ((card, "card"), (cpu, "cpu"))]
+        for r in pair:
+            set_config(r, "varSelect", filterBy=by)
+            if by == "FI":
+                set_config(r, "train", algorithm="RF", validSetRate=0.0,
+                           params=P15_TREES["RF"])
+        vs[by] = pair
+    steps = [(vs[by][0], ["varsel"]) for by in ("KS", "FI")]
+    path = os.path.join(workdir, "p15_cpu_verbs.json")
+    with open(path, "w") as f:
+        json.dump([(vs[by][1], ["varsel"]) for by in ("KS", "FI")], f)
+    fi = {}
+
+    def card_varsel():
+        from shifu_tpu_torch.ops import best_splits, level_hist
+        with _environ(P15_ENV):
+            ks = run_verbs(steps[:1], device)[0]
+            before = (level_hist.launches + level_hist.fused_launches,
+                      best_splits.launches)
+            names = kernels_between_markers(
+                lambda: fi.setdefault("line", run_verbs(steps[1:],
+                                                        device)[0]))
+        fi.update(k3k4=count_kernels(names, "level_hist"),
+                  k5=count_kernels(names, "best_splits"),
+                  counters=(level_hist.launches + level_hist.fused_launches
+                            - before[0], best_splits.launches - before[1]))
+        return ks
+
+    def varsel():
+        twin = _spawn([os.path.abspath(__file__), "--cpu-verbs", path],
+                      dict(CPU_TWIN_ENV, **P15_ENV))
+        return beside([(twin, f"--cpu-verbs {path}")], card_varsel)
+
+    rf = copy_tmp(card, os.path.join(workdir, "p15_rf"))
+    set_config(rf, "train", algorithm="RF", validSetRate=0.0,
+               params=P15_TREES["RF"])
+    (ks, (cpu_vs,)), gbt_line, rf_line = in_parallel(
+        varsel, lambda: run_step(card, "train", device, P15_ENV),
+        lambda: run_step(rf, "train", device, P15_ENV))
+    trains = {"GBT": gbt_line, "RF": rf_line}
+    print(f"  varsel KS card rc {ks['rc']}, FI card "
+          f"{fi['line']['seconds']:.2f} s: K3/K4 {fi['k3k4']}, K5 "
+          f"{fi['k5']} between markers (counters {fi['counters']})")
+    assert ks["rc"] == 0 and fi["line"]["rc"] == 0 and \
+        all(c["rc"] == 0 for c in cpu_vs)
+
+    def vs_gate():
+        for by in ("KS", "FI"):
+            assert selection(vs[by][0]) == selection(vs[by][1]), \
+                f"varsel {by}: card and CPU select other columns"
+        assert fi["k3k4"] > 0 and fi["k5"] > 0 and \
+            fi["k3k4"] == fi["counters"][0] and \
+            fi["k5"] == fi["counters"][1], fi
+        return {"selected": len(selection(vs["FI"][0]))}
+    gate("varsel", vs_gate)
+    report["level_hist"]["launches"] += fi["counters"][0]
+    report["best_splits"]["launches"] += fi["counters"][1]
+    for name, line in trains.items():
+        print(f"  train {name} (trainOnDisk) on the card: {json.dumps(line)}")
+        for k in ("level_hist", "best_splits"):
+            assert line["launches"][k] > 0, (name, line)
+            report[k]["launches"] += line["launches"][k]
+
+    # the streaming eval of the GBT + RF set (K2), of an NN over ZSCALE
+    # (K1) and of a 3-class NN, side by side
+    shutil.copy(os.path.join(rf, "models", "model0.rf"),
+                os.path.join(card, "models", "model1.rf"))
+    ens_cpu = copy_models(card, os.path.join(workdir, "p15_ens_cpu"))
+    nn = os.path.join(workdir, "p15_nn")
+    p15_nn_set(nn, card)
+    nn_cpu = copy_models(nn, os.path.join(workdir, "p15_nn_cpu"))
+    mc_cpu = copy_models(mc, os.path.join(workdir, "p15_mc_cpu"))
+    lines["eval trees"], lines["eval nn"], lines["eval multi-class"] = \
+        in_parallel(
+            lambda: p15_twins(card, ens_cpu, "eval", device),
+            lambda: p15_twins(nn, nn_cpu, "eval", device),
+            lambda: p15_twins(mc, mc_cpu, "eval", device, {
+                "SHIFU_TPU_EVAL_CHUNK_ROWS": str(mc_rows // 4)}))
+    gate("eval trees", lambda: compare_eval_dir(card, ens_cpu, "p15", 1e-6))
+    def nn_gate():
+        # scores within phase 11's 1e-5 (K1's 3xTF32), the AUCs 1e-6
+        out = compare_eval_dir(nn, nn_cpu, "p15", 1e-5)
+        assert out["auc_err"] <= 1e-6, out
+        return out
+    gate("eval nn", nn_gate)
+    gate("eval multi-class", lambda: compare_multiclass_eval(
+        mc, mc_cpu, "Eval1", 1e-5, rows=1))
+    for name, kernel in (("eval trees", "fused_trees"),
+                         ("eval nn", "fused_score")):
+        card_line = lines[name][0]
+        assert card_line["launches"][kernel] > 0, (name, card_line)
+        report[kernel]["launches"] += card_line["launches"][kernel]
+    for d in (card, nn):
+        with open(os.path.join(d, "evals", "p15",
+                               "EvalPerformance.json")) as f:
+            assert json.load(f)["streaming"]["chunks"] == \
+                -(-rows // P15_CHUNK), d
+    for name, (a, b) in lines.items():
+        print(f"  {name}: card {json.dumps(a)}"
+              + (f"; CPU twin {b['seconds']:.2f} s" if b else ""))
+    print("  past the trigger, card = CPU: " + json.dumps(errs))
+    assert not failed, "phase 15 gates failed:\n" + "\n".join(failed)
+    report["phase15"] = {"rows": rows, "chunk_rows": P15_CHUNK,
+                         "raw_bytes": raw_bytes, "errors": errs,
+                         "steps": lines, "mc": mc_steps,
+                         "trains": trains, "fi": fi,
+                         "seconds": time.perf_counter() - t0}
+
+
+def trigger_walls(rows=HIGGS_ROWS, chunk=STREAM_WALL_CHUNK):
+    """`stats`, `norm` and `eval` (a 10-tree GBT) on the card at `rows`
+    rows of phase 10's table, resident and then streaming (ChunkRows
+    `chunk`), each a process: each step's read, compute and write
+    seconds (the write is the streaming steps' own; the resident ones
+    count it in compute)."""
+    import shutil
+    out = {"rows": rows, "chunk_rows": chunk}
+    env = {f"SHIFU_TPU_{k}_CHUNK_ROWS": str(chunk)
+           for k in ("STATS", "NORM", "EVAL")}
+    zero = {k: "0" for k in env}
+    with tempfile.TemporaryDirectory() as workdir:
+        res = os.path.join(workdir, "resident")
+        t0 = time.perf_counter()
+        out["raw_bytes"] = write_model_set(
+            res, "GBT", {"TreeNum": HIGGS_TREES, "MaxDepth": TRAIN_DEPTH,
+                         "LearningRate": TRAIN_LR, "Loss": "log"}, 77, rows,
+            0.1, extras=True)
+        out["write_table_s"] = time.perf_counter() - t0
+        add_eval_set(res, "walls", os.path.join(res, "data"))
+        run_step(res, "init", env_extra=zero)
+        stream = os.path.join(workdir, "stream")
+        shutil.copytree(res, stream, ignore=shutil.ignore_patterns("data"))
+        set_config(stream, "train", trainOnDisk=True)
+        steps = {"resident": {}, "streaming": {}}
+        for verb in ("stats", "norm"):
+            steps["resident"][verb] = run_step(res, verb, "cuda", zero)
+            steps["streaming"][verb] = run_step(stream, verb, "cuda", env)
+        run_step(res, "train", "cuda", zero)
+        shutil.copytree(os.path.join(res, "models"),
+                        os.path.join(stream, "models"))
+        steps["resident"]["eval"] = run_step(res, "eval", "cuda", zero)
+        steps["streaming"]["eval"] = run_step(stream, "eval", "cuda", env)
+    for how, by_step in steps.items():
+        out[how] = {}
+        for verb, line in by_step.items():
+            read = line.get("read_seconds", 0.0)
+            write = line.get("write_s", line.get("write_seconds", 0.0))
+            out[how][verb] = {"rows": line["rows"], "read_s": read,
+                              "write_s": write,
+                              "compute_s": line["seconds"] - read - write,
+                              "seconds": line["seconds"]}
+    return out
+
+
 SOURCES = {
     "fused_score": ("shifu_tpu_torch/csrc/fused_score.cu",
                     "shifu_tpu/ops/pallas_score.py:110"),
@@ -4393,6 +4865,12 @@ def main() -> int:
     if sys.argv[1:] == ["--varselect-walls"]:
         print(json.dumps({"varselect_walls": varselect_walls()}))
         return 0
+    if sys.argv[1:] == ["--k3-timing"]:
+        print(json.dumps({"k3_timing": k3_timing()}))
+        return 0
+    if sys.argv[1:] == ["--stream-walls"]:
+        print(json.dumps({"stream_walls": trigger_walls()}))
+        return 0
 
     def header(text):
         print(f"{text} ({time.monotonic() - t_start:.0f} s)")
@@ -4437,6 +4915,10 @@ def main() -> int:
     header("phase 14: WDL, MTL and trainOnDisk on the card vs the CPU twin")
     with tempfile.TemporaryDirectory() as workdir:
         phase_wdl_mtl_stream(report, workdir)
+    header("phase 15: past the trigger (the streaming steps) on the card "
+           "vs the CPU twin")
+    with tempfile.TemporaryDirectory() as workdir:
+        phase_past_trigger(report, workdir)
     print(f"total: {time.monotonic() - t_start:.1f} s on {smi}")
 
     kernels = []

@@ -24,7 +24,9 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["resolve_device"]
+__version__ = "0.1.0"
+
+__all__ = ["resolve_device", "__version__"]
 
 
 def resolve_device(device: "str | torch.device") -> torch.device:

@@ -25,6 +25,8 @@ later).
         | show
     python -m shifu_tpu_torch --dir <model-set> serve [--port P]
         [--no-http] [--duration-s S] [--device cuda|cpu]
+    python -m shifu_tpu_torch knobs [--all] [--markdown]
+    python -m shifu_tpu_torch version
 
 `new` writes a model-set scaffold; `init` writes ColumnConfig.json from
 the header and a sample read (no device work); `stats` fills it with
@@ -34,7 +36,11 @@ column's PSI over the `stats#psiColumnName` cohorts, and `stats -rebin`
 merges the recorded bins (host only); `norm` writes
 `tmp/NormalizedData` and `tmp/CleanedData`. Each prints one JSON line:
 the step, the device, the rows, the wall seconds, and for `stats`/`norm`
-the seconds spent reading the raw table. The `stats` variants `-seg`,
+the seconds spent reading the raw table. Past its size trigger, or with
+SHIFU_TPU_{STATS,NORM}_CHUNK_ROWS set, `stats` and `norm` read the raw
+set in chunks (the streaming steps); likewise `eval` past
+SHIFU_TPU_EVAL_CHUNK_ROWS and `stats -correlation`/`-psi` and varselect
+past SHIFU_TPU_ANALYSIS_CHUNK_ROWS. The `stats` variants `-seg`,
 `-seg-merge` and `-base-only` (the DAG's per-segment siblings) are not
 ported yet and raise, naming their ROADMAP item.
 
@@ -361,6 +367,47 @@ def cmd_show(args) -> int:
     return _host_step("show", show, args)
 
 
+def cmd_version(args) -> int:
+    import shifu_tpu_torch
+    print(f"shifu-tpu-torch {shifu_tpu_torch.__version__}")
+    return 0
+
+
+def cmd_knobs(args) -> int:
+    """Print the SHIFU_TPU_* knob registry of the port: every tunable it
+    reads, with type, documented default, current value and doc (as a
+    markdown table with `--markdown`). The port's knobs are all its
+    own, so `--all` shows the same table."""
+    import sys
+    from shifu_tpu_torch.config.environment import knobs_rows
+    rows = knobs_rows()
+    try:
+        if getattr(args, "markdown", False):
+            print("| Knob | Type | Default | Doc |\n|---|---|---|---|")
+            for r in rows:
+                dflt = f"`{r['default']}`" if r["default"] else "*(unset)*"
+                print(f"| `{r['name']}` | {r['type']} | {dflt} | "
+                      f"{r['doc']} |")
+            return 0
+        name_w = max(len(r["name"]) for r in rows)
+        type_w = max(len(r["type"]) for r in rows)
+        dflt_w = max(max(len(r["default"]) for r in rows), len("default"))
+        cur_w = max(max(len(r["current"]) for r in rows), len("current"))
+        print(f"{'knob':<{name_w}}  {'type':<{type_w}}  "
+              f"{'default':<{dflt_w}}  {'current':<{cur_w}}  doc")
+        for r in rows:
+            cur = r["current"] or "-"
+            dflt = r["default"] or "-"
+            print(f"{r['name']:<{name_w}}  {r['type']:<{type_w}}  "
+                  f"{dflt:<{dflt_w}}  {cur:<{cur_w}}  {r['doc']}")
+    except BrokenPipeError:
+        # a pager closed the pipe: send stdout to devnull so the
+        # interpreter's last flush does not raise again
+        devnull = os.open(os.devnull, os.O_WRONLY)
+        os.dup2(devnull, sys.stdout.fileno())
+    return 0
+
+
 def cmd_dag_verb(args) -> int:
     raise NotImplementedError(
         f"`{args.command}` runs through the pipeline DAG (`run_dag`), "
@@ -422,6 +469,7 @@ def _scoring_step(step: str, run, args) -> int:
         "seconds": time.perf_counter() - t0,
         "read_seconds": report.get("read_s", 0.0),
         "score_seconds": report.get("score_s", 0.0),
+        "write_seconds": report.get("write_s", 0.0),
         "launches": {k: v - before[k] for k, v in counts().items()}}))
     return rc
 
@@ -601,6 +649,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda)")
     p.set_defaults(fn=cmd_train)
+    p = sub.add_parser("knobs", help="list every SHIFU_TPU_* knob (type/"
+                                     "default/current/doc)")
+    p.add_argument("--all", action="store_true",
+                   help="every knob (the port's knobs are all shown)")
+    p.add_argument("--markdown", action="store_true",
+                   help="emit the table as markdown")
+    p.set_defaults(fn=cmd_knobs)
+    sub.add_parser("version").set_defaults(fn=cmd_version)
     return ap
 
 

@@ -3,15 +3,17 @@
 A copy of the reading half of `shifu_tpu/config/environment.py` for the
 four serving knobs, the two tree-build knobs, the two NN compute-dtype
 knobs, the two resilience knobs `train` refuses (ROADMAP A8), the
-streaming triggers of stats, norm, eval and the analysis steps (stats,
-norm, a resident eval and varselect's analysis frame honour theirs by
-raising: the streaming steps are ROADMAP A6; posttrain, correlation,
-PSI and `eval -norm`/`-score` read in chunks or refuse), the `export
--t ume` exporter hook, the host-assembly threads of the streaming
-trainers (`data/pipeline.map_prefetch`) and the row-state tier of the
-streaming GBT builder: same names, same
+streaming triggers of stats, norm, eval and the analysis steps (past
+its trigger each step reads its raw set in chunks: the streaming stats,
+norm and eval, the exact chunked correlation and PSI, posttrain, and
+varselect's sampled analysis frame, capped by
+SHIFU_TPU_ANALYSIS_MAX_ROWS), the `export -t ume` exporter hook, the
+prefetch depth and host-assembly threads of the chunked readers
+(`data/pipeline.prefetch`, `map_prefetch`, `map_stream`) and the
+row-state tier of the streaming GBT builder: same names, types and
 defaults, and the same warn-and-run parsing (a malformed value logs a
 warning and falls back to the default instead of failing the process).
+`knobs_rows` lists them for the `knobs` verb.
 The JAX package's routing and TPU-dispatch knobs (`SHIFU_TPU_HIST`,
 `SHIFU_TPU_SPLIT_FUSED`, `SHIFU_TPU_TREE_SCAN`, ...) have no counterpart:
 the tensors' device picks the route here.
@@ -21,78 +23,95 @@ from __future__ import annotations
 
 import logging
 import os
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 log = logging.getLogger("shifu_tpu_torch")
 
 
 class Knob(NamedTuple):
     name: str
-    default: object
+    type: str            # int | float | str | bool | flag
+    default: object      # documented default; None = unset (auto/off)
     doc: str
 
 
 KNOBS: Dict[str, Knob] = {k.name: k for k in (
-    Knob("SHIFU_TPU_SERVE_BUCKETS", "1,8,64,512",
+    Knob("SHIFU_TPU_SERVE_BUCKETS", "str", "1,8,64,512",
          "padded-row shape-bucket ladder for the serving plane "
          "(comma-separated ascending row counts; sizes beyond the top "
          "bucket pad to its next doubling)"),
-    Knob("SHIFU_TPU_SERVE_MAX_DELAY_MS", 2.0,
+    Knob("SHIFU_TPU_SERVE_MAX_DELAY_MS", "float", 2.0,
          "micro-batcher admission deadline: a queued request waits at "
          "most this long for co-riders before its batch is scored"),
-    Knob("SHIFU_TPU_SERVE_QUEUE_DEPTH", 1024,
+    Knob("SHIFU_TPU_SERVE_QUEUE_DEPTH", "int", 1024,
          "bounded admission-queue depth for the scorer service; a full "
          "queue rejects submits instead of buffering unbounded"),
-    Knob("SHIFU_TPU_SERVE_PORT", 8488,
+    Knob("SHIFU_TPU_SERVE_PORT", "int", 8488,
          "HTTP/JSON listener port for `serve` (0 = ephemeral)"),
-    Knob("SHIFU_TPU_HIST_SUBTRACT", "1",
+    Knob("SHIFU_TPU_HIST_SUBTRACT", "bool", "1",
          "sibling-subtraction trick in GBT histogram builds"),
-    Knob("SHIFU_TPU_HIST_FUSED", "0",
+    Knob("SHIFU_TPU_HIST_FUSED", "bool", "0",
          "1 = GBT level builds bin numeric values inside the histogram "
          "kernel (no materialized bin-index matrix); needs FusedBins "
          "inputs from gbdt.make_fused_inputs"),
-    Knob("SHIFU_TPU_NN_COMPUTE", "float32",
+    Knob("SHIFU_TPU_NN_COMPUTE", "str", "float32",
          "NN forward/backward compute dtype (float32 | bfloat16)"),
-    Knob("SHIFU_TPU_COMPUTE_DTYPE", None,
+    Knob("SHIFU_TPU_COMPUTE_DTYPE", "str", None,
          "default compute dtype for NN forward+backward (float32 | "
          "bfloat16); params/optimizer state stay f32 and matmuls "
          "accumulate in f32. Per-model train params and "
          "SHIFU_TPU_NN_COMPUTE override it"),
-    Knob("SHIFU_TPU_MAX_RESTARTS", 0,
+    Knob("SHIFU_TPU_MAX_RESTARTS", "int", 0,
          "supervised in-process restarts around the train step (the "
          "port refuses a value above 0: ROADMAP A8)"),
-    Knob("SHIFU_TPU_RESUME", "0",
+    Knob("SHIFU_TPU_RESUME", "flag", "0",
          "1 = skip steps whose completion manifest matches inputs (the "
          "port's train refuses it: ROADMAP A8)"),
-    Knob("SHIFU_TPU_STATS_CHUNK_ROWS", None,
+    Knob("SHIFU_TPU_STATS_CHUNK_ROWS", "int", None,
          "explicit stats streaming chunk rows; 0 forces resident"),
-    Knob("SHIFU_TPU_STATS_STREAM_BYTES", 2 * 1024 ** 3,
+    Knob("SHIFU_TPU_STATS_STREAM_BYTES", "int", 2 * 1024 ** 3,
          "raw-bytes threshold that auto-triggers streaming stats"),
-    Knob("SHIFU_TPU_NORM_CHUNK_ROWS", None,
+    Knob("SHIFU_TPU_NORM_CHUNK_ROWS", "int", None,
          "explicit norm streaming chunk rows; 0 forces resident"),
-    Knob("SHIFU_TPU_NORM_STREAM_BYTES", 2 * 1024 ** 3,
+    Knob("SHIFU_TPU_NORM_STREAM_BYTES", "int", 2 * 1024 ** 3,
          "raw-bytes threshold that auto-triggers streaming norm"),
-    Knob("SHIFU_TPU_EVAL_CHUNK_ROWS", None,
+    Knob("SHIFU_TPU_EVAL_CHUNK_ROWS", "int", None,
          "explicit eval streaming chunk rows; 0 forces resident"),
-    Knob("SHIFU_TPU_EVAL_STREAM_BYTES", 2 * 1024 ** 3,
+    Knob("SHIFU_TPU_EVAL_STREAM_BYTES", "int", 2 * 1024 ** 3,
          "raw-bytes threshold that auto-triggers streaming eval"),
-    Knob("SHIFU_TPU_ANALYSIS_CHUNK_ROWS", None,
+    Knob("SHIFU_TPU_ANALYSIS_CHUNK_ROWS", "int", None,
          "explicit analysis-step chunk rows; 0 forces resident"),
-    Knob("SHIFU_TPU_ANALYSIS_STREAM_BYTES", 2 * 1024 ** 3,
+    Knob("SHIFU_TPU_ANALYSIS_STREAM_BYTES", "int", 2 * 1024 ** 3,
          "raw-bytes threshold that auto-triggers sampled analysis"),
-    Knob("SHIFU_TPU_UME_EXPORTER", None,
+    Knob("SHIFU_TPU_ANALYSIS_MAX_ROWS", "int", 2_000_000,
+         "row cap for the sampled analysis frame (varselect)"),
+    Knob("SHIFU_TPU_UME_EXPORTER", "str", None,
          "pkg.module:Class hook for `export -t ume` bundles"),
-    Knob("SHIFU_TPU_PREFETCH_WORKERS", 2,
+    Knob("SHIFU_TPU_PREFETCH_DEPTH", "int", 2,
+         "chunks buffered ahead of the consumer; 0 = sequential"),
+    Knob("SHIFU_TPU_PREFETCH_WORKERS", "int", 2,
          "host-assembly threads for map_prefetch; 0 = sequential"),
-    Knob("SHIFU_TPU_GBT_RESIDENT_STATE", "auto",
+    Knob("SHIFU_TPU_GBT_RESIDENT_STATE", "str", "auto",
          "streaming GBT row-state tier: 1 keeps node/pred/grad/hess on "
          "the device (no host sync inside a level, one a round), 0 "
          "forces the host-numpy state path, auto picks by the "
          "SHIFU_TPU_GBT_STATE_BUDGET_MB fit"),
-    Knob("SHIFU_TPU_GBT_STATE_BUDGET_MB", 2048,
+    Knob("SHIFU_TPU_GBT_STATE_BUDGET_MB", "int", 2048,
          "device budget for resident streaming-GBT row state; auto mode "
          "goes resident when ~24 B/train row + ~12 B/val row fits"),
 )}
+
+
+def knobs_rows() -> List[dict]:
+    """One row per knob: name, type, default, current value (unset →
+    ''), doc — the `knobs` verb's table."""
+    rows = []
+    for k in sorted(KNOBS.values()):
+        cur = os.environ.get(k.name)
+        rows.append({"name": k.name, "type": k.type,
+                     "default": "" if k.default is None else str(k.default),
+                     "current": "" if cur is None else cur, "doc": k.doc})
+    return rows
 
 
 def _require(name: str) -> Knob:

@@ -38,24 +38,34 @@
 //   lead; the bytes past the last full window of an array (its last 15
 //   at most) are copied one by one by the producer. So any R, any row
 //   offset of a tree, and a ragged last chunk need no padding.
-// - Adds: Hopper has no shared-memory f32 atomic add (`atomicAdd` on a
-//   shared float compiles to a compare-and-swap loop), so a cell holds G
-//   and H side by side and one 64-bit compare-and-swap adds both. Each
-//   consumer warp lists the live rows (slot in the tile) of 32 rows and
-//   spreads the (live row, column) pairs over its lanes, consecutive
+// - Adds, in fixed point: a row's g and h become int64 at a power-of-two
+//   scale 2^k (`fixed_shift`: k from max|g| (max|h|) over the launch,
+//   which the wrapper computes on the card and hands in by pointer, and
+//   from R, so that R·max|g|·2^k < 2^62 and no sum overflows). A cell
+//   holds the G and H integers side by side; a value adds its low
+//   32-bit word with a native shared-memory `atomicAdd` and its high
+//   word (plus the carry) with a second only when that is not zero
+//   (`add_fixed`: a 64-bit shared add would be a compare-and-swap
+//   loop). Integer addition
+//   is associative, so the sums no longer depend on the order in which
+//   the warps race: two launches on the same inputs give the same bits.
+//   Each consumer warp lists the live rows (slot in the tile) of 32 rows
+//   and spreads the (live row, column) pairs over its lanes, consecutive
 //   lanes on consecutive columns: a dead row (the dump slot, the right
 //   children under sibling subtraction) costs no lane, and lanes of one
 //   step rarely share a cell. Cells are B + 1 apart, so lanes spread
 //   over the banks by slot and column. Where shared memory allows, the
 //   consumer warps add into `copies` replicas of the histogram, which
 //   the flush sums: fewer warps race for one cell (a zero-inflated
-//   column puts most rows on one bin). (Summing the lanes that share a
-//   cell first, `__match_any_sync`, was slower on uniform and skewed
-//   bins alike.)
+//   column puts most rows on one bin).
 // - Flush: once per block and unit key (tree, slot tile, column group),
-//   normally once per block per launch, the non-zero cells go to the
-//   (T, S, C, B) outputs with global atomics (four cells at a time, a
-//   float4 `red`, measured no faster). The wrapper zeroes the outputs.
+//   normally once per block per launch, the non-zero cells go to an
+//   int64 (2, T, S, C, B) scratch with global 64-bit atomics. Each
+//   (key, block rank) has a counter; the last cluster to flush a key
+//   (`flushers` says how many do) converts that block's slice of the
+//   key to the f32 (T, S, C, B) outputs, once: so one launch a level,
+//   and every output cell is written (the wrapper zeroes only the
+//   scratch).
 // - K4 bins each value by K2's binary lifting (`bin_of_sorted2` of
 //   binning.cuh: `bin_of_sorted` for two values at once) over its
 //   columns' cuts, staged once per column group with NaN pads
@@ -64,15 +74,18 @@
 // What bounds it on an H100: it reads each live row's bins (1 B, or 4)
 // once, each row's slot/grad/hess (12 B) once, and writes 8·S·C·B
 // bytes: at R = 2M, C = 28, S = 32 with uint8 bins ≈ 77 MB, 0.023 ms at
-// 3.35 TB/s. The shared-memory compare-and-swaps, one per live row and
-// column, take longer than that (PERF.md).
+// 3.35 TB/s. The shared-memory atomics, two per live row and column,
+// take longer than that (PERF.md).
 //
-// Precision: f32 sums throughout. The TPU kernel multiplies in bf16 on
-// the MXU by default (SHIFU_TPU_HIST_PRECISION); the port's reference is
-// the f32 route (the XLA scatter, or the interpret-mode kernel under
-// `highest`). Atomics add in an order that changes from run to run: the
-// sums are bit-exact when grad/hess are integers (below 2^24) and agree
-// within the sum's own rounding otherwise.
+// Precision: the fixed-point sums round each row's value to 2^-k, at
+// least 2^(62 - bits(R)) / max|g| steps of the largest one (2^41 at R =
+// 2M and max|g| = 1), then the exact sum rounds once to f32. The TPU
+// kernel multiplies in bf16 on the MXU by default
+// (SHIFU_TPU_HIST_PRECISION); the port's reference is the f32 route (the
+// XLA scatter, or the interpret-mode kernel under `highest`). The sums
+// are bit-exact against it when grad/hess are integers (below 2^24), and
+// within the f32 sum's own rounding otherwise; run to run they are
+// equal to the bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -88,7 +101,8 @@ constexpr int CONSUMERS = 32 * CONSUMER_WARPS;
 constexpr int THREADS = CONSUMERS + 32;  // warp 0 produces
 constexpr int MAX_STAGES = 3;
 constexpr int MAX_CLUSTER = 8;
-constexpr int HEAD = 64;  // the ring's full and empty mbarriers
+constexpr int HEAD = 64;  // the ring's full and empty mbarriers, a flag
+constexpr int FLAG = 56;  // the consumers' shared word in the head
 // a consumer warp's scratch: its list of live rows (32 ints)
 constexpr int WARP_SCRATCH = 32 * 4;
 constexpr int SCRATCH = CONSUMER_WARPS * WARP_SCRATCH;
@@ -101,7 +115,7 @@ __host__ __device__ inline int r16(int v) { return (v + 15) & ~15; }
 
 // Shared-memory layout of one block (`smem_bytes` of ops/level_hist.py):
 // the barriers, the consumer warps' scratch, `copies` replicas of the
-// (slot_tile, col_tile, B + 1) cells of (G, H) f32 pairs, K4's cuts at
+// (slot_tile, col_tile, B + 1) cells of (G, H) int64 pairs, K4's cuts at
 // search_span(K) slots a column, then `stages` ring stages of slot, grad
 // and hess buffers and one buffer a column. A buffer holds a chunk plus
 // the 16-byte windows around it.
@@ -114,7 +128,7 @@ __host__ __device__ inline Layout layout(int col_tile, int slot_tile,
                                          int stages, int es, int copies) {
   Layout l;
   l.cells = slot_tile * col_tile * (n_bins + 1);
-  l.cuts = r16(HEAD + SCRATCH + 8 * copies * l.cells);
+  l.cuts = r16(HEAD + SCRATCH + 16 * copies * l.cells);
   l.ring = r16(l.cuts + 4 * col_tile * span);
   l.row_buf = r16(4 * chunk + 32);
   // 16 bytes past a multiple of 128: the columns a warp reads at once
@@ -136,8 +150,12 @@ struct HistArgs {
   const int* slot;    // (t, r)
   const float* grad;  // (t, r)
   const float* hess;  // (t, r)
-  float* out_g;       // (t, n_slots, c, n_bins), zeroed
+  const float* gh_max;  // (2,): max |grad| and max |hess| of the launch
+  float* out_g;       // (t, n_slots, c, n_bins), every cell written
   float* out_h;
+  // zeroed int64 scratch: the (2, t, n_slots, c, n_bins) fixed-point
+  // sums, then a flush counter per (unit key, block rank)
+  unsigned long long* acc;
   int r, c, k, t, n_slots, n_bins, kind;
   // `_k3_plan` (smem: its `smem_bytes`, which the launch checks)
   int cluster, col_tile, slot_tile, chunk, stages, copies, smem;
@@ -254,23 +272,52 @@ __device__ __forceinline__ void store_tail(unsigned char* dst, const Run& w,
     dst[a - w.src] = *reinterpret_cast<const unsigned char*>(a);
 }
 
-// G and H of one cell share 8 bytes (G low, H high), so one 64-bit
-// compare-and-swap adds both: Hopper has no shared-memory f32 atomic
-// add (`atomicAdd` on a shared float is a compare-and-swap loop too).
-__device__ __forceinline__ void add_gh(unsigned long long* cell, float g,
-                                       float h) {
-  unsigned long long old =
-      *reinterpret_cast<volatile unsigned long long*>(cell);
-  for (;;) {
-    const float og = __uint_as_float((uint32_t)old);
-    const float oh = __uint_as_float((uint32_t)(old >> 32));
-    const unsigned long long nv =
-        ((unsigned long long)__float_as_uint(oh + h) << 32) |
-        __float_as_uint(og + g);
-    const unsigned long long seen = atomicCAS(cell, old, nv);
-    if (seen == old) return;
-    old = seen;
+// The fixed-point shift k of a launch: 2^k·max|v| < 2^(62 - bits(rows)),
+// so that a sum of `rows` rounded values stays below 2^62. `fixed_shift`
+// of ops/level_hist.py mirrors it.
+__device__ __forceinline__ int fixed_shift(float amax, int rows) {
+  int e;
+  frexpf(amax, &e);  // amax < 2^e (e = 0 for 0)
+  const int bits = 32 - __clz(rows);  // rows < 2^bits
+  return min(max(62 - e - bits, -126), 126);
+}
+
+// A cell is G then H, int64 each, little-endian: the low and high
+// 32-bit words of each. Hopper has no native 64-bit shared-memory
+// atomic add (`atomicAdd` on a shared 64-bit word compiles to a
+// compare-and-swap loop, ATOMS.CAST.SPIN.64), but a native 32-bit one:
+// a value adds its low word natively, and its high word plus the carry
+// out of the low word (read from the returned old value) only when that
+// is not zero, so a row whose |value| < 2^32 takes one add. The words
+// then hold the exact int64 sum, whatever the order of the adds.
+__device__ __forceinline__ void add_fixed(unsigned int* word, long long v) {
+  const unsigned int lo = (unsigned int)v;
+  const unsigned int old = atomicAdd(word, lo);
+  const int up = (int)(v >> 32) + (old + lo < old ? 1 : 0);
+  if (up) atomicAdd(word + 1, (unsigned int)up);
+}
+
+__device__ __forceinline__ void add_gh(unsigned long long* cell,
+                                       long long g, long long h) {
+  unsigned int* w = reinterpret_cast<unsigned int*>(cell);
+  add_fixed(w, g);
+  add_fixed(w + 2, h);
+}
+
+// How many clusters walk a unit of key `key` (the units of a key are
+// contiguous, each cluster's run too): the flushes the key's counter
+// waits for.
+__device__ __forceinline__ int flushers(int key, int n_chunks,
+                                        long long units,
+                                        long long n_clusters) {
+  const long long k0 = (long long)key * n_chunks, k1 = k0 + n_chunks;
+  int n = 0;
+  for (long long c = 0; c < n_clusters; ++c) {
+    const long long a = c * units / n_clusters;
+    const long long b = (c + 1) * units / n_clusters;
+    n += a < k1 && b > k0;
   }
+  return n;
 }
 
 // A unit's key (tree, slot tile, column group) and what follows from it.
@@ -311,10 +358,10 @@ level_hist_kernel(const HistArgs a) {
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + MAX_STAGES;
   // `copies` replicas of the (slot_tile, col_tile, B + 1) cells of
-  // (G, H); consumer warp w adds into replica w % copies
+  // (G, H) int64 pairs; consumer warp w adds into replica w % copies
   unsigned long long* hist0 =
       reinterpret_cast<unsigned long long*>(smem + HEAD + SCRATCH);
-  const float2* hist2 = reinterpret_cast<const float2*>(hist0);
+  int* flag = reinterpret_cast<int*>(smem + FLAG);
   float* s_cuts = reinterpret_cast<float*>(smem + L.cuts);
   unsigned char* ring = smem + L.ring;
 
@@ -403,17 +450,17 @@ level_hist_kernel(const HistArgs a) {
     // Consumers: 16 warps add chunk after chunk into the block's tile.
     const int ctid = tid - 32, cw = warp - 1;
     int* wlist = reinterpret_cast<int*>(smem + HEAD + cw * WARP_SCRATCH);
-    unsigned long long* hist = hist0 + (cw % a.copies) * L.cells;
-    // one cell summed over the replicas, in replica order
-    auto cell_sum = [&](int sm) {
-      float2 v = hist2[sm];
-      for (int q = 1; q < a.copies; ++q) {
-        const float2 w = hist2[q * L.cells + sm];
-        v.x += w.x;
-        v.y += w.y;
-      }
-      return v;
-    };
+    unsigned long long* hist = hist0 + 2 * (cw % a.copies) * L.cells;
+    // the launch's fixed-point scales (`fixed_shift`)
+    const int kg = fixed_shift(a.gh_max[0], a.r);
+    const int kh = fixed_shift(a.gh_max[1], a.r);
+    const float sg = exp2f((float)kg), sh = exp2f((float)kh);
+    const float ug = exp2f((float)-kg), uh = exp2f((float)-kh);
+    const size_t cells_out = (size_t)a.t * a.n_slots * a.c * a.n_bins;
+    unsigned long long* acc_g = a.acc;
+    unsigned long long* acc_h = a.acc + cells_out;
+    unsigned int* counts =
+        reinterpret_cast<unsigned int*>(a.acc + 2 * cells_out);
     const int top = search_top(a.k);
     Unit cur;
     cur.key = -1;
@@ -427,12 +474,41 @@ level_hist_kernel(const HistArgs a) {
       for (int i = ctid; i < x.ns * per_slot; i += CONSUMERS) {
         const int s = i / per_slot, rest = i - s * per_slot;
         const int j = rest / a.n_bins, b = rest - j * a.n_bins;
-        const int sm = (s * a.col_tile + j) * bp + b;
+        const int sm = 2 * ((s * a.col_tile + j) * bp + b);
         const size_t o = out0 + ((size_t)s * a.c + x.c0 + j) * a.n_bins + b;
-        // skipping zero cells is exact (x + 0 = x for the +0 start)
-        const float2 v = cell_sum(sm);
-        if (v.x != 0.f) atomicAdd(a.out_g + o, v.x);
-        if (v.y != 0.f) atomicAdd(a.out_h + o, v.y);
+        // the replicas' sum (integers: any order gives the same value);
+        // a zero cell adds nothing
+        unsigned long long g = hist0[sm], h = hist0[sm + 1];
+        for (int q = 1; q < a.copies; ++q) {
+          g += hist0[2 * q * L.cells + sm];
+          h += hist0[2 * q * L.cells + sm + 1];
+        }
+        if (g) atomicAdd(acc_g + o, g);
+        if (h) atomicAdd(acc_h + o, h);
+      }
+      // the last cluster to flush this key converts the block's slice
+      __threadfence();
+      consumers_sync();
+      if (ctid == 0) {
+        const int want = flushers(x.key, n_chunks, units, n_clusters);
+        *flag = atomicAdd(counts + (size_t)x.key * a.cluster + rank, 1u) ==
+                (unsigned)(want - 1);
+      }
+      consumers_sync();
+      if (!*flag) return;
+      __threadfence();
+      for (int i = ctid; i < x.ns * per_slot; i += CONSUMERS) {
+        const int s = i / per_slot, rest = i - s * per_slot;
+        const int j = rest / a.n_bins, b = rest - j * a.n_bins;
+        const size_t o = out0 + ((size_t)s * a.c + x.c0 + j) * a.n_bins + b;
+        const long long g =
+            (long long)*reinterpret_cast<volatile unsigned long long*>(
+                acc_g + o);
+        const long long h =
+            (long long)*reinterpret_cast<volatile unsigned long long*>(
+                acc_h + o);
+        a.out_g[o] = __ll2float_rn(g) * ug;
+        a.out_h[o] = __ll2float_rn(h) * uh;
       }
     };
 
@@ -442,7 +518,7 @@ level_hist_kernel(const HistArgs a) {
       if (x.key != cur.key) {
         if (cur.key >= 0) flush(cur);
         consumers_sync();  // the flush has read every cell
-        for (int q = ctid; q < a.copies * L.cells; q += CONSUMERS)
+        for (int q = ctid; q < 2 * a.copies * L.cells; q += CONSUMERS)
           hist0[q] = 0ull;
         if (FUSED && x.c0 != cur.c0) {
           stage_cuts(s_cuts, a.cuts, x.c0, x.nc, a.k, ctid, CONSUMERS);
@@ -497,7 +573,7 @@ level_hist_kernel(const HistArgs a) {
                                   cb + j * L.col_buf +
                                       ((lead0 + j * lead_step) & 15),
                                   r);
-        const int key = ((sl[r] - x.s0) * a.col_tile + j) * bp + b;
+        const int key = 2 * (((sl[r] - x.s0) * a.col_tile + j) * bp + b);
         return ok && (unsigned)b < (unsigned)a.n_bins ? key : -1;
       };
       for (int base = cw * 32; base < nr && nc; base += CONSUMERS) {
@@ -530,8 +606,12 @@ level_hist_kernel(const HistArgs a) {
           float g1, h1, g2, h2;
           const int key1 = pair(p1 < items, k, j, b1, g1, h1);
           const int key2 = pair(p2 < items, k2, j2, b2, g2, h2);
-          if (key1 >= 0) add_gh(hist + key1, g1, h1);
-          if (key2 >= 0) add_gh(hist + key2, g2, h2);
+          if (key1 >= 0)
+            add_gh(hist + key1, __float2ll_rn(g1 * sg),
+                   __float2ll_rn(h1 * sh));
+          if (key2 >= 0)
+            add_gh(hist + key2, __float2ll_rn(g2 * sg),
+                   __float2ll_rn(h2 * sh));
           __syncwarp();
           k = k2 + dk;
           j = j2 + dj;
@@ -622,7 +702,8 @@ int level_hist_max_clusters(int kind, int cluster, int smem, int* fit) {
 
 // Launches K3 (kind BINS_U8 / BINS_I32) or K4 (VALUES_F32) on `stream`,
 // a stream of the current device, after `level_hist_max_clusters` for
-// the plan on that device; out_g/out_h must be zeroed. Returns the
+// the plan on that device; `acc` must be zeroed (the outputs need not
+// be). Returns the
 // cudaError_t of the launch (0 = ok); a plan whose `smem` is not the
 // kernel's layout is refused.
 int level_hist_run(const HistArgs* p, void* stream) {

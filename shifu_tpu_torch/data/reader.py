@@ -20,8 +20,9 @@ Two routes, picked by the input as in the JAX package:
   whitespace-only lines skipped, short rows padded with "".
 
 `iter_raw_table` yields the text route's tables in chunks, as the JAX
-package's chunked reader does for delimited text (eval's audit and
-chunked reads, posttrain past the size trigger).
+package's chunked reader does for delimited text: the streaming stats,
+norm and eval, the chunked correlation and PSI, posttrain past the size
+trigger, varselect's sampled frame and eval's audit read through it.
 
 Not ported: parquet input (needs pyarrow; ROADMAP A9), remote
 filesystems, the pod-sharded read and the sharded/broadcast chunk
@@ -243,8 +244,9 @@ def iter_raw_table(mc, ds=None, chunk_rows: int = 2_000_000
     the part files, the header line skipped in the first file only:
     the chunks of the JAX package's `iter_raw_table` over delimited
     text (pandas' ``read_csv(..., chunksize=chunk_rows)`` a file, so a
-    file's last chunk may be short), row for row. Sequential, like the
-    JAX package with SHIFU_TPU_PREFETCH_DEPTH=0."""
+    file's last chunk may be short), row for row. Sequential itself: the
+    streaming steps read it ahead on a thread (`data/pipeline.prefetch`,
+    `map_stream`)."""
     ds, header, files, first_file, has_header_line, simple = \
         _table_layout(mc, ds)
     names = simple if simple is not None else list(header)

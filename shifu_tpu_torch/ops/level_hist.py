@@ -26,12 +26,15 @@ instantiated per bin type (uint8, int32, f32 values). It replaces
 matrices on the MXU; here persistent thread-block clusters keep a
 privatized (slots × columns × B) histogram in each block's shared
 memory, fed by a ring of bulk copies (the row chunk's slot/grad/hess
-multicast to the cluster), add with shared-memory atomics and flush
-once per block with global atomics. `_k3_plan` sizes the cluster, the
-tiles and the ring. Sums are f32, as the JAX package's XLA scatter
-route — not the TPU kernel's default bf16 products. Atomics reorder the
-sums: exact for integer grad/hess, within f32 rounding of the sum
-otherwise.
+multicast to the cluster), add in fixed point (int64 at a power-of-two
+scale, `fixed_shift`) with shared-memory atomics and flush once per
+block with global int64 atomics; the last block to flush a slice
+converts it to f32. `_k3_plan` sizes the cluster, the tiles and the
+ring. The reference is the JAX package's f32 XLA scatter route — not
+the TPU kernel's default bf16 products: the kernel is exact for integer
+grad/hess and within the f32 sum's rounding otherwise, and as integer
+sums do not depend on the order of the adds, two launches on the same
+inputs give the same bits.
 
 Routing has no knob: CUDA tensors launch the kernel (a failed build,
 attribute call or launch raises), CPU tensors take
@@ -44,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -52,8 +56,8 @@ from shifu_tpu_torch import _build
 from shifu_tpu_torch.ops.fused_trees import search_span
 
 __all__ = ["level_histograms", "level_histograms_fused",
-           "level_histograms_plain", "bins_from_values_plain", "launches",
-           "fused_launches"]
+           "level_histograms_plain", "bins_from_values_plain",
+           "fixed_shift", "launches", "fused_launches"]
 
 launches = 0        # K3 kernel launches of this process
 fused_launches = 0  # K4 kernel launches of this process
@@ -91,14 +95,14 @@ def smem_bytes(col_tile: int, slot_tile: int, n_bins: int, k: int,
     """`layout` of csrc/level_hist.cu, whose launch refuses a plan that
     disagrees with it: the barriers, the
     consumer warps' scratch, `copies` replicas of the (slot_tile,
-    col_tile, B + 1) cells of (G, H) f32 pairs, K4's cuts at
+    col_tile, B + 1) cells of (G, H) int64 pairs, K4's cuts at
     search_span(K) slots a column, and `stages` ring stages, each with
     slot/grad/hess buffers and a buffer a column of `es`-byte bins (each
     buffer a chunk plus the 16-byte windows around it; a column's 16
     bytes past a multiple of 128, so 8 columns start on 8 banks)."""
     cells = slot_tile * col_tile * (n_bins + 1)
     ring = _r16(_r16(HEAD + CONSUMER_WARPS * WARP_SCRATCH
-                     + 8 * copies * cells)
+                     + 16 * copies * cells)
                 + 4 * col_tile * search_span(k))
     col_buf = (es * chunk + 32 + 111) // 128 * 128 + 16
     stage = 3 * _r16(4 * chunk + 32) + col_tile * col_buf
@@ -176,6 +180,17 @@ def _k3_plan(c: int, n_slots: int, n_bins: int, k: int = 0, es: int = 1,
     while ch > MIN_CHUNK and size(ct, st, ch, stages, cp) > SMEM_MAX:
         ch -= MIN_CHUNK
     return K3Plan(cl, ct, st, ch, stages, cp, size(ct, st, ch, stages, cp))
+
+
+def fixed_shift(amax: float, rows: int) -> int:
+    """The kernel's fixed-point shift k for `rows` rows whose largest
+    |value| is `amax` (`fixed_shift` of csrc/level_hist.cu): amax <
+    2^e, rows < 2^bits, k = 62 - e - bits within [-126, 126], so
+    rows·amax·2^k < 2^62 and no int64 sum of rounded values
+    overflows."""
+    _, e = math.frexp(float(amax))
+    bits = int(rows).bit_length()
+    return min(max(62 - e - bits, -126), 126)
 
 
 def bins_from_values_plain(valuesT: torch.Tensor, cuts: torch.Tensor,
@@ -291,7 +306,8 @@ def level_histograms_fused(valuesT: torch.Tensor, cuts: torch.Tensor,
 class _Args(ctypes.Structure):
     """`HistArgs` of csrc/level_hist.cu, field for field."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
-        "cols", "cuts", "slot", "grad", "hess", "out_g", "out_h")]
+        "cols", "cuts", "slot", "grad", "hess", "gh_max", "out_g", "out_h",
+        "acc")]
         + [(n, ctypes.c_int) for n in (
             "r", "c", "k", "t", "n_slots", "n_bins", "kind", "cluster",
             "col_tile", "slot_tile", "chunk", "stages", "copies", "smem",
@@ -352,14 +368,27 @@ def _launch(cols: torch.Tensor, cuts: Optional[torch.Tensor], slot, grad,
     if plan is None:
         plan = plan_for(cols, cuts, slot, n_slots, n_bins)
     lead = (t,) if slot.dim() == 2 else ()
-    out_g = torch.zeros(lead + (n_slots, c, n_bins), dtype=torch.float32,
-                        device=cols.device)
-    out_h = torch.zeros_like(out_g)
+    shape = lead + (n_slots, c, n_bins)
+    if r == 0:
+        return (torch.zeros(shape, device=cols.device),
+                torch.zeros(shape, device=cols.device))
+    out_g = torch.empty(shape, dtype=torch.float32, device=cols.device)
+    out_h = torch.empty_like(out_g)
+    # the launch's scales come from max |grad| and max |hess|, read by
+    # the kernel on the card (no host sync)
+    gh_max = torch.stack((torch.linalg.vector_norm(grad, math.inf),
+                          torch.linalg.vector_norm(hess, math.inf)))
+    # the int64 sums of G and H, then a counter per (key, block rank)
+    keys = (-(-c // (plan.cluster * plan.col_tile))
+            * -(-n_slots // plan.slot_tile) * t)
+    acc = torch.zeros(2 * out_g.numel() + keys * plan.cluster,
+                      dtype=torch.int64, device=cols.device)
     kind, dev = KINDS[cols.dtype], cols.device.index
     args = _Args(cols.data_ptr(),
                  cuts.data_ptr() if cuts is not None else None,
                  slot.data_ptr(), grad.data_ptr(), hess.data_ptr(),
-                 out_g.data_ptr(), out_h.data_ptr(), r, c,
+                 gh_max.data_ptr(), out_g.data_ptr(), out_h.data_ptr(),
+                 acc.data_ptr(), r, c,
                  cuts.shape[1] if cuts is not None else 0, t, n_slots,
                  n_bins, kind, plan.cluster, plan.col_tile, plan.slot_tile,
                  plan.chunk, plan.stages, plan.copies, plan.smem,

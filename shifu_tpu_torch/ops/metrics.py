@@ -20,8 +20,10 @@ and repeats the reference's sequential f32 adds on the host past it
 (`f32_sequential_sums`), so it has no scatter-add whose order could
 move the result, and the card and the CPU agree on it.
 
-`ScoreHistogram`, the streaming eval's mergeable histogram, is not
-ported yet (ROADMAP A6).
+`ScoreHistogram` is the streaming eval's mergeable histogram: chunks of
+(score, label, weight) add into 2^20 uniform float64 buckets on
+`device`, and every curve metric then derives on the host from the
+buckets' cumulative TP/FP, as the JAX package's class does.
 """
 
 from __future__ import annotations
@@ -258,3 +260,130 @@ def confusion_matrix_table(scores, labels, weights,
                   tot_p - tp[i], wtp[i], wfp[i], tot_wn - wfp[i],
                   tot_wp - wtp[i])
     return out
+
+
+class ScoreHistogram:
+    """Mergeable fixed-resolution score histogram of the streaming eval
+    (`shifu_tpu/ops/metrics.py` `ScoreHistogram`).
+
+    Chunks of (score, label, weight) add into 2^20 uniform buckets over
+    [lo, hi] (four float64 sums a bucket, kept on `device`); the metrics
+    then derive from the buckets' cumulative TP/FP exactly as the sorted
+    path derives them from the rows. That equals the exact metrics of
+    scores quantized to (hi - lo) / 2^20 — about 1e-6 at a sigmoid
+    score's range, the precision EvalScore.csv prints — at O(buckets)
+    memory and one pass a chunk."""
+
+    N_BUCKETS = 1 << 20
+
+    def __init__(self, lo: float, hi: float,
+                 device: "str | torch.device" = "cuda"):
+        self.lo = float(lo)
+        self.hi = float(hi) if hi > lo else float(lo) + 1.0
+        self.device = torch.device(device)
+        # unit positive / negative counts, weighted positive / negative
+        self.sums = torch.zeros((4, self.N_BUCKETS), dtype=torch.float64,
+                                device=self.device)
+
+    def add(self, scores, labels, weights) -> None:
+        """Add a chunk: (n,) scores, labels in {0, 1} and weights, numpy
+        arrays or tensors (moved to the histogram's device)."""
+        def f64(a):
+            return torch.as_tensor(a).to(device=self.device,
+                                         dtype=torch.float64)
+        k = self.N_BUCKETS
+        b = ((f64(scores) - self.lo) / (self.hi - self.lo) * k).long() \
+            .clamp(0, k - 1)
+        y, w = f64(labels), f64(weights)
+        for row, v in enumerate((y, 1.0 - y, y * w, (1.0 - y) * w)):
+            self.sums[row].index_add_(0, b, v)
+
+    def merge(self, other: "ScoreHistogram") -> None:
+        """Add another histogram over the same range."""
+        if (other.lo, other.hi) != (self.lo, self.hi):
+            raise ValueError("histograms over different score ranges")
+        self.sums += other.sums.to(self.device)
+
+    def _cumulatives(self) -> Dict[str, np.ndarray]:
+        """Descending-score cumulative curves over the non-empty buckets
+        (the shape of `_sorted_cumulatives`' output)."""
+        tp, fp, wtp, wfp = self.sums.cpu().numpy()
+        idx = np.nonzero((tp + fp) > 0)[0][::-1]      # high score first
+        centers = self.lo + (idx + 0.5) / self.N_BUCKETS \
+            * (self.hi - self.lo)
+        return {"scores": centers, "cum_tp": np.cumsum(tp[idx]),
+                "cum_fp": np.cumsum(fp[idx]),
+                "cum_wtp": np.cumsum(wtp[idx]),
+                "cum_wfp": np.cumsum(wfp[idx]),
+                "bucket_n": tp[idx] + fp[idx]}
+
+    def performance_result(self, n_buckets: int = 10,
+                           score_scale: float = 1.0) -> Dict:
+        """The dict of `performance_result` (bucket rows cut at equal
+        population fractions, trapezoid AUCs)."""
+        cum = self._cumulatives()
+        if cum["scores"].size == 0:
+            return {"version": "tpu-0.1", "areaUnderRoc": 0.5,
+                    "weightedAreaUnderRoc": 0.5, "areaUnderPr": 0.0,
+                    "pr": [], "roc": [], "gains": []}
+        tp, fp = cum["cum_tp"], cum["cum_fp"]
+        wtp, wfp = cum["cum_wtp"], cum["cum_wfp"]
+        s = cum["scores"]
+        n = tp[-1] + fp[-1]
+        tot_p, tot_n = max(tp[-1], 1e-12), max(fp[-1], 1e-12)
+        tot_wp, tot_wn = max(wtp[-1], 1e-12), max(wfp[-1], 1e-12)
+        pop = np.cumsum(cum["bucket_n"])
+        cuts = np.arange(1, n_buckets + 1) / n_buckets * n
+        idx = np.unique(np.searchsorted(pop, cuts).clip(0, len(pop) - 1))
+        pr_rows, roc_rows, gain_rows = [], [], []
+        for i in idx:
+            depth = pop[i] / n
+            common = {"binLowestScore": float(s[i]) * score_scale,
+                      "recall": float(tp[i] / tot_p),
+                      "weightedRecall": float(wtp[i] / tot_wp)}
+            pr_rows.append({**common,
+                            "precision": float(tp[i] / max(tp[i] + fp[i],
+                                                           1e-12)),
+                            "weightedPrecision":
+                                float(wtp[i] / max(wtp[i] + wfp[i],
+                                                   1e-12))})
+            roc_rows.append({**common, "fpr": float(fp[i] / tot_n),
+                             "weightedFpr": float(wfp[i] / tot_wn)})
+            gain_rows.append({**common, "actionRate": float(depth),
+                              "liftUnit": float((tp[i] / tot_p)
+                                                / max(depth, 1e-12)),
+                              "liftWeight": float((wtp[i] / tot_wp)
+                                                  / max(depth, 1e-12))})
+        # trapezoid AUC over every non-empty bucket (ties grouped at the
+        # bucket's resolution: the rank AUC up to quantization)
+        tpr = np.concatenate(([0.0], tp / tot_p))
+        fpr = np.concatenate(([0.0], fp / tot_n))
+        wtpr = np.concatenate(([0.0], wtp / tot_wp))
+        wfpr = np.concatenate(([0.0], wfp / tot_wn))
+        rec = np.array([r["recall"] for r in pr_rows])
+        prec = np.array([r["precision"] for r in pr_rows])
+        pr_auc = float(np.trapezoid(prec, rec)) if len(pr_rows) > 1 else 0.0
+        return {"version": "tpu-0.1",
+                "areaUnderRoc": float(np.trapezoid(tpr, fpr)),
+                "weightedAreaUnderRoc": float(np.trapezoid(wtpr, wfpr)),
+                "areaUnderPr": pr_auc,
+                "pr": pr_rows, "roc": roc_rows, "gains": gain_rows}
+
+    def confusion_table(self, n_thresholds: int = 100) -> np.ndarray:
+        """The rows of `confusion_matrix_table`."""
+        cum = self._cumulatives()
+        if cum["scores"].size == 0:
+            return np.zeros((0, 9))
+        tp, fp = cum["cum_tp"], cum["cum_fp"]
+        wtp, wfp = cum["cum_wtp"], cum["cum_wfp"]
+        tot_p, tot_n, tot_wp, tot_wn = tp[-1], fp[-1], wtp[-1], wfp[-1]
+        n = tp[-1] + fp[-1]
+        pop = np.cumsum(cum["bucket_n"])
+        cuts = np.arange(1, n_thresholds + 1) / n_thresholds * n
+        idx = np.unique(np.searchsorted(pop, cuts).clip(0, len(pop) - 1))
+        out = np.zeros((len(idx), 9))
+        for k, i in enumerate(idx):
+            out[k] = (cum["scores"][i], tp[i], fp[i], tot_n - fp[i],
+                      tot_p - tp[i], wtp[i], wfp[i], tot_wn - wfp[i],
+                      tot_wp - wtp[i])
+        return out

@@ -11,8 +11,15 @@ centres each column by its mean before the GEMMs, which Pearson does
 not see but the f32 sums do: the JAX package's raw moments cancel on a
 column whose mean² dwarfs its variance. Categorical
 columns enter as their `posRate` encoding through the port's own
-`ops/normalize` tables. A raw set past the analysis trigger, which the
-JAX package streams in exact chunks, raises (ROADMAP A6).
+`ops/normalize` tables.
+
+Past the analysis trigger (SHIFU_TPU_ANALYSIS_CHUNK_ROWS, or the raw
+size) the raw set is read in chunks, as the reference's mapper emits
+per-split partial sums (`CorrelationMapper`, merged exactly in
+`CorrelationReducer`): each chunk's four moment matrices add in float64
+on `device`, with no sampling. The shift is fixed once, from the first
+chunk's means, so every chunk sums the same shifted values and the
+chunks merge exactly.
 """
 
 from __future__ import annotations
@@ -64,15 +71,17 @@ def pearson_from_moments(n, s, ss, p) -> np.ndarray:
     return np.clip(cov / denom, -1.0, 1.0)
 
 
-def _feature_block(ctx: ProcessorContext, cols, dev: torch.device
-                   ) -> Tuple[torch.Tensor, List[str]]:
+def _feature_block(ctx: ProcessorContext, cols, dev: torch.device,
+                   df=None) -> Tuple[torch.Tensor, List[str]]:
     """(x, names): numeric raw values + categorical posRate encodings
-    (like NormPearson mode correlating normalized values), x on
-    `dev`."""
+    (like NormPearson mode correlating normalized values), x on `dev`,
+    for the whole raw set or one chunk `df` (categorical codes are
+    pinned to the stats vocabularies, so chunks encode alike)."""
     from shifu_tpu_torch.ops.normalize import (build_categorical_table,
                                                gather_cat_lut)
     mc = ctx.model_config
-    dset = norm_proc.load_dataset_for_columns(mc, ctx.column_configs, cols)
+    dset = norm_proc.load_dataset_for_columns(mc, ctx.column_configs, cols,
+                                              df=df)
     blocks, names = [], []
     if dset.numeric.shape[1]:
         blocks.append(torch.as_tensor(
@@ -103,26 +112,37 @@ def run(ctx: ProcessorContext, device: "str | torch.device" = "cuda",
     cols = norm_proc.selected_candidates(ctx.column_configs)
     chunk_rows = analysis_chunk_rows(ctx)
     if chunk_rows:
-        raise NotImplementedError(
-            "correlation: the dataset is past the analysis trigger "
-            f"(chunk rows {chunk_rows}); the exact chunked accumulation is "
-            "not ported yet (ROADMAP A6) — set "
-            "SHIFU_TPU_ANALYSIS_CHUNK_ROWS=0 to read it whole")
-    x, names = _feature_block(ctx, cols, dev)
-    if not x.shape[0]:
+        from shifu_tpu_torch.data.pipeline import prefetch
+        from shifu_tpu_torch.data.reader import iter_raw_table
+        log.info("correlation: dataset exceeds the resident threshold — "
+                 "exact streaming accumulation in %d-row chunks",
+                 chunk_rows)
+        frames = prefetch(iter_raw_table(ctx.model_config,
+                                         chunk_rows=chunk_rows))
+    else:
+        frames = [None]     # one resident read, same path
+    # f32 GEMMs over the columns shifted by their f32 means, summed and
+    # finished in f64: the JAX package's raw moments lose ~1e-5 of a
+    # Pearson value to cancellation on a posRate column (mean² ≫
+    # variance) at 262,144 rows. The first block's means fix the shift.
+    acc, shift, names, rows = None, None, None, 0
+    for df in frames:
+        x, names = _feature_block(ctx, cols, dev, df)
+        if not x.shape[0]:
+            continue
+        if shift is None:
+            shift = torch.nan_to_num(torch.nanmean(x, dim=0))
+        parts = [m.double() for m in pearson_moments(x, shift)]
+        acc = parts if acc is None else [a + b for a, b in zip(acc, parts)]
+        rows += int(x.shape[0])
+    if acc is None:
         raise ValueError(
             "correlation: no valid rows — check filterExpressions / "
             "pos+neg tags against the data")
-    # f32 GEMMs over the columns centred by their f32 means, finished in
-    # f64 on the host: the JAX package's raw moments lose ~1e-5 of a
-    # Pearson value to cancellation on a posRate column (mean² ≫
-    # variance) at 262,144 rows
-    shift = torch.nan_to_num(torch.nanmean(x, dim=0))
-    acc = [m.cpu().numpy().astype(np.float64)
-           for m in pearson_moments(x, shift)]
+    acc = [m.cpu().numpy() for m in acc]
     corr = pearson_from_moments(*acc)
     if report is not None:
-        report.update(rows=int(x.shape[0]), columns=len(names))
+        report.update(rows=rows, columns=len(names))
 
     out = ctx.path_finder.correlation_path()
     ctx.path_finder.ensure(out)

@@ -11,8 +11,9 @@ champion score column), EvalConfusionMatrix.csv, gainchart.{html,csv};
 `-norm` writes EvalNorm.csv and `-audit` ``tmp/<set>_<eval>_audit.data``.
 
 Each entry point takes a `report` dict that receives the rows scored
-(``rows``), the seconds spent reading the raw set (``read_s``) and in
-`Scorer.score` (``score_s``); `cli.py` prints them.
+(``rows``), the seconds spent reading the raw set (``read_s``), in
+`Scorer.score` (``score_s``) and, streaming, writing EvalScore.csv and
+the score dump (``write_s``); `cli.py` prints them.
 
 A multi-class model set (more than two tags) is scored by
 `Scorer.score_multiclass` on the resident path: `eval -run` writes the
@@ -21,9 +22,14 @@ the accuracy and per-class precision/recall/F1 in
 EvalPerformance.json; `-score` and `-audit` write its class columns;
 `-confmat`/`-perf` refuse it (binary-model steps).
 
-Not ported, each raising and naming its ROADMAP item: the streaming
-`run_one` of an eval set past the size trigger, with its score
-histogram, and the streaming multi-class eval (A6). The port is one
+Past the size trigger (SHIFU_TPU_EVAL_CHUNK_ROWS, -Dshifu.eval.chunkRows,
+the eval section's `chunkRows`, or files over
+SHIFU_TPU_EVAL_STREAM_BYTES) `eval -run` streams: chunks are built on
+the pipeline's worker threads (`data/pipeline.map_stream`), scored
+through `Scorer.score` on this thread and appended to EvalScore.csv;
+the binary metrics come from a 2^20-bucket `ScoreHistogram` over a
+float32 dump of (score, tag, weight), the multi-class ones from the
+summed C×C matrix. The port is one
 process, so every output is written by it
 (the JAX package's `_opath` multi-host writers are A8), and it writes
 no health-store metrics (A7) and no `step_guard` manifest (A8).
@@ -47,6 +53,7 @@ from shifu_tpu_torch.config.environment import knob_raw
 from shifu_tpu_torch.config.inspector import ModelStep
 from shifu_tpu_torch.config.model_config import EvalConfig, ModelConfig
 from shifu_tpu_torch.data.dataset import valid_tag_mask
+from shifu_tpu_torch.data.pipeline import map_stream
 from shifu_tpu_torch.data.purifier import DataPurifier
 from shifu_tpu_torch.data.reader import (Table, iter_raw_table, read_header,
                                          simple_column_name, to_numeric)
@@ -441,17 +448,10 @@ def run_one(ctx: ProcessorContext, ec: EvalConfig,
     mc = ctx.model_config
     chunk_rows = eval_chunk_rows(ctx, ec)
     if chunk_rows and mc.is_multi_classification:
-        raise NotImplementedError(
-            f"eval {ec.name}: the multi-class set is past the streaming "
-            f"trigger (chunk rows {chunk_rows}); the streaming multi-class "
-            "eval is not ported yet (ROADMAP A6) — set "
-            "SHIFU_TPU_EVAL_CHUNK_ROWS=0 to force the resident path")
+        return _run_multiclass_streaming(ctx, ec, chunk_rows, t0, dev,
+                                         report)
     if chunk_rows:
-        raise NotImplementedError(
-            f"eval {ec.name}: the set is past the streaming trigger (chunk "
-            f"rows {chunk_rows}); the streaming eval is not ported yet "
-            "(ROADMAP A6) — set SHIFU_TPU_EVAL_CHUNK_ROWS=0 to force the "
-            "resident path")
+        return _run_one_streaming(ctx, ec, chunk_rows, t0, dev, report)
     scores, tags, weights, dset = score_eval_set(ctx, ec, dev, report)
     if mc.is_multi_classification:
         return _finish_multiclass(ctx, ec, scores, tags, weights, t0)
@@ -518,6 +518,198 @@ def run_one(ctx: ProcessorContext, ec: EvalConfig,
              perf["areaUnderRoc"], perf["weightedAreaUnderRoc"],
              time.time() - t0)
     return perf
+
+
+def _built_chunks(ctx: ProcessorContext, ec: EvalConfig, chunk_rows: int,
+                  report: Optional[Report]):
+    """The eval set's chunks built into (dataset, cols) on the pipeline's
+    worker threads (`map_stream`: host work only; the caller scores on
+    its own thread), in file order."""
+    return map_stream(lambda df: _build_eval_dataset(ctx, ec, df=df),
+                      _chunks(ctx, ec, chunk_rows, report))
+
+
+def _run_one_streaming(ctx: ProcessorContext, ec: EvalConfig,
+                       chunk_rows: int, t0: float, dev: torch.device,
+                       report: Optional[Report]) -> Dict:
+    """Bounded-memory eval: raw chunks → score (`Scorer.score`: K1 for
+    NN/LR over a ZSCALE set, K2 for trees) → EvalScore.csv appended a
+    chunk at a time, and (score, tag, weight) appended to a float32
+    side file; the metrics then come from a 2^20-bucket
+    `ScoreHistogram` over that file (exact up to a 1e-6-of-range score
+    quantization, the precision EvalScore.csv prints). Replaces the
+    reference's eval job and on-disk score re-sort
+    (`EvalModelProcessor.java:942-1110`, `ConfusionMatrix.java:255-284`)
+    for sets larger than RAM."""
+    mc = ctx.model_config
+    scorer = _make_scorer(ctx, ec, dev)
+    base = ctx.path_finder.eval_base_path(ec.name)
+    os.makedirs(base, exist_ok=True)
+    champ_names = score_meta_columns(ctx, ec)
+    dump_path = os.path.join(base, ".scores.bin")   # (final, tag, w) f32
+    champ_dumps = {c: os.path.join(base, f".champ{i}.bin")
+                   for i, c in enumerate(champ_names)}
+    status = {"records": 0, "posCount": 0, "negCount": 0,
+              "weightedPos": 0.0, "weightedNeg": 0.0,
+              "maxScore": -np.inf, "minScore": np.inf}
+    n_chunks = 0
+    try:
+        # the score file is published only when every chunk is in: a
+        # failure leaves no truncated EvalScore.csv
+        with atomic_write(ctx.path_finder.eval_score_path(ec.name)) \
+                as score_f, open(dump_path, "wb") as dump_f, \
+                contextlib.ExitStack() as stack:
+            score_w = _ScoreCsvWriter(score_f)
+            champ_fs = {c: stack.enter_context(open(p, "wb"))
+                        for c, p in champ_dumps.items()}
+            for dset, cols in _built_chunks(ctx, ec, chunk_rows, report):
+                if not len(dset.tags):
+                    continue
+                scores = _score_dataset(mc, scorer, dset, cols, report)
+                final = scores["final"]
+                tags, weights = dset.tags, dset.weights
+                with _clock(report, "write_s"):
+                    score_w.write(scores, tags, weights)
+                    np.stack([final.astype(np.float32),
+                              tags.astype(np.float32),
+                              weights.astype(np.float32)],
+                             axis=1).tofile(dump_f)
+                    for c, fh in champ_fs.items():
+                        raw = dset.meta.get(c)
+                        vals = np.full(len(tags), np.nan, np.float32) \
+                            if raw is None or len(raw) != len(tags) \
+                            else to_numeric(raw).astype(np.float32)
+                        np.stack([vals, tags.astype(np.float32),
+                                  weights.astype(np.float32)],
+                                 axis=1).tofile(fh)
+                pos = tags > 0.5
+                status["records"] += int(len(final))
+                status["posCount"] += int(pos.sum())
+                status["negCount"] += int((~pos).sum())
+                status["weightedPos"] += float(weights[pos].sum())
+                status["weightedNeg"] += float(weights[~pos].sum())
+                if len(final):
+                    status["maxScore"] = max(status["maxScore"],
+                                             float(final.max()))
+                    status["minScore"] = min(status["minScore"],
+                                             float(final.min()))
+                n_chunks += 1
+            if status["records"] == 0:
+                raise ValueError(f"eval set {ec.name}: no scorable rows")
+        return _finish_streaming(ctx, ec, chunk_rows, t0, status, n_chunks,
+                                 dump_path, champ_dumps, champ_names, dev)
+    finally:
+        # the dumps are scratch of this call: removed on every exit
+        for p in (dump_path, *champ_dumps.values()):
+            if os.path.exists(p):
+                os.remove(p)
+
+
+def _hist_from_dump(path: str, dev: torch.device):
+    """`ScoreHistogram` over a (score, tag, weight) f32 dump, or None
+    when it holds no finite score (a champion column that never parsed:
+    the resident path warns and skips it too). The min/max scan and the
+    adds go a block at a time, so memory stays bounded."""
+    from shifu_tpu_torch.ops.metrics import ScoreHistogram
+    mm = np.memmap(path, np.float32, mode="r").reshape(-1, 3)
+    step = 16_000_000
+    lo, hi = np.inf, -np.inf
+    for a in range(0, len(mm), step):
+        s = mm[a:a + step, 0]
+        s = s[np.isfinite(s)]
+        if s.size:
+            lo = min(lo, float(s.min()))
+            hi = max(hi, float(s.max()))
+    if not np.isfinite(lo):
+        return None
+    h = ScoreHistogram(lo, hi, device=dev)
+    for a in range(0, len(mm), step):
+        blk = np.asarray(mm[a:a + step])
+        m = np.isfinite(blk[:, 0])
+        h.add(blk[m, 0], (blk[m, 1] > 0.5).astype(np.float64), blk[m, 2])
+    return h
+
+
+def _finish_streaming(ctx, ec, chunk_rows, t0, status, n_chunks,
+                      dump_path, champ_dumps, champ_names,
+                      dev: torch.device) -> Dict:
+    """The metrics and outputs of a streaming eval from its dumps."""
+    from shifu_tpu_torch.ops.metrics import ScoreHistogram
+    mc = ctx.model_config
+    base = ctx.path_finder.eval_base_path(ec.name)
+    hist = _hist_from_dump(dump_path, dev)
+    if hist is None:
+        raise ValueError(f"eval set {ec.name}: no finite model scores")
+    perf = hist.performance_result(n_buckets=ec.performanceBucketNum,
+                                   score_scale=float(ec.scoreScale))
+    status["maxScore"] = float(status["maxScore"])
+    status["minScore"] = float(status["minScore"])
+    perf["scoreStatus"] = status
+    perf["streaming"] = {"chunkRows": chunk_rows, "chunks": n_chunks,
+                         "scoreQuantBuckets": ScoreHistogram.N_BUCKETS}
+    champions = {}
+    for c in champ_names:
+        ch = _hist_from_dump(champ_dumps[c], dev)
+        if ch is None:
+            log.warning("champion column %r has no numeric scores", c)
+            continue
+        cperf = ch.performance_result(n_buckets=ec.performanceBucketNum,
+                                      score_scale=float(ec.scoreScale))
+        champions[c] = cperf
+        with atomic_write(os.path.join(
+                base, f"EvalPerformance-{c}.json")) as f:
+            json.dump(cperf, f, indent=1)
+        log.info("eval[%s] champion %s: AUC=%.4f (challenger %.4f)",
+                 ec.name, c, cperf["areaUnderRoc"], perf["areaUnderRoc"])
+    if champions:
+        perf["championAuc"] = {c: p["areaUnderRoc"]
+                               for c, p in champions.items()}
+    _write_confusion_csv(ctx.path_finder.eval_confusion_path(ec.name),
+                         hist.confusion_table())
+    _write_perf_outputs(ctx, ec, perf)
+    log.info("eval[%s] streaming: %d rows in %d chunks, AUC=%.4f "
+             "(weighted %.4f) in %.2fs; no health-store metrics "
+             "(ROADMAP A7)", ec.name, status["records"], n_chunks,
+             perf["areaUnderRoc"], perf["weightedAreaUnderRoc"],
+             time.time() - t0)
+    return perf
+
+
+def _run_multiclass_streaming(ctx: ProcessorContext, ec: EvalConfig,
+                              chunk_rows: int, t0: float,
+                              dev: torch.device,
+                              report: Optional[Report]) -> Dict:
+    """Bounded-memory multi-class eval: the weighted C×C confusion
+    matrix is a sum over rows, so chunks merge exactly and every metric
+    derives from the merged matrix (the reference's streaming confusion
+    matrix, `ConfusionMatrix.java:255-284`); EvalScore.csv grows a chunk
+    at a time."""
+    mc = ctx.model_config
+    scorer = _make_scorer(ctx, ec, dev)
+    os.makedirs(ctx.path_finder.eval_base_path(ec.name), exist_ok=True)
+    n_c = len(mc.class_tags)
+    class_cols = [f"class{c}" for c in range(n_c)]
+    cm = np.zeros((n_c, n_c), np.float64)
+    records = 0
+    with atomic_write(ctx.path_finder.eval_score_path(ec.name)) as score_f:
+        score_f.write("tag,weight," + ",".join(class_cols)
+                      + ",predicted\n")
+        for dset, cols in _built_chunks(ctx, ec, chunk_rows, report):
+            if not len(dset.tags):
+                continue
+            scores = _score_dataset(mc, scorer, dset, cols, report)
+            pred = scores["final"].astype(np.int32)
+            true = dset.tags.astype(np.int32)
+            with _clock(report, "write_s"):
+                csv_out.write_rows(
+                    score_f,
+                    [true, dset.weights] + [scores[c] for c in class_cols]
+                    + [pred], ["%d", "%.6g"] + ["%.6f"] * n_c + ["%d"])
+            np.add.at(cm, (true, pred), dset.weights)
+            records += int(len(pred))
+    log.info("eval[%s]: multi-class streamed in %d-row chunks", ec.name,
+             chunk_rows)
+    return _write_multiclass_outputs(ctx, ec, cm, records, t0)
 
 
 def _finish_multiclass(ctx: ProcessorContext, ec: EvalConfig,

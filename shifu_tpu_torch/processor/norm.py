@@ -18,8 +18,11 @@ each block through `fileio.atomic_path` and meta.json last through
 half-written block.
 
 With `train#trainOnDisk` both directories also get the streaming
-trainers' `.npy` layout (`save_normalized`). Not ported: the streaming
-norm of a dataset past the size trigger (ROADMAP A6), which raises.
+trainers' `.npy` layout (`save_normalized`). Past the size trigger
+(SHIFU_TPU_NORM_CHUNK_ROWS or -Dshifu.norm.chunkRows, or raw files over
+SHIFU_TPU_NORM_STREAM_BYTES) `run` hands the step to the chunked
+two-pass writer of `processor/norm_streaming.py`, which writes that
+layout only.
 """
 
 from __future__ import annotations
@@ -288,11 +291,9 @@ def run(ctx: ProcessorContext, dataset: Optional[ColumnarDataset] = None,
     if dataset is None:
         chunk = norm_chunk_rows(ctx)
         if chunk:
-            raise NotImplementedError(
-                "norm: the dataset is past the streaming trigger (chunk "
-                f"rows {chunk}); streaming norm is not ported yet "
-                "(ROADMAP A6) — set SHIFU_TPU_NORM_CHUNK_ROWS=0 to force "
-                "the resident path")
+            from shifu_tpu_torch.processor import norm_streaming
+            return norm_streaming.run_streaming(ctx, chunk, device=dev,
+                                                report=report)
         t_read = time.perf_counter()
         dataset = load_dataset_for_columns(mc, ctx.column_configs, cols,
                                            norm_sampling=True)

@@ -9,16 +9,18 @@ averaged over cohorts, written to `columnStats.psi` and `unitStats`
 (per-cohort values) and to psi.csv. The numeric columns are binned by
 the stats step's boundaries (`ops/stats.bin_index_numeric`) and every
 (cohort, column, bin) count is one `torch.bincount` on `device`; the
-metric (`ops/stats.psi_metric`) runs on the host in float64. A raw set
-past the analysis trigger, which the JAX package streams in exact
-chunks, raises (ROADMAP A6).
+metric (`ops/stats.psi_metric`) runs on the host in float64. Past the
+analysis trigger (SHIFU_TPU_ANALYSIS_CHUNK_ROWS, or the raw size) the
+raw set is read in chunks and each chunk's integer counts add into a
+cohort's (C, S) block: the counts, and so every psi, equal the resident
+run's exactly.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -66,43 +68,90 @@ def run(ctx: ProcessorContext, device: "str | torch.device" = "cuda",
                          "cohort column (e.g. a month field) to compute PSI")
     chunk_rows = analysis_chunk_rows(ctx)
     if chunk_rows:
-        raise NotImplementedError(
-            "psi: the dataset is past the analysis trigger (chunk rows "
-            f"{chunk_rows}); the exact chunked accumulation is not ported "
-            "yet (ROADMAP A6) — set SHIFU_TPU_ANALYSIS_CHUNK_ROWS=0 to "
-            "read it whole")
+        from shifu_tpu_torch.data.pipeline import prefetch
+        from shifu_tpu_torch.data.reader import iter_raw_table
+        log.info("psi: dataset exceeds the resident threshold — exact "
+                 "streaming accumulation in %d-row chunks", chunk_rows)
+        frames = prefetch(iter_raw_table(mc, chunk_rows=chunk_rows))
+    else:
+        frames = [read_raw_table(mc)]
 
     cols = norm_proc.selected_candidates(ctx.column_configs)
-    df = read_raw_table(mc)
-    if mc.dataSet.filterExpressions:
-        df = df.select(DataPurifier(mc.dataSet.filterExpressions).apply(df))
-    if psi_col not in df:
-        raise ValueError(f"psiColumnName {psi_col!r} not in data header")
     vocabs = {c.columnNum: (c.columnBinning.binCategory or [])
               for c in cols if c.is_categorical}
-    dset = build_columnar(mc, norm_proc._restrict(ctx.column_configs, cols),
-                          df, vocabs=vocabs)
-    # build_columnar drops invalid-tag rows: align the cohorts with it
+    num_by = {c.columnNum: c for c in cols if c.is_numerical}
     tgt = simple_column_name(mc.dataSet.targetColumnName.split("|")[0])
-    tags_all = parse_tags(string_column(df[tgt]), mc.pos_tags, mc.neg_tags)
-    cohorts = string_column(df[psi_col])[~np.isnan(tags_all)]
-    uniq, cohort_ids = np.unique(cohorts, return_inverse=True)
-    uniq = [str(u) for u in uniq]
-    cohort_t = torch.as_tensor(cohort_ids.reshape(-1), device=dev)
+    purifier = DataPurifier(mc.dataSet.filterExpressions) \
+        if mc.dataSet.filterExpressions else None
+    # cohort → [numeric (C_num, S_num) counts, categorical (C_cat, S_cat)
+    # counts]: integer sums, so chunks merge exactly
+    counts: Dict[str, List[Optional[np.ndarray]]] = {}
+    cuts = None
+    num_slots = cat_slots = 0
+    num_column_nums = cat_column_nums = None
+    n_rows = 0
+    for df in frames:
+        if purifier is not None:
+            df = df.select(purifier.apply(df))
+        if psi_col not in df:
+            raise ValueError(f"psiColumnName {psi_col!r} not in data "
+                             "header")
+        dset = build_columnar(mc, norm_proc._restrict(ctx.column_configs,
+                                                      cols),
+                              df, vocabs=vocabs)
+        # build_columnar drops invalid-tag rows: align the cohorts
+        tags_all = parse_tags(string_column(df[tgt]), mc.pos_tags,
+                              mc.neg_tags)
+        cohorts = string_column(df[psi_col])[~np.isnan(tags_all)]
+        if not len(cohorts):
+            continue
+        n_rows += len(cohorts)
+        uniq, cohort_ids = np.unique(cohorts, return_inverse=True)
+        cohort_t = torch.as_tensor(cohort_ids.reshape(-1), device=dev)
+        blocks = []
+        if dset.numeric.shape[1]:
+            if cuts is None:
+                ordered = [num_by[int(n)] for n in dset.num_column_nums
+                           if int(n) in num_by]
+                cuts = build_numeric_table(ordered, mc.stats.maxNumBin).cuts
+                num_slots = cuts.shape[0] + 2
+                num_column_nums = dset.num_column_nums
+            bi = stats_ops.bin_index_numeric(
+                torch.as_tensor(np.ascontiguousarray(dset.numeric,
+                                                     np.float32),
+                                device=dev), torch.as_tensor(cuts,
+                                                             device=dev))
+            blocks.append((0, bi, num_slots))
+        if dset.cat_codes.shape[1]:
+            if not cat_slots:
+                cat_slots = max(len(v) for v in dset.vocabs) + 2
+                cat_column_nums = dset.cat_column_nums
+            blocks.append((1, torch.as_tensor(dset.cleaned_codes(),
+                                              device=dev), cat_slots))
+        for which, bin_idx, n_slots in blocks:
+            per = cohort_bin_counts(bin_idx, cohort_t, len(uniq), n_slots)
+            for ui, u in enumerate(uniq.tolist()):
+                slot = counts.setdefault(str(u), [None, None])
+                slot[which] = per[ui] if slot[which] is None \
+                    else slot[which] + per[ui]
 
+    uniq = sorted(counts)
     cc_by_num = {c.columnNum: c for c in ctx.column_configs}
     rows: List[str] = []
 
-    def finalize(per_cohort: np.ndarray, col_nums) -> None:
+    def finalize(which: int, col_nums) -> None:
+        per_cohort = [counts[u][which] for u in uniq]     # (C, S) each
+        if not per_cohort or per_cohort[0] is None:
+            return
         # every kept row has a cohort: the all-rows distribution is the
         # sum over cohorts
-        glob = per_cohort.sum(axis=0)
+        glob = np.sum(per_cohort, axis=0)
         for j, cn in enumerate(col_nums):
             cc = cc_by_num[int(cn)]
             g = glob[j] / max(glob[j].sum(), 1)
             unit = []
             for ui in range(len(uniq)):
-                c_counts = per_cohort[ui, j]
+                c_counts = per_cohort[ui][j]
                 c_dist = c_counts / max(c_counts.sum(), 1)
                 unit.append(stats_ops.psi_metric(c_dist, g))
             cc.columnStats.psi = float(np.mean(unit)) if unit else 0.0
@@ -111,22 +160,10 @@ def run(ctx: ProcessorContext, device: "str | torch.device" = "cuda",
             rows.append(f"{cc.columnName},{cc.columnStats.psi:.6f}," +
                         ",".join(f"{v:.6f}" for v in unit))
 
-    if len(cohorts) and dset.numeric.shape[1]:
-        num_by = {c.columnNum: c for c in cols if c.is_numerical}
-        ordered = [num_by[int(n)] for n in dset.num_column_nums
-                   if int(n) in num_by]
-        cuts = build_numeric_table(ordered, mc.stats.maxNumBin).cuts
-        bi = stats_ops.bin_index_numeric(
-            torch.as_tensor(np.ascontiguousarray(dset.numeric, np.float32),
-                            device=dev), torch.as_tensor(cuts, device=dev))
-        finalize(cohort_bin_counts(bi, cohort_t, len(uniq),
-                                   cuts.shape[0] + 2), dset.num_column_nums)
-    if len(cohorts) and dset.cat_codes.shape[1]:
-        vlen = max(len(v) for v in dset.vocabs)
-        finalize(cohort_bin_counts(torch.as_tensor(dset.cleaned_codes(),
-                                                   device=dev),
-                                   cohort_t, len(uniq), vlen + 2),
-                 dset.cat_column_nums)
+    if num_column_nums is not None:
+        finalize(0, num_column_nums)
+    if cat_column_nums is not None:
+        finalize(1, cat_column_nums)
 
     out = ctx.path_finder.psi_path()
     ctx.path_finder.ensure(out)
@@ -135,7 +172,7 @@ def run(ctx: ProcessorContext, device: "str | torch.device" = "cuda",
         f.write("\n".join(rows) + "\n")
     ctx.save_column_configs()
     if report is not None:
-        report.update(rows=len(cohorts), cohorts=len(uniq))
+        report.update(rows=n_rows, cohorts=len(uniq))
     log.info("psi: %d cohorts × %d columns → %s in %.2fs", len(uniq),
              len(rows), out, time.time() - t0)
     return 0

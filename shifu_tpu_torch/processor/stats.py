@@ -15,9 +15,11 @@ column on the host (`ops/rebin.py`), with no data pass. The
 `-correlation` and `-psi` variants are `processor/correlation.py` and
 `processor/psi.py`.
 
-Where the JAX package would take a path the port does not have yet,
-`run` raises and names the queue item instead of answering otherwise:
-the streaming stats of a dataset past the size trigger (ROADMAP A6).
+Past the size trigger (SHIFU_TPU_STATS_CHUNK_ROWS or -Dshifu.stats.
+chunkRows, or raw files over SHIFU_TPU_STATS_STREAM_BYTES) `run` hands
+the step to the chunked two-pass sketch of
+`processor/stats_streaming.py`, except that an automatic trigger stays
+resident for segment expansion and DateStats, as in the JAX package.
 The `-seg`, `-seg-merge` and `-base-only` variants (the DAG's
 per-segment siblings, A8) raise in the CLI.
 """
@@ -25,7 +27,6 @@ per-segment siblings, A8) raise in the CLI.
 from __future__ import annotations
 
 import logging
-import os
 import time
 from typing import Dict, Optional
 
@@ -33,7 +34,6 @@ import numpy as np
 import torch
 
 from shifu_tpu_torch.config.column_config import ColumnConfig
-from shifu_tpu_torch.config.environment import knob_raw
 from shifu_tpu_torch.config.inspector import ModelStep
 from shifu_tpu_torch.data import segment
 from shifu_tpu_torch.data.dataset import ColumnarDataset, build_columnar
@@ -44,21 +44,8 @@ from shifu_tpu_torch.ops.binning import cap_categories, \
     compute_numeric_binning
 from shifu_tpu_torch.processor.base import ProcessorContext
 from shifu_tpu_torch.processor import datestat
-from shifu_tpu_torch.processor.chunking import chunk_rows_for
 
 log = logging.getLogger("shifu_tpu_torch")
-
-
-def stats_chunk_rows(ctx: ProcessorContext) -> int:
-    return chunk_rows_for(ctx, ("shifu.stats.chunkRows",
-                                "SHIFU_TPU_STATS_CHUNK_ROWS"),
-                          "SHIFU_TPU_STATS_STREAM_BYTES",
-                          ctx.model_config.dataSet.dataPath, "stats")
-
-
-def _explicitly_requested() -> bool:
-    return bool(os.environ.get("shifu.stats.chunkRows")
-                or knob_raw("SHIFU_TPU_STATS_CHUNK_ROWS"))
 
 
 def run(ctx: ProcessorContext, dataset: Optional[ColumnarDataset] = None,
@@ -77,19 +64,17 @@ def run(ctx: ProcessorContext, dataset: Optional[ColumnarDataset] = None,
     df = None
     exprs = segment.segment_expressions(mc)
     if dataset is None:
-        chunk = stats_chunk_rows(ctx)
-        if chunk and not _explicitly_requested() and \
+        from shifu_tpu_torch.processor import stats_streaming
+        chunk = stats_streaming.stats_chunk_rows(ctx)
+        if chunk and not stats_streaming.explicitly_requested() and \
                 (exprs or datestat.date_column_name(mc)):
             log.warning("stats: dataset exceeds the streaming threshold "
                         "but segment expansion / DateStats need the "
                         "resident path — running resident")
             chunk = 0
         if chunk:
-            raise NotImplementedError(
-                "stats: the dataset is past the streaming trigger "
-                f"(chunk rows {chunk}); streaming stats are not ported "
-                "yet (ROADMAP A6) — set SHIFU_TPU_STATS_CHUNK_ROWS=0 to "
-                "force the resident path")
+            return stats_streaming.run_streaming(ctx, chunk, seed, dev,
+                                                 report)
         t_read = time.perf_counter()
         df = _resident_frame(ctx, seed)
         if report is not None:

@@ -21,8 +21,12 @@
   `train_tree.run_tree` (kernels K3/K4 and K5 on the card) and ranks
   columns by the gains the trees keep.
 
-The `step_guard` completion manifest is ROADMAP A8; a set past the
-analysis trigger raises in `chunking.analysis_frame` (A6).
+Past the analysis trigger (SHIFU_TPU_ANALYSIS_CHUNK_ROWS, or the raw
+size) SE/ST/SC and V read a uniform sample of at most
+SHIFU_TPU_ANALYSIS_MAX_ROWS rows (`chunking.analysis_frame`, read in
+chunks and cached on the context), and se.0 says so in its first line;
+FI reads what `norm` writes (the streaming norm past the norm trigger).
+The `step_guard` completion manifest is ROADMAP A8.
 """
 
 from __future__ import annotations
@@ -44,11 +48,15 @@ from shifu_tpu_torch.fileio import atomic_write
 from shifu_tpu_torch.models import nn as nn_mod
 from shifu_tpu_torch.processor import norm as norm_proc
 from shifu_tpu_torch.processor.base import ProcessorContext
-from shifu_tpu_torch.processor.chunking import analysis_frame
+from shifu_tpu_torch.processor import chunking
 from shifu_tpu_torch.train import optimizers
 from shifu_tpu_torch.train.trainer import train_nn
 
 log = logging.getLogger("shifu_tpu_torch")
+
+
+def analysis_frame(ctx):
+    return chunking.analysis_frame(ctx, log_to=log)
 
 # bytes of the wiped inputs of one chunk of column ablations
 SENSITIVITY_CHUNK_BYTES = 2 * 1024 ** 3
@@ -297,6 +305,13 @@ def _filter_by_sensitivity(ctx: ProcessorContext,
     ctx.path_finder.ensure(se_path)
     ranked = sorted(per_col.items(), key=lambda kv: -kv[1])
     with atomic_write(se_path) as f:
+        samp = getattr(ctx, "_analysis_frame", None)
+        if samp is not None:
+            # the one analysis step that samples: mark it, so the
+            # ranking is never taken for a full-data pass
+            f.write(f"# sensitivity computed on a {len(samp)}-row "
+                    "uniform sample of a >RAM dataset "
+                    "(SHIFU_TPU_ANALYSIS_MAX_ROWS)\n")
         for name, d in ranked:
             f.write(f"{name}\t{d:.8g}\n")
 

@@ -25,9 +25,9 @@ other, then holds every output against the JAX package's with
   column, and `-new` / `-list` / `-delete`;
 - an eval set's `customPaths.modelsPath` models join the ensemble;
 - `-norm` and `-score` read in chunks equal the resident run byte for
-  byte; the streaming `eval`, binary and multi-class, raises and names
-  ROADMAP A6 (the resident multi-class paths are held in
-  `test_torch_train_dense.py`).
+  byte; the streaming `eval`, binary and multi-class, equals the JAX
+  package's streaming eval (more in `test_torch_eval_streaming.py`; the
+  resident multi-class paths are held in `test_torch_train_dense.py`).
 """
 
 import json
@@ -280,18 +280,24 @@ def test_chunked_norm_and_score_equal_resident(sets, tmp_path,
 
 
 def test_streaming_and_multiclass_paths_raise(sets, tmp_path, monkeypatch):
-    from tests.synth import make_model_set
-    root = copy_set(sets("RF"), tmp_path / "rf")
-    monkeypatch.setenv("SHIFU_TPU_EVAL_CHUNK_ROWS", "37")
-    with pytest.raises(NotImplementedError, match="A6"):
-        port(root, "eval")
+    """Past the trigger `eval` streams instead of raising: the binary
+    streaming eval of the RF set equals the JAX package's streaming
+    eval, and the multi-class one writes the same C×C matrix
+    (tests/test_torch_eval_streaming.py holds both at more widths)."""
+    from tests.test_torch_eval_streaming import multiclass_set, \
+        streamed_pair
+    want, got = streamed_pair(sets("RF"), tmp_path / "rf", monkeypatch,
+                              chunk="37")
+    assert_eval_outputs(got, want, "RF")
+    with open(os.path.join(got, "evals", "Eval1",
+                           "EvalPerformance.json")) as f:
+        assert json.load(f)["streaming"]["chunkRows"] == 37
     monkeypatch.delenv("SHIFU_TPU_EVAL_CHUNK_ROWS")
-    multi = make_model_set(tmp_path / "multi", np.random.default_rng(97),
-                           n_rows=300, n_classes=3)
-    assert cli.main(["--dir", multi, "init"]) == 0
-    monkeypatch.setenv("SHIFU_TPU_EVAL_CHUNK_ROWS", "37")
-    with pytest.raises(NotImplementedError, match="multi-class.*A6"):
-        port(multi, "eval")
+    multi = multiclass_set(tmp_path / "multi", 97)
+    want, got = streamed_pair(multi, tmp_path / "mc", monkeypatch,
+                              chunk="37")
+    assert cs.compare_multiclass_eval(got, want, "Eval1", 1e-5,
+                                      rows=0)["moved_rows"] == 0
 
 
 @pytest.mark.parametrize("alg", ["GBT", "NN", "LR"])

@@ -309,6 +309,30 @@ def test_level_hist_plan_variants_and_smem(cuda):
                                plan=plan._replace(smem=plan.smem - 16))
 
 
+@pytest.mark.parametrize("n_slots", [1, 32])
+def test_level_hist_two_launches_are_bit_identical(cuda, n_slots):
+    """K3 (uint8 and int32 bins) and K4 add in fixed point, so two
+    launches on real-valued gradients give the same bits (and a forest
+    of 3 trees too)."""
+    vals, cuts, binsT, slot, grad, hess = cs.hist_inputs(
+        31 + n_slots, 500_003, n_slots, cuda, False)
+    for lead in (None, 3):
+        sl, g, h = (slot, grad, hess) if lead is None else (
+            x.expand(lead, -1).contiguous() for x in (slot, grad, hess))
+        for b in (binsT, binsT.to(torch.uint8)):
+            one = level_hist.level_histograms(b, sl, g, h, n_slots,
+                                              cs.GBT_BINS)
+            two = level_hist.level_histograms(b, sl, g, h, n_slots,
+                                              cs.GBT_BINS)
+            assert torch.equal(one[0], two[0]) and torch.equal(one[1],
+                                                               two[1])
+        one = level_hist.level_histograms_fused(vals, cuts, sl, g, h,
+                                                n_slots, cs.GBT_BINS)
+        two = level_hist.level_histograms_fused(vals, cuts, sl, g, h,
+                                                n_slots, cs.GBT_BINS)
+        assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+
+
 def test_level_hist_second_card(cuda):
     """K3 and K4 launch on every card present, each with the kernel's
     shared-memory limit and its occupancy set on that card (needs two

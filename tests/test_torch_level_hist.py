@@ -10,11 +10,15 @@ real ones within rtol 1e-5 and atol 1e-5·Σ|grad| (the sums are taken in
 other orders).
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from shifu_tpu.models import gbdt as jgbdt
 from shifu_tpu.ops import pallas_hist
@@ -181,12 +185,13 @@ def test_k4_equals_k3_over_binned_values():
 
 def test_tiles_fit_the_shared_memory_budget():
     """The kernel's tile choice (`_k3_plan`): the HIGGS root level fits
-    one block; the leaf level splits its columns over a cluster; slots
-    split only when one column's slots do not fit any block."""
+    one block; the leaf level splits its columns over a cluster (16-byte
+    int64 cells: six blocks of five columns); slots split only when one
+    column's slots do not fit any block."""
     root = level_hist._k3_plan(28, 1, 64, rows=2_000_000)
     assert (root.cluster, root.col_tile, root.slot_tile) == (1, 28, 1)
     leaf = level_hist._k3_plan(28, 32, 64, rows=2_000_000)
-    assert (leaf.cluster, leaf.col_tile, leaf.slot_tile) == (4, 7, 32)
+    assert (leaf.cluster, leaf.col_tile, leaf.slot_tile) == (6, 5, 32)
     wide = level_hist._k3_plan(28, 512, 64, es=4, rows=50_000, trees=3)
     assert wide.slot_tile < 512 and wide.cluster <= level_hist.MAX_CLUSTER
     k4 = level_hist._k3_plan(28, 32, 64, k=62, es=4, rows=2_000_000)
@@ -252,7 +257,18 @@ def test_k3_plan_forced_variants(n_slots, cluster, copies):
         assert (p.cluster, p.col_tile) == (cluster, -(-c // cluster))
     else:
         assert (p.cluster, p.col_tile) == (free.cluster, free.col_tile)
-    assert p.copies == (copies or free.copies)
+    if copies:
+        assert p.copies == copies
+    else:   # as many replicas (a power of two) as fit beside the ring
+        def fits(cp):
+            return level_hist.smem_bytes(
+                p.col_tile, p.slot_tile, n_bins, 0, level_hist.MIN_CHUNK,
+                level_hist.MAX_STAGES, 1, cp) <= level_hist.SMEM_MAX
+        assert p.copies == 1 or fits(p.copies)
+        assert 2 * p.copies > level_hist.CONSUMER_WARPS or \
+            not fits(2 * p.copies)
+        if (p.cluster, p.col_tile) == (free.cluster, free.col_tile):
+            assert p.copies == free.copies
     assert p.smem <= level_hist.SMEM_MAX
     assert p.smem == level_hist.smem_bytes(p.col_tile, p.slot_tile, n_bins,
                                            0, p.chunk, p.stages, 1,
@@ -430,3 +446,36 @@ def test_cuda_route_never_falls_back_to_plain():
                                     grad.to("meta"), hess.to("meta"), 4, 16)
     with pytest.raises(ValueError, match="does not match"):
         level_hist.level_histograms(binsT, slot, grad[:-1], hess, 4, 16)
+
+
+@settings(max_examples=300, deadline=None)
+@given(amax=st.floats(min_value=0.0, max_value=float(np.float32(3.0e38)), allow_nan=False,
+                      allow_infinity=False, width=32),
+       rows=st.integers(min_value=1, max_value=2 ** 31 - 1))
+def test_fixed_shift_keeps_every_sum_below_2_62(amax, rows):
+    """K3/K4's fixed-point scale 2^k is a power of two, and `rows`
+    values of magnitude at most `amax`, each rounded to an integer at
+    that scale, sum below 2^62 (no int64 overflow in the kernel)."""
+    k = level_hist.fixed_shift(amax, rows)
+    scale = 2.0 ** k
+    assert math.frexp(scale)[0] == 0.5
+    assert -126 <= k <= 126
+    assert rows * round(amax * scale) < 2 ** 62
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.lists(st.integers(min_value=-1024, max_value=1024), min_size=1,
+                max_size=400),
+       st.integers(min_value=1, max_value=2_000_000))
+def test_fixed_shift_keeps_integer_sums_exact(values, rows):
+    """Integer-valued gradients stay exact: each scaled value is an
+    integer, and the fixed-point sum converted back equals the f32 sum
+    (all partial sums are integers below 2^24)."""
+    rows = max(rows, len(values))
+    g = np.asarray(values, np.float32)
+    k = level_hist.fixed_shift(float(np.abs(g).max()), rows)
+    fixed = [v * 2.0 ** k for v in values]
+    assert all(f == int(f) for f in fixed)
+    total = sum(int(f) for f in fixed)
+    back = np.float32(total) * np.float32(2.0 ** -k)
+    assert back == np.float32(sum(values))

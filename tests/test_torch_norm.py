@@ -179,15 +179,20 @@ def test_cli_prints_one_json_line_a_step(tmp_path, capsys):
 
 
 def test_norm_streaming_paths_raise(tmp_path, monkeypatch):
-    """The streaming norm past the size trigger still raises (A6); with
+    """Past the size trigger the streaming norm writes the `.npy`
+    layout with its recorded validSplit, equal to the JAX package's
+    streaming norm (tests/test_torch_norm_streaming.py); with
     train#trainOnDisk the resident norm writes the streaming `.npy`
     layout, held against the JAX package's files."""
+    from tests.test_torch_norm_streaming import assert_stream_layout
     from tests.test_torch_streaming import assert_layout
     root, port = make_sets(tmp_path, 62, n_rows=300)
     run_port(port, ("init", "stats"))
+    run_jax(root, ("init", "stats"))
     monkeypatch.setenv("SHIFU_TPU_NORM_CHUNK_ROWS", "100")
-    with pytest.raises(NotImplementedError, match="A6"):
-        run_port(port, ("norm",))
+    run_port(port, ("norm",))
+    run_jax(root, ("norm",))
+    assert_stream_layout(root, port)
     monkeypatch.setenv("SHIFU_TPU_NORM_CHUNK_ROWS", "0")
     for r in (root, port):
         path = os.path.join(r, "ModelConfig.json")

@@ -395,11 +395,17 @@ def test_stats_variants_not_ported_raise(tmp_path, flag):
 
 def test_stats_streaming_trigger_and_date_stats_raise(tmp_path,
                                                       monkeypatch):
-    _, port = make_sets(tmp_path, 33, n_rows=200)
+    """Past the streaming trigger `stats` takes the chunked two-pass
+    sketch (its ColumnConfig equals the JAX package's streaming one,
+    tests/test_torch_stats_streaming.py); the resident step writes
+    DateStats."""
+    from tests.test_torch_stats_streaming import assert_streaming_configs
+    root, port = make_sets(tmp_path, 33, n_rows=200)
     run_port(port, ("init",))
     monkeypatch.setenv("SHIFU_TPU_STATS_CHUNK_ROWS", "100")
-    with pytest.raises(NotImplementedError, match="A6"):
-        run_port(port, ("stats",))
+    run_port(port, ("stats",))
+    run_jax(root, ("init", "stats"))
+    assert_streaming_configs(root, port)
     monkeypatch.setenv("SHIFU_TPU_STATS_CHUNK_ROWS", "0")
     path = os.path.join(port, "ModelConfig.json")
     with open(path) as f:
