@@ -18,10 +18,12 @@ result line is printed):
    values: landing leaves exact, scores within 1e-6;
 4. the main path: model sets written with the port's `save_model` from a
    seed (NN 600→512→256→1 served with `norm`; GBT + RF of the HIGGS
-   shape), two `ScorerService`s on the card behind `HttpFrontEnd`,
-   requests of 1/4/16/64/512 rows in process and over `POST /score`,
-   every answer held against the same service on the CPU; the kernels'
-   launch counters are zeroed just before and must have risen;
+   shape), two `ScorerService`s on the card behind `HttpFrontEnd`
+   (each (model, bucket) a captured CUDA graph), requests of
+   1/4/16/64/512 rows in process and over `POST /score`, every answer
+   held against the same service on the CPU; the kernels' launch
+   counters (a graph replay adds its kernels) are zeroed just before
+   and must have risen;
 5. per kernel, CUDA-event times of the wrapper call, its plain version
    and (K1) one f32 `torch.matmul` over the z-scored input, the kernel's
    own device time from `torch.profiler`, and the bound (K1: 3xTF32 on
@@ -82,7 +84,7 @@ result line is printed):
    each step's JSON line (device, rows, read and total seconds); the
    CPU twin's steps run beside the card's;
 11. the NN of phase 4's shape (600 → 512 → 256 → 1, weights from a
-   seed) over a raw table of 600 numeric columns and 65,536 rows (2 %
+   seed) over a raw table of 600 numeric columns and 32,768 rows (2 %
    missing tokens) made into ColumnConfig.json by the port's `init` and
    `stats` on the card: `eval` over the ZSCALE set (through K1) on the
    card and with `--device cpu` (EvalScore.csv, the AUCs and the
@@ -98,7 +100,7 @@ result line is printed):
    curve's largest value, best epochs equal, every saved array within
    1e-4 of its largest entry), LR 600 → 1 under R and the NN under ADAM
    (each bag's best val error within 1e-3 relative: sign-driven rules
-   part on near-zero gradients); at 65,536 rows the card trains the NN
+   part on near-zero gradients); at 32,768 rows the card trains the NN
    (ADAM) and LR (R), and `eval` of each runs on the card (through K1,
    `fused_score` launched) and on a CPU twin with phase 11's gates; a
    3-class table of the HIGGS widths (16,384 rows, a 16,384-row holdout,
@@ -124,7 +126,7 @@ result line is printed):
    on the card at full size); SE, ST and `-r 1` on phase 12's 8,192-row
    cut of the 600-column table (se.0 within 1e-4 of the largest delta,
    selection equal but at the cut's tie), then SE on the card at
-   65,536 rows; `export -t pmml` of phase 8's card-trained RF and GBT
+   32,768 rows; `export -t pmml` of phase 8's card-trained RF and GBT
    and phase 12's LR, `-t baggingpmml` of its 2-bag wide NN: byte-equal
    to the CPU twin's, conformant, and `evaluate_pmml` over 4,096 raw
    holdout rows within 1e-6 (trees, through K2) or 1e-5 (NN/LR, through
@@ -167,7 +169,28 @@ result line is printed):
    set (K2 launched, scores and metrics within 1e-6), of an NN over
    ZSCALE (K1 launched, scores within 1e-5, AUCs 1e-6) and of a 3-class
    NATIVE NN (32,768 rows, class scores within 1e-5, the C×C matrix
-   within one row's share).
+   within one row's share);
+16. the serving plane (`phase_serving_plane`): (a) phase 4's services
+   with CUDA graphs beside eager and CPU twins — one capture per (model,
+   bucket), every bucket bit-equal to the eager card path and within
+   1e-5 (NN) / 1e-6 (trees) of the CPU, 512 mixed-size requests with no
+   capture after warm-up, their K1/K2 launches counted through the
+   replays and one replay's kernels equal to the profiler's between
+   marker kernels; (b) `swap_params` ten times between two NNs of phase
+   4's shape trained by the port on two seeds while a client submits
+   without pause (every answer wholly old or new, none failed, no
+   capture), and an other-shaped set refused; (c) a registry (two
+   versions of one NN, the trees, a low-priority NN) served by a fleet
+   on the card under SHIFU_TPU_FLEET_HBM_MB that holds an NN and the
+   trees: routes bit-equal to standalone services, evictions and
+   re-warms counted, the memory an eviction frees printed, low priority
+   shed under a tiny SLO while high flows, `rollback` swapped in and
+   `gc`; (d) with SHIFU_TPU_METRICS=1 a 20,000-row GBT set through
+   `init → eval` on the card (`eval.*` points), a service's flusher
+   (`serve.*` points), then a shifted dataPath: `watch --monitor-only
+   --iterations 3` on the card breaches `drift.psi_max` with drift points
+   equal to a `--device cpu` twin's, `health` exits 1 and `/healthz`
+   reports the breach.
 
 Phase 8 then registers a holdout table (262,144 rows, another seed) as
 eval set `holdout` of the card-trained RF and log-loss GBT sets and runs
@@ -182,24 +205,26 @@ launched in each card eval; on the GBT set also `eval -score`,
 of the kernels line add these card runs, phases 11's and 12's card
 evals and phase 13's PMML check to phase 4's, and the K3/K5 counts
 phase 13's FI run, phase 14's streaming tree trainings and phase 15's
-FI, GBT and RF runs to phase 8's (and phase 15's evals to K1/K2's).
+FI, GBT and RF runs to phase 8's (and phase 15's evals to K1/K2's);
+phase 16 adds its mixed traffic's K1/K2 replays and its health set's
+`train` and `eval`.
 
 The last lines are the per-kernel launch line, the kernel JSON line,
 the card's name and power limit, and the result object.
 
-`python3 chip_smoke.py --train-walls` times only the 2M × 10 builds
-(and the split step's host time a level), `--serve-walls` only both
-services' closed loop at 1 and 512 rows, `--k5-timing` only phase 9's
-K5 rows, `--pipeline-walls` only `init`/`stats`/`norm` on the card at
-2,000,000 rows of phase 10's table (read and compute seconds a step),
-`--eval-walls` only `eval` on the card over a 2,000,000-row eval file
-of phase 8's table with a GBT + RF ensemble (read, score and total
+`python3 chip_smoke.py --train-walls` times only the 2M × 10 builds (and
+the split step's host time a level), `--serve-walls` only both services'
+closed loop at each bucket (1, 8, 64, 512 rows), `--k5-timing` only
+phase 9's K5 rows, `--pipeline-walls` only `init`/`stats`/`norm` on the
+card at 2,000,000 rows of phase 10's table (read and compute seconds a
+step), `--eval-walls` only `eval` on the card over a 2,000,000-row eval
+file of phase 8's table with a GBT + RF ensemble (read, score and total
 seconds), `--nn-train-walls` only phase 12's timing: `train_nn` on the
-card at the wide shape (300,000 × 600 → 512 → 256, 2 and 102 epochs)
-and the flagship (2,000,000 × 32 → 64, 2 and 32 epochs), `bench.py`'s
+card at the wide shape (300,000 × 600 → 512 → 256, 2 and 102 epochs) and
+the flagship (2,000,000 × 32 → 64, 2 and 32 epochs), `bench.py`'s
 two-length method (row·epochs/s, ms an epoch, the f32 peak share by
-`bench.py`'s FLOPs a row), launches an epoch between marker kernels,
-the idle share over five profiled epochs, and five epochs under
+`bench.py`'s FLOPs a row), launches an epoch between marker kernels, the
+idle share over five profiled epochs, and five epochs under
 `torch.cuda.set_sync_debug_mode("error")`; `--varselect-walls` only
 phase 13's card steps, each a process with the host to itself, twice:
 `stats -correlation` at 262,144 × 30, `varsel` FI, `encode` of its RF,
@@ -210,9 +235,11 @@ and `eval` (a 10-tree GBT) on the card at 2,000,000 rows of phase 10's
 table, resident and then streaming (ChunkRows 262,144), each step's
 read, compute and write seconds (it needs the streaming modules);
 `--k3-timing` only K3 (uint8, int32) and K4 at 2,000,000 × 28 × 64, S =
-1 and 32, on real-valued grads. The others call only functions that older trees of the port have
-too, so the script copied into the root of an older tree times that
-tree: run the two in turns on one card.
+1 and 32, on real-valued grads; `--serving-plane` only phase 16 (after
+the build); `--serve-walls` also sets each service's graphs against its
+eager twin at each bucket, in turns. The others call only functions that
+older trees of the port have too, so the script copied into the root of
+an older tree times that tree: run the two in turns on one card.
 """
 
 from __future__ import annotations
@@ -2061,14 +2088,24 @@ def phase_train_timing(report, t_start):
     report["train_e2e"] = e2e
 
 
-def serve_walls(sizes=(1, 512), device="cuda"):
-    """Closed-loop request latency of both services on the card (STREAM
-    requests a size, one client): p50 and the mean device stage in ms.
-    It calls only `ScorerService`, so it times another tree of the
-    package as well: `python3 chip_smoke.py --serve-walls` from a copy of
-    that tree with this script in its root."""
+def serve_walls(sizes=(1, 8, 64, 512), device="cuda", turns=2,
+                requests=STREAM // 2):
+    """Closed-loop request latency of both services on the card (one
+    client, `requests` requests a turn and size): p50, p99 and the mean
+    device stage in ms, a row per service, mode and size with one entry
+    a turn. Where `ScorerService` takes `graphs`, the graph service and
+    its eager twin (graphs=False) run in turns, each size in turn;
+    otherwise only the service as it is (mode "eager"). It calls only
+    `ScorerService`, so it times another tree of the package as well:
+    `python3 chip_smoke.py --serve-walls` from a copy of that tree with
+    this script in its root."""
+    import inspect
+
     from shifu_tpu_torch.serve.service import ScorerService
     rng = np.random.default_rng(42)
+    modes = (("graphs", {"graphs": True}), ("eager", {"graphs": False})) \
+        if "graphs" in inspect.signature(ScorerService).parameters \
+        else (("eager", {}),)
     out = {}
     with tempfile.TemporaryDirectory() as workdir:
         nn_dir, tree_dir, norm, nn_rows, tree_req = serving_sets(workdir,
@@ -2077,21 +2114,30 @@ def serve_walls(sizes=(1, 512), device="cuda"):
                                             "norm": norm}, nn_rows),
                                ("gbt+rf", {"models_dir": tree_dir},
                                 tree_req)):
-            svc = ScorerService(max_delay=0.002, device=device, **kw)
-            svc.start(proto=make(rng, 1))
+            proto = make(rng, 1)
+            svcs = {}
             try:
+                for mode, mkw in modes:
+                    svcs[mode] = ScorerService(max_delay=0.002,
+                                               device=device, **kw, **mkw)
+                    svcs[mode].start(proto=proto)
                 for n in sizes:
                     rows = [make(rng, n) for _ in range(8)]
-                    lat, dev = [], []
-                    for i in range(STREAM):
-                        _, timing = svc.submit_timed(**rows[i % len(rows)])
-                        lat.append(timing["total_s"] * 1e3)
-                        dev.append(timing["device_s"] * 1e3)
-                    out[f"{name} {n}"] = {
-                        "p50_ms": float(np.percentile(lat, 50)),
-                        "device_ms": float(np.mean(dev))}
+                    for _ in range(turns):
+                        for mode, svc in svcs.items():
+                            lat, dev = [], []
+                            for i in range(requests):
+                                _, timing = svc.submit_timed(
+                                    **rows[i % len(rows)])
+                                lat.append(timing["total_s"] * 1e3)
+                                dev.append(timing["device_s"] * 1e3)
+                            out.setdefault(f"{name} {mode} {n}", []).append(
+                                {"p50_ms": float(np.percentile(lat, 50)),
+                                 "p99_ms": float(np.percentile(lat, 99)),
+                                 "device_ms": float(np.mean(dev))})
             finally:
-                svc.close()
+                for svc in svcs.values():
+                    svc.close()
     return out
 
 
@@ -2130,7 +2176,9 @@ def train_walls(repeats=3):
 # ---------------------------------------------------------------------------
 
 EVAL_ROWS = 262_144         # phase 8's holdout set
-NN_EVAL_ROWS = 65_536       # phase 11's raw table, 600 numeric columns
+NN_EVAL_ROWS = 65_536       # the NN table of --eval-walls/--varselect-walls
+MAIN_NN_ROWS = 32_768       # phase 11's raw table in the main run (cut
+#                             from NN_EVAL_ROWS for the run's time limit)
 NN_POST_CPU_ROWS = 4_096    # phase 11's posttrain held against the CPU
 AUCS = ("areaUnderRoc", "weightedAreaUnderRoc", "areaUnderPr")
 
@@ -4804,6 +4852,486 @@ def trigger_walls(rows=HIGGS_ROWS, chunk=STREAM_WALL_CHUNK):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: serving graphs, hot swap, registry/fleet, the health plane
+# ---------------------------------------------------------------------------
+
+P16_MIXED = 512             # mixed-size requests of the steady-state gate
+P16_SWAPS = 10
+P16_NN_ROWS = 8_192         # the two swap NNs' training rows
+P16_HEALTH_ROWS = 20_000    # the health set's raw table (HIGGS widths)
+P16_GBT = {"TreeNum": 5, "MaxDepth": 4, "LearningRate": 0.2,
+           "Loss": "log"}
+
+
+def same_scores(a, b):
+    """Two `Scorer.score` dicts equal to the bit (NaN equal to NaN)."""
+    return set(a) == set(b) and all(
+        np.array_equal(a[k], b[k], equal_nan=True) for k in b)
+
+
+def p16_graphs(report, workdir, device="cuda"):
+    """(a) Phase 4's two services with graphs, beside an eager twin on
+    the card and a CPU twin: one capture per (model, bucket); every
+    bucket and phase 4's sizes bit-equal to the eager path and within
+    phase 4's tolerances of the CPU; P16_MIXED mixed-size requests (four
+    in flight) capture nothing; the K1/K2 launches of that traffic are
+    counted through the replays, and one replay of each service's top
+    bucket launches, between marker kernels, what its capture counted.
+    Returns the launches of the mixed traffic."""
+    from shifu_tpu_torch.ops import fused_score, fused_trees
+    from shifu_tpu_torch.serve.service import ScorerService
+    rng = np.random.default_rng(161)
+    nn_dir, tree_dir, norm, nn_rows, tree_req = serving_sets(workdir, rng)
+    launched = {"fused_score": 0, "fused_trees": 0}
+    out = {}
+    for name, kw, make, tol in (
+            ("nn+norm", {"models_dir": nn_dir, "norm": norm}, nn_rows,
+             dict(rtol=1e-5, atol=1e-5)),
+            ("gbt+rf", {"models_dir": tree_dir}, tree_req,
+             dict(rtol=1e-6, atol=1e-6))):
+        proto = make(rng, 1)
+        svcs = [ScorerService(max_delay=0.0005, device=d, graphs=g, **kw)
+                for d, g in ((device, True), (device, False),
+                             ("cpu", False))]
+        try:
+            t0 = time.monotonic()
+            svcs[0].start(proto=proto)
+            warm_s = time.monotonic() - t0
+            for s in svcs[1:]:
+                s.start(proto=proto)
+            graph, eager, cpu = svcs
+            st = graph.stats()
+            n_graphs = len(st["models"]) * len(graph.ladder) \
+                if device == "cuda" else 0
+            assert st["graphs"] == st["graph_captures"] == n_graphs, st
+            for n in sorted(set(graph.ladder) | set(SIZES)):
+                blocks = make(rng, n)
+                got = graph.submit(**blocks, timeout=120)
+                assert same_scores(got, eager.submit(**blocks,
+                                                     timeout=120)), \
+                    f"{name} n={n}: graph scores differ from eager"
+                want = cpu.submit(**blocks, timeout=120)
+                for k in want:
+                    np.testing.assert_allclose(got[k], want[k], **tol,
+                                               err_msg=f"{name} n={n} {k}")
+            sizes = np.random.default_rng(7).integers(
+                1, graph.ladder[-1] + 1, P16_MIXED)
+            payloads = [make(rng, int(n)) for n in sizes]
+            fused_score.launches = 0
+            fused_trees.launches = 0
+            t0 = time.monotonic()
+            for i in range(0, P16_MIXED, 4):
+                pend = [graph.submit_async(**b) for b in payloads[i:i + 4]]
+                for r in pend:
+                    r.wait(120)
+            mixed_s = time.monotonic() - t0
+            counts = {"fused_score": fused_score.launches,
+                      "fused_trees": fused_trees.launches}
+            after = graph.stats()
+            assert after["graph_captures"] == st["graph_captures"], after
+            kernel = "fused_score" if name == "nn+norm" else "fused_trees"
+            assert counts[kernel] > 0, f"{name}: {kernel} not launched"
+            for k, v in counts.items():
+                launched[k] += v
+            seen = None
+            if device == "cuda":
+                # one replay under the profiler (its launches not counted)
+                g = graph._graphs.graphs[(0, graph.ladder[-1])]
+                saved = (fused_score.launches, fused_trees.launches)
+                names = kernels_between_markers(g.replay)
+                fused_score.launches, fused_trees.launches = saved
+                seen = {k: sum(1 for n in names if pat in n)
+                        for k, pat in (("fused_score", "fused_score_kernel"),
+                                       ("fused_trees", "fused_trees_"))}
+                want_k = {k: g.kernels.get(k, 0) for k in seen}
+                assert seen == want_k, (name, seen, want_k, names)
+            out[name] = {"graphs": st["graphs"], "warm_s": warm_s,
+                         "captures_after_mixed": after["graph_captures"],
+                         "mixed_requests": P16_MIXED, "mixed_s": mixed_s,
+                         "batches": after["batcher"]["batches"],
+                         "launches": counts, "replay_kernels": seen}
+            print(f"  (a) {name}: {json.dumps(out[name])}")
+        finally:
+            for s in svcs:
+                s.close()
+    report["p16_graphs"] = out
+    return launched
+
+
+def p16_swap_sets(workdir, device="cuda"):
+    """Two NNs of phase 4's shape trained by the port (`train_nn`, 2
+    epochs, ADAM) on the same rows from two seeds, saved as model sets;
+    and a third set of another shape."""
+    import dataclasses
+
+    from shifu_tpu_torch.config.model_config import ModelTrainConf
+    from shifu_tpu_torch.models.spec import save_model
+    from shifu_tpu_torch.train import trainer
+    rng = np.random.default_rng(162)
+    x = rng.normal(0, 1, (P16_NN_ROWS, NN_IN)).astype(np.float32)
+    y = (x[:, 0] - x[:, 1] + rng.logistic(0, 1, P16_NN_ROWS) > 0) \
+        .astype(np.float32)
+    conf = ModelTrainConf()
+    conf.params = {"NumHiddenLayers": 2, "NumHiddenNodes": list(NN_HIDDEN),
+                   "ActivationFunc": ["relu", "relu"],
+                   "Propagation": "ADAM", "LearningRate": 0.002}
+    conf.numTrainEpochs, conf.baggingNum = 2, 1
+    dirs = []
+    for seed in (1, 2):
+        res = trainer.train_nn(conf, x, y, np.ones_like(y), seed=seed,
+                               device=device)
+        d = os.path.join(workdir, f"swap{seed}")
+        save_model(os.path.join(d, "model0.nn"), "nn",
+                   {"spec": json.loads(json.dumps(
+                       dataclasses.asdict(res.spec)))},
+                   res.params_per_bag[0])
+        dirs.append(d)
+    bad = os.path.join(workdir, "swap_other_shape")
+    save_model(os.path.join(bad, "model0.nn"), "nn",
+               {"spec": {"input_dim": NN_IN, "hidden_dims": [64],
+                         "activations": ["relu"]}},
+               [{"w": np.zeros((NN_IN, 64), np.float32),
+                 "b": np.zeros(64, np.float32)},
+                {"w": np.zeros((64, 1), np.float32),
+                 "b": np.zeros(1, np.float32)}])
+    return dirs, bad
+
+
+def p16_swap(report, workdir, dirs, bad, device="cuda"):
+    """(b) A graph service (NN with norm, K1) over the first set; one
+    thread submits without pause while `swap_params` flips between the
+    two sets P16_SWAPS times: every answer equals one set's eager scores
+    as a whole, none fails, no graph is captured again; the other-shaped
+    set returns False and leaves the scores as they were."""
+    import threading
+
+    from shifu_tpu_torch.serve.service import ScorerService
+    rng = np.random.default_rng(163)
+    mean, std = norm_params(rng)
+    norm = {"mean": mean, "std": std, "cutoff": CUTOFF}
+    reqs = [{"raw_dense": raw_rows(rng, n, mean, std)}
+            for n in (1, 3, 8, 40, 64, 300, 512)]
+    want = []
+    for d in dirs:
+        ref = ScorerService(models_dir=d, norm=norm, device=device,
+                            graphs=False).start(proto=reqs[0])
+        try:
+            want.append([ref.submit(**r, timeout=120)["mean"] for r in reqs])
+        finally:
+            ref.close()
+    assert not np.array_equal(want[0][-1], want[1][-1])
+    svc = ScorerService(models_dir=dirs[0], norm=norm, max_delay=0.0002,
+                        device=device).start(proto=reqs[0])
+    captures = svc.graph_captures
+    seen, errors, stop = [0, 0], [], threading.Event()
+
+    def client():
+        i = 0
+        while not stop.is_set():
+            j = i % len(reqs)
+            i += 1
+            try:
+                got = svc.submit(**reqs[j], timeout=120)["mean"]
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+                return
+            hit = [np.array_equal(got, w[j]) for w in want]
+            if not any(hit):
+                errors.append(f"request {j}: neither old nor new scores")
+                return
+            seen[hit.index(True)] += 1
+    t = threading.Thread(target=client)
+    try:
+        t.start()
+        swap_s = []
+        for k in range(P16_SWAPS):
+            time.sleep(0.05)
+            t0 = time.monotonic()
+            assert svc.swap_params(dirs[(k + 1) % 2]), f"swap {k} refused"
+            swap_s.append(time.monotonic() - t0)
+        time.sleep(0.05)
+        refused = svc.swap_params(bad)
+        stop.set()
+        t.join()
+        assert not errors, errors
+        assert not refused, "an other-shaped set was swapped in"
+        assert seen[0] > 0 and seen[1] > 0, seen
+        assert svc.swaps == P16_SWAPS and svc.graph_captures == captures
+        for j, r in enumerate(reqs):
+            assert np.array_equal(svc.submit(**r, timeout=120)["mean"],
+                                  want[P16_SWAPS % 2][j])
+    finally:
+        stop.set()
+        t.join()
+        svc.close()
+    out = {"swaps": P16_SWAPS, "answers_old_new": seen,
+           "captures": captures, "swap_ms": [v * 1e3 for v in swap_s]}
+    print(f"  (b) swap under load: {json.dumps(out)}")
+    report["p16_swap"] = out
+
+
+def p16_fleet(report, workdir, dirs, device="cuda"):
+    """(c) A registry: `nn` (two versions: the swap sets), `trees` (phase
+    4's GBT + RF) and `nn_low` (priority low, phase 4's NN); a fleet on
+    the card under an SHIFU_TPU_FLEET_HBM_MB that holds two of them:
+    routes bit-equal to standalone services, evictions and re-warms
+    counted, memory freed by an eviction, low priority shed under a
+    tiny SLO while high flows, and `rollback` + `swap_in_place` and
+    `gc` on the registry."""
+    from shifu_tpu_torch import registry
+    from shifu_tpu_torch.serve.fleet import FleetService, ShedReject
+    from shifu_tpu_torch.serve.service import ScorerService
+    import torch
+    rng = np.random.default_rng(164)
+    src = os.path.join(workdir, "fleet_src")
+    p4_nn, p4_trees, _, _, _ = serving_sets(src, np.random.default_rng(42))
+    reg = os.path.join(workdir, "registry")
+    assert registry.publish(reg, "nn", dirs[0]) == "v001"
+    assert registry.publish(reg, "nn", dirs[1]) == "v002"
+    registry.publish(reg, "trees", p4_trees)
+    registry.publish(reg, "nn_low", p4_nn, priority="low")
+    sizes = {}
+    for name in ("nn", "trees", "nn_low"):
+        m = registry.read_manifest(reg, name)
+        sizes[name] = m["param_bytes"] + m["ladder"][-1] * \
+            m["working_row_bytes"]
+    # whole MiB (the knob is an int): an NN and the trees fit, two NNs
+    # do not
+    budget = math.ceil((sizes["nn"] + sizes["trees"]) / float(1 << 20))
+    assert budget * (1 << 20) < sizes["nn"] + sizes["nn_low"], sizes
+    dense = {n: rng.normal(0, 1, (n, NN_IN)).astype(np.float32)
+             for n in (1, 7, 64, 512)}
+    trees = {n: {"raw_dense": tree_rows(rng, n)} for n in (1, 7, 64, 512)}
+
+    def request(name, n):
+        return trees[n] if name == "trees" else {"dense": dense[n]}
+
+    old = os.environ.get("SHIFU_TPU_FLEET_HBM_MB")
+    os.environ["SHIFU_TPU_FLEET_HBM_MB"] = str(budget)
+    # no shedding until the shed check below sets a tiny SLO
+    fleet = FleetService(reg, workspace_root=workdir, device=device,
+                         slo_p99_ms=1e9)
+    out = {"budget_mb": budget, "sizes_bytes": sizes}
+    try:
+        assert fleet._budget_bytes == budget * (1 << 20)
+        got = {}
+        for name in ("nn", "trees", "nn_low"):
+            for n in (1, 7, 64, 512):
+                got[(name, n)] = fleet.submit(name, timeout=120,
+                                              **request(name, n))
+        st = fleet.stats()
+        # nn_low's warm evicted nn: the trees and nn_low stay
+        assert fleet.resident() == ["trees", "nn_low"], fleet.resident()
+        assert st["fleet"]["evictions"] == 1, st["fleet"]
+        for name in ("nn", "trees", "nn_low"):
+            _, vdir, manifest = registry.resolve(reg, name)
+            solo = ScorerService(models_dir=vdir, device=device,
+                                 ladder=tuple(manifest["ladder"])).start()
+            try:
+                for n in (1, 7, 64, 512):
+                    assert same_scores(got[(name, n)], solo.submit(
+                        timeout=120, **request(name, n))), (name, n)
+            finally:
+                solo.close()
+        # a route that re-warms (nn was evicted by nn_low's warm; its
+        # warm evicts the two others)
+        again = fleet.submit("nn", timeout=120, **request("nn", 64))
+        assert same_scores(again, got[("nn", 64)])
+        assert fleet.resident() == ["nn"], fleet.resident()
+        st = fleet.stats()
+        assert st["fleet"]["evictions"] == 3 and \
+            st["fleet"]["rewarm_s"] > 0, st["fleet"]
+        out.update(evictions=st["fleet"]["evictions"],
+                   rewarm_s=st["fleet"]["rewarm_s"],
+                   resident=fleet.resident())
+        # memory an eviction frees: the resident model's weights, packs,
+        # static buffers and graph pool (reserved after empty_cache)
+        victim = fleet.resident()[0]
+
+        def mem():
+            if device != "cuda":
+                return 0, 0
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        before = mem()
+        with fleet._lock:
+            fleet._evict_locked(fleet._entries[victim])
+        after = mem()
+        assert after[0] < before[0] or device != "cuda", (before, after)
+        out["evict_freed"] = {"model": victim,
+                              "allocated_before_after": [before[0], after[0]],
+                              "reserved_before_after": [before[1], after[1]]}
+        # shed: low priority rejected under a tiny SLO, high flows
+        fleet.set_slo(1e-3)
+        for _ in range(8):
+            fleet.submit("nn", timeout=120, **request("nn", 7))
+        shed = 0
+        for _ in range(8):
+            try:
+                fleet.submit("nn_low", timeout=120, **request("nn_low", 7))
+            except ShedReject:
+                shed += 1
+        assert shed == 8, shed
+        assert fleet.submit("nn", timeout=120,
+                            **request("nn", 7))["mean"].shape == (7,)
+        fleet.set_slo(1e9)
+        fleet.submit("nn", timeout=120, **request("nn", 1))
+        assert fleet.submit("nn_low", timeout=120, **request(
+            "nn_low", 7))["mean"].shape == (7,)
+        out["shed_low"] = shed
+        out["rejected_by_class"] = fleet.rejected_by_class()
+        # rollback: HEAD back to v001, swapped into the live graphs
+        assert registry.rollback(reg, "nn") == "v001"
+        assert fleet.swap_in_place("nn") in ("swapped", "cold")
+        v1 = ScorerService(models_dir=dirs[0], device=device).start()
+        try:
+            assert same_scores(fleet.submit("nn", timeout=120,
+                                            **request("nn", 64)),
+                               v1.submit(timeout=120, **request("nn", 64)))
+        finally:
+            v1.close()
+        assert registry.gc(reg, "nn", keep=1) == []
+        assert registry.rollback(reg, "nn", to="v002") == "v002"
+        assert registry.gc(reg, "nn", keep=1) == ["v001"]
+        out["fleet"] = fleet.stats()["fleet"]
+    finally:
+        fleet.close()
+        if old is None:
+            os.environ.pop("SHIFU_TPU_FLEET_HBM_MB", None)
+        else:
+            os.environ["SHIFU_TPU_FLEET_HBM_MB"] = old
+    print(f"  (c) registry and fleet: {json.dumps(out)}")
+    report["p16_fleet"] = out
+
+
+def _drift_points(root):
+    from shifu_tpu_torch.obs.health import store
+    return [(p["name"], p["value"], p["tags"])
+            for p in store.MetricsStore(root).read_points()
+            if p["name"].startswith("drift.")]
+
+
+def p16_health(report, workdir, device="cuda", rows=P16_HEALTH_ROWS):
+    """(d) With SHIFU_TPU_METRICS=1: a GBT set at the HIGGS widths made
+    by the port's `init → stats → norm → train` and `eval` on the card
+    (eval writes `eval.*` points), a served trees service's flusher
+    (`serve.*` points); then the data shifts (+1.5 in every column) and
+    `watch --monitor-only --iterations 3` on the card breaches
+    `drift.psi_max`; on a copy, the same watch with `--device cpu` gives
+    the same drift points to the bit; `health` exits 1 and `/healthz`
+    reports the breach."""
+    import contextlib
+    import io
+    import shutil
+
+    from shifu_tpu_torch import cli
+    from shifu_tpu_torch.obs.health import store
+    from shifu_tpu_torch.serve.http import HttpFrontEnd
+    from shifu_tpu_torch.serve.service import ScorerService
+    root = os.path.join(workdir, "health")
+    old = {k: os.environ.get(k) for k in ("SHIFU_TPU_METRICS",
+                                          "SHIFU_TPU_METRICS_FLUSH_S")}
+    os.environ.update(SHIFU_TPU_METRICS="1", SHIFU_TPU_METRICS_FLUSH_S="0.2")
+    try:
+        write_model_set(root, "GBT", P16_GBT, 165, rows, 0.1)
+        holdout = os.path.join(workdir, "health_holdout")
+        names, cols, _, _ = raw_table(np.random.default_rng(166), 4096,
+                                      False)
+        write_raw(holdout, names, cols)
+        add_eval_set(root, "holdout", holdout)
+        lines = run_verbs([(root, [v]) for v in ("init", "stats", "norm",
+                                                  "train", "eval")], device)
+        assert all(ln["rc"] == 0 for ln in lines), lines
+        points = store.MetricsStore(root).read_points()
+        evals = {p["name"]: p["value"] for p in points
+                 if p["name"].startswith("eval.")}
+        assert {"eval.auc", "eval.weighted_auc"} <= set(evals), evals
+        svc = ScorerService(models_dir=os.path.join(root, "models"),
+                            device=device, workspace_root=root).start(
+            proto={"raw_dense": tree_rows(np.random.default_rng(1), 1)})
+        front = HttpFrontEnd(svc, host="127.0.0.1", port=0).start()
+        try:
+            for n in (1, 8, 64, 300):
+                svc.submit(raw_dense=tree_rows(np.random.default_rng(n), n),
+                           timeout=120)
+            time.sleep(0.5)
+            serve_pts = {p["name"] for p in
+                         store.MetricsStore(root).read_points()
+                         if p["name"].startswith("serve.")}
+            assert {"serve.p99_ms", "serve.requests",
+                    "serve.reject_rate"} <= serve_pts, serve_pts
+            # the shift, after stats froze the bins
+            data = os.path.join(root, "data", "part-00000")
+            tok = np.loadtxt(data, dtype=str, delimiter="|")
+            num = tok[:, :GBT_COLS]
+            ok = num != "?"
+            num[ok] = (num[ok].astype(np.float32)
+                       + np.float32(1.5)).astype(str)
+            with open(data, "w") as f:
+                f.write("\n".join("|".join(r) for r in tok.tolist()) + "\n")
+            twin = os.path.join(workdir, "health_cpu")
+            shutil.copytree(root, twin, ignore=shutil.ignore_patterns(
+                "metrics.jsonl", "alerts.jsonl"))
+            with contextlib.redirect_stdout(io.StringIO()):
+                for r, dev in ((root, device), (twin, "cpu")):
+                    assert cli.main(["--dir", r, "watch", "--monitor-only",
+                                     "--iterations", "3", "--interval-s",
+                                     "0", "--device", dev]) == 0
+            card, cpu = _drift_points(root), _drift_points(twin)
+            assert card and card == cpu, (card[:4], cpu[:4])
+            psi = [v for n, v, _ in card if n == "drift.psi_max"]
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["--dir", root, "health"])
+            assert rc == 1 and "status: BREACH" in buf.getvalue(), \
+                buf.getvalue()
+            host, port = front.address
+            with urllib.request.urlopen(f"http://{host}:{port}/healthz",
+                                        timeout=30) as resp:
+                healthz = json.loads(resp.read())
+            assert healthz["ok"] and healthz["status"] == "breach", healthz
+            drift_rule = next(s for s in healthz["slo"]
+                              if s["metric"] == "drift.psi_max")
+            assert drift_rule["state"] == "breach", drift_rule
+        finally:
+            front.close()
+            svc.close()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out = {"rows": rows, "eval": evals, "serve_points": sorted(serve_pts),
+           "drift_points": len(card), "psi_max": psi,
+           "health_rc": rc, "healthz_status": healthz["status"],
+           "launches": {k: sum(ln.get("launches", {}).get(k, 0)
+                               for ln in lines)
+                        for k in ("fused_trees", "level_hist",
+                                  "best_splits")}}
+    print(f"  (d) health plane: {json.dumps(out)}")
+    report["p16_health"] = out
+
+
+def phase_serving_plane(report, workdir, device="cuda"):
+    """Phase 16: (a) serving graphs, (b) a hot swap under load, (c) the
+    registry and a fleet, (d) the health plane, on the card."""
+    t0 = time.monotonic()
+    launched = p16_graphs(report, workdir, device)
+    dirs, bad = p16_swap_sets(workdir, device)
+    p16_swap(report, workdir, dirs, bad, device)
+    p16_fleet(report, workdir, dirs, device)
+    p16_health(report, workdir, device)
+    for k, v in launched.items():
+        report[k]["launches"] += v
+    for k, v in report["p16_health"]["launches"].items():
+        report[k]["launches"] += v
+    report["p16_seconds"] = time.monotonic() - t0
+    print(f"  phase 16: {report['p16_seconds']:.1f} s")
+
+
 SOURCES = {
     "fused_score": ("shifu_tpu_torch/csrc/fused_score.cu",
                     "shifu_tpu/ops/pallas_score.py:110"),
@@ -4871,6 +5399,13 @@ def main() -> int:
     if sys.argv[1:] == ["--stream-walls"]:
         print(json.dumps({"stream_walls": trigger_walls()}))
         return 0
+    if sys.argv[1:] == ["--serving-plane"]:
+        phase_build()
+        report = {k: {"launches": 0} for k in SOURCES}
+        with tempfile.TemporaryDirectory() as workdir:
+            phase_serving_plane(report, workdir)
+        print(json.dumps({k: report[k]["launches"] for k in SOURCES}))
+        return 0
 
     def header(text):
         print(f"{text} ({time.monotonic() - t_start:.0f} s)")
@@ -4905,13 +5440,14 @@ def main() -> int:
             phase_pipeline(report, workdir)
         header("phase 11: NN eval through K1 and posttrain, card vs CPU")
         with tempfile.TemporaryDirectory() as workdir:
-            phase_nn_eval(report, workdir)
+            phase_nn_eval(report, workdir, rows=MAIN_NN_ROWS)
             header("phase 12: NN/LR trainer on the card vs CPU, eval "
                    "through K1, multi-class, timing")
             phase_nn_train(report, workdir)
             header("phase 13: varselect, stats flags, export and encode "
                    "on the card vs the CPU twin")
-            phase_varselect_export(report, w8, workdir)
+            phase_varselect_export(report, w8, workdir,
+                                   se_full_rows=MAIN_NN_ROWS)
     header("phase 14: WDL, MTL and trainOnDisk on the card vs the CPU twin")
     with tempfile.TemporaryDirectory() as workdir:
         phase_wdl_mtl_stream(report, workdir)
@@ -4919,6 +5455,10 @@ def main() -> int:
            "vs the CPU twin")
     with tempfile.TemporaryDirectory() as workdir:
         phase_past_trigger(report, workdir)
+    header("phase 16: serving graphs, swap, registry/fleet and the health "
+           "plane on the card")
+    with tempfile.TemporaryDirectory() as workdir:
+        phase_serving_plane(report, workdir)
     print(f"total: {time.monotonic() - t_start:.1f} s on {smi}")
 
     kernels = []

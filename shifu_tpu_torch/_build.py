@@ -14,13 +14,15 @@ PyTorch route on a CUDA tensor.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, Iterator, List
 
 import torch
 
@@ -33,6 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_capture = threading.local()
 
 
 def nvcc_path() -> str:
@@ -127,3 +130,29 @@ def raw_stream(device: torch.device) -> int:
     `torch.cuda.current_stream(device).cuda_stream` without building a
     Stream object on every launch of a serving kernel."""
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+@contextlib.contextmanager
+def capturing() -> Iterator[collections.Counter]:
+    """While this thread captures a CUDA graph: a kernel wrapper records
+    its launch in the yielded counter (name → launches) instead of its
+    module's `launches`, since a captured kernel runs only when the
+    graph is replayed, and the replay adds it there (`serve/aot.py`)."""
+    prev = getattr(_capture, "counts", None)
+    counts: collections.Counter = collections.Counter()
+    _capture.counts = counts
+    try:
+        yield counts
+    finally:
+        _capture.counts = prev
+
+
+def captured(name: str) -> bool:
+    """True, and the launch of kernel `name` recorded in the capture's
+    counter, when this thread is inside `capturing`; else False (the
+    wrapper then counts the launch itself)."""
+    counts = getattr(_capture, "counts", None)
+    if counts is None:
+        return False
+    counts[name] += 1
+    return True

@@ -1,6 +1,6 @@
-"""Command line of the port — the verbs of `shifu_tpu/cli.py` for one
-model set (the registry fleet, the DAG verbs and the health plane come
-later).
+"""Command line of the port — the verbs of `shifu_tpu/cli.py` (the DAG
+verbs, `ingest`, `ckpt`, `top` and `trace` come later: ROADMAP A7.4,
+A8).
 
     python -m shifu_tpu_torch --dir <dir> new <name>
     python -m shifu_tpu_torch --dir <model-set> init
@@ -25,6 +25,14 @@ later).
         | show
     python -m shifu_tpu_torch --dir <model-set> serve [--port P]
         [--no-http] [--duration-s S] [--device cuda|cpu]
+        [--registry DIR [--models NAME,NAME]]
+    python -m shifu_tpu_torch --dir <workspace> registry
+        publish|ls|rollback|gc [--registry DIR] [--name NAME]
+        [--models DIR] [--priority high|low] [--max-delay-ms MS]
+        [--to vNNN] [--keep K]
+    python -m shifu_tpu_torch --dir <model-set> watch --monitor-only
+        [--interval-s S] [--iterations N] [--device cuda|cpu]
+    python -m shifu_tpu_torch --dir <model-set> health [--trend N]
     python -m shifu_tpu_torch knobs [--all] [--markdown]
     python -m shifu_tpu_torch version
 
@@ -72,7 +80,22 @@ run through the pipeline DAG, which is not ported yet: they raise
 
 `serve` serves every model spec under ``<model-set>/models`` (the
 `PathFinder.models_path()` rule) until SIGTERM/SIGINT or `--duration-s`,
-then prints the service stats as one JSON line. `train` trains the
+then prints the service stats as one JSON line; on the card each (model,
+bucket) is one captured CUDA graph. With `--registry` it hosts a model
+fleet instead: every published model (or `--models`) behind `POST
+/score/<model>`, LRU-evicted under SHIFU_TPU_FLEET_HBM_MB and shedding
+low-priority load past SHIFU_TPU_FLEET_SLO_P99_MS. With
+SHIFU_TPU_METRICS=1 it flushes `serve.*` points into the model set's
+`tmp/metrics/metrics.jsonl`, and `/healthz` reports the SLO state.
+`registry` publishes a model set's specs as an immutable version
+(atomic HEAD flip), lists, rolls HEAD back and gc's old versions (host
+only). `watch --monitor-only` tails the training dataPath, bins each
+new window on `--device` against the frozen training bins (rolling
+PSI/KS), evaluates the SLO guardrails and writes everything to the
+metrics store; without `--monitor-only`, and with `--ingest`, it raises
+(ROADMAP A7.4). `health` prints each SLO's state with a sparkline of
+its metric, the canary arms' lines and the recent events, and exits 1
+on a breach. `train` trains the
 model set's algorithm — GBT/RF/DT from `tmp/CleanedData` into
 ``models/model<bag>.{gbt,rf}``, NN/LR/SVM/TENSORFLOW, WDL and MTL from
 `tmp/NormalizedData` into ``models/model<bag>.{nn,lr,wdl,mtl}``; with
@@ -92,8 +115,6 @@ import argparse
 import json
 import logging
 import os
-import signal
-import threading
 from typing import List, Optional
 
 log = logging.getLogger("shifu_tpu_torch")
@@ -106,28 +127,197 @@ def models_path(model_set_dir: str) -> str:
 
 
 def cmd_serve(args) -> int:
-    from shifu_tpu_torch.serve.service import ScorerService
-    owner = ScorerService(models_dir=models_path(args.dir),
-                          device=args.device).start()
-    log.info("scorer service warm: %s", owner.stats())
+    """Serve the model set (or, with --registry, a fleet) until
+    SIGTERM/SIGINT or --duration-s; then print the stats as one JSON
+    line."""
+    import time
+
+    from shifu_tpu_torch import resilience
+    from shifu_tpu_torch.serve.http import HttpFrontEnd
+    workspace = os.path.abspath(args.dir)
     front = None
-    if not args.no_http:
-        from shifu_tpu_torch.serve.http import HttpFrontEnd
-        front = HttpFrontEnd(owner, port=args.port).start()
-        log.info("serving HTTP on %s:%d", *front.address)
-    stop = threading.Event()
-    previous = {sig: signal.signal(sig, lambda *_: stop.set())
-                for sig in (signal.SIGTERM, signal.SIGINT)}
+    if args.registry:
+        from shifu_tpu_torch.serve.fleet import FleetService
+        names = [n for n in (args.models or "").split(",") if n] or None
+        owner = FleetService(args.registry, names=names,
+                             workspace_root=workspace,
+                             device=args.device).start()
+        log.info("fleet warm: %s", owner.stats()["fleet"])
+        if not args.no_http:
+            front = HttpFrontEnd(fleet=owner, port=args.port).start()
+            log.info("serving fleet HTTP on %s:%d", *front.address)
+    else:
+        from shifu_tpu_torch.serve.service import ScorerService
+        owner = ScorerService(models_dir=models_path(args.dir),
+                              device=args.device,
+                              workspace_root=workspace).start()
+        log.info("scorer service warm: %s", owner.stats())
+        if not args.no_http:
+            front = HttpFrontEnd(owner, port=args.port).start()
+            log.info("serving HTTP on %s:%d", *front.address)
+    deadline = time.monotonic() + args.duration_s if args.duration_s \
+        else None
     try:
-        stop.wait(args.duration_s if args.duration_s else None)
+        with resilience.graceful_shutdown("serving"):
+            while not resilience.preempt_requested():
+                if deadline is not None and time.monotonic() >= deadline:
+                    break
+                time.sleep(min(0.2, max(0.0, deadline - time.monotonic()))
+                           if deadline is not None else 0.2)
+    except KeyboardInterrupt:
+        pass
     finally:
-        for sig, handler in previous.items():
-            signal.signal(sig, handler)
         if front is not None:
             front.close()
         owner.close()
     print(json.dumps(owner.stats()))
     return 0
+
+
+def cmd_registry(args) -> int:
+    """Versioned model publishing (host only): publish the model set's
+    trained specs as an immutable version (atomic HEAD flip), list what
+    is registered, roll HEAD back, or gc old versions."""
+    from shifu_tpu_torch import registry as reg
+    root = args.registry or os.path.join(args.dir or ".", "registry")
+    if args.action == "publish":
+        if not args.name:
+            raise SystemExit("registry publish: --name is required")
+        version = reg.publish(root, args.name,
+                              args.models or models_path(args.dir),
+                              priority=args.priority,
+                              max_delay_ms=args.max_delay_ms)
+        print(json.dumps({"name": args.name, "version": version,
+                          "head": reg.head(root, args.name)}))
+        return 0
+    if args.action == "ls":
+        print(json.dumps(reg.ls(root), indent=1))
+        return 0
+    if args.action == "rollback":
+        if not args.name:
+            raise SystemExit("registry rollback: --name is required")
+        version = reg.rollback(root, args.name, to=args.to)
+        print(json.dumps({"name": args.name, "head": version}))
+        return 0
+    # gc; no --name sweeps every registered model
+    names = [args.name] if args.name else \
+        [row["name"] for row in reg.ls(root)]
+    out = [{"name": name, "removed": reg.gc(root, name, keep=args.keep),
+            "versions": reg.versions(root, name)} for name in names]
+    print(json.dumps(out if args.name is None else out[0]))
+    return 0
+
+
+def cmd_watch(args) -> int:
+    """`watch --monitor-only`: rolling drift over the data arriving at
+    the training dataPath and the SLO guardrails, into the metrics
+    store. Full mode (the refresh loop) and --ingest are ROADMAP A7.4."""
+    from shifu_tpu_torch import resolve_device
+    from shifu_tpu_torch.obs.health import watch as watch_mod
+    from shifu_tpu_torch.processor.base import ProcessorContext
+    if args.ingest:
+        raise NotImplementedError(f"watch --ingest {watch_mod.A74}")
+    if not args.monitor_only:
+        raise NotImplementedError(
+            f"watch without --monitor-only {watch_mod.A74}")
+    return watch_mod.run_monitor(
+        ProcessorContext.load(os.path.abspath(args.dir)),
+        interval_s=args.interval_s,
+        iterations=args.iterations if args.iterations > 0 else None,
+        device=resolve_device(args.device))
+
+
+_SPARK_BARS = "▁▂▃▄▅▆▇█"
+
+
+def _spark(values) -> str:
+    """Unicode sparkline over a value series (empty-safe)."""
+    vals = [float(v) for v in values]
+    if not vals:
+        return "-"
+    lo, hi = min(vals), max(vals)
+    if hi <= lo:
+        return _SPARK_BARS[0] * len(vals)
+    scale = (len(_SPARK_BARS) - 1) / (hi - lo)
+    return "".join(_SPARK_BARS[int((v - lo) * scale)] for v in vals)
+
+
+def _last_values(st, name: str, key: str) -> dict:
+    """{tags[key] (and tags["arm"] when present): the newest value} of
+    metric `name` in the store; rollups give their last sample."""
+    out = {}
+    for p in st.read_points(names=[name]):
+        t = p.get("tags") or {}
+        v = p.get("value")
+        if isinstance(v, dict):
+            v = v.get("last")
+        if isinstance(v, (int, float)) and t.get(key):
+            out[(t[key], t.get("arm"))] = float(v)
+    return out
+
+
+def _canary_lines(st) -> list:
+    """Live-promotion status lines from the metrics store: the last
+    canary phase transition per model plus the newest per-arm p99 and
+    between-arms PSI gauges the fleet flushed. Empty when no arm ever
+    started."""
+    phases = {}
+    for ev in st.events(limit=50, names=["canary"]):
+        tags = ev.get("tags") or {}
+        if tags.get("model"):
+            phases[tags["model"]] = tags
+    if not phases:
+        return []
+    p99 = _last_values(st, "serve.arm_p99_ms", "model")
+    psi = _last_values(st, "canary.arm_psi", "model")
+    lines = ["canary arms:"]
+    for model, tags in sorted(phases.items()):
+        bits = [f"phase={tags.get('phase', '?')}"]
+        bits += [f"{k}={tags[k]}" for k in ("run", "version", "shadow_pct",
+                                             "canary_pct") if k in tags]
+        bits += [f"p99[{arm}]={v:.3f}ms"
+                 for (m, arm), v in sorted(p99.items(), key=str)
+                 if m == model and arm]
+        if (model, None) in psi:
+            bits.append(f"arm_psi={psi[(model, None)]:.4f}")
+        lines.append(f"  {model}: " + " ".join(bits))
+    return lines
+
+
+def cmd_health(args) -> int:
+    """Current SLO state over the metrics store: each rule's status with
+    a sparkline of its metric, the canary arms, the recent events. Read
+    only; rc 1 on a breach."""
+    import time
+
+    from shifu_tpu_torch.obs.health import slo as slo_mod
+    from shifu_tpu_torch.obs.health import store as health_store
+    root = os.path.abspath(args.dir)
+    state = slo_mod.health_state(root)
+    st = health_store.store(root)
+    print(f"status: {state['status'].upper()}  ({root})")
+    name_w = max([len(s["name"]) for s in state["slos"]] + [4])
+    met_w = max([len(s["metric"]) for s in state["slos"]] + [6])
+    print(f"{'slo':<{name_w}}  {'state':<6} {'value':>10}  "
+          f"{'metric':<{met_w}}  trend")
+    for s in state["slos"]:
+        series = st.series(s["metric"], limit=args.trend)
+        val = "-" if s["value"] is None else f"{s['value']:.4g}"
+        print(f"{s['name']:<{name_w}}  {s['state']:<6} {val:>10}  "
+              f"{s['metric']:<{met_w}}  "
+              f"{_spark([v for _, v in series])}")
+    for line in _canary_lines(st):
+        print(line)
+    events = state["recent_events"]
+    if events:
+        print("recent events:")
+        for ev in events:
+            tags = ev.get("tags") or {}
+            ts = time.strftime("%m-%d %H:%M:%S",
+                               time.localtime(ev.get("ts", 0)))
+            detail = " ".join(f"{k}={v}" for k, v in sorted(tags.items()))
+            print(f"  {ts}  {ev.get('name', '?'):<16} {detail}")
+    return 0 if state["status"] != "breach" else 1
 
 
 def _step_line(step: str, device: str, report: dict, t0: float,
@@ -644,7 +834,62 @@ def build_parser() -> argparse.ArgumentParser:
                         "SIGTERM/SIGINT)")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (default cuda)")
+    p.add_argument("--registry", default=None, metavar="DIR",
+                   help="serve a model fleet from this registry root "
+                        "(POST /score/<model>) instead of the model set")
+    p.add_argument("--models", default=None, metavar="NAME,NAME",
+                   help="fleet mode: host only these registry models "
+                        "(default: every published model)")
     p.set_defaults(fn=cmd_serve)
+    p = sub.add_parser("registry", help="versioned model registry: "
+                                        "publish/ls/rollback/gc")
+    p.add_argument("action", choices=["publish", "ls", "rollback", "gc"])
+    p.add_argument("--registry", default=None, metavar="DIR",
+                   help="registry root (default <workspace>/registry)")
+    p.add_argument("--name", default=None,
+                   help="registered model name (publish/rollback/gc)")
+    p.add_argument("--models", default=None, metavar="DIR",
+                   help="publish: model-spec dir (default the model "
+                        "set's models/)")
+    p.add_argument("--priority", default="high", choices=["high", "low"],
+                   help="publish: admission class for fleet serving")
+    p.add_argument("--max-delay-ms", type=float, default=None,
+                   help="publish: pin this model's micro-batch "
+                        "admission deadline")
+    p.add_argument("--to", default=None, metavar="vNNN",
+                   help="rollback: target version (default: the one "
+                        "before HEAD)")
+    p.add_argument("--keep", type=int, default=None,
+                   help="gc: versions to keep (default "
+                        "SHIFU_TPU_REGISTRY_KEEP)")
+    p.set_defaults(fn=cmd_registry)
+    p = sub.add_parser("watch", help="model health monitor (rolling "
+                                     "drift + SLO guardrails)")
+    p.add_argument("--monitor-only", action="store_true",
+                   help="drift/SLO monitoring without the retrain loop "
+                        "(the loop raises: ROADMAP A7.4)")
+    p.add_argument("--registry", default=None,
+                   help="full mode only (raises: ROADMAP A7.4)")
+    p.add_argument("--model-name", default=None,
+                   help="full mode only (raises: ROADMAP A7.4)")
+    p.add_argument("--eval-set", default=None,
+                   help="full mode only (raises: ROADMAP A7.4)")
+    p.add_argument("--interval-s", type=float, default=None,
+                   help="tick period (default SHIFU_TPU_WATCH_INTERVAL_S)")
+    p.add_argument("--iterations", type=int, default=0,
+                   help="stop after N ticks (0 = run until "
+                        "SIGTERM/SIGINT)")
+    p.add_argument("--ingest", default=None, metavar="LOG",
+                   help="durable row log (raises: ROADMAP A7.4)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device the windows are binned on "
+                        "(default cuda)")
+    p.set_defaults(fn=cmd_watch)
+    p = sub.add_parser("health", help="SLO health over the metrics store: "
+                                      "status, trends, recent breaches")
+    p.add_argument("--trend", type=int, default=30,
+                   help="points per sparkline trend")
+    p.set_defaults(fn=cmd_health)
     p = sub.add_parser("train", help="train the model set's algorithm")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda)")

@@ -10,7 +10,9 @@ varselect's sampled analysis frame, capped by
 SHIFU_TPU_ANALYSIS_MAX_ROWS), the `export -t ume` exporter hook, the
 prefetch depth and host-assembly threads of the chunked readers
 (`data/pipeline.prefetch`, `map_prefetch`, `map_stream`) and the
-row-state tier of the streaming GBT builder: same names, types and
+row-state tier of the streaming GBT builder, and the serving plane's
+health, registry and fleet knobs with the retry and fault-injection
+knobs they read (`resilience.py`): same names, types and
 defaults, and the same warn-and-run parsing (a malformed value logs a
 warning and falls back to the default instead of failing the process).
 `knobs_rows` lists them for the `knobs` verb.
@@ -99,6 +101,53 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
     Knob("SHIFU_TPU_GBT_STATE_BUDGET_MB", "int", 2048,
          "device budget for resident streaming-GBT row state; auto mode "
          "goes resident when ~24 B/train row + ~12 B/val row fits"),
+    Knob("SHIFU_TPU_RETRY_ATTEMPTS", "int", 4,
+         "max attempts per retried remote call (the webhook alert sink)"),
+    Knob("SHIFU_TPU_RETRY_BASE_S", "float", 0.05,
+         "first retry backoff delay (seconds)"),
+    Knob("SHIFU_TPU_RETRY_MAX_S", "float", 2.0,
+         "retry backoff cap (seconds)"),
+    Knob("SHIFU_TPU_FAULT", "str", None,
+         "deterministic fault spec <site>:<kind>:<nth>[;...]"),
+    Knob("SHIFU_TPU_METRICS", "flag", "0",
+         "1 = persist metric points to tmp/metrics/metrics.jsonl "
+         "(serving snapshots, eval guardrails, drift, SLO health); "
+         "unset/0 = no files written (reads still work)"),
+    Knob("SHIFU_TPU_METRICS_ROLLUP", "int", 4 * 1024 * 1024,
+         "metrics.jsonl size (bytes) that triggers rollup compaction "
+         "(older half aggregated, recent half kept raw, atomic "
+         "rewrite); 0 = never compact"),
+    Knob("SHIFU_TPU_METRICS_FLUSH_S", "float", 30.0,
+         "period of the serving plane's background metrics flush "
+         "(serve.* gauges from ScorerService.stats)"),
+    Knob("SHIFU_TPU_WATCH_INTERVAL_S", "float", 30.0,
+         "tick period of the `watch --monitor-only` loop"),
+    Knob("SHIFU_TPU_SLO_FILE", "str", None,
+         "path to slo.json; unset = <model set>/slo.json when present, "
+         "else the built-in default guardrails (obs/health/slo.py)"),
+    Knob("SHIFU_TPU_DRIFT_THRESHOLD", "float", 0.2,
+         "per-feature PSI above which a window emits a `drift` event "
+         "(0.2 = the conventional 'significant shift' cutoff)"),
+    Knob("SHIFU_TPU_ALERT_WEBHOOK", "str", None,
+         "URL the webhook alert sink POSTs SLO transition records to; "
+         "unset = sink disabled"),
+    Knob("SHIFU_TPU_ALERT_WEBHOOK_TIMEOUT_S", "float", 3.0,
+         "per-attempt connect+read timeout of the webhook alert POST "
+         "(retried with backoff, then absorbed)"),
+    Knob("SHIFU_TPU_REGISTRY_KEEP", "int", 3,
+         "registry gc retention: versions kept per model (the HEAD "
+         "version is always kept regardless)"),
+    Knob("SHIFU_TPU_FLEET_HBM_MB", "int", 4096,
+         "device-memory budget for resident fleet models (manifest param "
+         "bytes + bucket-ladder working set per model); exceeding it "
+         "LRU-evicts the coldest resident model back to host"),
+    Knob("SHIFU_TPU_FLEET_SLO_P99_MS", "float", 50.0,
+         "high-priority p99 latency SLO (ms): admission sheds "
+         "low-priority load at 429 above it, and the SLO autotuner "
+         "steers each model's admission deadline toward it"),
+    Knob("SHIFU_TPU_FLEET_SHED_WINDOW", "int", 64,
+         "recent high-priority request latencies the fleet admission "
+         "controller computes its rolling p99 over"),
 )}
 
 

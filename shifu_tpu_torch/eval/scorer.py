@@ -134,14 +134,18 @@ class Scorer:
               ) -> Dict[str, np.ndarray]:
         """→ {"mean","max","min","median","final","model0".."modelN"}
         like the reference EvalScore output columns."""
-        per_model = []
-        for kind, meta, model in self.models:
-            s = score_matrix(kind, meta, model, dense, index,
-                             raw_dense=raw_dense, raw_codes=raw_codes,
-                             norm=norm)
-            if kind in ("gbt",):
-                s = convert_tree_score(s, self.gbt_convert)
-            per_model.append(s)
+        return self.combine([
+            score_matrix(kind, meta, model, dense, index,
+                         raw_dense=raw_dense, raw_codes=raw_codes,
+                         norm=norm)
+            for kind, meta, model in self.models])
+
+    def combine(self, per_model: List[np.ndarray]) -> Dict[str, np.ndarray]:
+        """Each model's raw scores, in model order → the `score` dict
+        (GBT scores through `gbt_convert` first)."""
+        per_model = [convert_tree_score(s, self.gbt_convert)
+                     if kind == "gbt" else s
+                     for (kind, _, _), s in zip(self.models, per_model)]
         stack = np.stack(per_model, axis=0)  # (M, N)
         out = {f"model{i}": per_model[i] for i in range(len(per_model))}
         out["mean"] = stack.mean(axis=0)

@@ -173,13 +173,21 @@ def fused_values(tables: Dict[str, np.ndarray], dense, codes,
         d = torch.as_tensor(dense, dtype=torch.float32, device=device)
         parts.append(d.T)
     if codes is not None and codes.shape[1]:
-        v = _map_codes(tables["cat_map"], np.asarray(codes),
-                       n_bins).T.astype(np.float32)
-        v[v == (n_bins - 1)] = np.nan
-        parts.append(torch.as_tensor(v, device=device))
+        parts.append(torch.as_tensor(cat_values(tables, codes, n_bins),
+                                     device=device))
     if not parts:
         raise ValueError("no features to bin")
     return torch.cat(parts).contiguous()
+
+
+def cat_values(tables: Dict[str, np.ndarray], codes,
+               n_bins: int) -> np.ndarray:
+    """The categorical rows of `fused_values`, on the host: (Cc, R) f32
+    bin ids through cat_map, NaN where missing."""
+    v = _map_codes(tables["cat_map"], np.asarray(codes),
+                   n_bins).T.astype(np.float32)
+    v[v == (n_bins - 1)] = np.nan
+    return v
 
 
 def make_fused_inputs(tables: Dict[str, np.ndarray],

@@ -19,7 +19,14 @@ cluster so that every serving bucket fills the card.
 
 Routing has no knob: CUDA tensors launch the kernel (a failed build or
 launch raises), CPU tensors take `fused_first_layer_plain`, the plain
-PyTorch version of the same function. `launches` counts kernel launches.
+PyTorch version of the same function. `launches` counts kernel launches:
+the wrapper's own, and those of the CUDA graphs that captured it
+(`serve/aot.py` adds a graph's kernels at each replay; a launch made
+while a graph is captured is counted there, not here). A graph node
+keeps its own copy of the launch arguments, so `_launches` may drop an
+entry a graph was captured from; the packs it points into stay alive
+with the model and the service, and a hot swap refreshes them in place
+(`pack_weights(..., out=)`, `pack_norm(..., out=)`).
 """
 
 from __future__ import annotations
@@ -65,13 +72,17 @@ def tf32_round(a: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def pack_weights(w: torch.Tensor) -> torch.Tensor:
+def pack_weights(w: torch.Tensor,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(C, H) f32 weights → the kernel's B operand: w's TF32 hi part and
     the TF32-rounded residual lo = tf32(w - hi), transposed to (H, C)
     with K contiguous, C zero-padded to `k_tiles(C)`·BK and H to a
     multiple of 8, laid out (k-tile, hi/lo, k8 step, K chunk of 4,
     H8, 4): each k-tile's B is eight contiguous runs of H8 rows × 16
-    bytes, the order in which a stage copies and `wgmma` reads them."""
+    bytes, the order in which a stage copies and `wgmma` reads them.
+    With `out` (an earlier pack of a same-shaped w) the pack is copied
+    into its storage, which a captured graph's launch points at, and
+    `out` is returned."""
     c, h = w.shape
     kt, h8 = k_tiles(c), _ceil(h, 8) * 8
     wt = torch.zeros((h8, kt * BK), dtype=torch.float32, device=w.device)
@@ -79,8 +90,20 @@ def pack_weights(w: torch.Tensor) -> torch.Tensor:
     hi = tf32_round(wt)
     lo = tf32_round(wt - hi)
     planes = torch.stack([hi, lo])                      # (2, H8, Cpad)
-    return (planes.reshape(2, h8, kt, BK // 8, 2, 4)
-            .permute(2, 0, 3, 4, 1, 5).contiguous())
+    packed = (planes.reshape(2, h8, kt, BK // 8, 2, 4)
+              .permute(2, 0, 3, 4, 1, 5).contiguous())
+    return packed if out is None else _copy_into(out, packed)
+
+
+def _copy_into(out: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """`out.copy_(new)` for two packs of one shape and dtype: the
+    in-place refresh a hot swap makes (a kernel launch, or a captured
+    graph, keeps pointing at `out`)."""
+    if out.shape != new.shape or out.dtype != new.dtype:
+        raise ValueError(f"in-place refresh of a {tuple(out.shape)} "
+                         f"{out.dtype} pack with {tuple(new.shape)} "
+                         f"{new.dtype}")
+    return out.copy_(new)
 
 
 class K1Plan(NamedTuple):
@@ -122,7 +145,8 @@ def _k1_plan(n: int, c: int, h: int) -> K1Plan:
 
 
 def pack_norm(mean: torch.Tensor, std: torch.Tensor,
-              cutoff: float) -> torch.Tensor:
+              cutoff: float,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(6, C) f32 block: rows [mean, safe std, lo, hi] — `_pack_norm` of
     the TPU kernel — then, as the bytes of rows 4–5, the C float64
     reciprocals 1/safe std. Columns with std < STD_EPS get lo = hi =
@@ -132,7 +156,8 @@ def pack_norm(mean: torch.Tensor, std: torch.Tensor,
     two f32 values lies at least 2^-49 from any midpoint between f32
     neighbours (it would need 25 significant bits), so the result is
     the correctly rounded IEEE f32 quotient, without the division
-    routine's call (which would serialize the kernel's `wgmma`)."""
+    routine's call (which would serialize the kernel's `wgmma`). With
+    `out` the block is copied into its storage (see `pack_weights`)."""
     mean = mean.to(torch.float32)
     std = std.to(torch.float32)
     ok = std >= STD_EPS
@@ -144,8 +169,9 @@ def pack_norm(mean: torch.Tensor, std: torch.Tensor,
         torch.where(ok, mean + cutoff * std, mean),
     ])
     rcp = 1.0 / safe.to(torch.float64)
-    return torch.cat([four.reshape(-1), rcp.view(torch.float32)]) \
+    packed = torch.cat([four.reshape(-1), rcp.view(torch.float32)]) \
         .reshape(6, -1)
+    return packed if out is None else _copy_into(out, packed)
 
 
 def fused_first_layer_plain(values: torch.Tensor, mean: torch.Tensor,
@@ -223,7 +249,8 @@ def fused_first_layer(values: torch.Tensor, mean: torch.Tensor,
                         _build.raw_stream(dev))
     if rc:
         _build.check(rc, "fused_score", _LIB.fused_score_error_string)
-    launches += 1
+    if not _build.captured("fused_score"):
+        launches += 1
     return out
 
 

@@ -18,7 +18,10 @@ shape, not per launch.
 
 Routing has no knob: CUDA tensors launch the kernel (a failed build or
 launch raises), CPU tensors take `predict_ensemble_plain`, the plain
-PyTorch version of the same function. `launches` counts kernel launches.
+PyTorch version of the same function. `launches` counts kernel launches,
+those of the CUDA graphs that captured the wrapper included (see
+`fused_score`); `pack_nodes(..., out=)` refreshes a model's node planes
+in place for a hot swap.
 """
 
 from __future__ import annotations
@@ -99,20 +102,29 @@ def _k2_plan(r: int, c: int, k: int, t: int, n_pad: int) -> K2Plan:
     return _chunked(layout, c, k, t, n_pad, SMEM_BUDGET)
 
 
-def pack_nodes(nodes: torch.Tensor, n_trees: int) -> torch.Tensor:
+def pack_nodes(nodes: torch.Tensor, n_trees: int,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(8, T·N_pad) f32 block of `pack_ensemble` → the kernel's (2,
     T·N_pad) int32 planes, on the block's device: row 0 the split words
     (bits 0-7 the split bin, at most 254, bit 8 default_left, bit 9
     stop, bits 16-30 the feature, 0 on stop nodes), row 1 the leaf
     values' bits. A walk step reads one 4-byte word; the leaf only at
-    the end."""
+    the end. With `out` (the planes of a same-shaped block) the planes
+    are copied into its storage, which a launch or a captured graph
+    points at, and `out` is returned."""
     stop = nodes[3] > 0
     feat = torch.where(stop, 0, nodes[0].to(torch.int32))
     # <= 254: the kernel's missing bin (255) lies above every split bin
     sbin = nodes[1].to(torch.int32).clamp(0, 254)
     word = sbin | ((nodes[2] > 0).to(torch.int32) << 8) | \
         (stop.to(torch.int32) << 9) | (feat << 16)
-    return torch.stack([word, nodes[4].contiguous().view(torch.int32)])
+    planes = torch.stack([word, nodes[4].contiguous().view(torch.int32)])
+    if out is None:
+        return planes
+    if out.shape != planes.shape or out.dtype != planes.dtype:
+        raise ValueError(f"in-place refresh of {tuple(out.shape)} node "
+                         f"planes with {tuple(planes.shape)}")
+    return out.copy_(planes)
 
 
 def pack_ensemble(trees: Dict[str, Any]) -> Tuple[np.ndarray, int]:
@@ -268,7 +280,8 @@ def predict_ensemble(nodes: torch.Tensor, valuesT: torch.Tensor,
         _build.raw_stream(dev))
     if rc:
         _build.check(rc, "fused_trees", _LIB.fused_trees_error_string)
-    launches += 1
+    if not _build.captured("fused_trees"):
+        launches += 1
     return (out, leaves) if return_leaves else out
 
 

@@ -32,7 +32,9 @@ float32 dump of (score, tag, weight), the multi-class ones from the
 summed C×C matrix. The port is one
 process, so every output is written by it
 (the JAX package's `_opath` multi-host writers are A8), and it writes
-no health-store metrics (A7) and no `step_guard` manifest (A8).
+no `step_guard` manifest (A8). A binary eval writes its guardrail
+metrics (`eval.auc`, `eval.weighted_auc`) into the workspace's metrics
+store (`obs/health/store.eval_metrics`; inert unless SHIFU_TPU_METRICS=1).
 """
 
 from __future__ import annotations
@@ -513,11 +515,20 @@ def run_one(ctx: ProcessorContext, ec: EvalConfig,
     _write_confusion_csv(ctx.path_finder.eval_confusion_path(ec.name), cm)
     _write_perf_outputs(ctx, ec, perf)
 
-    log.info("eval[%s]: %d rows, AUC=%.4f (weighted %.4f) in %.2fs; no "
-             "health-store metrics (ROADMAP A7)", ec.name, len(final),
-             perf["areaUnderRoc"], perf["weightedAreaUnderRoc"],
-             time.time() - t0)
+    log.info("eval[%s]: %d rows, AUC=%.4f (weighted %.4f) in %.2fs",
+             ec.name, len(final), perf["areaUnderRoc"],
+             perf["weightedAreaUnderRoc"], time.time() - t0)
+    _health_metrics(ctx, ec, perf)
     return perf
+
+
+def _health_metrics(ctx: ProcessorContext, ec: EvalConfig,
+                    perf: Dict) -> None:
+    """The eval guardrail metrics into the workspace's metrics store
+    (`eval.auc` and friends; inert unless SHIFU_TPU_METRICS=1)."""
+    from shifu_tpu_torch.obs.health import store as health_store
+    health_store.eval_metrics(ctx.path_finder.root, ec.name, perf,
+                              model=ctx.model_config.model_set_name)
 
 
 def _built_chunks(ctx: ProcessorContext, ec: EvalConfig, chunk_rows: int,
@@ -668,10 +679,10 @@ def _finish_streaming(ctx, ec, chunk_rows, t0, status, n_chunks,
                          hist.confusion_table())
     _write_perf_outputs(ctx, ec, perf)
     log.info("eval[%s] streaming: %d rows in %d chunks, AUC=%.4f "
-             "(weighted %.4f) in %.2fs; no health-store metrics "
-             "(ROADMAP A7)", ec.name, status["records"], n_chunks,
-             perf["areaUnderRoc"], perf["weightedAreaUnderRoc"],
+             "(weighted %.4f) in %.2fs", ec.name, status["records"],
+             n_chunks, perf["areaUnderRoc"], perf["weightedAreaUnderRoc"],
              time.time() - t0)
+    _health_metrics(ctx, ec, perf)
     return perf
 
 

@@ -16,7 +16,10 @@ lists/dicts of numpy arrays) and builds the port's scoring object:
 - tf (a SavedModel) raises: it needs tensorflow.
 
 `from_torch` goes back to the numpy params, so a converted model saves
-with `save_model` unchanged. `stack_nn_params` carries NN params (the
+with `save_model` unchanged; `refresh_` copies a same-shaped model's
+weights and packs into a model's storage (a hot swap under captured
+CUDA graphs, which point at that storage), and `leaves` flattens numpy
+params for the swap's structural gate. `stack_nn_params` carries NN params (the
 JAX package's numpy layout: one network, a list of networks, or
 bag-stacked arrays) into the trainer's bag-stacked tensors, and
 `unstack_nn_params` goes back to one numpy network per bag.
@@ -25,7 +28,7 @@ bag-stacked arrays) into the trainer's bag-stacked tensors, and
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -167,8 +170,83 @@ def from_torch(model) -> Any:
     if isinstance(model, TreeEnsemble):
         trees = {k: v.cpu().numpy() for k, v in model.trees.items()}
         trees.update(model.extra)
-        return {"trees": trees, "tables": dict(model.tables)}
+        # copies: `refresh_` writes the model's host tables in place
+        return {"trees": trees,
+                "tables": {k: v.copy() for k, v in model.tables.items()}}
     if isinstance(model, (wdl.WDLModel, mtl.MTLModel)):
         from shifu_tpu_torch.train.trainer import tree_map
         return tree_map(lambda v: v.detach().cpu().numpy(), model.params)
     raise TypeError(f"not a port model: {type(model).__name__}")
+
+
+def leaves(params: Any, path: Tuple = ()) -> List[Tuple[Tuple, np.ndarray]]:
+    """Nested lists/dicts of arrays → [(path, array)] in a fixed order:
+    the paths are the tree's structure, the arrays its leaves."""
+    if isinstance(params, dict):
+        out = []
+        for k in sorted(params, key=str):
+            out += leaves(params[k], path + (str(k),))
+        return out
+    if isinstance(params, (list, tuple)):
+        out = []
+        for i, v in enumerate(params):
+            out += leaves(v, path + (i,))
+        return out
+    return [(path, np.asarray(params))]
+
+
+def _refresh_pairs(model, fresh) -> List[Tuple[Any, Any]]:
+    """Every (destination, source) pair `refresh_` copies, after
+    checking them all: same shape and dtype each, and for a tree
+    ensemble the same statics."""
+    if isinstance(model, nn_mod.MLP) and isinstance(fresh, nn_mod.MLP):
+        pairs = list(zip([*model.w, *model.b], [*fresh.w, *fresh.b]))
+        if len(model.w) != len(fresh.w):
+            raise ValueError(f"in-place refresh of {len(model.w)} layers "
+                             f"with {len(fresh.w)}")
+    elif isinstance(model, TreeEnsemble) and isinstance(fresh, TreeEnsemble):
+        if model.statics != fresh.statics or \
+                (model.n_num, model.n_cat) != (fresh.n_num, fresh.n_cat):
+            raise ValueError(f"in-place refresh of a {model.statics} "
+                             f"ensemble with a {fresh.statics} one")
+        if set(model.trees) != set(fresh.trees) or \
+                set(model.tables) != set(fresh.tables):
+            raise ValueError("in-place refresh of trees or tables with "
+                             "other keys")
+        pairs = [(model.nodes, fresh.nodes), (model.cuts, fresh.cuts)]
+        pairs += [(model.trees[k], fresh.trees[k]) for k in model.trees]
+        pairs += [(model.tables[k], fresh.tables[k]) for k in model.tables]
+    else:
+        raise TypeError(f"no in-place refresh of {type(model).__name__} "
+                        f"with {type(fresh).__name__}")
+    for dst, src in pairs:
+        if tuple(dst.shape) != tuple(src.shape) or dst.dtype != src.dtype:
+            raise ValueError(f"in-place refresh of {tuple(dst.shape)} "
+                             f"{dst.dtype} with {tuple(src.shape)} "
+                             f"{src.dtype}")
+    return pairs
+
+
+@torch.no_grad()
+def refresh_(model, fresh) -> None:
+    """Copy `fresh`'s weights (a same-kind, same-shaped model on the same
+    device) into `model`'s tensors and packs in place, never rebinding
+    them: MLP `w`, `b` and `w0_pack` (`fused_score.pack_weights(...,
+    out=)`); a tree ensemble's packed nodes, node planes
+    (`fused_trees.pack_nodes(..., out=)`), fused cuts and host arrays.
+    Every pair is checked before the first copy, so a refused refresh
+    (ValueError, TypeError) leaves `model` as it was. The statics a
+    graph bakes in (a tree ensemble's depth, bins, loss and rate) must
+    be equal."""
+    pairs = _refresh_pairs(model, fresh)
+    for dst, src in pairs:
+        if isinstance(dst, np.ndarray):
+            np.copyto(dst, src, casting="no")
+        else:
+            dst.copy_(src)
+    if isinstance(model, nn_mod.MLP):
+        fused_score.pack_weights(model.w[0].detach(), out=model.w0_pack)
+    else:
+        fused_trees.pack_nodes(model.nodes, model.n_trees,
+                               out=model.node_pack)
+        model.extra = dict(fresh.extra)

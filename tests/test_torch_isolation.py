@@ -45,6 +45,9 @@ from shifu_tpu_torch.eval.scorer import Scorer
 from shifu_tpu_torch.models.spec import save_model
 from shifu_tpu_torch.serve.service import ScorerService
 from shifu_tpu_torch.train import optimizers, trainer
+import shifu_tpu_torch.resilience, shifu_tpu_torch.registry
+import shifu_tpu_torch.serve.fleet, shifu_tpu_torch.serve.aot
+from shifu_tpu_torch.obs.health import drift, slo, store, watch
 root = sys.argv[1]
 rng = np.random.default_rng(0)
 save_model(root + "/model0.nn", "nn",
@@ -64,6 +67,14 @@ try:
 finally:
     svc.close()
 assert out["mean"].shape == (5,)
+from shifu_tpu_torch import registry
+assert registry.publish(root + "/reg", "m", root,
+                        ladder=(1, 4)) == "v001"
+from shifu_tpu_torch.serve.fleet import FleetService
+with FleetService(root + "/reg", device="cpu", hbm_budget_mb=0) as fleet:
+    assert fleet.submit("m", dense=x[:4])["mean"].shape == (4,)
+st = store.MetricsStore(root)
+assert slo.health_state(root)["status"] == "ok"
 bins = rng.integers(0, 8, (60, 3)).astype(np.int32)
 y = (bins[:, 0] > 3).astype(np.float32)
 trees = gbdt.build_rf(gbdt.TreeConfig(max_depth=2, n_bins=8), bins, y,
@@ -158,6 +169,18 @@ def test_source_scan_finds_no_jax_or_jax_package_import():
         assert not _PKG_IMPORT.search(text), f"{path} imports shifu_tpu"
         assert not _FOREIGN_IMPORT.search(text), \
             f"{path} imports pandas, pyarrow, optax, flax or orbax"
+
+
+def test_source_scan_covers_the_serving_and_health_planes():
+    files = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for rel in ("shifu_tpu_torch/resilience.py",
+                "shifu_tpu_torch/registry/registry.py",
+                "shifu_tpu_torch/serve/fleet.py",
+                "shifu_tpu_torch/obs/health/store.py",
+                "shifu_tpu_torch/obs/health/slo.py",
+                "shifu_tpu_torch/obs/health/drift.py",
+                "shifu_tpu_torch/obs/health/watch.py"):
+        assert rel in files, rel
 
 
 def test_foreign_import_pattern():

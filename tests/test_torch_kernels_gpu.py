@@ -620,3 +620,193 @@ def test_eval_and_posttrain_on_card_match_cpu(cuda, tmp_path):
     cs.compare_posttrain(root, cpu, 0.0, 1e-6)
     out = cs.compare_eval_dir(root, cpu, "holdout", 1e-6)
     assert out["auc_err"] <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# serving through CUDA graphs (serve/aot.ServingGraphs)
+# ---------------------------------------------------------------------------
+
+def _graph_services(workdir, seed=42):
+    """Phase 4's two model sets, each served with graphs and eagerly."""
+    from shifu_tpu_torch.serve.service import ScorerService
+    rng = np.random.default_rng(seed)
+    nn_dir, tree_dir, norm, nn_rows, tree_req = cs.serving_sets(workdir, rng)
+    out = {}
+    for name, kw, make in (("nn", {"models_dir": nn_dir, "norm": norm},
+                            nn_rows),
+                           ("trees", {"models_dir": tree_dir}, tree_req)):
+        proto = make(rng, 1)
+        out[name] = (
+            ScorerService(max_delay=0.0005, device="cuda", **kw)
+            .start(proto=proto),
+            ScorerService(max_delay=0.0005, device="cuda", graphs=False,
+                          **kw).start(proto=proto), make)
+    return out, rng
+
+
+def test_graph_replay_bit_equal_to_eager_at_every_bucket(cuda, tmp_path):
+    """Each bucket's graphs score a request bit for bit as the eager card
+    path at the same bucket, the captures stay at one per (model,
+    bucket) under traffic, and a replay counts its kernels."""
+    svcs, rng = _graph_services(str(tmp_path))
+    try:
+        for name, (graph, eager, make) in svcs.items():
+            st = graph.stats()
+            n_models = len(st["models"])
+            assert st["graphs"] == st["graph_captures"] == \
+                n_models * len(graph.ladder)
+            before = (fused_score.launches, fused_trees.launches)
+            for n in sorted(set(graph.ladder) | {3, 40, 300}):
+                blocks = make(rng, n)
+                got, want = graph.submit(**blocks), eager.submit(**blocks)
+                for k in want:
+                    assert np.array_equal(got[k], want[k], equal_nan=True), \
+                        (name, n, k)
+            assert graph.stats()["graph_captures"] == st["graph_captures"]
+            after = (fused_score.launches, fused_trees.launches)
+            assert after != before
+    finally:
+        for graph, eager, _ in svcs.values():
+            graph.close()
+            eager.close()
+
+
+def test_graph_replay_launches_match_the_profiler(cuda, tmp_path):
+    """One replay launches what the capture counted: the K1/K2 kernels
+    between two marker kernels equal `BucketGraph.kernels`."""
+    svcs, _ = _graph_services(str(tmp_path))
+    try:
+        for graph, _, _ in svcs.values():
+            for g in graph._graphs.graphs.values():
+                names = cs.kernels_between_markers(g.replay)
+                for kname, k in (("fused_score", "fused_score_kernel"),
+                                 ("fused_trees", "fused_trees_")):
+                    seen = sum(1 for n in names if k in n)
+                    assert seen == g.kernels.get(kname, 0), (names, g.kernels)
+    finally:
+        for graph, eager, _ in svcs.values():
+            graph.close()
+            eager.close()
+
+
+def test_swap_during_replays_serves_wholly_old_or_new(cuda, tmp_path):
+    """One thread submits without pause while `swap_params` flips
+    between two same-shaped NN sets: every answer equals one set's
+    eager scores as a whole, none fails, no graph is captured again;
+    a wrong-shaped set returns False and changes nothing."""
+    import threading
+
+    from shifu_tpu_torch.models.spec import save_model
+    from shifu_tpu_torch.serve.service import ScorerService
+    rng = np.random.default_rng(3)
+    dirs = []
+    for seed in (1, 2):
+        d = str(tmp_path / f"nn{seed}")
+        save_model(os.path.join(d, "model0.nn"), "nn",
+                   {"spec": {"input_dim": cs.NN_IN,
+                             "hidden_dims": list(cs.NN_HIDDEN),
+                             "activations": ["relu", "relu"]}},
+                   cs.nn_params(np.random.default_rng(seed)))
+        dirs.append(d)
+    mean, std = cs.norm_params(rng)
+    norm = {"mean": mean, "std": std, "cutoff": cs.CUTOFF}
+    reqs = [{"raw_dense": cs.raw_rows(rng, n, mean, std)}
+            for n in (1, 5, 64, 200)]
+    want = []
+    for d in dirs:
+        ref = ScorerService(models_dir=d, norm=norm, device="cuda",
+                            graphs=False).start(proto=reqs[0])
+        want.append([ref.submit(**r)["mean"] for r in reqs])
+        ref.close()
+    svc = ScorerService(models_dir=dirs[0], norm=norm, max_delay=0.0002,
+                        device="cuda").start(proto=reqs[0])
+    captures = svc.graph_captures
+    seen, errors, stop = [0, 0], [], threading.Event()
+
+    def client():
+        i = 0
+        while not stop.is_set():
+            j = i % len(reqs)
+            try:
+                got = svc.submit(**reqs[j])["mean"]
+            except Exception as e:  # noqa: BLE001 — counted, then raised
+                errors.append(e)
+                return
+            hit = [np.array_equal(got, w[j]) for w in want]
+            if not any(hit):
+                errors.append(AssertionError(f"request {j} mixed"))
+                return
+            seen[hit.index(True)] += 1
+            i += 1
+    t = threading.Thread(target=client)
+    t.start()
+    try:
+        for k in range(10):
+            assert svc.swap_params(dirs[(k + 1) % 2])
+        bad = str(tmp_path / "bad")
+        save_model(os.path.join(bad, "model0.nn"), "nn",
+                   {"spec": {"input_dim": cs.NN_IN, "hidden_dims": [8],
+                             "activations": ["relu"]}},
+                   [{"w": np.zeros((cs.NN_IN, 8), np.float32),
+                     "b": np.zeros(8, np.float32)},
+                    {"w": np.zeros((8, 1), np.float32),
+                     "b": np.zeros(1, np.float32)}])
+        assert not svc.swap_params(bad)
+    finally:
+        stop.set()
+        t.join()
+    try:
+        assert not errors, errors
+        assert seen[0] and seen[1], seen
+        assert svc.swaps == 10 and svc.graph_captures == captures
+        assert np.array_equal(svc.submit(**reqs[2])["mean"], want[0][2])
+    finally:
+        svc.close()
+
+
+def test_capture_while_another_service_scores(cuda, tmp_path):
+    """Two services score without pause while a third captures its
+    graphs (thread-local capture on a side stream): nobody fails, and
+    the new service's graphs match its eager twin bit for bit."""
+    import threading
+
+    from shifu_tpu_torch.serve.service import ScorerService
+    svcs, rng = _graph_services(str(tmp_path))
+    errors, stop = [], threading.Event()
+    loads = [(svcs[name][0], svcs[name][2](np.random.default_rng(i), 64))
+             for i, name in enumerate(("nn", "trees"))]
+
+    def client(svc, blocks):
+        while not stop.is_set():
+            try:
+                svc.submit(**blocks)
+            except Exception as e:  # noqa: BLE001
+                errors.append(e)
+                return
+    threads = [threading.Thread(target=client, args=a) for a in loads]
+    for t in threads:
+        t.start()
+    try:
+        nn_dir = os.path.join(str(tmp_path), "nn", "models")
+        proto = {"dense": np.nan_to_num(cs.tree_rows(rng, 1, cs.NN_IN),
+                                        posinf=0.0, neginf=0.0)}
+        third = ScorerService(models_dir=nn_dir, device="cuda",
+                              max_delay=0.0005).start(proto=proto)
+        twin = ScorerService(models_dir=nn_dir, device="cuda",
+                             graphs=False).start(proto=proto)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+    try:
+        assert not errors, errors
+        x = np.nan_to_num(cs.tree_rows(rng, 37, cs.NN_IN), posinf=0.0,
+                          neginf=0.0)
+        assert np.array_equal(third.submit(dense=x)["mean"],
+                              twin.submit(dense=x)["mean"])
+    finally:
+        third.close()
+        twin.close()
+        for graph, eager, _ in svcs.values():
+            graph.close()
+            eager.close()

@@ -21,7 +21,13 @@ def test_registry_agrees_with_the_jax_package():
     assert {"SHIFU_TPU_PREFETCH_DEPTH", "SHIFU_TPU_PREFETCH_WORKERS",
             "SHIFU_TPU_ANALYSIS_MAX_ROWS", "SHIFU_TPU_STATS_CHUNK_ROWS",
             "SHIFU_TPU_NORM_CHUNK_ROWS", "SHIFU_TPU_EVAL_CHUNK_ROWS",
-            "SHIFU_TPU_ANALYSIS_CHUNK_ROWS"} <= set(KNOBS)
+            "SHIFU_TPU_ANALYSIS_CHUNK_ROWS", "SHIFU_TPU_METRICS",
+            "SHIFU_TPU_METRICS_FLUSH_S", "SHIFU_TPU_METRICS_ROLLUP",
+            "SHIFU_TPU_SLO_FILE", "SHIFU_TPU_ALERT_WEBHOOK",
+            "SHIFU_TPU_ALERT_WEBHOOK_TIMEOUT_S", "SHIFU_TPU_DRIFT_THRESHOLD",
+            "SHIFU_TPU_WATCH_INTERVAL_S", "SHIFU_TPU_REGISTRY_KEEP",
+            "SHIFU_TPU_FLEET_HBM_MB", "SHIFU_TPU_FLEET_SHED_WINDOW",
+            "SHIFU_TPU_FLEET_SLO_P99_MS", "SHIFU_TPU_FAULT"} <= set(KNOBS)
     for name, k in KNOBS.items():
         j = JKNOBS[name]
         assert (k.type, k.default) == (j.type, j.default), name
@@ -42,7 +48,9 @@ def test_knobs_table(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["SHIFU_TPU_ANALYSIS_MAX_ROWS",
-                                  "SHIFU_TPU_SERVE_BUCKETS"])
+                                  "SHIFU_TPU_SERVE_BUCKETS",
+                                  "SHIFU_TPU_FLEET_HBM_MB",
+                                  "SHIFU_TPU_METRICS_FLUSH_S"])
 def test_knobs_markdown_matches_the_jax_rows(capsys, name):
     from shifu_tpu.config.environment import knobs_markdown
     assert cli.main(["knobs", "--markdown"]) == 0
