@@ -157,7 +157,7 @@ result line is printed):
    marker kernels must equal (max_depth + 1) a chunk and max_depth a
    tree on both tiers (and 7 / 6 with one chunk), and WDL/MTL at
    500,000 rows and `build_gbt_streaming` at 2,000,000 × 28 are timed;
-15. past the trigger: phase 10's table with phase 13's cohorts (262,144
+15. past the trigger: phase 10's table with phase 13's cohorts (131,072
    rows) under SHIFU_TPU_{STATS,NORM,EVAL,ANALYSIS}_CHUNK_ROWS = 32,768
    (8 chunks), every step a process on the card beside its `--device
    cpu` twin: the streaming `stats` (ColumnConfig.json equal but for the
@@ -167,7 +167,9 @@ result line is printed):
    counted between marker kernels), GBT and RF trained by the streaming
    builders on the card, and the streaming `eval -run` of the GBT + RF
    set (K2 launched, scores and metrics within 1e-6), of an NN over
-   ZSCALE (K1 launched, scores within 1e-5, AUCs 1e-6) and of a 3-class
+   ZSCALE (K1 launched, scores within 1e-5, AUCs within 1e-6 plus the
+   share of pairs the scores' differences can reorder, `perf_allowance`)
+   and of a 3-class
    NATIVE NN (32,768 rows, class scores within 1e-5, the C×C matrix
    within one row's share);
 16. the serving plane (`phase_serving_plane`): (a) phase 4's services
@@ -190,7 +192,30 @@ result line is printed):
    (`serve.*` points), then a shifted dataPath: `watch --monitor-only
    --iterations 3` on the card breaches `drift.psi_max` with drift points
    equal to a `--device cpu` twin's, `health` exits 1 and `/healthz`
-   reports the breach.
+   reports the breach;
+17. the closed loop (`phase_closed_loop`) over phase 16's sets, with
+   SHIFU_TPU_METRICS=1: (a) (d)'s shifted rows appended to a
+   two-partition row log of 4,096-row segments, a fault between the
+   renames of a seal and the rerun re-sealing the same sequence with no
+   `.tmp.*` left, `ingest ls` as a process; (b) in a process of its own,
+   (d)'s GBT set published and served from a fleet under a client that
+   never pauses, one `watch --ingest` tick breaching on drift and its
+   refresh controller retraining warm on the card (K3/K5 counted between
+   marker kernels, a graph capture started mid-retrain equal to eager),
+   guarding (K2), publishing and swapping by re-warm: no request failed,
+   the manifest's window re-read byte for byte, both offsets committed,
+   the guardrail's AUCs and decision those of a `--device cpu` twin
+   within 1e-6; (c) (b)'s first NN refreshed on 8,192 new rows, two
+   epochs, swapped in place with no capture, every answer wholly old or
+   new, the AUCs within 1e-5 of a CPU twin's; (d) (b)'s two NNs through
+   a canary (shadow 0.5, canary 0.2, 32 requests an arm) under mixed
+   traffic: the arm captured at `start_arms` only, HEAD the challenger,
+   answers bit-equal to a standalone challenger service; a slow
+   challenger rolled back mid-canary; a canary process SIGKILLed in its
+   shadow phase rolled back by `watch`'s recovery, CANARY.json cleared;
+   (e) `watch --ingest --registry --iterations 3` as processes on the
+   card and with `--device cpu`: the same decision, AUCs within 1e-6,
+   and `health`'s refresh and canary lines.
 
 Phase 8 then registers a holdout table (262,144 rows, another seed) as
 eval set `holdout` of the card-trained RF and log-loss GBT sets and runs
@@ -207,7 +232,8 @@ evals and phase 13's PMML check to phase 4's, and the K3/K5 counts
 phase 13's FI run, phase 14's streaming tree trainings and phase 15's
 FI, GBT and RF runs to phase 8's (and phase 15's evals to K1/K2's);
 phase 16 adds its mixed traffic's K1/K2 replays and its health set's
-`train` and `eval`.
+`train` and `eval`, phase 17 its refreshes' K1/K2/K3/K5 and (b)'s
+serving.
 
 The last lines are the per-kernel launch line, the kernel JSON line,
 the card's name and power limit, and the result object.
@@ -229,7 +255,9 @@ idle share over five profiled epochs, and five epochs under
 phase 13's card steps, each a process with the host to itself, twice:
 `stats -correlation` at 262,144 × 30, `varsel` FI, `encode` of its RF,
 SE at 65,536 × 600 and `export -t baggingpmml` of a 2-bag wide NN;
-`--p14-walls` only phase 14's launch counts and timings (it needs the
+`--closed-loop` only phase 17 (after the build and the phase 16
+steps it reuses); `--p14-walls` only phase 14's launch counts and
+timings (it needs the
 WDL/MTL and streaming modules); `--stream-walls` only `stats`, `norm`
 and `eval` (a 10-tree GBT) on the card at 2,000,000 rows of phase 10's
 table, resident and then streaming (ChunkRows 262,144), each step's
@@ -2254,13 +2282,68 @@ def _row_share(field, row, depth, counts):
             }.get(field, 0.0)
 
 
-def compare_perf(a, b, tol, counts, score_scale):
-    """EvalPerformance dicts: the AUCs within `tol`; every bucket field
+def auc_allowance(scores, tags, weights, delta, beta):
+    """The AUC analogue of the bucket fields' "one row's share": the
+    share of (positive, negative) pairs whose order or tie two score
+    vectors at most `delta` apart can swap, read from the reference's
+    `scores`. A pair can change only when its two reference scores lie
+    within 2·delta + beta (`beta` the width of one streaming
+    `ScoreHistogram` bucket, 0 for the resident eval). Returns
+    (unweighted share: pairs over n_pos·n_neg, weighted share: Σ w_p·w_n
+    over W_pos·W_neg), by one sort and `np.searchsorted`."""
+    scores = np.asarray(scores, np.float64)
+    weights = np.asarray(weights, np.float64)
+    pos = np.asarray(tags) > 0.5
+    sp, wp = scores[pos], weights[pos]
+    order = np.argsort(scores[~pos], kind="stable")
+    sn, wn = scores[~pos][order], weights[~pos][order]
+    if not sp.size or not sn.size:
+        return 0.0, 0.0
+    reach = 2.0 * delta + beta
+    lo = np.searchsorted(sn, sp - reach, side="left")
+    hi = np.searchsorted(sn, sp + reach, side="right")
+    cum = np.concatenate(([0.0], np.cumsum(wn)))
+    pairs = float((hi - lo).sum()) / (sp.size * sn.size)
+    w_pairs = float((wp * (cum[hi] - cum[lo])).sum()) / \
+        max(wp.sum() * wn.sum(), 1e-300)
+    return pairs, w_pairs
+
+
+def perf_allowance(ref_score_csv, ref_perf, delta, column="mean"):
+    """{AUC key: allowance} for `compare_perf` from the reference's
+    EvalScore.csv (`column`, the selector's score) and
+    EvalPerformance.json: `delta` is the largest score difference
+    `compare_score_csv` found, widened by one unit of the printed digit
+    (the file rounds both sides); a streaming eval adds one bucket of its
+    `ScoreHistogram`."""
+    head = _lines(ref_score_csv)[0].split(",")
+    data = np.loadtxt(ref_score_csv, delimiter=",", skiprows=1, ndmin=2)
+    beta = 0.0
+    if "streaming" in ref_perf:
+        st = ref_perf["scoreStatus"]
+        beta = (st["maxScore"] - st["minScore"]) / \
+            ref_perf["streaming"]["scoreQuantBuckets"]
+    unit, weighted = auc_allowance(
+        data[:, head.index(column)], data[:, head.index("tag")],
+        data[:, head.index("weight")], delta + 1e-6, beta)
+    return {"areaUnderRoc": unit, "areaUnderPr": unit,
+            "weightedAreaUnderRoc": weighted}
+
+
+def compare_perf(a, b, tol, counts, score_scale, auc_tol=None,
+                 allowance=None):
+    """EvalPerformance dicts: each AUC within `auc_tol` (default `tol`)
+    plus its `allowance` (the share of pairs the scores' own differences
+    can reorder, `perf_allowance`; none by default); every bucket field
     within `tol` (binLowestScore within tol·scoreScale) or one row's
     share; scoreStatus equal but for max/min score (within `tol`).
     Returns (largest AUC difference, fields off by one row)."""
+    auc_tol = tol if auc_tol is None else auc_tol
+    allowance = allowance or {}
     auc_err = max(abs(a[k] - b[k]) for k in AUCS)
-    assert auc_err <= tol, [(k, a[k], b[k]) for k in AUCS]
+    assert all(abs(a[k] - b[k]) <= auc_tol + allowance.get(k, 0.0)
+               for k in AUCS), [(k, a[k], b[k], auc_tol,
+                                 allowance.get(k, 0.0)) for k in AUCS]
     edges = 0
     for curve in ("pr", "roc", "gains"):
         assert len(a[curve]) == len(b[curve]), curve
@@ -2331,11 +2414,15 @@ def compare_gain_csv(a_path, b_path, tol, counts, score_scale):
 
 
 def compare_eval_dir(a_root, b_root, name, tol, score_scale=1000.0,
-                     files=("score", "perf", "confusion", "gain")):
+                     files=("score", "perf", "confusion", "gain"),
+                     auc_tol=None, reorder=False):
     """One eval set's outputs under ``evals/<name>/`` of two model sets
     (`b_root` the reference): EvalScore.csv, EvalPerformance.json,
-    EvalConfusionMatrix.csv, gainchart.csv. Returns the largest score
-    and AUC differences and the bucket fields off by one row."""
+    EvalConfusionMatrix.csv, gainchart.csv; the AUCs within `auc_tol`
+    (default `tol`), plus, with `reorder`, the allowance of the pairs the
+    scores' differences can reorder (`perf_allowance`). Returns the
+    largest score and AUC differences, the AUC allowance and the bucket
+    fields off by one row."""
     da = os.path.join(a_root, "evals", name)
     db = os.path.join(b_root, "evals", name)
     counts = score_counts(os.path.join(db, "EvalScore.csv"))
@@ -2348,7 +2435,11 @@ def compare_eval_dir(a_root, b_root, name, tol, score_scale=1000.0,
             pa = json.load(f)
         with open(os.path.join(db, "EvalPerformance.json")) as f:
             pb = json.load(f)
-        out["auc_err"], e = compare_perf(pa, pb, tol, counts, score_scale)
+        allow = perf_allowance(os.path.join(db, "EvalScore.csv"), pb,
+                               out["score_err"]) if reorder else {}
+        out["auc_allowance"] = max(allow.values(), default=0.0)
+        out["auc_err"], e = compare_perf(pa, pb, tol, counts, score_scale,
+                                         auc_tol=auc_tol, allowance=allow)
         out["auc"] = pb["areaUnderRoc"]
         edges += e
     if "confusion" in files:
@@ -4481,7 +4572,7 @@ def p14_walls():
 # phase 15: the verbs past their size triggers (the streaming steps)
 # ---------------------------------------------------------------------------
 
-P15_ROWS = 262_144          # phase 10's table, with phase 13's cohorts
+P15_ROWS = 131_072          # phase 10's table, with phase 13's cohorts
 P15_CHUNK = 32_768          # 8 chunks a pass
 P15_MC_ROWS = 32_768        # the 3-class table scored in chunks
 P15_ENV = {f"SHIFU_TPU_{k}_CHUNK_ROWS": str(P15_CHUNK)
@@ -4778,9 +4869,13 @@ def phase_past_trigger(report, workdir, device="cuda", rows=P15_ROWS,
                 "SHIFU_TPU_EVAL_CHUNK_ROWS": str(mc_rows // 4)}))
     gate("eval trees", lambda: compare_eval_dir(card, ens_cpu, "p15", 1e-6))
     def nn_gate():
-        # scores within phase 11's 1e-5 (K1's 3xTF32), the AUCs 1e-6
-        out = compare_eval_dir(nn, nn_cpu, "p15", 1e-5)
-        assert out["auc_err"] <= 1e-6, out
+        # scores within phase 11's 1e-5 (K1's 3xTF32); the AUCs within
+        # 1e-6 plus the share of pairs that K1's error can reorder
+        # (C-port-5: a near-random model packs many pairs that close)
+        out = compare_eval_dir(nn, nn_cpu, "p15", 1e-5, auc_tol=1e-6,
+                               reorder=True)
+        print(f"  eval nn AUC gate: auc_err {out['auc_err']:.3e} <= "
+              f"1e-6 + allowance {out['auc_allowance']:.3e}")
         return out
     gate("eval nn", nn_gate)
     gate("eval multi-class", lambda: compare_multiclass_eval(
@@ -5317,7 +5412,8 @@ def p16_health(report, workdir, device="cuda", rows=P16_HEALTH_ROWS):
 
 def phase_serving_plane(report, workdir, device="cuda"):
     """Phase 16: (a) serving graphs, (b) a hot swap under load, (c) the
-    registry and a fleet, (d) the health plane, on the card."""
+    registry and a fleet, (d) the health plane, on the card. Returns (b)'s
+    two NN sets, which phase 17 reuses with (d)'s GBT set."""
     t0 = time.monotonic()
     launched = p16_graphs(report, workdir, device)
     dirs, bad = p16_swap_sets(workdir, device)
@@ -5330,6 +5426,751 @@ def phase_serving_plane(report, workdir, device="cuda"):
         report[k]["launches"] += v
     report["p16_seconds"] = time.monotonic() - t0
     print(f"  phase 16: {report['p16_seconds']:.1f} s")
+    return dirs
+
+
+P17_SEG_ROWS = 4_096        # SHIFU_TPU_INGEST_SEGMENT_ROWS of the row log
+P17_BATCH = 1_024           # rows a producer appends at once
+P17_NN_ROWS = 8_192         # the NN refresh's set and its window
+P17_TOLERANCE = 0.2         # the guardrail tolerance of (b), (c) and (e)
+
+def _set_copy(src, dst):
+    """A copy of a model set without its metrics store (a fresh health
+    history; its paths stay absolute, so it reads the same raw data)."""
+    import shutil
+    return shutil.copytree(src, dst, ignore=shutil.ignore_patterns(
+        "metrics", "alerts.jsonl"))
+
+
+def _file_lines(path):
+    with open(path, encoding="utf-8") as f:
+        return [ln.rstrip("\n") for ln in f if ln.strip()]
+
+
+def _tmp_residue(root):
+    return [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs
+            if f.startswith(".tmp.")]
+
+
+def p17_ingest(workdir, health):
+    """(a) Phase 16 (d)'s shifted rows (the health set's data after the
+    +1.5 shift) appended P17_BATCH at a time to a two-partition row log
+    of P17_SEG_ROWS-row segments; a fault between the two renames of the
+    first seal, then the rerun re-seals sequence 1 over the orphan and
+    leaves no `.tmp.*`; `ingest ls` as a process reports the rows and
+    every partition's segments."""
+    import shutil
+
+    from shifu_tpu_torch import resilience
+    from shifu_tpu_torch.data.ingest import RowLog
+    data = os.path.join(health, "data")
+    header = _file_lines(os.path.join(data, ".pig_header"))[0].split("|")
+    lines = _file_lines(os.path.join(data, "part-00000"))
+    root = os.path.join(workdir, "p17_log")
+    lg = RowLog(root, header=header, partitions=2)
+    assert lg.segment_rows == P17_SEG_ROWS, lg.segment_rows
+    os.environ["SHIFU_TPU_FAULT"] = "ingest.seal:oserror:2"
+    resilience.reset_faults()
+    try:
+        for a in range(0, len(lines), P17_BATCH):
+            try:
+                lg.append(lines[a:a + P17_BATCH])
+            except OSError as e:
+                fault = (a, str(e))
+                break
+        else:
+            raise AssertionError("the injected ingest.seal fault never fired")
+    finally:
+        os.environ.pop("SHIFU_TPU_FAULT", None)
+        resilience.reset_faults()
+    orphan = os.path.join(root, "part-0", "seg-000001.rows")
+    assert os.path.exists(orphan) and RowLog(root).sealed_rows() == 0, \
+        "the fault did not fall between the seal's two renames"
+    resealed = lg.maybe_seal()
+    assert (0, 1) in resealed, resealed
+    for a in range(fault[0] + P17_BATCH, len(lines), P17_BATCH):
+        lg.append(lines[a:a + P17_BATCH])
+    lg.seal_all()
+    assert lg.sealed_rows() == len(lines) and not _tmp_residue(root)
+    pristine = shutil.copytree(root, os.path.join(workdir, "p17_log_pristine"))
+    ls = _spawn(["-m", "shifu_tpu_torch", "ingest", "ls", "--log", pristine])
+    out = {"rows": len(lines), "fault_at_row": fault[0], "fault": fault[1],
+           "resealed": resealed}
+    return root, pristine, out, ls
+
+
+def p17_ingest_ls(ls, out):
+    """(a)'s `ingest ls` process: the log's rows, each partition's rows
+    and segments, no consumer yet."""
+    stdout, err = ls.communicate(timeout=300)
+    assert ls.returncode == 0, err[-2000:]
+    inv = json.loads(stdout)
+    n = out["rows"]
+    rows = [n - n // 2, n // 2]
+    segs = [p["sealed_segments"] for p in inv["partitions"]]
+    assert inv["sealed_rows"] == n and inv["consumers"] == [] and \
+        [p["sealed_rows"] for p in inv["partitions"]] == rows, inv
+    assert segs == [-(-r // P17_SEG_ROWS) for r in rows], segs
+    out["segments"] = segs
+    print(f"  (a) row log: {json.dumps(out)}")
+
+
+def card_beside_cpu(card_fn, cpu_fn):
+    """`card_fn` on this thread (its profiler windows stay on the thread
+    that owns the trace) while `cpu_fn` runs on a side thread; returns
+    both results."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(1) as pool:
+        side = pool.submit(cpu_fn)
+        card = card_fn()
+        return card, side.result()
+
+
+def _client(fleet, model, reqs, stop, failures, answers):
+    """Submit `reqs` round robin until `stop`; every answer's "mean" is
+    kept by request index, every failure kept."""
+    i = 0
+    while not stop.is_set():
+        j = i % len(reqs)
+        i += 1
+        try:
+            answers.append((j, fleet.submit(model, timeout=120,
+                                            **reqs[j])["mean"]))
+        except Exception as e:  # noqa: BLE001 — reported by the caller
+            failures.append(repr(e))
+
+
+def p17_gbt_refresh(workdir, health, log_root, pristine, swap_nn,
+                    device="cuda"):
+    """(b) Phase 16 (d)'s GBT set published and served from a fleet on
+    the card under a client that never pauses; one `run_monitor` tick
+    over the row log breaches on drift and its `RefreshController`
+    retrains warm on the card (K3 and K5 counted between marker kernels),
+    guards (K2), publishes and swaps by re-warm (the GBT grew trees).
+    Meanwhile a fresh NN service (phase 16 (b)'s second set) captures its
+    graphs mid-retrain and must score like its eager twin. The same
+    controller with `device="cpu"` on a copy of the set and of the log
+    reaches the same decision with AUCs within 1e-6."""
+    import shutil
+    import threading
+
+    import torch
+
+    from shifu_tpu_torch import registry
+    from shifu_tpu_torch.data.ingest import RowLog
+    from shifu_tpu_torch.obs.health import store, watch
+    from shifu_tpu_torch.obs.health.refresh import RefreshController
+    from shifu_tpu_torch.ops import best_splits, level_hist
+    from shifu_tpu_torch.processor.base import ProcessorContext
+    from shifu_tpu_torch.serve.fleet import FleetService
+    from shifu_tpu_torch.serve.service import ScorerService
+    ms = _set_copy(health, os.path.join(workdir, "p17_gbt"))
+    twin = _set_copy(health, os.path.join(workdir, "p17_gbt_cpu"))
+    cpu_log = shutil.copytree(pristine, os.path.join(workdir, "p17_log_cpu"))
+    reg = os.path.join(workdir, "p17_reg")
+    reg_cpu = os.path.join(workdir, "p17_reg_cpu")
+    v1 = registry.publish(reg, "gbt", os.path.join(ms, "models"))
+    registry.publish(reg_cpu, "gbt", os.path.join(twin, "models"))
+    lg = RowLog(log_root)
+    rng = np.random.default_rng(171)
+    reqs = [{"raw_dense": tree_rows(rng, n)} for n in (1, 7, 64, 300)]
+    fleet = FleetService(reg, workspace_root=ms, device=device,
+                         slo_p99_ms=1e9)
+    ctx = ProcessorContext.load(ms)
+    ctl = RefreshController(ctx, registry_root=reg, model_name="gbt",
+                            fleet=fleet, ingest_log=lg,
+                            tolerance=P17_TOLERANCE, cooldown_s=0.0,
+                            device=device)
+    counted, mid = {}, {}
+    train = ctl._train_challenger
+
+    def capture_mid_retrain():
+        proto = {"dense": np.random.default_rng(172).normal(
+            0, 1, (64, NN_IN)).astype(np.float32)}
+        try:
+            with ScorerService(models_dir=swap_nn, device=device) as svc, \
+                    ScorerService(models_dir=swap_nn, device=device,
+                                  graphs=False) as eager:
+                mid["captures"] = svc.graph_captures
+                mid["equal"] = same_scores(svc.submit(**proto, timeout=120),
+                                           eager.submit(**proto, timeout=120))
+        except Exception as e:  # noqa: BLE001 — reported by the gate
+            mid["error"] = repr(e)
+
+    def train_counted(clone):
+        # the challenger's models/ before training, so a profile taken
+        # again (a lost marker) trains from the same warm start
+        models = os.path.join(clone, "models")
+        seed = shutil.copytree(models, models + ".seed")
+        capturer = threading.Thread(target=capture_mid_retrain)
+
+        def once():
+            shutil.rmtree(models)
+            shutil.copytree(seed, models)
+            k3, k5 = level_hist.launches, best_splits.launches
+            if not capturer.is_alive() and "captures" not in mid:
+                capturer.start()
+            train(clone)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            counted["k3"] = level_hist.launches - k3
+            counted["k5"] = best_splits.launches - k5
+        names = kernels_between_markers(once) if device == "cuda" else \
+            (once() or [])
+        capturer.join()
+        shutil.rmtree(seed)
+        counted["k3_between_markers"] = count_kernels(names, "level_hist")
+        counted["k5_between_markers"] = count_kernels(names, "best_splits")
+    ctl._train_challenger = train_counted
+
+    def card():
+        for r in reqs:       # resident and captured before the client
+            fleet.submit("gbt", timeout=120, **r)
+        stop, failures, answers = threading.Event(), [], []
+        t = threading.Thread(target=_client, args=(fleet, "gbt", reqs, stop,
+                                                   failures, answers))
+        t.start()
+        try:
+            rc = watch.run_monitor(ctx, interval_s=0.0, iterations=1,
+                                   refresh=ctl, ingest_log=lg, device=device)
+            time.sleep(0.2)
+        finally:
+            stop.set()
+            t.join()
+        return rc, failures, len(answers)
+
+    def cpu():
+        c = RefreshController(ProcessorContext.load(twin),
+                              registry_root=reg_cpu, model_name="gbt",
+                              ingest_log=RowLog(cpu_log),
+                              tolerance=P17_TOLERANCE, cooldown_s=0.0,
+                              device="cpu")
+        return c.handle_breach({"slo": "drift", "state": "breach"}), c
+    t0 = time.monotonic()
+    try:
+        (rc, failures, served), (cpu_outcome, cpu_ctl) = card_beside_cpu(
+            card, cpu)
+        wall = time.monotonic() - t0
+        assert rc == 0 and ctl.last_outcome == "promoted", ctl.stats()
+        assert not failures and served > 0, failures[:3]
+        assert registry.head(reg, "gbt") == "v002"
+        assert fleet._entries["gbt"].version == "v002"
+        swaps = [e["tags"].get("swap") for e in store.store(ms).events(
+            limit=50, names=["refresh"]) if e["tags"].get("phase")
+            == "promoted"]
+        assert swaps == ["rewarmed"] and \
+            fleet.stats()["fleet"]["swaps"] == 0, swaps
+        got = {}
+        for j, r in enumerate(reqs):
+            got[j] = fleet.submit("gbt", timeout=120, **r)
+        with ScorerService(models_dir=registry.resolve(reg, "gbt")[1],
+                           device=device) as solo:
+            for j, r in enumerate(reqs):
+                assert same_scores(got[j], solo.submit(timeout=120, **r)), j
+    finally:
+        fleet.close()
+    man = registry.resolve(reg, "gbt")[2]["refresh"]
+    iw = man["ingest_window"]
+    replay = "".join(ln + "\n" for ln in
+                     RowLog(log_root).read_range(iw["start"], iw["end"]))
+    with open(os.path.join(ms, "tmp", "refresh", "run0001", "window",
+                           "part-00000"), "rb") as f:
+        assert f.read() == replay.encode("utf-8"), \
+            "the manifest's window is not the materialized one"
+    assert iw["rows"] == lg.sealed_rows() and lg.lag("watch") == 0 and \
+        lg.lag("refresh") == 0, (iw, lg.inventory())
+    assert counted["k3"] > 0 and counted["k5"] > 0, counted
+    if device == "cuda":
+        assert counted["k3_between_markers"] == counted["k3"] and \
+            counted["k5_between_markers"] == counted["k5"], counted
+        assert "error" not in mid and mid["captures"] > 0 and mid["equal"], \
+            mid
+    cpu_man = registry.resolve(reg_cpu, "gbt")[2]["refresh"]
+    assert cpu_outcome == ctl.last_outcome, cpu_ctl.stats()
+    auc_err = max(abs(man[k] - cpu_man[k])
+                  for k in ("incumbent_auc", "challenger_auc"))
+    assert auc_err <= 1e-6, (man, cpu_man)
+    assert not _tmp_residue(reg) and not _tmp_residue(log_root)
+    out = {"served": served, "wall_s": wall, "head": "v002", "from": v1,
+           "swap": swaps[0], "window_rows": iw["rows"],
+           "incumbent_auc": man["incumbent_auc"],
+           "challenger_auc": man["challenger_auc"],
+           "cpu_auc_err": auc_err, "launches": counted,
+           "capture_mid_retrain": mid}
+    print(f"  (b) GBT refresh: {json.dumps(out)}")
+    return out
+
+
+def p17_gbt_start(workdir, swap_nn, device="cuda"):
+    """Start (b) in a process of its own (`--p17-gbt`): a process that
+    has traced the earlier phases loses marker records (the main run
+    lost one in all six traces of (b)'s retrain), a fresh one keeps
+    them; (c) runs meanwhile."""
+    return _spawn([os.path.abspath(__file__), "--p17-gbt", workdir, swap_nn,
+                   device])
+
+
+def p17_gbt_finish(proc):
+    """(b)'s result and its process's K1/K2/K3/K5 launches."""
+    out, err = proc.communicate(timeout=900)
+    assert proc.returncode == 0, f"--p17-gbt failed:\n{err[-4000:]}"
+    lines = out.rstrip().splitlines()
+    for line in lines[:-1]:
+        print(line)
+    return json.loads(lines[-1])
+
+
+def p17_gbt_main(workdir, swap_nn, device):
+    """The `--p17-gbt` process: (b) over the phase's work directory; its
+    last line holds (b)'s result and this process's launches."""
+    from shifu_tpu_torch.ops import best_splits, fused_score, fused_trees
+    from shifu_tpu_torch.ops import level_hist
+    os.environ.update(SHIFU_TPU_METRICS="1",
+                      SHIFU_TPU_INGEST_SEGMENT_ROWS=str(P17_SEG_ROWS))
+    out = p17_gbt_refresh(workdir, os.path.join(workdir, "health"),
+                          os.path.join(workdir, "p17_log"),
+                          os.path.join(workdir, "p17_log_pristine"),
+                          swap_nn, device)
+    out["process_launches"] = {
+        "fused_score": fused_score.launches,
+        "fused_trees": fused_trees.launches,
+        "level_hist": level_hist.launches,
+        "best_splits": best_splits.launches}
+    print(json.dumps(out))
+
+
+def p17_nn_set(root, incumbent, seed, device="cuda"):
+    """The NN refresh's set: a P17_NN_ROWS-row raw table of 600 columns
+    (its own eval set Eval1), `init` and `stats` on `device` in process,
+    the training params of phase 16 (b)'s NNs (600 → 512 → 256 → 1,
+    ADAM, two epochs) and `incumbent` (one of them) as models/."""
+    import shutil
+
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    names, tokens = nn_raw_table(np.random.default_rng(seed), P17_NN_ROWS)
+    data_dir = os.path.join(root, "data")
+    write_raw(data_dir, names, tokens)
+    data_set = {"dataPath": data_dir, "dataDelimiter": "|",
+                "headerPath": os.path.join(data_dir, ".pig_header"),
+                "targetColumnName": "label", "posTags": ["1"],
+                "negTags": ["0"]}
+    ModelConfig.from_dict({
+        "basic": {"name": "smokeNNRefresh"}, "dataSet": data_set,
+        "stats": {"maxNumBin": GBT_BINS - 1,
+                  "binningMethod": "EqualPositive"},
+        "normalize": {"normType": "ZSCALE", "stdDevCutOff": CUTOFF},
+        "train": {"algorithm": "NN", "numTrainEpochs": 2, "baggingNum": 1,
+                  "validSetRate": 0.1, "params": {
+                      "NumHiddenLayers": 2,
+                      "NumHiddenNodes": list(NN_HIDDEN),
+                      "ActivationFunc": ["relu", "relu"],
+                      "Propagation": "ADAM", "LearningRate": 0.002}},
+        "evals": [{"name": "Eval1", "dataSet": data_set}]}).save(root)
+    lines = run_verbs([(root, ["init"]), (root, ["stats"])], device)
+    assert all(ln["rc"] == 0 for ln in lines), lines
+    os.makedirs(os.path.join(root, "models"))
+    shutil.copy(os.path.join(incumbent, "model0.nn"),
+                os.path.join(root, "models", "model0.nn"))
+    return root
+
+
+def p17_nn_refresh(workdir, swap_dirs, device="cuda"):
+    """(c) Phase 16 (b)'s first port-trained NN as the incumbent of a
+    600-column set, served by a fleet on the card under a client; one
+    breach through a window of P17_NN_ROWS fresh rows trains it two
+    epochs on, guards (K1 twice), publishes and swaps in place with no
+    new capture; every answer is wholly the old or the new model's;
+    the guardrail's AUCs are within 1e-5 of a CPU twin's."""
+    import threading
+
+    from shifu_tpu_torch import registry
+    from shifu_tpu_torch.data import reader
+    from shifu_tpu_torch.obs.health.refresh import RefreshController
+    from shifu_tpu_torch.processor.base import ProcessorContext
+    from shifu_tpu_torch.serve.fleet import FleetService
+    from shifu_tpu_torch.serve.service import ScorerService
+    ms = p17_nn_set(os.path.join(workdir, "p17_nn"), swap_dirs[0], 173,
+                    device)
+    twin = _set_copy(ms, os.path.join(workdir, "p17_nn_cpu"))
+    names, tokens = nn_raw_table(np.random.default_rng(174), P17_NN_ROWS)
+    window = reader._rows_table(["|".join(r) for r in tokens.tolist()],
+                                names, "|", "window")
+    reg = os.path.join(workdir, "p17_nn_reg")
+    reg_cpu = os.path.join(workdir, "p17_nn_reg_cpu")
+    registry.publish(reg, "nn", os.path.join(ms, "models"))
+    registry.publish(reg_cpu, "nn", os.path.join(twin, "models"))
+    rng = np.random.default_rng(175)
+    reqs = [{"dense": rng.normal(0, 1, (n, NN_IN)).astype(np.float32)}
+            for n in (1, 3, 8, 40, 64, 300, 512)]
+
+    def eager_scores(vdir):
+        with ScorerService(models_dir=vdir, device=device,
+                           graphs=False) as ref:
+            return [ref.submit(timeout=120, **r)["mean"] for r in reqs]
+    old = eager_scores(registry.resolve(reg, "nn")[1])
+    fleet = FleetService(reg, workspace_root=ms, device=device,
+                         slo_p99_ms=1e9)
+    ctl = RefreshController(ProcessorContext.load(ms), registry_root=reg,
+                            model_name="nn", fleet=fleet,
+                            tolerance=P17_TOLERANCE, cooldown_s=0.0,
+                            device=device)
+    ctl.note_window(window)
+
+    def cpu():
+        c = RefreshController(ProcessorContext.load(twin),
+                              registry_root=reg_cpu, model_name="nn",
+                              tolerance=P17_TOLERANCE, cooldown_s=0.0,
+                              device="cpu")
+        c.note_window(window)
+        return c.handle_breach({"slo": "drift", "state": "breach"}), c
+
+    def card():
+        for r in reqs:
+            fleet.submit("nn", timeout=120, **r)
+        svc = fleet._entries["nn"].service
+        caps = svc.graph_captures
+        stop, failures, answers = threading.Event(), [], []
+        t = threading.Thread(target=_client, args=(fleet, "nn", reqs, stop,
+                                                   failures, answers))
+        t.start()
+        try:
+            outcome = ctl.handle_breach({"slo": "drift", "state": "breach"})
+            time.sleep(0.2)
+        finally:
+            stop.set()
+            t.join()
+        assert fleet._entries["nn"].service is svc, "the service was replaced"
+        return outcome, caps, svc.graph_captures, failures, answers
+    t0 = time.monotonic()
+    try:
+        (outcome, caps, caps_after, failures, answers), \
+            (cpu_outcome, cpu_ctl) = card_beside_cpu(card, cpu)
+        wall = time.monotonic() - t0
+        assert outcome == "promoted" == cpu_outcome, \
+            (ctl.stats(), cpu_ctl.stats())
+        assert registry.head(reg, "nn") == "v002"
+        assert fleet.stats()["fleet"]["swaps"] == 1
+        assert caps_after == caps, (caps, caps_after)
+        new = eager_scores(registry.resolve(reg, "nn")[1])
+        assert not failures and answers, failures[:3]
+        seen = [0, 0]
+        for j, got in answers:
+            hit = [np.array_equal(got, old[j]), np.array_equal(got, new[j])]
+            assert any(hit), f"request {j}: neither old nor new scores"
+            seen[hit.index(True)] += 1
+        assert seen[1] > 0, seen
+        for j, r in enumerate(reqs):
+            assert np.array_equal(fleet.submit("nn", timeout=120, **r)
+                                  ["mean"], new[j]), j
+    finally:
+        fleet.close()
+    man = registry.resolve(reg, "nn")[2]["refresh"]
+    cpu_man = registry.resolve(reg_cpu, "nn")[2]["refresh"]
+    auc_err = max(abs(man[k] - cpu_man[k])
+                  for k in ("incumbent_auc", "challenger_auc"))
+    assert auc_err <= 1e-5, (man, cpu_man)
+    out = {"wall_s": wall, "answers_old_new": seen, "captures": caps,
+           "incumbent_auc": man["incumbent_auc"],
+           "challenger_auc": man["challenger_auc"], "cpu_auc_err": auc_err}
+    print(f"  (c) NN refresh: {json.dumps(out)}")
+    return out
+
+
+_P17_KILL = """\
+import sys
+sys.path.insert(0, sys.argv[4])
+from shifu_tpu_torch.obs.health.canary import CanaryController
+from shifu_tpu_torch.serve.fleet import FleetService
+reg, chal, store_root = sys.argv[1:4]
+with FleetService(reg, workspace_root=store_root,
+                  device=sys.argv[5]) as fleet:
+    CanaryController(fleet, reg, "canary_nn", store_root=store_root,
+                     shadow_pct=0.5, canary_pct=0.2, min_requests=10**6,
+                     window_s=600.0).run(chal, "kill01")
+raise SystemExit("the canary ended before it was killed")
+"""
+
+
+def p17_canary(workdir, swap_dirs, store_root, device="cuda"):
+    """(d) Phase 16 (b)'s two NNs as incumbent and challenger in a fleet
+    under mixed traffic: `CanaryController` (shadow 0.5, canary 0.2,
+    min_requests 32) promotes; the arm captured its graphs at
+    `start_arms` only, HEAD is the challenger and the fleet answers like
+    a standalone challenger service, bit for bit. Then a challenger made
+    slow (each of its requests held 60 ms) rolls back mid-canary to the
+    baseline (`p17_kill_*` is the SIGKILL drill)."""
+    import threading
+
+    from shifu_tpu_torch import registry
+    from shifu_tpu_torch.obs.health.canary import (CanaryController,
+                                                   read_state)
+    from shifu_tpu_torch.serve.fleet import FleetService
+    from shifu_tpu_torch.serve.service import ScorerService
+    reg = os.path.join(workdir, "p17_canary_reg")
+    assert registry.publish(reg, "canary_nn", swap_dirs[0]) == "v001"
+    rng = np.random.default_rng(176)
+    reqs = [{"dense": rng.normal(0, 1, (n, NN_IN)).astype(np.float32)}
+            for n in (1, 2, 5, 8, 16, 33, 64, 128)]
+    fleet = FleetService(reg, workspace_root=store_root, device=device,
+                         slo_p99_ms=1e9)
+    arm_caps, slow = [], {"s": 0.0}
+    start, stop_arms = fleet.start_arms, fleet.stop_arms
+
+    def start_watched(name, challenger_dir, **kw):
+        out = start(name, challenger_dir, **kw)
+        svc = fleet._arms[name].service
+        arm_caps.append([svc.graph_captures, None])
+        if slow["s"]:
+            submit = svc.submit_timed
+
+            def slow_submit(timeout=30.0, **blocks):
+                time.sleep(slow["s"])
+                got, timing = submit(timeout=timeout, **blocks)
+                timing["total_s"] += slow["s"]
+                return got, timing
+            svc.submit_timed = slow_submit
+        return out
+
+    def stop_watched(name):
+        arm = fleet._arms.get(name)
+        if arm is not None and arm_caps:
+            arm_caps[-1][1] = arm.service.graph_captures
+        return stop_arms(name)
+    fleet.start_arms, fleet.stop_arms = start_watched, stop_watched
+    # the PSI band wide open, as in the JAX package's drills: two NNs
+    # from two seeds put their scores in other 16-bin buckets (the rule
+    # itself is held against the JAX package's on the CPU)
+    kw = dict(shadow_pct=0.5, canary_pct=0.2, min_requests=32,
+              window_s=30.0, psi_max=100.0, slo_p99_ms=50.0, poll_s=0.01)
+
+    def under_traffic(fn):
+        stop, failures, answers = threading.Event(), [], []
+        clients = [threading.Thread(target=_client, args=(
+            fleet, "canary_nn", reqs[i::2], stop, failures, answers))
+            for i in range(2)]
+        for c in clients:
+            c.start()
+        try:
+            return fn(), failures, len(answers)
+        finally:
+            stop.set()
+            for c in clients:
+                c.join()
+    out = {}
+    try:
+        for r in reqs:
+            fleet.submit("canary_nn", timeout=120, **r)
+        primary = fleet._entries["canary_nn"].service
+        caps = primary.graph_captures
+        t0 = time.monotonic()
+        res, failures, served = under_traffic(lambda: CanaryController(
+            fleet, reg, "canary_nn", store_root=store_root, **kw).run(
+                swap_dirs[1], "canary01"))
+        out["promote_s"] = time.monotonic() - t0
+        assert res["outcome"] == "promoted", res
+        assert not failures and served > 0, failures[:3]
+        assert registry.head(reg, "canary_nn") == res["version"] == "v002"
+        assert len(arm_caps) == 1 and arm_caps[0][0] == arm_caps[0][1] \
+            and (arm_caps[0][0] > 0 or device != "cuda"), arm_caps
+        assert fleet._entries["canary_nn"].service is primary and \
+            primary.graph_captures == caps and res["swap"] == "swapped", \
+            (res["swap"], caps, primary.graph_captures)
+        with ScorerService(models_dir=swap_dirs[1], device=device) as solo:
+            for r in reqs:
+                assert same_scores(fleet.submit("canary_nn", timeout=120,
+                                                **r),
+                                   solo.submit(timeout=120, **r))
+        win = res["verdict"]["live_window"]
+        out.update(served=served, version=res["version"],
+                   requests=win["requests"], arm_psi=win["arm_psi"],
+                   p99_ms=win["p99_ms"], arm_captures=arm_caps[0][0])
+        # a slow challenger breaches the live band and rolls back
+        slow["s"] = 0.06
+        t0 = time.monotonic()
+        res, failures, served = under_traffic(lambda: CanaryController(
+            fleet, reg, "canary_nn", store_root=store_root,
+            **dict(kw, slo_p99_ms=20.0)).run(swap_dirs[0], "canary02"))
+        out["rollback_s"] = time.monotonic() - t0
+        assert res["outcome"] == "rolled_back" and \
+            "p99" in res["verdict"]["reason"], res
+        assert not failures and served > 0, failures[:3]
+        assert registry.head(reg, "canary_nn") == "v002"
+        assert read_state(reg, "canary_nn") is None
+        assert arm_caps[1][0] == arm_caps[1][1], arm_caps
+        out["rolled_back"] = {"version": res["version"],
+                              "reason": res["verdict"]["reason"]}
+    finally:
+        fleet.close()
+    assert not _tmp_residue(reg)
+    print(f"  (d) canary: {json.dumps(out)}")
+    return out
+
+
+def p17_kill_start(workdir, swap_dirs, store_root, device="cuda"):
+    """Start (d)'s last drill early: a process serving `canary_nn` (phase
+    16 (b)'s first NN, a registry of its own) that runs a canary of the
+    second NN and waits in its shadow phase for a quorum it never gets."""
+    from shifu_tpu_torch import registry
+    reg = os.path.join(workdir, "p17_kill_reg")
+    v1 = registry.publish(reg, "canary_nn", swap_dirs[0])
+    proc = _spawn(["-c", _P17_KILL, reg, swap_dirs[1], store_root,
+                   os.path.dirname(os.path.abspath(__file__)), device])
+    return proc, reg, v1
+
+
+def p17_kill_finish(proc, reg, v1, store_root, device="cuda"):
+    """SIGKILL that process in its shadow phase (HEAD then names the
+    challenger it published), then `watch --registry` on the card rolls
+    HEAD back to the baseline through `CanaryController.recover` and
+    clears CANARY.json."""
+    import contextlib
+    import io
+
+    from shifu_tpu_torch import cli, registry
+    from shifu_tpu_torch.obs.health.canary import read_state
+    try:
+        deadline = time.monotonic() + 300
+        while (read_state(reg, "canary_nn") or {}).get("phase") != "shadow":
+            assert proc.poll() is None, proc.communicate()[1][-2000:]
+            assert time.monotonic() < deadline, "no shadow phase"
+            time.sleep(0.1)
+        state = read_state(reg, "canary_nn")
+        proc.kill()
+        proc.communicate()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == -9, proc.returncode
+    assert registry.head(reg, "canary_nn") == state["version"] == "v002"
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["--dir", store_root, "watch", "--monitor-only",
+                       "--registry", reg, "--model-name", "canary_nn",
+                       "--iterations", "1", "--interval-s", "0",
+                       "--device", device])
+    assert rc == 0 and read_state(reg, "canary_nn") is None
+    assert registry.head(reg, "canary_nn") == v1
+    assert registry.resolve(reg, "canary_nn", "v002")[2]["canary"][
+        "verdict"] == "rollback"
+    assert not _tmp_residue(reg)
+    out = {"phase": state["phase"], "version": state["version"],
+           "recovered_to": v1}
+    print(f"  (d) killed canary: {json.dumps(out)}")
+    return out
+
+
+def p17_cli_start(card_root, cpu_root, pristine, device="cuda"):
+    """(e) `watch --ingest LOG --registry R --model-name gbt --iterations
+    3` as a process on the card and its `--device cpu` twin, each over
+    its own copy of the set, the log and the registry."""
+    import shutil
+
+    from shifu_tpu_torch import registry
+    procs, regs = [], []
+    for root, dev in ((card_root, device), (cpu_root, "cpu")):
+        log = shutil.copytree(pristine, root + "_log")
+        reg = root + "_reg"
+        registry.publish(reg, "gbt", os.path.join(root, "models"))
+        regs.append(reg)
+        procs.append(_spawn(
+            ["-m", "shifu_tpu_torch", "--dir", root, "watch", "--ingest",
+             log, "--registry", reg, "--model-name", "gbt", "--iterations",
+             "3", "--interval-s", "0", "--device", dev],
+            dict(CPU_TWIN_ENV if dev == "cpu" else {},
+                 SHIFU_TPU_REFRESH_TOLERANCE=str(P17_TOLERANCE))))
+    return procs, regs
+
+
+def p17_cli_finish(procs, regs, card_root):
+    """(e)'s two processes end with the same decision and AUCs within
+    1e-6; then `health` over the card's set shows its refresh events and
+    the canary arms' lines (the canaries of (d) record there)."""
+    import contextlib
+    import io
+
+    from shifu_tpu_torch import cli, registry
+    for proc in procs:
+        _, err = proc.communicate(timeout=600)
+        assert proc.returncode == 0, err[-3000:]
+    mans = [registry.resolve(reg, "gbt")[2].get("refresh") for reg in regs]
+    heads = [registry.head(reg, "gbt") for reg in regs]
+    assert heads[0] == heads[1] == "v002" and all(mans), (heads, mans)
+    auc_err = max(abs(mans[0][k] - mans[1][k])
+                  for k in ("incumbent_auc", "challenger_auc"))
+    assert auc_err <= 1e-6, mans
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--dir", card_root, "health"])
+    text = buf.getvalue()
+    assert "canary arms:" in text and "  canary_nn: phase=" in text and \
+        "event.refresh" in text, text
+    out = {"heads": heads, "cpu_auc_err": auc_err, "health_rc": rc,
+           "health_lines": [ln for ln in text.splitlines()
+                            if "canary" in ln or "refresh" in ln]}
+    print(f"  (e) watch --ingest CLI: {json.dumps(out)}")
+    return out
+
+
+def phase_closed_loop(report, workdir, swap_dirs, device="cuda"):
+    """Phase 17, the closed loop on the card over phase 16's artifacts:
+    (a) the row log, (b) the GBT refresh, (c) the NN refresh, (d) the
+    canary, (e) full `watch --ingest` as processes. Its K1, K2, K3 and
+    K5 launches join the kernels line."""
+    from shifu_tpu_torch.ops import best_splits, fused_score, fused_trees
+    from shifu_tpu_torch.ops import level_hist
+    t0 = time.monotonic()
+    health = os.path.join(workdir, "health")
+    keys = ("SHIFU_TPU_METRICS", "SHIFU_TPU_INGEST_SEGMENT_ROWS",
+            "SHIFU_TPU_FAULT")
+    old = {k: os.environ.get(k) for k in keys}
+    os.environ.update(SHIFU_TPU_METRICS="1",
+                      SHIFU_TPU_INGEST_SEGMENT_ROWS=str(P17_SEG_ROWS))
+    fused_score.launches = fused_trees.launches = 0
+    level_hist.launches = best_splits.launches = 0
+    out, procs = {}, []
+    try:
+        # processes that start long before they are read: (a)'s `ingest
+        # ls`, (b) and (d)'s canary to be killed
+        log_root, pristine, out["ingest"], ls = p17_ingest(workdir, health)
+        gbt = p17_gbt_start(workdir, swap_dirs[1], device)
+        procs += [ls, gbt]
+        e_card = _set_copy(health, os.path.join(workdir, "p17_e_card"))
+        e_cpu = _set_copy(health, os.path.join(workdir, "p17_e_cpu"))
+        kill = p17_kill_start(workdir, swap_dirs, e_card, device)
+        procs.append(kill[0])
+        out["nn"] = p17_nn_refresh(workdir, swap_dirs, device)
+        out["gbt"] = p17_gbt_finish(gbt)
+        p17_ingest_ls(ls, out["ingest"])
+        out["canary"] = p17_canary(workdir, swap_dirs, e_card, device)
+        out["canary"]["killed"] = p17_kill_finish(*kill, e_card, device)
+        # after the canaries, so the refresh is the newest health event
+        cli_procs, regs = p17_cli_start(e_card, e_cpu, pristine, device)
+        procs += cli_procs
+        out["cli"] = p17_cli_finish(cli_procs, regs, e_card)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    launched = {"fused_score": fused_score.launches,
+                "fused_trees": fused_trees.launches,
+                "level_hist": level_hist.launches,
+                "best_splits": best_splits.launches}
+    for k, v in out["gbt"]["process_launches"].items():
+        launched[k] += v
+    for k in ("fused_score", "fused_trees", "level_hist", "best_splits"):
+        assert launched[k] > 0, f"phase 17 launched no {k}: {launched}"
+        report[k]["launches"] += launched[k]
+    out["launches"] = launched
+    out["seconds"] = time.monotonic() - t0
+    report["p17"] = out
+    print(f"  phase 17: {out['seconds']:.1f} s, launches "
+          f"{json.dumps(launched)}")
 
 
 SOURCES = {
@@ -5358,6 +6199,12 @@ def main() -> int:
         with open(sys.argv[2]) as f:
             steps = json.load(f)
         print(json.dumps(run_verbs(steps, "cpu")))
+        return 0
+    if sys.argv[1:2] == ["--p17-gbt"]:
+        # phase 17 (b) in a process of its own: its retrain's marker
+        # kernels, traced in a fresh process
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        p17_gbt_main(*sys.argv[2:5])
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -5398,6 +6245,16 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--stream-walls"]:
         print(json.dumps({"stream_walls": trigger_walls()}))
+        return 0
+    if sys.argv[1:] == ["--closed-loop"]:
+        phase_build()
+        report = {k: {"launches": 0} for k in SOURCES}
+        with tempfile.TemporaryDirectory() as workdir:
+            # phase 16's artifacts that phase 17 reuses
+            dirs, _ = p16_swap_sets(workdir)
+            p16_health({}, workdir)
+            phase_closed_loop(report, workdir, dirs)
+        print(json.dumps({k: report[k]["launches"] for k in SOURCES}))
         return 0
     if sys.argv[1:] == ["--serving-plane"]:
         phase_build()
@@ -5458,7 +6315,10 @@ def main() -> int:
     header("phase 16: serving graphs, swap, registry/fleet and the health "
            "plane on the card")
     with tempfile.TemporaryDirectory() as workdir:
-        phase_serving_plane(report, workdir)
+        dirs = phase_serving_plane(report, workdir)
+        header("phase 17: the closed loop (row log, refresh, canary, full "
+               "watch) on the card")
+        phase_closed_loop(report, workdir, dirs)
     print(f"total: {time.monotonic() - t_start:.1f} s on {smi}")
 
     kernels = []

@@ -1,6 +1,5 @@
 """Command line of the port — the verbs of `shifu_tpu/cli.py` (the DAG
-verbs, `ingest`, `ckpt`, `top` and `trace` come later: ROADMAP A7.4,
-A8).
+verbs, `ckpt`, `top` and `trace` come later: ROADMAP A8).
 
     python -m shifu_tpu_torch --dir <dir> new <name>
     python -m shifu_tpu_torch --dir <model-set> init
@@ -30,8 +29,11 @@ A8).
         publish|ls|rollback|gc [--registry DIR] [--name NAME]
         [--models DIR] [--priority high|low] [--max-delay-ms MS]
         [--to vNNN] [--keep K]
-    python -m shifu_tpu_torch --dir <model-set> watch --monitor-only
-        [--interval-s S] [--iterations N] [--device cuda|cpu]
+    python -m shifu_tpu_torch --dir <model-set> watch [--monitor-only]
+        [--registry DIR --model-name NAME] [--eval-set NAME]
+        [--ingest LOG] [--interval-s S] [--iterations N]
+        [--device cuda|cpu]
+    python -m shifu_tpu_torch ingest ls --log DIR
     python -m shifu_tpu_torch --dir <model-set> health [--trend N]
     python -m shifu_tpu_torch knobs [--all] [--markdown]
     python -m shifu_tpu_torch version
@@ -89,13 +91,18 @@ SHIFU_TPU_METRICS=1 it flushes `serve.*` points into the model set's
 `tmp/metrics/metrics.jsonl`, and `/healthz` reports the SLO state.
 `registry` publishes a model set's specs as an immutable version
 (atomic HEAD flip), lists, rolls HEAD back and gc's old versions (host
-only). `watch --monitor-only` tails the training dataPath, bins each
-new window on `--device` against the frozen training bins (rolling
-PSI/KS), evaluates the SLO guardrails and writes everything to the
-metrics store; without `--monitor-only`, and with `--ingest`, it raises
-(ROADMAP A7.4). `health` prints each SLO's state with a sparkline of
-its metric, the canary arms' lines and the recent events, and exits 1
-on a breach. `train` trains the
+only). `watch` tails the training dataPath (or, with `--ingest LOG`,
+consumes the durable row log exactly once), bins each new window on
+`--device` against the frozen training bins (rolling PSI/KS), evaluates
+the SLO guardrails and writes everything to the metrics store; without
+`--monitor-only` a breach schedules the refresh controller's warm-start
+retrain, guardrail, promotion into `--registry`/`--model-name` and swap,
+all on `--device`, after `CanaryController.recover` has resolved a
+canary run a crash interrupted. `ingest ls` prints a row log's
+partitions, segments and per-consumer offsets and lag (host only).
+`health` prints each SLO's state with a sparkline of its metric, the
+canary arms' lines and the recent events (breaches, refresh, canary and
+fleet-drift), and exits 1 on a breach. `train` trains the
 model set's algorithm — GBT/RF/DT from `tmp/CleanedData` into
 ``models/model<bag>.{gbt,rf}``, NN/LR/SVM/TENSORFLOW, WDL and MTL from
 `tmp/NormalizedData` into ``models/model<bag>.{nn,lr,wdl,mtl}``; with
@@ -208,23 +215,49 @@ def cmd_registry(args) -> int:
     return 0
 
 
+def cmd_ingest(args) -> int:
+    """`ingest ls`: a JSON inventory of one row log — partitions with
+    sealed/open segment counts, sealed rows, and every consumer's
+    committed offset and lag in rows. Host only."""
+    from shifu_tpu_torch.data.ingest import RowLog
+    if args.action == "ls":
+        print(json.dumps(RowLog(args.log).inventory(), indent=1))
+        return 0
+    raise SystemExit(f"ingest: unknown action {args.action!r}")
+
+
 def cmd_watch(args) -> int:
-    """`watch --monitor-only`: rolling drift over the data arriving at
-    the training dataPath and the SLO guardrails, into the metrics
-    store. Full mode (the refresh loop) and --ingest are ROADMAP A7.4."""
+    """`watch`: rolling drift over the arriving data (the dataPath tail,
+    or `--ingest LOG`) and the SLO guardrails, into the metrics store.
+    Without `--monitor-only` every breach schedules the refresh
+    controller (warm-start retrain, guardrail, promotion into
+    `--registry`/`--model-name`, in-place swap) on `--device`."""
     from shifu_tpu_torch import resolve_device
     from shifu_tpu_torch.obs.health import watch as watch_mod
     from shifu_tpu_torch.processor.base import ProcessorContext
+    device = resolve_device(args.device)
+    ctx = ProcessorContext.load(os.path.abspath(args.dir))
+    ingest_log = None
     if args.ingest:
-        raise NotImplementedError(f"watch --ingest {watch_mod.A74}")
+        from shifu_tpu_torch.data.ingest import RowLog
+        ingest_log = RowLog(args.ingest)
+    refresh = None
     if not args.monitor_only:
-        raise NotImplementedError(
-            f"watch without --monitor-only {watch_mod.A74}")
+        from shifu_tpu_torch.obs.health.refresh import RefreshController
+        refresh = RefreshController(
+            ctx, registry_root=args.registry, model_name=args.model_name,
+            eval_name=args.eval_set, ingest_log=ingest_log, device=device)
+    if args.registry and args.model_name:
+        # a canary run a SIGKILL interrupted left its state file in a
+        # non-terminal phase — roll it back to the recorded baseline
+        # before this watch can breach into a new refresh
+        from shifu_tpu_torch.obs.health.canary import CanaryController
+        CanaryController.recover(args.registry, args.model_name,
+                                 store_root=ctx.path_finder.root)
     return watch_mod.run_monitor(
-        ProcessorContext.load(os.path.abspath(args.dir)),
-        interval_s=args.interval_s,
+        ctx, interval_s=args.interval_s,
         iterations=args.iterations if args.iterations > 0 else None,
-        device=resolve_device(args.device))
+        refresh=refresh, ingest_log=ingest_log, device=device)
 
 
 _SPARK_BARS = "▁▂▃▄▅▆▇█"
@@ -864,27 +897,40 @@ def build_parser() -> argparse.ArgumentParser:
                         "SHIFU_TPU_REGISTRY_KEEP)")
     p.set_defaults(fn=cmd_registry)
     p = sub.add_parser("watch", help="model health monitor (rolling "
-                                     "drift + SLO guardrails)")
+                                     "drift + SLO guardrails) and the "
+                                     "drift-triggered retrain loop")
     p.add_argument("--monitor-only", action="store_true",
-                   help="drift/SLO monitoring without the retrain loop "
-                        "(the loop raises: ROADMAP A7.4)")
+                   help="drift/SLO monitoring without the drift-triggered "
+                        "retrain loop")
     p.add_argument("--registry", default=None,
-                   help="full mode only (raises: ROADMAP A7.4)")
+                   help="registry root to promote refreshed models into "
+                        "(with --model-name)")
     p.add_argument("--model-name", default=None,
-                   help="full mode only (raises: ROADMAP A7.4)")
+                   help="registry model name bound to this model set")
     p.add_argument("--eval-set", default=None,
-                   help="full mode only (raises: ROADMAP A7.4)")
+                   help="eval set for the refresh guardrail (default: "
+                        "first configured)")
     p.add_argument("--interval-s", type=float, default=None,
                    help="tick period (default SHIFU_TPU_WATCH_INTERVAL_S)")
     p.add_argument("--iterations", type=int, default=0,
                    help="stop after N ticks (0 = run until "
                         "SIGTERM/SIGINT)")
     p.add_argument("--ingest", default=None, metavar="LOG",
-                   help="durable row log (raises: ROADMAP A7.4)")
+                   help="consume drift windows from this durable row log "
+                        "(data/ingest.py) with exactly-once offset "
+                        "commits instead of the dataPath tail")
     p.add_argument("--device", default="cuda",
-                   help="torch device the windows are binned on "
-                        "(default cuda)")
+                   help="torch device the windows are binned and the "
+                        "challenger trained and scored on (default cuda)")
     p.set_defaults(fn=cmd_watch)
+    p = sub.add_parser("ingest", help="streaming row-log tooling: `ingest "
+                                      "ls` prints partitions, segments "
+                                      "and per-consumer offsets/lag as "
+                                      "JSON")
+    p.add_argument("action", choices=["ls"])
+    p.add_argument("--log", required=True, metavar="DIR",
+                   help="row-log root (a local path)")
+    p.set_defaults(fn=cmd_ingest)
     p = sub.add_parser("health", help="SLO health over the metrics store: "
                                       "status, trends, recent breaches")
     p.add_argument("--trend", type=int, default=30,

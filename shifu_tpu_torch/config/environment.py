@@ -12,7 +12,9 @@ prefetch depth and host-assembly threads of the chunked readers
 (`data/pipeline.prefetch`, `map_prefetch`, `map_stream`) and the
 row-state tier of the streaming GBT builder, and the serving plane's
 health, registry and fleet knobs with the retry and fault-injection
-knobs they read (`resilience.py`): same names, types and
+knobs they read (`resilience.py`), and the closed loop's knobs (the
+row log, the refresh controller, the shadow and canary arms and the
+fleet's refresh budget): same names, types and
 defaults, and the same warn-and-run parsing (a malformed value logs a
 warning and falls back to the default instead of failing the process).
 `knobs_rows` lists them for the `knobs` verb.
@@ -148,6 +150,64 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
     Knob("SHIFU_TPU_FLEET_SHED_WINDOW", "int", 64,
          "recent high-priority request latencies the fleet admission "
          "controller computes its rolling p99 over"),
+    Knob("SHIFU_TPU_REFRESH_WINDOW_ROWS", "int", 100_000,
+         "max drifted-window rows the refresh controller keeps (newest "
+         "kept) as the incremental-training window a breach retrains "
+         "on"),
+    Knob("SHIFU_TPU_REFRESH_TOLERANCE", "float", 0.005,
+         "eval-guardrail tolerance: a challenger whose guardrail "
+         "metric (AUC) is below incumbent - tolerance is HELD, not "
+         "promoted; within-tolerance or better promotes"),
+    Knob("SHIFU_TPU_REFRESH_COOLDOWN_S", "float", 900.0,
+         "min seconds between breach-scheduled refreshes; breaches "
+         "during an in-flight refresh or inside the cooldown are "
+         "coalesced (counted, visible in `health`), so a flapping PSI "
+         "signal cannot stack retrains"),
+    Knob("SHIFU_TPU_INGEST_SEGMENT_ROWS", "int", 4096,
+         "rows a row-log partition buffers before its open segment "
+         "seals into an immutable seg-*.rows file (data/ingest.py; "
+         "smaller = lower latency to readers, more segment files)"),
+    Knob("SHIFU_TPU_INGEST_SEGMENT_AGE_S", "float", 30.0,
+         "max seconds a non-empty open row-log segment may buffer "
+         "before the next append seals it regardless of row count, "
+         "bounding how stale a slow trickle can keep readers"),
+    Knob("SHIFU_TPU_INGEST_WINDOW_ROWS", "int", 65_536,
+         "max rows one `watch --ingest` tick consumes from the row log "
+         "per read_window (the drift window size cap; the rest stays "
+         "committed for the next tick)"),
+    Knob("SHIFU_TPU_SHADOW_PCT", "float", 0.0,
+         "fraction of live requests mirrored to a challenger arm "
+         "during the shadow phase (response discarded, latency + "
+         "score sketch recorded per arm); 0 = shadow plane off "
+         "unless a canary run sets it live"),
+    Knob("SHIFU_TPU_SHADOW_QUEUE", "int", 64,
+         "bounded depth of the shadow mirror queue; a full queue "
+         "DROPS the mirror (drop-counted) instead of slowing the "
+         "primary request path"),
+    Knob("SHIFU_TPU_CANARY_PCT", "float", 0.05,
+         "fraction of live requests the canary phase routes to the "
+         "challenger arm (deterministic per-request assignment; the "
+         "rest stay on the incumbent primary)"),
+    Knob("SHIFU_TPU_CANARY_MIN_REQUESTS", "int", 32,
+         "min scored requests PER ARM before a canary phase may "
+         "decide (shadow → canary and canary → verdict both wait "
+         "for this much live evidence)"),
+    Knob("SHIFU_TPU_CANARY_WINDOW_S", "float", 60.0,
+         "max seconds a canary phase waits for its per-arm request "
+         "quorum; expiry without quorum rolls the challenger back "
+         "(no evidence ⇒ no promotion)"),
+    Knob("SHIFU_TPU_CANARY_PSI_MAX", "float", 0.25,
+         "max score-distribution PSI between the incumbent and "
+         "challenger arms a live verdict may promote through "
+         "(above = the challenger scores a different population)"),
+    Knob("SHIFU_TPU_CANARY_P99_FACTOR", "float", 1.5,
+         "max challenger-arm p99 as a multiple of the incumbent "
+         "arm's p99 during canary; above = SLO breach, automatic "
+         "rollback"),
+    Knob("SHIFU_TPU_FLEET_REFRESH_BUDGET", "int", 1,
+         "max tenant refreshes a fleet drift tick may schedule — a "
+         "breach storm (N tenants drifting at once) defers the rest "
+         "to later ticks instead of launching N concurrent retrains"),
 )}
 
 

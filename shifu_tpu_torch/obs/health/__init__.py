@@ -11,11 +11,16 @@
 - `slo`    — declarative `slo.json` guardrails evaluated over the
   store with hysteresis, emitting ok/warn/breach health events to
   alert sinks (log / file / webhook).
-- `watch`  — the `watch --monitor-only` loop that ties the three
-  together.
+- `watch`  — the `watch` loop that ties the three together (its
+  windows from the dataPath tail or the durable row log,
+  `data/ingest.py`), and `FleetDriftWatch` (per-tenant drift under a
+  fleet-wide refresh budget).
+- `refresh` — `RefreshController`: breach → warm-start retrain →
+  guardrail → promote → in-place swap → instant rollback.
+- `canary` — `CanaryController`: live promotion through the fleet's
+  shadow and canary arms, with its `CANARY.json` crash-recovery record.
 
-Everything here is OFF unless `SHIFU_TPU_METRICS=1`, and every write
-or alert failure is absorbed — the health plane can never fail the step
-it watches. The refresh and canary controllers (full `watch`) are
-ROADMAP A7.4.
+Metric points are OFF unless `SHIFU_TPU_METRICS=1`, and every write or
+alert failure is absorbed — the health plane can never fail the step it
+watches.
 """

@@ -1,6 +1,6 @@
 """Fault injection, bounded retry and deliberate absorbs — the port's
 copy of the parts of `shifu_tpu/resilience.py` that the serving plane,
-the health plane, the registry and the fleet call:
+the health plane, the registry, the fleet and the closed loop call:
 
 1. **Deterministic fault injection** (`fault_point`): the env spec
 
@@ -25,10 +25,14 @@ the health plane, the registry and the fleet call:
    `graceful_shutdown`): SIGTERM/SIGINT set a flag the watch loop
    checks at tick boundaries, as `cli serve` stops on them.
 
+5. **Startup hygiene** (`sweep_stale`): the ``.tmp.*`` residue a
+   killed `fileio.atomic_write` leaves in a local directory is removed
+   when the row log opens.
+
 `atomic_write` and `atomic_path` stay in `fileio.py`. The abort and
 preempt markers, `supervise`, `step_guard`, checkpoint faults and the
-remaining sites of the JAX package's ``FAULT_SITES`` are ROADMAP A8.1,
-but for ``shadow.score``, which comes with the shadow arm (A7.4).
+remaining sites of the JAX package's ``FAULT_SITES`` are ROADMAP A8.1;
+the remote sweep is A8.4.
 """
 
 from __future__ import annotations
@@ -91,10 +95,14 @@ class _FaultRule(NamedTuple):
     hi: float       # inclusive; inf for "N+"
 
 
-# the static fault sites of the port's serving and health planes
+# the static fault sites of the port's serving and health planes and
+# of the closed loop (the row log, refresh, canary and the shadow arm)
 FAULT_SITES = (
     "serve.route", "registry.publish", "obs.metrics_flush", "obs.alert",
     "obs.webhook", "watch.window", "refresh.swap",
+    "ingest.append", "ingest.seal", "ingest.offset",
+    "refresh.schedule", "refresh.guardrail", "refresh.promote",
+    "canary.start", "canary.decide", "canary.rollback", "shadow.score",
 )
 
 _NTH_RE = re.compile(r"^(\d+)(\+|-(\d+))?$")
@@ -262,3 +270,32 @@ def graceful_shutdown(note: str = "watching") -> Iterator[None]:
     finally:
         for sig, handler in previous.items():
             signal.signal(sig, handler)
+
+
+# ---------------------------------------------------------------------------
+# startup hygiene
+# ---------------------------------------------------------------------------
+
+def sweep_stale(directory: str) -> int:
+    """Remove leftover ``.tmp.*`` files and directories of killed
+    earlier writers (`fileio.atomic_write`, `atomic_path`) from a local
+    `directory`; returns the count removed. Best-effort: a failed sweep
+    logs and returns 0, startup hygiene never fails a step. A
+    ``scheme://`` directory raises (ROADMAP A8.4)."""
+    from shifu_tpu_torch import fileio
+    if fileio.has_scheme(directory):
+        raise NotImplementedError(
+            f"{directory}: remote filesystems are not ported yet "
+            "(ROADMAP A8.4)")
+    try:
+        if not os.path.isdir(directory):
+            return 0
+        n = 0
+        for name in os.listdir(directory):
+            if name.startswith(".tmp."):
+                fileio._scrub(os.path.join(directory, name))
+                n += 1
+        return n
+    except OSError as e:
+        log.warning("sweep_stale: could not sweep %s: %s", directory, e)
+        return 0

@@ -39,10 +39,21 @@ single-model service:
 when the shapes changed. The fleet summary block carries
 `FLEET_FIELDS` (the JAX package's `profiling.FLEET_FIELDS`).
 
-The live-promotion arms (shadow and canary: `start_arms`, `arm_stats`,
-`stop_arms`, with the knobs SHIFU_TPU_SHADOW_PCT/_QUEUE and
-SHIFU_TPU_CANARY_PCT) are ROADMAP A7.4, where `CanaryController` opens
-and reads them. The `fleet.warm` / `fleet.evict` / `fleet.swap` spans
+- **Live-promotion arms.** `start_arms` warms a challenger next to a
+  model's primary (its own `ScorerService`, captured at `start_arms`
+  from the primary's warm-up request, so neither arm captures under
+  traffic) and pins the primary to its version. Every admitted request
+  gets one deterministic Weyl assignment (`arm_assign`): a canary hit
+  scores on the challenger for real (a challenger failure falls back
+  to the primary, counted), and `shadow_pct` of the primary's requests
+  are mirrored onto a bounded queue that a worker thread scores on the
+  challenger behind the `shadow.score` fault site (a full queue drops
+  the mirror). `_ArmState` keeps each arm's latency window (p99) and a
+  16-bin score sketch, whose PSI between the arms (`arm_psi`) is what
+  `obs/health/canary.CanaryController` decides on; `stop_arms` turns
+  routing off first, then the worker and the challenger.
+
+The `fleet.warm` / `fleet.evict` / `fleet.swap` / `shadow.score` spans
 and stage timers of the JAX package's trace are ROADMAP A8.5.
 """
 
@@ -50,6 +61,7 @@ from __future__ import annotations
 
 import collections
 import queue
+import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -106,6 +118,116 @@ class _Entry:
         self.service: Optional[ScorerService] = None
         self.warmed_once = False
         self.max_rows_seen = 0
+        # pinned: a live canary compares arms against THIS version — an
+        # eviction re-warm must not re-resolve HEAD out from under the
+        # comparison (HEAD may already name the challenger)
+        self.pinned = False
+
+
+# score-distribution sketch resolution: fixed [0, 1] bins, so two arms'
+# sketches are always PSI-comparable without a shared binning pass
+ARM_SCORE_BINS = 16
+# an arm's latency/score evidence below this mass is noise, not a p99
+ARM_MIN_SAMPLES = 8
+
+
+def arm_assign(seq: int, pct: float) -> bool:
+    """Deterministic per-request arm assignment: the low-discrepancy
+    Weyl sequence `frac(seq · φ)` compared against the routed fraction.
+    Same admission order ⇒ same assignment, and any window of requests
+    routes ≈ pct without a shared RNG."""
+    if pct <= 0.0:
+        return False
+    if pct >= 1.0:
+        return True
+    return (seq * 0.6180339887498949) % 1.0 < pct
+
+
+class _ArmState:
+    """One model's live challenger arm: a resident challenger service
+    plus the shadow mirror queue and the per-arm evidence (latency
+    windows, score sketches) a live promotion verdict reads."""
+
+    def __init__(self, model: str, version: str, vdir: str,
+                 shadow_pct: float, canary_pct: float,
+                 window: int, queue_depth: int):
+        self.model = model
+        self.version = version
+        self.vdir = vdir
+        self.shadow_pct = float(shadow_pct)
+        self.canary_pct = float(canary_pct)
+        self.phase = "shadow"
+        self.service: Optional[ScorerService] = None
+        self.seq = 0                      # per-model admission counter
+        self.lat = {a: collections.deque(maxlen=max(window, 8))
+                    for a in ("primary", "canary", "shadow")}
+        self.hist = {"primary": np.zeros(ARM_SCORE_BINS, np.float64),
+                     "challenger": np.zeros(ARM_SCORE_BINS, np.float64)}
+        self.counts = {"primary": 0, "canary": 0, "shadow": 0}
+        self.shadow_dropped = 0
+        self.shadow_errors = 0
+        self.canary_fallbacks = 0
+        self.queue: "queue.Queue" = queue.Queue(maxsize=max(queue_depth, 1))
+        self.worker: Optional[threading.Thread] = None
+        self._lock = make_lock("fleet.arm")
+
+    def note(self, arm: str, total_s: float, out) -> None:
+        """Fold one scored request into the arm's evidence: latency
+        window + score sketch (canary and shadow both score the
+        challenger, so they share its sketch)."""
+        side = "challenger" if arm in ("canary", "shadow") else "primary"
+        try:
+            scores = None
+            for v in (out or {}).values():
+                if v is not None:
+                    scores = np.asarray(v, np.float64).ravel()
+                    break
+            with self._lock:
+                self.lat[arm].append(float(total_s))
+                self.counts[arm] += 1
+                if scores is not None and scores.size:
+                    h, _ = np.histogram(np.clip(scores, 0.0, 1.0),
+                                        bins=ARM_SCORE_BINS,
+                                        range=(0.0, 1.0))
+                    self.hist[side] += h
+        except Exception as e:  # noqa: BLE001 — evidence-keeping
+            absorbed("fleet.arm-evidence", e)  # can't fail a request
+
+    def p99_ms(self, arm: str) -> Optional[float]:
+        with self._lock:
+            lat = np.asarray(self.lat[arm], np.float64)
+        if lat.size < ARM_MIN_SAMPLES:
+            return None
+        return float(np.percentile(lat, 99) * 1e3)
+
+    def arm_psi(self) -> Optional[float]:
+        """Score-distribution PSI between the two arms' sketches — the
+        live analog of the offline eval guardrail. None until both
+        arms carry enough mass to compare."""
+        from shifu_tpu_torch.ops.stats import psi_metric
+        with self._lock:
+            p = self.hist["primary"].copy()
+            c = self.hist["challenger"].copy()
+        if p.sum() < ARM_MIN_SAMPLES or c.sum() < ARM_MIN_SAMPLES:
+            return None
+        return float(psi_metric(p / p.sum(), c / c.sum()))
+
+    def stats(self) -> Dict[str, Any]:
+        return {
+            "challenger_version": self.version,
+            "phase": self.phase,
+            "shadow_pct": self.shadow_pct,
+            "canary_pct": self.canary_pct,
+            "requests": dict(self.counts),
+            "p99_ms": {a: (round(v, 3) if (v := self.p99_ms(a))
+                           is not None else None)
+                       for a in ("primary", "canary", "shadow")},
+            "shadow_dropped": self.shadow_dropped,
+            "shadow_errors": self.shadow_errors,
+            "canary_fallbacks": self.canary_fallbacks,
+            "arm_psi": (round(v, 6) if (v := self.arm_psi())
+                        is not None else None),
+        }
 
 
 class FleetService:
@@ -156,6 +278,7 @@ class FleetService:
         self._rewarm_s = 0.0
         self._swaps = 0
         self._swap_s = 0.0
+        self._arms: Dict[str, _ArmState] = {}
 
     # -- residency (HBM budget + LRU) ----------------------------------
     def models(self) -> List[str]:
@@ -191,11 +314,16 @@ class FleetService:
                 return entry.service
             # a (re-)warm re-resolves HEAD, so a registry promote
             # followed by eviction hot-swaps the model without a
-            # process restart
+            # process restart. A PINNED entry (live canary in flight)
+            # keeps its version: the incumbent serves it until the arm
+            # comparison reaches a verdict, even if HEAD already names
+            # the challenger
             try:
                 version, vdir, manifest = registry.resolve(
                     self._registry_root, name)
             except FileNotFoundError:
+                version = entry.version
+            if entry.pinned:
                 version = entry.version
             if version != entry.version:
                 fresh = _Entry(name, version, vdir, manifest)
@@ -269,6 +397,112 @@ class FleetService:
             self._ensure_resident(name)
             return "rewarmed"
 
+    # -- live-promotion arms (shadow + canary) -------------------------
+    def start_arms(self, name: str, challenger_dir: str,
+                   version: str = "challenger",
+                   shadow_pct: Optional[float] = None,
+                   canary_pct: float = 0.0) -> Dict[str, Any]:
+        """Warm a challenger arm next to `name`'s primary and open the
+        shadow plane. The challenger becomes resident (its own service
+        from `challenger_dir`, warmed — on the card: captured — here,
+        from the primary's warm-up request; registry HEAD does not move
+        and the primary entry is pinned to its version for the arm's
+        lifetime). Canary routing starts at `canary_pct` (default 0 —
+        shadow only until `set_canary_pct`)."""
+        if shadow_pct is None:
+            shadow_pct = env.knob_float("SHIFU_TPU_SHADOW_PCT")
+        with self._lock:
+            if name in self._arms:
+                raise RuntimeError(
+                    f"fleet: model {name!r} already has a live arm "
+                    f"({self._arms[name].version})")
+            entry = self._entries[name]
+            entry.pinned = True
+            proto = entry.service._proto if entry.service is not None \
+                else None
+            arm = _ArmState(name, version, challenger_dir,
+                            shadow_pct, canary_pct,
+                            env.knob_int("SHIFU_TPU_FLEET_SHED_WINDOW"),
+                            env.knob_int("SHIFU_TPU_SHADOW_QUEUE"))
+        try:
+            svc = self._service(challenger_dir, entry,
+                                {"model": name, "arm": "challenger"})
+            svc.start(proto=proto)
+        except BaseException:
+            with self._lock:
+                entry.pinned = False
+            raise
+        arm.service = svc
+        arm.worker = threading.Thread(
+            target=self._shadow_worker, args=(arm,),
+            name=f"shadow-{name}", daemon=True)
+        arm.worker.start()
+        with self._lock:
+            self._arms[name] = arm
+        return arm.stats()
+
+    def stop_arms(self, name: str) -> None:
+        """Tear the arm down: canary routing off first (every later
+        request goes to the primary — the zero-failed-requests rollback
+        path), then the shadow thread and the challenger service.
+        Idempotent."""
+        with self._lock:
+            arm = self._arms.pop(name, None)
+            entry = self._entries.get(name)
+            if entry is not None:
+                entry.pinned = False
+        if arm is None:
+            return
+        arm.canary_pct = 0.0
+        arm.shadow_pct = 0.0
+        # drop the backlog BEFORE the shutdown sentinel: the arm is
+        # dead, so mirrored requests still queued are moot, and a slow
+        # challenger must not keep scoring them after teardown
+        try:
+            while True:
+                arm.queue.get_nowait()
+        except queue.Empty:
+            pass
+        try:
+            arm.queue.put(None, timeout=5.0)
+        except queue.Full:
+            pass                              # daemon thread — bounded leak
+        if arm.worker is not None:
+            arm.worker.join(timeout=5.0)
+        if arm.service is not None:
+            arm.service.close()
+
+    def set_canary_pct(self, name: str, pct: float,
+                       phase: Optional[str] = None) -> None:
+        """Retarget the canary routed fraction live (the controller's
+        shadow → canary phase flip)."""
+        arm = self._arms.get(name)
+        if arm is None:
+            raise KeyError(f"fleet: model {name!r} has no live arm")
+        arm.canary_pct = float(pct)
+        if phase is not None:
+            arm.phase = phase
+
+    def arm_stats(self, name: str) -> Optional[Dict[str, Any]]:
+        arm = self._arms.get(name)
+        return arm.stats() if arm is not None else None
+
+    def _shadow_worker(self, arm: _ArmState) -> None:
+        """Drain the shadow mirror queue against the challenger arm.
+        Everything in here is absorbed — a shadow failure or overload
+        is COUNTED, never propagated; the primary path only ever
+        touched the bounded queue."""
+        while True:
+            item = arm.queue.get()
+            if item is None:
+                return
+            try:
+                fault_point("shadow.score")
+                out, timing = arm.service.submit_timed(timeout=5.0, **item)
+                arm.note("shadow", timing["total_s"], out)
+            except Exception:  # noqa: BLE001 — absorbed by design
+                arm.shadow_errors += 1
+
     def start(self, names: Optional[List[str]] = None) -> "FleetService":
         """Warm `names` (default: every model, in declaration order) up
         to the HBM budget — later models LRU-evict earlier ones when
@@ -278,6 +512,8 @@ class FleetService:
         return self
 
     def close(self) -> None:
+        for name in list(self._arms):
+            self.stop_arms(name)
         with self._lock:
             for entry in self._entries.values():
                 if entry.service is not None:
@@ -342,6 +578,29 @@ class FleetService:
             if entry.service is not None:
                 entry.service.note_rejected("low")
             raise ShedReject(model, "low")
+        # live-promotion arms: one deterministic assignment per admitted
+        # request. A canary hit scores on the challenger for real; any
+        # challenger failure falls back to the primary (counted), so an
+        # arm never fails a client. Arm latencies stay out of the fleet
+        # shed window — a slow challenger must trip the canary verdict,
+        # not the incumbent's load shedder.
+        arm = self._arms.get(model)
+        to_canary = False
+        if arm is not None and arm.service is not None:
+            seq = arm.seq
+            arm.seq += 1
+            to_canary = arm_assign(seq, arm.canary_pct)
+        if to_canary:
+            try:
+                out, timing = arm.service.submit_timed(
+                    timeout=timeout, **blocks)
+                timing["arm"] = "canary"
+                arm.note("canary", timing["total_s"], out)
+                self._admitted[entry.priority] += 1
+                return out, timing
+            except Exception:  # noqa: BLE001 — the arm absorbs its
+                # own failures; the request still gets a real answer
+                arm.canary_fallbacks += 1
         svc = self._ensure_resident(model)
         n = 0
         for v in blocks.values():
@@ -353,6 +612,15 @@ class FleetService:
         timing["arm"] = "primary"
         self._admitted[entry.priority] += 1
         self._note_latency(entry.priority, timing["total_s"])
+        if arm is not None and arm.service is not None:
+            arm.note("primary", timing["total_s"], out)
+            if arm_assign(arm.seq, arm.shadow_pct):
+                # mirror onto the bounded queue; full ⇒ drop, never
+                # block — the shadow plane cannot slow this request
+                try:
+                    arm.queue.put_nowait(dict(blocks))
+                except queue.Full:
+                    arm.shadow_dropped += 1
         return out, timing
 
     def submit(self, model: str, timeout: Optional[float] = 30.0,
@@ -409,6 +677,8 @@ class FleetService:
             "hbm_budget_bytes": self._budget_bytes,
             "hbm_resident_bytes": self._resident_bytes(),
             "rejected_by_class": self.rejected_by_class(),
+            "canary": {name: arm.stats()
+                       for name, arm in list(self._arms.items())},
             "models": per_model,
         }
 
@@ -441,6 +711,18 @@ class FleetService:
             for p, v in snap["p99_ms_by_class"].items():
                 if v is not None:
                     st.emit("serve.p99_ms_class", v, priority=p)
+            for name, arm in list(self._arms.items()):
+                a = arm.stats()
+                for side in ("primary", "canary", "shadow"):
+                    if a["p99_ms"][side] is not None:
+                        st.emit("serve.arm_p99_ms", a["p99_ms"][side],
+                                model=name, arm=side)
+                if a["arm_psi"] is not None:
+                    st.emit("canary.arm_psi", a["arm_psi"], model=name)
+                st.emit("canary.shadow_dropped", a["shadow_dropped"],
+                        kind="counter", model=name)
+                st.emit("canary.fallbacks", a["canary_fallbacks"],
+                        kind="counter", model=name)
             st.flush()
         except Exception as e:  # noqa: BLE001 — absorbed by design
             absorbed("fleet.metrics-emit", e)

@@ -136,6 +136,42 @@ def prometheus_fleet_text(fleet) -> str:
     for cls in sorted(rej):
         lines.append(f'shifu_serve_rejected_total{{priority="{cls}"}} '
                      f"{float(rej[cls]):.6g}")
+    arms = st.get("canary") or {}
+    if arms:
+        lines.append("# HELP shifu_canary_requests_total live "
+                     "requests observed per promotion arm")
+        lines.append("# TYPE shifu_canary_requests_total counter")
+        lines.append("# HELP shifu_canary_p99_ms rolling p99 latency "
+                     "per promotion arm")
+        lines.append("# TYPE shifu_canary_p99_ms gauge")
+        lines.append("# HELP shifu_canary_arm_psi score-distribution "
+                     "PSI between the primary and challenger arms")
+        lines.append("# TYPE shifu_canary_arm_psi gauge")
+        lines.append("# HELP shifu_canary_shadow_dropped_total shadow "
+                     "mirrors dropped on the bounded queue")
+        lines.append("# TYPE shifu_canary_shadow_dropped_total counter")
+        lines.append("# HELP shifu_canary_fallbacks_total canary "
+                     "requests absorbed back onto the primary")
+        lines.append("# TYPE shifu_canary_fallbacks_total counter")
+        for name, a in sorted(arms.items()):
+            for arm_name, n in sorted((a.get("requests") or {}).items()):
+                lines.append(
+                    f'shifu_canary_requests_total{{model="{name}",'
+                    f'arm="{arm_name}"}} {float(n):.6g}')
+            for arm_name, v in sorted((a.get("p99_ms") or {}).items()):
+                if v is not None:
+                    lines.append(
+                        f'shifu_canary_p99_ms{{model="{name}",'
+                        f'arm="{arm_name}"}} {float(v):.6g}')
+            if a.get("arm_psi") is not None:
+                lines.append(f'shifu_canary_arm_psi{{model="{name}"}} '
+                             f'{float(a["arm_psi"]):.6g}')
+            lines.append(
+                f'shifu_canary_shadow_dropped_total{{model="{name}"}} '
+                f'{float(a.get("shadow_dropped", 0)):.6g}')
+            lines.append(
+                f'shifu_canary_fallbacks_total{{model="{name}"}} '
+                f'{float(a.get("canary_fallbacks", 0)):.6g}')
     for name, ms in sorted(st.get("models", {}).items()):
         if not ms.get("resident"):
             continue
@@ -260,10 +296,9 @@ class _Handler(BaseHTTPRequestHandler):
             log.exception("scoring request failed")
             self._reply(500, {"error": f"{type(e).__name__}: {e}"})
             return
-        # fleet routing stamps the serving arm into the timing dict;
-        # surface it as a header so a live client can see WHICH arm
-        # scored without parsing bodies (always "primary" until the
-        # canary arms of ROADMAP A7.4)
+        # fleet routing stamps the serving arm into the timing dict
+        # ("primary" or "canary"); surface it as a header so a live
+        # client can see WHICH arm scored without parsing bodies
         arm = timing.pop("arm", None)
         self._reply(200, {
             "scores": {k: np.asarray(v).tolist() for k, v in scores.items()},

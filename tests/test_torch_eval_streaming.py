@@ -131,3 +131,93 @@ def test_score_histogram_merges_chunks_like_one_shot():
         ref.performance_result(10, 1000.0)
     np.testing.assert_array_equal(merged.confusion_table(),
                                   ref.confusion_table())
+
+
+# ---------------------------------------------------------------------------
+# C-port-5: the AUC gate's allowance for pairs the scores' own
+# differences can reorder (`chip_smoke.auc_allowance`, `perf_allowance`)
+# ---------------------------------------------------------------------------
+
+def _aucs(s, y, w):
+    from shifu_tpu_torch.ops.metrics import performance_result
+    p = performance_result(s, y, w, device="cpu")
+    return {k: p[k] for k in cs.AUCS} | {"pr": [], "roc": [], "gains": []}
+
+
+def _near_tie_pair(seed, n=4000, delta=5.25e-6):
+    """A near-random reference (AUC ≈ 0.55) whose scores pack into a
+    narrow band, and a twin at most `delta` away that swaps every
+    (positive, negative) pair planted closer than `delta`."""
+    rng = np.random.default_rng(seed)
+    y = (rng.random(n) < 0.45).astype(np.float64)
+    w = rng.choice([0.5, 1.0, 2.0], n)
+    ref = np.round(0.5 + 0.002 * rng.normal(0, 1, n) + 0.0002 * y, 6)
+    # planted near-ties: positives just below a negative
+    neg = np.flatnonzero(y == 0)[:300]
+    posi = np.flatnonzero(y == 1)[:300]
+    ref[posi] = ref[neg] - 2e-6
+    twin = ref.copy()
+    twin[posi] += delta            # each planted pair swaps its order
+    return ref, twin, y, w, delta
+
+
+def test_auc_allowance_admits_near_tie_reorders(tmp_path):
+    ref, twin, y, w, delta = _near_tie_pair(1330)
+    a, b = _aucs(twin, y, w), _aucs(ref, y, w)
+    counts = (0, 0, 0.0, 0.0, 1.0)
+    auc_err = max(abs(a[k] - b[k]) for k in cs.AUCS)
+    assert auc_err > 1e-6      # the bare gate would fail
+    with pytest.raises(AssertionError):
+        cs.compare_perf(a, b, 1e-5, counts, 1000.0, auc_tol=1e-6)
+    # the allowance read from the reference's EvalScore.csv
+    path = tmp_path / "EvalScore.csv"
+    with open(path, "w") as f:
+        f.write("tag,weight,mean\n")
+        for yi, wi, si in zip(y, w, ref):
+            f.write(f"{int(yi)},{wi:.6g},{si:.6f}\n")
+    allow = cs.perf_allowance(str(path), {}, delta)
+    assert all(allow[k] >= abs(a[k] - b[k]) - 1e-6 for k in cs.AUCS)
+    err, edges = cs.compare_perf(a, b, 1e-5, counts, 1000.0, auc_tol=1e-6,
+                                 allowance=allow)
+    assert err == auc_err and edges == 0
+    # the same allowance by brute force over every pair
+    pos, negm = y > 0.5, y < 0.5
+    near = np.abs(ref[pos][:, None] - ref[negm][None, :]) \
+        <= 2 * (delta + 1e-6)
+    unit, weighted = cs.auc_allowance(ref, y, w, delta + 1e-6, 0.0)
+    assert unit == pytest.approx(near.mean(), rel=1e-12)
+    wp, wn = w[pos], w[negm]
+    assert weighted == pytest.approx(
+        (wp[:, None] * wn[None, :] * near).sum() / (wp.sum() * wn.sum()),
+        rel=1e-9)
+
+
+def test_auc_allowance_still_fails_a_real_shift(tmp_path):
+    ref, twin, y, w, delta = _near_tie_pair(1331)
+    b = _aucs(ref, y, w)
+    a = dict(_aucs(twin, y, w))
+    unit, weighted = cs.auc_allowance(ref, y, w, delta + 1e-6, 0.0)
+    allow = {"areaUnderRoc": unit, "areaUnderPr": unit,
+             "weightedAreaUnderRoc": weighted}
+    # a shift the scores' differences cannot explain
+    a["areaUnderRoc"] = b["areaUnderRoc"] + 2 * unit + 1e-3
+    with pytest.raises(AssertionError):
+        cs.compare_perf(a, b, 1e-5, (0, 0, 0.0, 0.0, 1.0), 1000.0,
+                        auc_tol=1e-6, allowance=allow)
+    # and a twin whose scores really moved (every positive down) fails
+    moved = ref - 0.003 * (y > 0.5)
+    with pytest.raises(AssertionError):
+        cs.compare_perf(_aucs(moved, y, w), b, 1e-5,
+                        (0, 0, 0.0, 0.0, 1.0), 1000.0, auc_tol=1e-6,
+                        allowance=allow)
+
+
+@pytest.mark.parametrize("beta", [0.0, 1e-6])
+def test_auc_allowance_is_zero_without_close_pairs(beta):
+    rng = np.random.default_rng(1332)
+    n = 500
+    y = (np.arange(n) % 2).astype(np.float64)
+    s = np.arange(n) * 0.01 + rng.uniform(0, 1e-4, n)   # ≥ 0.0099 apart
+    w = rng.choice([0.5, 1.0], n)
+    assert cs.auc_allowance(s, y, w, 1e-5, beta) == (0.0, 0.0)
+    assert cs.auc_allowance(s, y, w, 0.006, beta)[0] > 0.0

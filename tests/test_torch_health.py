@@ -489,9 +489,25 @@ def test_watch_monitor_only_then_health_exits_1(tmp_path, monkeypatch,
 
 @pytest.mark.parametrize("argv", [["watch"], ["watch", "--monitor-only",
                                               "--ingest", "log"]])
-def test_watch_full_mode_and_ingest_raise_naming_a74(tmp_path, argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP A7.4"):
-        cli.main(["--dir", str(tmp_path)] + argv)
+def test_watch_full_mode_and_ingest_raise_naming_a74(tmp_path, argv,
+                                                     monkeypatch):
+    """Full `watch` (a refresh controller, report-only without a
+    registry) and `watch --ingest LOG` run where they used to raise: one
+    tick over the set's rows, the drift point landed, the log's watch
+    consumer committed."""
+    from shifu_tpu_torch.data.ingest import RowLog
+    root = _model_set(tmp_path, n_rows=300, seed=17)
+    lines, header = _lines(root)
+    log_root = str(tmp_path / "log")
+    lg = RowLog(log_root, header=header, segment_rows=64)
+    lg.append(lines)
+    lg.seal_all()
+    argv = [log_root if a == "log" else a for a in argv]
+    monkeypatch.setenv("SHIFU_TPU_METRICS", "1")
+    assert cli.main(["--dir", root] + argv + [
+        "--iterations", "1", "--interval-s", "0", "--device", "cpu"]) == 0
+    assert len(pstore.MetricsStore(root).series("drift.psi_max")) == 1
+    assert lg.lag("watch") == (0 if "--ingest" in argv else len(lines))
 
 
 def test_help_lists_the_new_verbs(capsys):

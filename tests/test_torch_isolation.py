@@ -48,7 +48,14 @@ from shifu_tpu_torch.train import optimizers, trainer
 import shifu_tpu_torch.resilience, shifu_tpu_torch.registry
 import shifu_tpu_torch.serve.fleet, shifu_tpu_torch.serve.aot
 from shifu_tpu_torch.obs.health import drift, slo, store, watch
+from shifu_tpu_torch.obs.health import canary, refresh
+from shifu_tpu_torch.data import ingest
 root = sys.argv[1]
+log = ingest.RowLog(root + "/rowlog", header=["a", "b"], segment_rows=2)
+log.append(["1|x", "2|", "3|z"])
+log.seal_all()
+assert len(ingest.frame_from_rows(log.read_window("watch").lines,
+                                  log.header)) == 3
 rng = np.random.default_rng(0)
 save_model(root + "/model0.nn", "nn",
            {"spec": {"input_dim": 3, "hidden_dims": [4],
@@ -179,7 +186,10 @@ def test_source_scan_covers_the_serving_and_health_planes():
                 "shifu_tpu_torch/obs/health/store.py",
                 "shifu_tpu_torch/obs/health/slo.py",
                 "shifu_tpu_torch/obs/health/drift.py",
-                "shifu_tpu_torch/obs/health/watch.py"):
+                "shifu_tpu_torch/obs/health/watch.py",
+                "shifu_tpu_torch/obs/health/refresh.py",
+                "shifu_tpu_torch/obs/health/canary.py",
+                "shifu_tpu_torch/data/ingest.py"):
         assert rel in files, rel
 
 

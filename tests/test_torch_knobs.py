@@ -33,6 +33,38 @@ def test_registry_agrees_with_the_jax_package():
         assert (k.type, k.default) == (j.type, j.default), name
 
 
+CLOSED_LOOP_KNOBS = (
+    "SHIFU_TPU_REFRESH_WINDOW_ROWS", "SHIFU_TPU_REFRESH_TOLERANCE",
+    "SHIFU_TPU_REFRESH_COOLDOWN_S", "SHIFU_TPU_INGEST_SEGMENT_ROWS",
+    "SHIFU_TPU_INGEST_SEGMENT_AGE_S", "SHIFU_TPU_INGEST_WINDOW_ROWS",
+    "SHIFU_TPU_SHADOW_PCT", "SHIFU_TPU_SHADOW_QUEUE", "SHIFU_TPU_CANARY_PCT",
+    "SHIFU_TPU_CANARY_MIN_REQUESTS", "SHIFU_TPU_CANARY_WINDOW_S",
+    "SHIFU_TPU_CANARY_PSI_MAX", "SHIFU_TPU_CANARY_P99_FACTOR",
+    "SHIFU_TPU_FLEET_REFRESH_BUDGET")
+
+
+@pytest.mark.parametrize("name", CLOSED_LOOP_KNOBS)
+def test_closed_loop_knobs_match_the_jax_defaults(name, monkeypatch):
+    """The row log's, the refresh and canary controllers' and the fleet
+    drift watch's knobs: declared with the JAX package's type and
+    default, and read alike when set (and when malformed)."""
+    from shifu_tpu.config import environment as jenv
+    from shifu_tpu_torch.config import environment as penv
+    k, j = penv.KNOBS[name], jenv.KNOBS[name]
+    assert (k.type, k.default) == (j.type, j.default)
+    read = {"int": "knob_int", "float": "knob_float"}[k.type]
+    monkeypatch.delenv(name, raising=False)
+    assert getattr(penv, read)(name) == getattr(jenv, read)(name) == k.default
+    for raw in ("3", "0.25", "nonsense"):
+        monkeypatch.setenv(name, raw)
+        assert getattr(penv, read)(name) == getattr(jenv, read)(name)
+
+
+def test_bench_refresh_knob_stays_out():
+    from shifu_tpu_torch.config.environment import KNOBS
+    assert "SHIFU_TPU_BENCH_REFRESH" not in KNOBS
+
+
 def test_knobs_table(capsys, monkeypatch):
     from shifu_tpu_torch.config.environment import KNOBS
     monkeypatch.setenv("SHIFU_TPU_PREFETCH_DEPTH", "5")
