@@ -84,7 +84,7 @@ result line is printed):
    each step's JSON line (device, rows, read and total seconds); the
    CPU twin's steps run beside the card's;
 11. the NN of phase 4's shape (600 → 512 → 256 → 1, weights from a
-   seed) over a raw table of 600 numeric columns and 32,768 rows (2 %
+   seed) over a raw table of 600 numeric columns and 16,384 rows (2 %
    missing tokens) made into ColumnConfig.json by the port's `init` and
    `stats` on the card: `eval` over the ZSCALE set (through K1) on the
    card and with `--device cpu` (EvalScore.csv, the AUCs and the
@@ -100,14 +100,16 @@ result line is printed):
    curve's largest value, best epochs equal, every saved array within
    1e-4 of its largest entry), LR 600 → 1 under R and the NN under ADAM
    (each bag's best val error within 1e-3 relative: sign-driven rules
-   part on near-zero gradients); at 32,768 rows the card trains the NN
+   part on near-zero gradients); at 16,384 rows the card trains the NN
    (ADAM) and LR (R), and `eval` of each runs on the card (through K1,
    `fused_score` launched) and on a CPU twin with phase 11's gates; a
    3-class table of the HIGGS widths (16,384 rows, a 16,384-row holdout,
    `init → stats → norm` on the card): NATIVE and ONEVSALL NNs (28 → 64
    → 3, momentum) trained and `eval -run` on the card and the CPU (class
    scores within 1e-4, the C×C matrix within one row's share); then
-   `nn_train_walls` (below) in a process of its own;
+   `nn_sync_gate`: five epochs of the trainer's loop at the wide and the
+   flagship shapes (below) under `torch.cuda.set_sync_debug_mode
+   ("error")` (their timings are `--nn-train-walls`' alone);
 13. varselect, the stats flags, export and encode, card against a CPU
    twin that runs the same verbs in two processes (`--cpu-verbs`)
    beside the card's: phase 10's table with a `month` cohort and a
@@ -126,7 +128,7 @@ result line is printed):
    on the card at full size); SE, ST and `-r 1` on phase 12's 8,192-row
    cut of the 600-column table (se.0 within 1e-4 of the largest delta,
    selection equal but at the cut's tie), then SE on the card at
-   32,768 rows; `export -t pmml` of phase 8's card-trained RF and GBT
+   16,384 rows; `export -t pmml` of phase 8's card-trained RF and GBT
    and phase 12's LR, `-t baggingpmml` of its 2-bag wide NN: byte-equal
    to the CPU twin's, conformant, and `evaluate_pmml` over 4,096 raw
    holdout rows within 1e-6 (trees, through K2) or 1e-5 (NN/LR, through
@@ -152,11 +154,12 @@ result line is printed):
    (files equal to the bit) over 5-6 chunks; (d) the device-tier GBT
    trained twice on the card, and the same set trained resident
    (`build_gbt`) twice: each pair's model files equal to the byte in
-   every member (K3/K4 add in fixed point). Then `--p14-walls` in
+   every member (K3/K4 add in fixed point). Then `--p14-launches` in
    a process of its own: the streaming builders' K3/K5 launches between
    marker kernels must equal (max_depth + 1) a chunk and max_depth a
-   tree on both tiers (and 7 / 6 with one chunk), and WDL/MTL at
-   500,000 rows and `build_gbt_streaming` at 2,000,000 × 28 are timed;
+   tree on both tiers (and 7 / 6 with one chunk); the timings of
+   WDL/MTL at 500,000 rows and `build_gbt_streaming` at 2,000,000 × 28
+   are `--p14-walls`' alone;
 15. past the trigger: phase 10's table with phase 13's cohorts (131,072
    rows) under SHIFU_TPU_{STATS,NORM,EVAL,ANALYSIS}_CHUNK_ROWS = 32,768
    (8 chunks), every step a process on the card beside its `--device
@@ -215,7 +218,30 @@ result line is printed):
    shadow phase rolled back by `watch`'s recovery, CANARY.json cleared;
    (e) `watch --ingest --registry --iterations 3` as processes on the
    card and with `--device cpu`: the same decision, AUCs within 1e-6,
-   and `health`'s refresh and canary lines.
+   and `health`'s refresh and canary lines;
+18. checkpoints and resume (`phase_checkpoint_resume`) in phase 16's
+   work directory: (a) an 8,192 × 600 NN set (600 → 512 → 256 → 1,
+   ADAM, dropout 0.1, 12 epochs, CheckpointInterval 4) through `init →
+   stats → norm` on the card; `train` as a process SIGKILLed right after
+   its 2nd checkpoint (``ckpt.saved:kill:2``, the background writer):
+   `ckpt` reports step 8 and the one-card sidecar, no `.tmp` left; the
+   resume with SHIFU_TPU_RESUME=1 in process logs epoch 8 and ends on an
+   uninterrupted card run's model, best validation error and last four
+   epochs' curve, bit for bit, `eval` of both through K1 within 1e-6 of
+   AUC; one checkpoint of the full-width carry timed; (b) a preemption
+   after the first save: supervised (SHIFU_TPU_MAX_RESTARTS=2) one
+   `restart` record in steps.jsonl and the same model, unsupervised rc
+   75 and a resume to the same model; (c) the streaming NN over the
+   `.npy` layout (ChunkRows 2,048, CheckpointInterval 1) preempted at
+   its 2nd save (rc 75), resumed to an uninterrupted streaming run's
+   model, its checkpoints removed once the model is saved; (d) in a
+   process of its own, phase 16 (d)'s GBT set: `stats → norm → train →
+   eval` write their manifests, a rerun with SHIFU_TPU_RESUME=1 skips
+   every step with no K2/K3/K5 between marker kernels, a newline
+   appended to ModelConfig.json re-runs `train` and `eval` (K3 +25, K5
+   +20 between markers, K2 again) to the same EvalScore.csv, and `norm`
+   failing at its first atomic commit leaves no manifest and meta.json
+   byte for byte.
 
 Phase 8 then registers a holdout table (262,144 rows, another seed) as
 eval set `holdout` of the card-trained RF and log-loss GBT sets and runs
@@ -233,7 +259,7 @@ phase 13's FI run, phase 14's streaming tree trainings and phase 15's
 FI, GBT and RF runs to phase 8's (and phase 15's evals to K1/K2's);
 phase 16 adds its mixed traffic's K1/K2 replays and its health set's
 `train` and `eval`, phase 17 its refreshes' K1/K2/K3/K5 and (b)'s
-serving.
+serving, phase 18 its evals' K1, (d)'s K2 and its trainings' K3/K5.
 
 The last lines are the per-kernel launch line, the kernel JSON line,
 the card's name and power limit, and the result object.
@@ -256,9 +282,10 @@ phase 13's card steps, each a process with the host to itself, twice:
 `stats -correlation` at 262,144 × 30, `varsel` FI, `encode` of its RF,
 SE at 65,536 × 600 and `export -t baggingpmml` of a 2-bag wide NN;
 `--closed-loop` only phase 17 (after the build and the phase 16
-steps it reuses); `--p14-walls` only phase 14's launch counts and
-timings (it needs the
-WDL/MTL and streaming modules); `--stream-walls` only `stats`, `norm`
+steps it reuses); `--checkpoint-resume` only phase 18 (after the build
+and phase 16 (d)'s GBT set); `--p14-walls` only phase 14's launch counts and
+timings (it needs the WDL/MTL and streaming modules; the main run asks
+only for the counts, `--p14-launches`); `--stream-walls` only `stats`, `norm`
 and `eval` (a 10-tree GBT) on the card at 2,000,000 rows of phase 10's
 table, resident and then streaming (ChunkRows 262,144), each step's
 read, compute and write seconds (it needs the streaming modules);
@@ -2205,8 +2232,9 @@ def train_walls(repeats=3):
 
 EVAL_ROWS = 262_144         # phase 8's holdout set
 NN_EVAL_ROWS = 65_536       # the NN table of --eval-walls/--varselect-walls
-MAIN_NN_ROWS = 32_768       # phase 11's raw table in the main run (cut
-#                             from NN_EVAL_ROWS for the run's time limit)
+MAIN_NN_ROWS = 16_384       # phase 11's raw table in the main run (cut
+#                             from NN_EVAL_ROWS, then from 32,768, for
+#                             the run's time limit)
 NN_POST_CPU_ROWS = 4_096    # phase 11's posttrain held against the CPU
 AUCS = ("areaUnderRoc", "weightedAreaUnderRoc", "areaUnderPr")
 
@@ -2984,8 +3012,8 @@ def phase_nn_train(report, workdir, device="cuda", cpu_rows=NN_TRAIN_CPU_ROWS,
     and `eval` of each runs on the card (through K1) and on a CPU twin
     with phase 11's gates. Then a 3-class table of the HIGGS widths:
     NATIVE and ONEVSALL NNs trained and evaluated on the card and the
-    CPU (the C×C matrix within one row's share). Last, `nn_train_walls`
-    (card only)."""
+    CPU (the C×C matrix within one row's share). Last, `nn_sync_gate`
+    (card only; the timings are `--nn-train-walls`' alone)."""
     t0 = time.perf_counter()
     nn = os.path.join(workdir, "nn")
     big = copy_config(nn, os.path.join(workdir, "nn_train"))
@@ -3089,33 +3117,92 @@ def phase_nn_train(report, workdir, device="cuda", cpu_rows=NN_TRAIN_CPU_ROWS,
                                      "errors": errs}
     out["setup_and_gates_s"] = setup_s
     if walls:
-        out["walls"] = nn_train_walls_process()
+        out["sync_free_epochs"] = nn_sync_gate(device)
     report["nn_train"] = out
-
-
-def nn_train_walls_process():
-    """`nn_train_walls` in a process of its own (`--nn-train-walls`): its
-    profiler windows lose kernel records in a process that has traced
-    the earlier phases, and its timings should not inherit their
-    allocator state. Returns its result."""
-    proc = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--nn-train-walls"],
-        capture_output=True, text=True, timeout=600,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
-    lines = proc.stdout.strip().splitlines()
-    for line in lines:
-        if line.startswith("  nn train walls"):
-            print(line)
-    if proc.returncode != 0:
-        raise RuntimeError(f"--nn-train-walls failed (rc {proc.returncode})"
-                           f":\n{proc.stderr[-4000:]}")
-    return json.loads(lines[-1])["nn_train_walls"]
 
 
 def _flops_per_row(dims):
     """`bench.py:54-57`: training FLOPs a row, forward 2·Σ d_i·d_{i+1},
     backward about twice that."""
     return 3 * sum(2 * a * b for a, b in zip(dims[:-1], dims[1:]))
+
+
+def _walls_inputs(rows, cols, hidden, act, lr):
+    """A shape's rows from a seed and its train params (1 bag, ADAM, 5 %
+    validation, no early stop)."""
+    from shifu_tpu_torch.config.model_config import ModelTrainConf
+    rng = np.random.default_rng(85)
+    x = rng.standard_normal((rows, cols), dtype=np.float32)
+    beta = rng.standard_normal(cols).astype(np.float32)
+    y = (x @ beta / np.sqrt(cols) * 2.0 + rng.standard_normal(rows)
+         > 0).astype(np.float32)
+    params = {"NumHiddenLayers": len(hidden), "NumHiddenNodes": list(hidden),
+              "ActivationFunc": [act] * len(hidden),
+              "Propagation": "ADAM", "LearningRate": lr}
+    conf = ModelTrainConf()
+    conf.params, conf.baggingNum, conf.validSetRate = params, 1, 0.05
+    conf.earlyStoppingRounds, conf.convergenceThreshold = 0, 0.0
+    return x, y, np.ones(rows, np.float32), conf
+
+
+def _epoch_loop(x, y, params, spec, device="cuda"):
+    """`run(n)`: `train_bags_carry` for n epochs on inputs already on the
+    card, from fresh initial params."""
+    import torch
+    from shifu_tpu_torch import weights
+    from shifu_tpu_torch.models import nn as nn_mod
+    from shifu_tpu_torch.train import trainer
+    from shifu_tpu_torch.train.optimizers import optimizer_from_params
+    dev = torch.device(device)
+    tr, va = trainer.split_validation(len(y), 0.05, 1)
+    xt, yt = (torch.as_tensor(a).to(dev) for a in (x[tr], y[tr]))
+    xv, yv = (torch.as_tensor(a).to(dev) for a in (x[va], y[va]))
+    wt = torch.ones((1, len(yt)), device=dev)
+    wv = torch.ones(len(yv), device=dev)
+    stacked = [{k: v.to(dev) for k, v in layer.items()} for layer in
+               weights.stack_nn_params([nn_mod.init_params(
+                   spec, torch.Generator().manual_seed(1))])]
+    mask = [{k: torch.ones_like(v[0]) for k, v in layer.items()}
+            for layer in stacked]
+    opt = optimizer_from_params(params)
+
+    def run(n):
+        carry = trainer.init_train_carry(opt, stacked)
+        return trainer.train_bags_carry(
+            lambda p, i, w_, g: nn_mod.loss_fn(spec, p, *i, w_, g),
+            lambda p, i, w_: nn_mod.mse(spec, p, *i, w_), opt, n, 0,
+            0.0, carry, (xt, yt), wt, (xv, yv), wv, mask)
+    return run
+
+
+def _sync_free(run):
+    """Five epochs of `run` under `torch.cuda.set_sync_debug_mode
+    ("error")`, which raises on any host sync inside the epoch loop."""
+    import torch
+    run(2)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run(5)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return 5
+
+
+def nn_sync_gate(device="cuda", shapes=NN_TRAIN_SHAPES):
+    """`nn_train_walls`' gate alone, in this process: at each of the
+    repo's two NN training shapes, five epochs of the trainer's epoch
+    loop with no host sync (`_sync_free`). Returns the epochs a shape."""
+    from shifu_tpu_torch.models import nn as nn_mod
+    out = {}
+    for name, (rows, cols, hidden, act, lr, _) in shapes.items():
+        x, y, _, conf = _walls_inputs(rows, cols, hidden, act, lr)
+        spec = nn_mod.MLPSpec.from_train_params(conf.params, cols)
+        out[name] = _sync_free(_epoch_loop(x, y, conf.params, spec, device))
+        del x
+    print(f"  nn sync-free epochs: {json.dumps(out)}")
+    return out
 
 
 def nn_train_walls(shapes=NN_TRAIN_SHAPES, device="cuda"):
@@ -3130,27 +3217,11 @@ def nn_train_walls(shapes=NN_TRAIN_SHAPES, device="cuda"):
     run with `torch.cuda.set_sync_debug_mode("error")` (no host sync in
     the loop)."""
     import torch
-    from shifu_tpu_torch import weights
-    from shifu_tpu_torch.config.model_config import ModelTrainConf
-    from shifu_tpu_torch.models import nn as nn_mod
     from shifu_tpu_torch.train import trainer
-    from shifu_tpu_torch.train.optimizers import optimizer_from_params
     out = {}
     for name, (rows, cols, hidden, act, lr, (short, long_)) in \
             shapes.items():
-        rng = np.random.default_rng(85)
-        x = rng.standard_normal((rows, cols), dtype=np.float32)
-        beta = rng.standard_normal(cols).astype(np.float32)
-        y = (x @ beta / np.sqrt(cols) * 2.0 + rng.standard_normal(rows)
-             > 0).astype(np.float32)
-        w = np.ones(rows, np.float32)
-        params = {"NumHiddenLayers": len(hidden),
-                  "NumHiddenNodes": list(hidden),
-                  "ActivationFunc": [act] * len(hidden),
-                  "Propagation": "ADAM", "LearningRate": lr}
-        conf = ModelTrainConf()
-        conf.params, conf.baggingNum, conf.validSetRate = params, 1, 0.05
-        conf.earlyStoppingRounds, conf.convergenceThreshold = 0, 0.0
+        x, y, w, conf = _walls_inputs(rows, cols, hidden, act, lr)
         walls = {}
         for epochs in (short, short, long_):     # the first call warms up
             conf.numTrainEpochs = epochs
@@ -3162,36 +3233,9 @@ def nn_train_walls(shapes=NN_TRAIN_SHAPES, device="cuda"):
         n_train = res.rows
         spec = res.spec
         flops = _flops_per_row(spec.layer_dims) * n_train * d_epochs
-
         # the epoch loop itself, on inputs already on the card
-        dev = torch.device(device)
-        tr, va = trainer.split_validation(rows, 0.05, 1)
-        xt, yt = (torch.as_tensor(a).to(dev) for a in (x[tr], y[tr]))
-        xv, yv = (torch.as_tensor(a).to(dev) for a in (x[va], y[va]))
-        wt = torch.ones((1, len(yt)), device=dev)
-        wv = torch.ones(len(yv), device=dev)
-        stacked = [{k: v.to(dev) for k, v in layer.items()} for layer in
-                   weights.stack_nn_params([nn_mod.init_params(
-                       spec, torch.Generator().manual_seed(1))])]
-        mask = [{k: torch.ones_like(v[0]) for k, v in layer.items()}
-                for layer in stacked]
-        opt = optimizer_from_params(params)
-
-        def run(n, stacked=stacked, opt=opt, spec=spec, xt=xt, yt=yt,
-                wt=wt, xv=xv, yv=yv, wv=wv, mask=mask):
-            carry = trainer.init_train_carry(opt, stacked)
-            return trainer.train_bags_carry(
-                lambda p, i, w_, g: nn_mod.loss_fn(spec, p, *i, w_, g),
-                lambda p, i, w_: nn_mod.mse(spec, p, *i, w_), opt, n, 0,
-                0.0, carry, (xt, yt), wt, (xv, yv), wv, mask)
-        run(2)
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            run(5)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
+        run = _epoch_loop(x, y, conf.params, spec, device)
+        sync_free = _sync_free(run)
         one = len(kernels_between_markers(lambda: run(1)))
         three = len(kernels_between_markers(lambda: run(3)))
         wall_ms, dev_ms = device_busy(lambda: run(5))
@@ -3207,9 +3251,10 @@ def nn_train_walls(shapes=NN_TRAIN_SHAPES, device="cuda"):
             "launches_one_epoch_run": one,
             "profiled_5_epochs_ms": wall_ms, "device_ms": dev_ms,
             "idle_share": 1 - dev_ms / wall_ms,
-            "sync_free_epochs": 5, "best_val": float(res.best_val[0])}
+            "sync_free_epochs": sync_free,
+            "best_val": float(res.best_val[0])}
         print(f"  nn train walls {name}: " + json.dumps(out[name]))
-        del x, xt, xv
+        del x, run
         torch.cuda.empty_cache()
     return out
 
@@ -4343,20 +4388,24 @@ def phase_wdl_mtl_stream(report, workdir, device="cuda"):
     print(f"  two card runs each of the streaming and the resident log-loss "
           f"GBT write equal models: {json.dumps(atomics)}")
     t_stream = time.perf_counter() - t0 - t_fam
-    walls = p14_walls_process()
+    launches = p14_launches_process()
     report["phase14"] = {
         "families": fam, "family_s": t_fam, "stream_s": t_stream,
         "layouts": {k: v[2:] for k, v in layouts.items()},
         "stream": {k: v[:2] for k, v in runs.items()},
-        "stream_gates": gates, "atomics": atomics, "walls": walls,
-        "seconds": time.perf_counter() - t0}
+        "stream_gates": gates, "atomics": atomics,
+        "stream_launches": launches, "seconds": time.perf_counter() - t0}
+    print(f"  phase 14: families {t_fam:.1f} s, streaming {t_stream:.1f} s, "
+          f"launch gate {report['phase14']['seconds'] - t_fam - t_stream:.1f}"
+          " s")
 
 
-def p14_walls_process():
-    """`p14_walls` in a process of its own (`--p14-walls`), for the
-    reasons `nn_train_walls_process` gives."""
+def p14_launches_process():
+    """`p14_launches` (the streaming builders' launch gate) in a process
+    of its own (`--p14-launches`): a process that has traced earlier
+    phases loses profiler records."""
     proc = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--p14-walls"],
+        [sys.executable, os.path.abspath(__file__), "--p14-launches"],
         capture_output=True, text=True, timeout=600,
         cwd=os.path.dirname(os.path.abspath(__file__)))
     lines = proc.stdout.strip().splitlines()
@@ -4364,9 +4413,9 @@ def p14_walls_process():
         if line.startswith("  p14 "):
             print(line)
     if proc.returncode != 0:
-        raise RuntimeError(f"--p14-walls failed (rc {proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    return json.loads(lines[-1])["p14_walls"]
+        raise RuntimeError(f"--p14-launches failed (rc {proc.returncode}):"
+                           f"\n{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])["p14_launches"]
 
 
 def family_walls(kind, device="cuda", rows=P14_WALL_ROWS,
@@ -4559,9 +4608,14 @@ def stream_walls(repeats=2):
     return out
 
 
-def p14_walls():
+def p14_launches():
     out = {"launches": stream_launches()}
     print("  p14 streaming launches: " + json.dumps(out["launches"]))
+    return out
+
+
+def p14_walls():
+    out = p14_launches()
     out["wdl"] = family_walls("WDL")
     out["mtl"] = family_walls("MTL")
     out["stream"] = stream_walls()
@@ -4623,20 +4677,28 @@ def compare_streaming_configs(card_root, cpu_root, rtol=1e-9):
     return worst
 
 
+def _set_environ(kv):
+    for k, v in kv.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
 @contextlib.contextmanager
 def _environ(extra):
-    """`extra` set in os.environ inside the block (for the steps this
-    process runs through `cli.main`), the old values back after."""
+    """`extra` set in os.environ inside the block (None: unset), for the
+    steps this process runs through `cli.main`; the old values back
+    after, and the fault counters reset on the way in and out."""
+    from shifu_tpu_torch import resilience
     old = {k: os.environ.get(k) for k in extra}
-    os.environ.update(extra)
+    _set_environ(extra)
+    resilience.reset_faults()
     try:
         yield
     finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+        _set_environ(old)
+        resilience.reset_faults()
 
 
 def p15_twins(card, cpu, verb, device="cuda", env=None):
@@ -6173,6 +6235,402 @@ def phase_closed_loop(report, workdir, swap_dirs, device="cuda"):
           f"{json.dumps(launched)}")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: checkpoints and resume
+# ---------------------------------------------------------------------------
+
+P18_ROWS = 8_192            # the 600-column NN table of phase 16 (b)
+P18_EPOCHS, P18_INTERVAL = 12, 4
+P18_STREAM_EPOCHS, P18_CHUNK = 6, 2_048   # (c): 4 chunks an epoch
+P18_PARAMS = {"NumHiddenLayers": 2, "NumHiddenNodes": list(NN_HIDDEN),
+              "ActivationFunc": ["relu", "relu"], "Propagation": "ADAM",
+              "LearningRate": 0.002, "DropoutRate": 0.1,
+              "CheckpointInterval": P18_INTERVAL}
+# the uninterrupted twins train straight through, with no checkpoint:
+# a chunked run is held against an unchunked one
+P18_STRAIGHT = dict(P18_PARAMS, CheckpointInterval=0)
+
+
+@contextlib.contextmanager
+def port_log():
+    """The messages the port logs (INFO and up) while the block runs."""
+    import logging
+
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.INFO)
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+    logger = logging.getLogger("shifu_tpu_torch")
+    handler, level = Lines(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        yield handler.lines
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+def cli_rc(root, *args):
+    """`cli.main` in process, its stdout swallowed; returns the rc."""
+    import io
+    from shifu_tpu_torch import cli
+    with contextlib.redirect_stdout(io.StringIO()):
+        return cli.main(["--dir", root, *args])
+
+
+def _nn_arrays(root):
+    from shifu_tpu_torch.models.spec import load_model
+    return [v for layer in load_model(os.path.join(root, "models",
+                                                   "model0.nn"))[2]
+            for v in layer.values()]
+
+
+def same_nn(a, b):
+    """Whether two sets' models/model0.nn hold equal arrays, bit for bit."""
+    pa, pb = _nn_arrays(a), _nn_arrays(b)
+    return len(pa) == len(pb) and all(np.array_equal(x, y)
+                                      for x, y in zip(pa, pb))
+
+
+def p18_nn_set(root, device="cuda"):
+    """The checkpointed NN's set: a P18_ROWS-row raw table of 600
+    columns (eval set Eval1 on the same rows), the serving NN's shape
+    600 → 512 → 256 → 1 (ADAM, dropout 0.1, P18_EPOCHS epochs,
+    CheckpointInterval 4), `init`, `stats` and `norm` on `device` in
+    process; `norm` runs with trainOnDisk, so it writes data.npz and the
+    `.npy` layout at once (the resident copies turn it off)."""
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    names, tokens = nn_raw_table(np.random.default_rng(181), P18_ROWS)
+    data_dir = os.path.join(root, "data")
+    write_raw(data_dir, names, tokens)
+    data_set = {"dataPath": data_dir, "dataDelimiter": "|",
+                "headerPath": os.path.join(data_dir, ".pig_header"),
+                "targetColumnName": "label", "posTags": ["1"],
+                "negTags": ["0"]}
+    ModelConfig.from_dict({
+        "basic": {"name": "smokeCheckpoint"}, "dataSet": data_set,
+        "stats": {"maxNumBin": GBT_BINS - 1,
+                  "binningMethod": "EqualPositive"},
+        "normalize": {"normType": "ZSCALE", "stdDevCutOff": CUTOFF},
+        "train": {"algorithm": "NN", "numTrainEpochs": P18_EPOCHS,
+                  "baggingNum": 1, "validSetRate": 0.1, "trainOnDisk": True,
+                  "params": dict(P18_PARAMS)},
+        "evals": [{"name": "Eval1", "dataSet": data_set}]}).save(root)
+    lines = run_verbs([(root, [v]) for v in ("init", "stats", "norm")],
+                      device)
+    assert all(ln["rc"] == 0 for ln in lines), lines
+    return root
+
+
+def p18_copy(base, dst, **train):
+    root = _set_copy(base, dst)
+    set_config(root, "train", **train)
+    return root
+
+
+def p18_save_timing(kill, device="cuda"):
+    """One checkpoint of the full-width carry, timed: the step's arrays
+    back on `device`, a synchronous `save_state` (snapshot, serialize,
+    publish) and an async `save_checkpoint` (the stall the epoch loop
+    waits, then the flush). Returns seconds and the snapshot's bytes."""
+    import shutil
+
+    import torch
+    from shifu_tpu_torch.train import checkpoint as ckpt
+    src = os.path.join(kill, "tmp", "checkpoints", "bag0",
+                       f"step_{P18_EPOCHS}.npz")
+    with np.load(src) as z:
+        # the arrays (the generator's device-type string aside)
+        state = {k: torch.from_numpy(z[k]).to(device) for k in z.files
+                 if k != "__header__" and z[k].dtype.kind not in "US"}
+    d = os.path.join(os.path.dirname(kill), "p18_timing")
+    out = {"snapshot_bytes": int(sum(t.numel() * t.element_size()
+                                     for t in state.values()))}
+    for step in (1, 2):       # the first pays the writer's warm-up
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_state(d, step, state)
+        out["sync_save_s"] = time.perf_counter() - t0
+    with _environ({"SHIFU_TPU_CKPT_ASYNC": "1"}):
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(d, 3, state)
+        out["async_stall_s"] = time.perf_counter() - t0
+        ckpt.flush_saves()
+        out["async_save_s"] = time.perf_counter() - t0
+    shutil.rmtree(d)
+    return out
+
+
+def p18_spawn(args, log_path, env_extra=None):
+    """`python <args>` from the repo's root: stdout piped, stderr (the
+    port's log) into `log_path`, so a long log never blocks it."""
+    env = dict(os.environ)
+    env.update(env_extra or {})
+    with open(log_path, "w") as err:
+        return subprocess.Popen(
+            [sys.executable, *args], stdout=subprocess.PIPE, stderr=err,
+            text=True, env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def _log_tail(path, n=3000):
+    with open(path) as f:
+        return f.read()[-n:]
+
+
+def p18_kill_resume(proc, kill, twin, t_line, device="cuda"):
+    """(a) after the SIGKILLed `train` process: rc -SIGKILL, `ckpt`
+    reports step 8 and the one-card sidecar, no `.tmp` residue; the
+    resume (SHIFU_TPU_RESUME=1, in process) logs epoch 8 and ends on
+    the uninterrupted twin's model, best validation error and the
+    curves of the epochs after the resume, bit for bit; `eval` of both
+    through K1: AUCs within 1e-6."""
+    import io
+    import signal
+    from shifu_tpu_torch import cli
+    proc.communicate(timeout=600)
+    assert proc.returncode == -signal.SIGKILL, \
+        f"the killed train ended rc {proc.returncode}:\n" \
+        + _log_tail(kill + ".log")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert cli.main(["--dir", kill, "ckpt"]) == 0
+    rec = json.loads(buf.getvalue())["checkpoints"]
+    assert len(rec) == 1 and rec[0]["latestStep"] == 2 * P18_INTERVAL, rec
+    sharding = rec[0]["sharding"]
+    assert sharding["mesh"] == {"axes": ["data", "model"], "shape": [1, 1],
+                                "devices": 1, "hosts": 1} and \
+        sharding["shardedLeaves"] == 0 and sharding["deviceLeaves"] > 0, rec
+    assert not _tmp_residue(kill), _tmp_residue(kill)
+    with _environ({"SHIFU_TPU_RESUME": "1"}), port_log() as logs:
+        r_line = run_verbs([(kill, ["train"])], device)[0]
+    assert r_line["rc"] == 0, r_line
+    assert any("resumed at epoch 8" in m for m in logs), logs[-20:]
+    assert same_nn(kill, twin), "the resumed model differs from the twin's"
+    with open(os.path.join(kill, "tmp", "valerr.json")) as f:
+        got = json.load(f)
+    with open(os.path.join(twin, "tmp", "valerr.json")) as f:
+        want = json.load(f)
+    assert got["bestValError"] == want["bestValError"], (got, want)
+    after = [row[2 * P18_INTERVAL:] for row in t_line["val_errors"]]
+    assert r_line["val_errors"] == after, (r_line["val_errors"], after)
+    assert got["bestEpoch"] == [int(np.argmin(row)) for row in after]
+    evals = run_verbs([(kill, ["eval"]), (twin, ["eval"])], device)
+    auc = []
+    for root in (kill, twin):
+        with open(os.path.join(root, "evals", "Eval1",
+                               "EvalPerformance.json")) as f:
+            auc.append(json.load(f)["areaUnderRoc"])
+    assert abs(auc[0] - auc[1]) <= 1e-6, auc
+    k1 = sum(ln["launches"]["fused_score"] for ln in evals)
+    if device == "cuda":
+        assert all(ln["launches"]["fused_score"] > 0 for ln in evals), evals
+    return {"killed_rc": proc.returncode, "ckpt": rec[0],
+            "best_val": got["bestValError"], "auc": auc,
+            "auc_err": abs(auc[0] - auc[1]), "k1": k1,
+            "twin_train_s": t_line["seconds"],
+            "resume_s": r_line["seconds"],
+            "save": p18_save_timing(kill, device)}
+
+
+def p18_preempt(workdir, base, twin, device="cuda"):
+    """(b) A preemption after the first save (epoch 4: the saves are
+    synchronous, so `ckpt.saved` fires on the training thread and the
+    epoch loop sees it at that boundary): supervised (2 restarts) it
+    restarts once, recorded in steps.jsonl, and ends on (a)'s
+    unchunked twin's model; unsupervised `train` returns 75, and the
+    rerun with SHIFU_TPU_RESUME=1 returns 0 with the same model."""
+    sup = p18_copy(base, os.path.join(workdir, "p18_sup"),
+                   trainOnDisk=False)
+    with _environ({"SHIFU_TPU_FAULT": "ckpt.saved:preempt:1",
+                   "SHIFU_TPU_MAX_RESTARTS": "2",
+                   "SHIFU_TPU_CKPT_ASYNC": "0"}):
+        line = run_verbs([(sup, ["train"])], device)[0]
+    assert line["rc"] == 0, line
+    with open(os.path.join(sup, "tmp", "metrics", "steps.jsonl")) as f:
+        recs = [json.loads(ln) for ln in f if ln.strip()]
+    assert [r["event"] for r in recs] == ["restart"], recs
+    assert same_nn(sup, twin), "the supervised run's model differs"
+    solo = p18_copy(base, os.path.join(workdir, "p18_solo"),
+                    trainOnDisk=False)
+    with _environ({"SHIFU_TPU_FAULT": "ckpt.saved:preempt:1",
+                   "SHIFU_TPU_CKPT_ASYNC": "0"}):
+        rc = cli_rc(solo, "train", "--device", device)
+    from shifu_tpu_torch.train import checkpoint as ckpt
+    step = ckpt.latest_step(os.path.join(solo, "tmp", "checkpoints", "bag0"))
+    assert rc == 75 and step == P18_INTERVAL, (rc, step)
+    with _environ({"SHIFU_TPU_RESUME": "1"}):
+        rc2 = cli_rc(solo, "train", "--device", device)
+    assert rc2 == 0 and same_nn(solo, twin), rc2
+    return {"restart": recs[0], "unsupervised_rc": [rc, rc2],
+            "preempted_at": step}
+
+
+def p18_streaming(workdir, base, device="cuda"):
+    """(c) The streaming NN over (a)'s `.npy` layout, ChunkRows
+    P18_CHUNK, CheckpointInterval 1: a preemption at the 2nd
+    (synchronous) save returns 75, the resume from epoch 2 returns 0,
+    with the model of an uninterrupted streaming run that saved no
+    checkpoint; the route's checkpoints are gone once the model is
+    saved."""
+    fields = {"numTrainEpochs": P18_STREAM_EPOCHS, "params": dict(
+        P18_PARAMS, ChunkRows=P18_CHUNK, CheckpointInterval=1)}
+    pre = p18_copy(base, os.path.join(workdir, "p18_stream"), **fields)
+    fields["params"] = dict(fields["params"], CheckpointInterval=0)
+    twin = p18_copy(base, os.path.join(workdir, "p18_stream_twin"), **fields)
+    assert cli_rc(twin, "train", "--device", device) == 0
+    with _environ({"SHIFU_TPU_FAULT": "ckpt.saved:preempt:2",
+                   "SHIFU_TPU_CKPT_ASYNC": "0"}):
+        rc = cli_rc(pre, "train", "--device", device)
+    ck = os.path.join(pre, "tmp", "checkpoints", "bag0", "streaming")
+    from shifu_tpu_torch.train import checkpoint as ckpt
+    step = ckpt.latest_step(ck)
+    with _environ({"SHIFU_TPU_RESUME": "1"}), port_log() as logs:
+        rc2 = cli_rc(pre, "train", "--device", device)
+    assert rc == 75 and rc2 == 0 and step == 2, (rc, rc2, step)
+    assert any(f"resumed from checkpoint at epoch {step}" in m
+               for m in logs), logs[-20:]
+    assert same_nn(pre, twin), "the resumed streaming model differs"
+    assert not os.path.exists(ck), os.listdir(ck)
+    return {"rc": [rc, rc2], "resumed_at": step}
+
+
+def p18_gbt_main(workdir, device):
+    """The `--p18-gbt` process, (d): phase 16 (d)'s GBT set copied;
+    `stats → norm → train → eval` write their manifests; with
+    SHIFU_TPU_RESUME=1 every step logs its skip and no K2, K3 or K5
+    runs between marker kernels; after a newline appended to
+    ModelConfig.json `train` and `eval` re-run (K3 +25, K5 +20 between
+    markers, K2 again) to the same scores; `norm` failing at its first
+    atomic commit leaves no manifest and meta.json as it was, and a
+    clean rerun passes. The last line holds the result."""
+    from shifu_tpu_torch.ops import best_splits, fused_trees, level_hist
+    root = _set_copy(os.path.join(workdir, "health"),
+                     os.path.join(workdir, "p18_gbt"))
+    steps = ("stats", "norm", "train", "eval")
+    first = run_verbs([(root, [s]) for s in steps], device)
+    assert all(ln["rc"] == 0 for ln in first), first
+    mdir = os.path.join(root, "tmp", "manifests")
+    assert sorted(os.listdir(mdir)) == ["eval.holdout.json", "norm.json",
+                                        "stats.json", "train.json"], \
+        os.listdir(mdir)
+    score = os.path.join(root, "evals", "holdout", "EvalScore.csv")
+    with open(score, "rb") as f:
+        scores = f.read()
+
+    def counted(fn):
+        if device != "cuda":
+            fn()
+            return {}
+        names = kernels_between_markers(fn)
+        return {"K2": count_kernels(names, "fused_trees"),
+                "K3": count_kernels(names, "level_hist"),
+                "K5": count_kernels(names, "best_splits")}
+    box = {}
+    with _environ({"SHIFU_TPU_RESUME": "1"}), port_log() as logs:
+        skipped = counted(lambda: box.update(
+            skip=run_verbs([(root, [s]) for s in steps], device)))
+    skips = [m.split(":")[0] for m in logs if "skipping" in m]
+    assert skips == ["step stats", "step norm", "step train",
+                     "step eval.holdout"], logs[-20:]
+    assert all(ln["rc"] == 0 for ln in box["skip"])
+    if device == "cuda":
+        assert skipped == {"K2": 0, "K3": 0, "K5": 0}, skipped
+    with open(os.path.join(root, "ModelConfig.json"), "a") as f:
+        f.write("\n")
+    with _environ({"SHIFU_TPU_RESUME": "1"}), port_log() as logs:
+        rerun = counted(lambda: box.update(
+            rerun=run_verbs([(root, ["train"]), (root, ["eval"])], device)))
+    assert sum("re-running" in m for m in logs) == 2, logs[-20:]
+    if device == "cuda":
+        assert rerun["K3"] == 25 and rerun["K5"] == 20 and \
+            rerun["K2"] > 0, rerun
+    with open(score, "rb") as f:
+        assert f.read() == scores, "the re-run's scores differ"
+    meta = os.path.join(root, "tmp", "NormalizedData", "meta.json")
+    with open(meta, "rb") as f:
+        meta_bytes = f.read()
+    with _environ({"SHIFU_TPU_FAULT": "atomic.commit:oserror:1"}):
+        try:
+            cli_rc(root, "norm", "--device", device)
+        except OSError as e:
+            failed = str(e)
+        else:
+            raise AssertionError("norm passed its injected commit fault")
+    assert not os.path.exists(os.path.join(mdir, "norm.json"))
+    with open(meta, "rb") as f:
+        assert f.read() == meta_bytes, "meta.json changed"
+    assert cli_rc(root, "norm", "--device", device) == 0
+    assert os.path.exists(os.path.join(mdir, "norm.json"))
+    lines = first + box["rerun"]
+    kinds = ("fused_trees", "level_hist", "best_splits")
+    print(json.dumps({
+        "skipped": skipped, "rerun": rerun, "norm_fault": failed,
+        "launches": {k: sum(ln.get("launches", {}).get(k, 0)
+                            for ln in lines) for k in kinds},
+        "process_launches": {"fused_trees": fused_trees.launches,
+                             "level_hist": level_hist.launches,
+                             "best_splits": best_splits.launches}}))
+
+
+def phase_checkpoint_resume(report, workdir, device="cuda"):
+    """Phase 18, checkpoints and resume on the card, in phase 16's work
+    directory: (a) a full-width NN `train` SIGKILLed after its 2nd
+    save, resumed to the uninterrupted twin's model; (b) a preemption,
+    supervised and not; (c) the streaming NN preempted and resumed; (d)
+    the manifests on phase 16's GBT set, in a process of its own
+    (`--p18-gbt`, started first, as the killed `train` is: both run
+    while (b) and (c) run here). Its K1, K2, K3 and K5 launches join
+    the kernels line."""
+    t0 = time.monotonic()
+    gbt_log = os.path.join(workdir, "p18_gbt.log")
+    procs = [p18_spawn([os.path.abspath(__file__), "--p18-gbt", workdir,
+                        device], gbt_log)]
+    out = {}
+    try:
+        base = p18_nn_set(os.path.join(workdir, "p18_base"), device)
+        kill = p18_copy(base, os.path.join(workdir, "p18_kill"),
+                        trainOnDisk=False)
+        procs.append(p18_spawn(
+            ["-m", "shifu_tpu_torch", "--dir", kill, "train", "--device",
+             device], kill + ".log", {"SHIFU_TPU_FAULT": "ckpt.saved:kill:2",
+                                      "SHIFU_TPU_CKPT_ASYNC": "1"}))
+        twin = p18_copy(base, os.path.join(workdir, "p18_twin"),
+                        trainOnDisk=False, params=P18_STRAIGHT)
+        t_line = run_verbs([(twin, ["train"])], device)[0]
+        assert t_line["rc"] == 0, t_line
+        out["b"] = p18_preempt(workdir, base, twin, device)
+        out["c"] = p18_streaming(workdir, base, device)
+        out["a"] = p18_kill_resume(procs[1], kill, twin, t_line, device)
+        res, _ = procs[0].communicate(timeout=600)
+        assert procs[0].returncode == 0, \
+            "--p18-gbt failed:\n" + _log_tail(gbt_log)
+        out["d"] = json.loads(res.strip().splitlines()[-1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    launched = {"fused_score": out["a"]["k1"]}
+    launched.update(out["d"]["launches"])
+    for k, v in launched.items():
+        if device == "cuda":
+            assert v > 0, f"phase 18 launched no {k}: {launched}"
+        report[k]["launches"] += v
+    out["launches"] = launched
+    out["seconds"] = time.monotonic() - t0
+    report["p18"] = out
+    for part in "abcd":
+        print(f"  ({part}) {json.dumps(out[part])}")
+    print(f"  phase 18: {out['seconds']:.1f} s, launches "
+          f"{json.dumps(launched)}")
+
+
 SOURCES = {
     "fused_score": ("shifu_tpu_torch/csrc/fused_score.cu",
                     "shifu_tpu/ops/pallas_score.py:110"),
@@ -6206,6 +6664,11 @@ def main() -> int:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         p17_gbt_main(*sys.argv[2:5])
         return 0
+    if sys.argv[1:2] == ["--p18-gbt"]:
+        # phase 18 (d) in a process of its own, for the same reason
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        p18_gbt_main(*sys.argv[2:4])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
@@ -6237,6 +6700,9 @@ def main() -> int:
     if sys.argv[1:] == ["--p14-walls"]:
         print(json.dumps({"p14_walls": p14_walls()}))
         return 0
+    if sys.argv[1:] == ["--p14-launches"]:
+        print(json.dumps({"p14_launches": p14_launches()}))
+        return 0
     if sys.argv[1:] == ["--varselect-walls"]:
         print(json.dumps({"varselect_walls": varselect_walls()}))
         return 0
@@ -6254,6 +6720,14 @@ def main() -> int:
             dirs, _ = p16_swap_sets(workdir)
             p16_health({}, workdir)
             phase_closed_loop(report, workdir, dirs)
+        print(json.dumps({k: report[k]["launches"] for k in SOURCES}))
+        return 0
+    if sys.argv[1:] == ["--checkpoint-resume"]:
+        phase_build()
+        report = {k: {"launches": 0} for k in SOURCES}
+        with tempfile.TemporaryDirectory() as workdir:
+            p16_health({}, workdir)       # phase 16 (d)'s GBT set
+            phase_checkpoint_resume(report, workdir)
         print(json.dumps({k: report[k]["launches"] for k in SOURCES}))
         return 0
     if sys.argv[1:] == ["--serving-plane"]:
@@ -6319,6 +6793,9 @@ def main() -> int:
         header("phase 17: the closed loop (row log, refresh, canary, full "
                "watch) on the card")
         phase_closed_loop(report, workdir, dirs)
+        header("phase 18: checkpoints and resume (kill, preempt, the "
+               "streaming NN, the step manifests) on the card")
+        phase_checkpoint_resume(report, workdir)
     print(f"total: {time.monotonic() - t_start:.1f} s on {smi}")
 
     kernels = []

@@ -1,5 +1,6 @@
 """Command line of the port — the verbs of `shifu_tpu/cli.py` (the DAG
-verbs, `ckpt`, `top` and `trace` come later: ROADMAP A8).
+verbs `combo` and `test` come with ROADMAP A8.2, `top` and `trace` with
+A8.5).
 
     python -m shifu_tpu_torch --dir <dir> new <name>
     python -m shifu_tpu_torch --dir <model-set> init
@@ -35,6 +36,7 @@ verbs, `ckpt`, `top` and `trace` come later: ROADMAP A8).
         [--device cuda|cpu]
     python -m shifu_tpu_torch ingest ls --log DIR
     python -m shifu_tpu_torch --dir <model-set> health [--trend N]
+    python -m shifu_tpu_torch --dir <model-set> ckpt
     python -m shifu_tpu_torch knobs [--all] [--markdown]
     python -m shifu_tpu_torch version
 
@@ -78,7 +80,7 @@ the training set (`encoded/`) on `--device`; `convert` turns a model
 spec into an open zip bundle and back; `save`, `switch` and `show` keep
 versions of the model set under `.shifu-versions/`. `combo` and `test`
 run through the pipeline DAG, which is not ported yet: they raise
-(ROADMAP A8).
+(ROADMAP A8.2).
 
 `serve` serves every model spec under ``<model-set>/models`` (the
 `PathFinder.models_path()` rule) until SIGTERM/SIGINT or `--duration-s`,
@@ -112,7 +114,16 @@ seconds and the launches of each tree-training kernel during the run;
 for the dense families also the training rows, the bags, the epochs,
 the trainer's seconds and each saved model's best validation error,
 best epoch and per-epoch train and validation errors; its clock starts
-once the card's context exists.
+once the card's context exists. With `CheckpointInterval` > 0 the NN/LR,
+WDL and MTL trainers checkpoint their state; a preempted `train`
+(SIGTERM, or a ``preempt`` fault) saves and exits with rc 75
+(`resilience.PREEMPT_RC`), and a rerun resumes at the saved epoch;
+``SHIFU_TPU_MAX_RESTARTS`` restarts it in process. Every step writes
+its completion manifest under `tmp/manifests/`, and with
+``SHIFU_TPU_RESUME=1`` a step whose manifest matches its inputs is
+skipped. `ckpt` prints the checkpoint inventory (the latest step of
+each bag's directory and its sharding sidecar) as the JAX package's
+verb does, without touching the card.
 `--device` defaults to the card and raises when there is none.
 """
 
@@ -435,7 +446,7 @@ def cmd_stats(args) -> int:
         if getattr(args, flag) not in (None, False):
             raise NotImplementedError(
                 f"stats -{flag.replace('_', '-')} (the pipeline DAG's "
-                "per-segment siblings) is not ported yet (ROADMAP A8)")
+                "per-segment siblings) is not ported yet (ROADMAP A8.2)")
     if args.correlation:
         return _device_step("stats -correlation", correlation.run, args)
     if args.psi:
@@ -634,7 +645,38 @@ def cmd_knobs(args) -> int:
 def cmd_dag_verb(args) -> int:
     raise NotImplementedError(
         f"`{args.command}` runs through the pipeline DAG (`run_dag`), "
-        "which is not ported yet (ROADMAP A8)")
+        "which is not ported yet (ROADMAP A8.2)")
+
+
+def cmd_ckpt(args) -> int:
+    """Checkpoint inventory: one JSON record a bag with its latest
+    restorable step and the sharding sidecar's provenance (the mesh
+    that wrote it, its rules, how many leaves were sharded). Host
+    only."""
+    from shifu_tpu_torch.processor.base import ProcessorContext
+    from shifu_tpu_torch.train import checkpoint as ckpt_mod
+    ctx = ProcessorContext.load(args.dir, need_columns=False)
+    n_bags = max(ctx.model_config.train.baggingNum, 1)
+    records = []
+    for bag in range(n_bags):
+        d = ctx.path_finder.checkpoint_path(bag)
+        step = ckpt_mod.latest_step(d)
+        if step is None:
+            continue
+        rec = {"bag": bag, "dir": d, "latestStep": step}
+        meta = ckpt_mod.load_sharding_meta(d, step)
+        if meta is None:
+            rec["sharding"] = None   # restores onto the caller's placement
+        else:
+            rec["sharding"] = {
+                "mesh": meta.get("mesh"),
+                "rules": meta.get("rules"),
+                "shardedLeaves": sum(1 for v in meta.get("leaves",
+                                                         {}).values() if v),
+                "deviceLeaves": len(meta.get("leaves", {}))}
+        records.append(rec)
+    print(json.dumps({"checkpoints": records}, indent=1))
+    return 0
 
 
 def cmd_train(args) -> int:
@@ -809,13 +851,13 @@ def build_parser() -> argparse.ArgumentParser:
     sub.add_parser("show", help="list model-set snapshots") \
         .set_defaults(fn=cmd_show)
     p = sub.add_parser("combo", help="not ported yet (raises: the "
-                                     "pipeline DAG, ROADMAP A8)")
+                                     "pipeline DAG, ROADMAP A8.2)")
     p.add_argument("-new", "--new", default=None, metavar="ALG1,ALG2,...")
     for flag in ("init", "run", "eval", "resume"):
         p.add_argument(f"-{flag}", f"--{flag}", action="store_true")
     p.set_defaults(fn=cmd_dag_verb)
     p = sub.add_parser("test", help="not ported yet (raises: the "
-                                    "pipeline DAG, ROADMAP A8)")
+                                    "pipeline DAG, ROADMAP A8.2)")
     p.add_argument("-n", type=int, default=100)
     p.set_defaults(fn=cmd_dag_verb)
     for alias in ("norm", "normalize"):
@@ -947,12 +989,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--markdown", action="store_true",
                    help="emit the table as markdown")
     p.set_defaults(fn=cmd_knobs)
+    sub.add_parser("ckpt",
+                   help="checkpoint inventory: latest step + the mesh "
+                        "topology that wrote it (sharding sidecar)") \
+        .set_defaults(fn=cmd_ckpt)
     sub.add_parser("version").set_defaults(fn=cmd_version)
     return ap
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    from shifu_tpu_torch import resilience
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    except resilience.Preempted as e:
+        # a checkpointed preemption: the distinct rc tells a supervisor
+        # (systemd, a shell loop, k8s) to rerun with SHIFU_TPU_RESUME=1
+        log.warning("preempted: %s — exiting rc=%d; rerun with "
+                    "SHIFU_TPU_RESUME=1 to resume", e,
+                    resilience.PREEMPT_RC)
+        return resilience.PREEMPT_RC

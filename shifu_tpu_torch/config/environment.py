@@ -2,7 +2,9 @@
 
 A copy of the reading half of `shifu_tpu/config/environment.py` for the
 four serving knobs, the two tree-build knobs, the two NN compute-dtype
-knobs, the two resilience knobs `train` refuses (ROADMAP A8), the
+knobs, the checkpoint and resume knobs (the supervised restarts, the
+`step_guard` resume, the background checkpoint writer and its slots,
+the abort-marker directory), the
 streaming triggers of stats, norm, eval and the analysis steps (past
 its trigger each step reads its raw set in chunks: the streaming stats,
 norm and eval, the exact chunked correlation and PSI, posttrain, and
@@ -66,11 +68,12 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
          "accumulate in f32. Per-model train params and "
          "SHIFU_TPU_NN_COMPUTE override it"),
     Knob("SHIFU_TPU_MAX_RESTARTS", "int", 0,
-         "supervised in-process restarts around the train step (the "
-         "port refuses a value above 0: ROADMAP A8)"),
+         "supervised in-process restarts around the train step"),
     Knob("SHIFU_TPU_RESUME", "flag", "0",
-         "1 = skip steps whose completion manifest matches inputs (the "
-         "port's train refuses it: ROADMAP A8)"),
+         "1 = skip steps whose completion manifest matches inputs"),
+    Knob("SHIFU_TPU_CKPT_ASYNC", "flag", "1",
+         "1 = background checkpoint writer (snapshot on-thread, "
+         "serialize+publish off-thread); 0 = fully synchronous saves"),
     Knob("SHIFU_TPU_STATS_CHUNK_ROWS", "int", None,
          "explicit stats streaming chunk rows; 0 forces resident"),
     Knob("SHIFU_TPU_STATS_STREAM_BYTES", "int", 2 * 1024 ** 3,

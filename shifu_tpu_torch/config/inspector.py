@@ -4,7 +4,7 @@ The port's copy of `shifu_tpu/config/inspector.py` (`probe`,
 `ModelStep`; `core/validator/ModelInspector.java:56-92`): a
 ValidateResult with human-readable failure causes, and warnings for
 typo-like unknown keys. Scheme'd remote paths are not checked here;
-reading them raises later (remote filesystems are ROADMAP A8).
+reading them raises later (remote filesystems are ROADMAP A8.4).
 """
 
 from __future__ import annotations
@@ -91,7 +91,7 @@ def _file_should_exist(mc: ModelConfig, p: str, label: str,
         return
     from shifu_tpu_torch.fileio import has_scheme
     if has_scheme(p):
-        return  # remote: reading it raises (ROADMAP A8)
+        return  # remote: reading it raises (ROADMAP A8.4)
     rp = mc.resolve_path(p)
     if not os.path.exists(rp):
         r.fail(f"{label} points to {p!r}, which does not exist "

@@ -21,6 +21,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from shifu_tpu_torch.data.reader import Table
+from shifu_tpu_torch.resilience import retrying
 
 _HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_HERE, "native", "fast_reader.c")
@@ -134,7 +135,9 @@ def read_files_native(files: Sequence[str], header: List[str], delim: str,
     per_file: List[Tuple[np.ndarray, Dict[str, np.ndarray]]] = []
     for path in files:
         skip = 1 if path == skip_first_row_of else 0
-        n_rows = int(lib.ft_count_file_rows(path.encode(), skip))
+        # retried: the count and parse of a file are idempotent
+        n_rows = int(retrying("reader.native", lib.ft_count_file_rows,
+                              path.encode(), skip))
         if n_rows < 0:
             raise OSError(f"fast_reader cannot open {path}")
         if n_rows == 0:

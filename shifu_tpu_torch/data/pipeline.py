@@ -24,10 +24,12 @@ package left to `jax.device_put`.
   after the copy that last read it has ended, so chunk k+1's copy runs
   while chunk k computes. On the CPU a block becomes a tensor copy.
 
-The JAX package's stage timers, spans, lock checks and fault sites
-(`add_stage_time`, `obs_trace`, `lockcheck`, `fault_point`) belong to
-its tracing and resilience planes (ROADMAP A8) and have no counterpart
-here.
+Fault injection: the ``pipeline.fetch`` site fires once a chunk in the
+producer (before each item is pulled, or before each `map_prefetch`
+assembly), on the threaded and the sequential paths alike; an injected
+error reaches the consumer at its item's place. The JAX package's stage
+timers, spans and lock checks (`add_stage_time`, `obs_trace`,
+`lockcheck`) belong to its tracing plane (ROADMAP A8.5).
 """
 
 from __future__ import annotations
@@ -42,11 +44,13 @@ import numpy as np
 import torch
 
 from shifu_tpu_torch.config.environment import knob_int
+from shifu_tpu_torch.resilience import fault_point
 
 T = TypeVar("T")
 U = TypeVar("U")
 
 PREFETCH_DEPTH = 2   # items assembled ahead of the consumer
+FETCH_SITE = "pipeline.fetch"
 
 
 def prefetch_depth() -> int:
@@ -92,6 +96,7 @@ def _reader(iterable: Iterable, q: queue.Queue, stop: threading.Event,
         it = iter(iterable)
         while not stop.is_set():
             try:
+                fault_point(FETCH_SITE)
                 item = next(it)
             except StopIteration:
                 offer(_DONE)
@@ -106,6 +111,19 @@ def _reader(iterable: Iterable, q: queue.Queue, stop: threading.Event,
                               name="shifu-prefetch")
     worker.start()
     return worker
+
+
+def _sync_fetch(iterable: Iterable[T]) -> Iterator[T]:
+    """The sequential path: the items of `iterable`, the fetch site
+    firing before each is pulled."""
+    it = iter(iterable)
+    while True:
+        fault_point(FETCH_SITE)
+        try:
+            item = next(it)
+        except StopIteration:
+            return
+        yield item
 
 
 def _drain(q: queue.Queue) -> None:
@@ -130,7 +148,7 @@ def prefetch(iterable: Iterable[T], depth: Optional[int] = None
     if depth is None:
         depth = prefetch_depth()
     if depth <= 0 or prefetch_workers() <= 0:
-        yield from iterable
+        yield from _sync_fetch(iterable)
         return
     q: queue.Queue = queue.Queue(maxsize=depth)
     stop = threading.Event()
@@ -163,7 +181,7 @@ def map_stream(fn: Callable[[T], U], iterable: Iterable[T],
     if workers is None:
         workers = prefetch_workers()
     if depth <= 0 or workers <= 0:
-        for item in iterable:
+        for item in _sync_fetch(iterable):
             yield fn(item)
         return
 
@@ -200,9 +218,14 @@ def map_prefetch(fn: Callable[[T], U], items: Sequence[T],
     items = list(items)
     if workers is None:
         workers = prefetch_workers()
+
+    def fetched(item: T) -> U:
+        fault_point(FETCH_SITE)
+        return fn(item)
+
     if depth <= 0 or workers <= 0 or not items:
         for item in items:
-            yield fn(item)
+            yield fetched(item)
         return
 
     from concurrent.futures import ThreadPoolExecutor
@@ -212,12 +235,12 @@ def map_prefetch(fn: Callable[[T], U], items: Sequence[T],
     try:
         idx = 0
         while idx < min(depth, len(items)):
-            pending.append(ex.submit(fn, items[idx]))
+            pending.append(ex.submit(fetched, items[idx]))
             idx += 1
         while pending:
             out = pending.popleft().result()
             if idx < len(items):
-                pending.append(ex.submit(fn, items[idx]))
+                pending.append(ex.submit(fetched, items[idx]))
                 idx += 1
             yield out
     finally:

@@ -25,9 +25,10 @@ norm and eval, the chunked correlation and PSI, posttrain past the size
 trigger, varselect's sampled frame and eval's audit read through it.
 
 Not ported: parquet input (needs pyarrow; ROADMAP A9), remote
-filesystems, the pod-sharded read and the sharded/broadcast chunk
-iterators (A8); parquet and remote paths raise and name their queue
-item. Of pandas' compressions only gzip and bz2 are read.
+filesystems (ROADMAP A8.4), the pod-sharded read and the
+sharded/broadcast chunk iterators (A8.3); parquet and remote paths
+raise and name their queue item. Of pandas' compressions only gzip and
+bz2 are read.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from typing import (Dict, Iterable, Iterator, List, Mapping, Optional,
 import numpy as np
 
 from shifu_tpu_torch.fileio import has_scheme
+from shifu_tpu_torch.resilience import retrying
 
 _SKIP_BASENAMES = {"_SUCCESS", ".pig_header", ".pig_schema"}
 
@@ -100,7 +102,7 @@ def string_column(values: np.ndarray) -> np.ndarray:
 
 def _remote(path: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{path}: remote filesystems are not ported yet (ROADMAP A8); "
+        f"{path}: remote filesystems are not ported yet (ROADMAP A8.4); "
         "use a local path")
 
 
@@ -285,7 +287,9 @@ def read_raw_table(mc, ds=None, max_rows: Optional[int] = None,
     rows_left = max_rows
     for path in files:
         skip = 1 if (has_header_line and path == first_file) else 0
-        t = read_text_file(path, names, delim, skip, rows_left)
+        # retried: a file's read is idempotent, and a mount can flake
+        t = retrying("reader.read", read_text_file, path, names, delim,
+                     skip, rows_left)
         tables.append(t)
         if rows_left is not None:
             rows_left -= len(t)

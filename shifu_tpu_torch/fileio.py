@@ -1,7 +1,9 @@
 """Atomic local writes — the port's copy of the parts of
 `shifu_tpu/resilience.py` (`atomic_path`, `atomic_write`) and
 `shifu_tpu/data/fs.py` (`has_scheme`) that the config files and model
-specs need, without fault injection.
+specs need. The ``atomic.commit`` fault site fires just before each
+rename, so ``SHIFU_TPU_FAULT=atomic.commit:kill:1`` kills a step
+between its staged output and its publication.
 
 Remote (``scheme://``) paths are not ported yet: `atomic_write` raises
 on them, and `has_scheme` lets callers detect them first.
@@ -14,6 +16,8 @@ import os
 import re
 import shutil
 from typing import IO, Iterator
+
+from shifu_tpu_torch.resilience import fault_point
 
 _SCHEME_RE = re.compile(r"^[a-zA-Z][a-zA-Z0-9+.\-]*://")
 
@@ -42,6 +46,7 @@ def atomic_path(path: str) -> Iterator[str]:
     tmp = _tmp_name(path)
     try:
         yield tmp
+        fault_point("atomic.commit")
         if os.path.isdir(path) and os.path.isdir(tmp):
             shutil.rmtree(path)
         os.replace(tmp, path)
@@ -66,6 +71,7 @@ def atomic_write(path: str, mode: str = "w", **open_kwargs) -> Iterator[IO]:
         f.flush()
         os.fsync(f.fileno())
         f.close()
+        fault_point("atomic.commit")
         os.replace(tmp, path)
     except BaseException:
         if not f.closed:

@@ -20,9 +20,10 @@ failure; every caller absorbs the error (the serving flusher, the watch
 loop, eval). With ``SHIFU_TPU_METRICS`` unset the module is inert:
 `emit` drops points and `flush` touches no files.
 
-The per-step records (`flush_step_record`, `step_completed`) are fed by
-the JAX package's `profiling.step_metrics`, which the port has not yet
-(ROADMAP A8.5); until then `eval_metrics` flushes itself.
+`step_completed` is `step_guard`'s exit hook (a ``step.completed``
+counter and a flush). The per-step record (`flush_step_record`) is fed
+by the JAX package's `profiling.step_metrics`, which the port has not
+yet (ROADMAP A8.5); until then `eval_metrics` flushes itself.
 """
 
 from __future__ import annotations
@@ -275,3 +276,14 @@ def eval_metrics(root: str, eval_name: str, perf: Dict,
         st.flush()
     except Exception as e:  # noqa: BLE001 — health must not fail eval
         log.warning("eval metrics emit failed (step unaffected): %s", e)
+
+
+def step_completed(root: str, step: str) -> None:
+    """The `step_guard` exit hook: count the completed step and flush,
+    so even a step without metrics leaves a heartbeat. Never raises."""
+    try:
+        st = store(root)
+        st.counter("step.completed", 1.0, step=step)
+        st.flush()
+    except Exception as e:  # noqa: BLE001 — health must not fail the step
+        log.warning("metrics flush failed (step unaffected): %s", e)

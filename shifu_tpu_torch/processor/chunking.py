@@ -7,7 +7,7 @@ resident, else a uniform row sample of at most
 SHIFU_TPU_ANALYSIS_MAX_ROWS rows read in chunks (`sampled_frame`),
 cached on the context. Rows are picked by `splitmix64_uniform` of the
 global row index, so the sample equals the JAX package's row for row.
-The sharded readers are ROADMAP A8.
+The sharded readers are ROADMAP A8.3.
 """
 
 from __future__ import annotations

@@ -31,8 +31,9 @@ the binary metrics come from a 2^20-bucket `ScoreHistogram` over a
 float32 dump of (score, tag, weight), the multi-class ones from the
 summed C×C matrix. The port is one
 process, so every output is written by it
-(the JAX package's `_opath` multi-host writers are A8), and it writes
-no `step_guard` manifest (A8). A binary eval writes its guardrail
+(the JAX package's `_opath` multi-host writers are ROADMAP A8.3). Each
+eval set runs under its ``eval.<name>`` manifest (`step_guard`,
+`EvalPerformance.json` its output). A binary eval writes its guardrail
 metrics (`eval.auc`, `eval.weighted_auc`) into the workspace's metrics
 store (`obs/health/store.eval_metrics`; inert unless SHIFU_TPU_METRICS=1).
 """
@@ -66,7 +67,7 @@ from shifu_tpu_torch.ops.metrics import (confusion_matrix_table,
                                          host_cumulatives,
                                          performance_result)
 from shifu_tpu_torch.processor import norm as norm_proc
-from shifu_tpu_torch.processor.base import ProcessorContext
+from shifu_tpu_torch.processor.base import ProcessorContext, step_guard
 from shifu_tpu_torch.processor.chunking import chunk_rows_for
 
 log = logging.getLogger("shifu_tpu_torch")
@@ -107,7 +108,11 @@ def run(ctx: ProcessorContext, eval_name: Optional[str] = None,
     ctx.validate(ModelStep.EVAL)
     ctx.require_columns()
     for ec in _eval_by_name(ctx, eval_name):
-        run_one(ctx, ec, dev, report)
+        # one manifest an eval set, its EvalPerformance.json the output
+        with step_guard(ctx, f"eval.{ec.name}", outputs=[
+                ctx.path_finder.eval_performance_path(ec.name)]) as go:
+            if go:
+                run_one(ctx, ec, dev, report)
     return 0
 
 

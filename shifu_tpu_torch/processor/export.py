@@ -10,8 +10,10 @@ TensorFlow SavedModel, through jax2tf in the JAX package) raises: it
 needs tensorflow (ROADMAP, not queued until tensorflow is on the card
 machine).
 
-Every type but correlation is a host-side file conversion. The port is
-one process, so no writer election and no `step_guard` manifest (A8).
+Every type but correlation is a host-side file conversion. Each runs
+under its ``export.<type>`` manifest (`step_guard`; columnstats and
+correlation declare their files as outputs). The port is one process,
+so no writer election (ROADMAP A8.3).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 
 from shifu_tpu_torch.config.environment import knob_str
 from shifu_tpu_torch.fileio import atomic_write
-from shifu_tpu_torch.processor.base import ProcessorContext
+from shifu_tpu_torch.processor.base import ProcessorContext, step_guard
 
 log = logging.getLogger("shifu_tpu_torch")
 
@@ -50,6 +52,19 @@ def run(ctx: ProcessorContext, export_type: str = "columnstats",
     et = (export_type or "columnstats").lower()
     if et not in TYPES:
         raise ValueError(f"unknown export type {export_type!r}")
+    outs = []
+    if et == "columnstats":
+        outs = [ctx.path_finder.column_stats_export_path()]
+    elif et == "correlation":
+        outs = [ctx.path_finder.correlation_path()]
+    with step_guard(ctx, f"export.{et}", outputs=outs) as go:
+        if not go:
+            return 0
+        return _export(ctx, et, device, report, t0)
+
+
+def _export(ctx: ProcessorContext, et: str, device: "str | torch.device",
+            report: Optional[Dict[str, Any]], t0: float) -> int:
     if et == "columnstats":
         out = _export_columnstats(ctx)
     elif et == "woemapping":

@@ -46,7 +46,7 @@ from shifu_tpu_torch.ops.normalize import (NormResult,
                                            build_categorical_table,
                                            build_numeric_table,
                                            normalize_dataset)
-from shifu_tpu_torch.processor.base import ProcessorContext
+from shifu_tpu_torch.processor.base import ProcessorContext, step_guard
 
 log = logging.getLogger("shifu_tpu_torch")
 
@@ -278,9 +278,21 @@ def norm_chunk_rows(ctx: ProcessorContext) -> int:
 def run(ctx: ProcessorContext, dataset: Optional[ColumnarDataset] = None,
         device: "str | torch.device" = "cuda",
         report: Optional[Dict[str, float]] = None) -> int:
-    """Write NormalizedData and CleanedData. `report`, when given,
-    receives the seconds spent reading the raw table (``read_s``) and
-    the rows the step computed over (``rows``)."""
+    """Write NormalizedData and CleanedData under the ``norm`` manifest
+    (`step_guard`). `report`, when given, receives the seconds spent
+    reading the raw table (``read_s``) and the rows the step computed
+    over (``rows``)."""
+    with step_guard(ctx, "norm", outputs=[
+            os.path.join(ctx.path_finder.normalized_data_path(),
+                         "meta.json")]) as go:
+        if not go:
+            return 0
+        return _run(ctx, dataset, device, report)
+
+
+def _run(ctx: ProcessorContext, dataset: Optional[ColumnarDataset],
+         device: "str | torch.device",
+         report: Optional[Dict[str, float]]) -> int:
     from shifu_tpu_torch import resolve_device
     dev = resolve_device(device)
     t0 = time.time()

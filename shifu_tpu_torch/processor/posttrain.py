@@ -11,8 +11,8 @@ zeroed or an index column set to its missing slot).
 
 Bin score sums/counts and squared ablation deltas are pure sums, so a
 raw set past the analysis trigger (`chunking.analysis_chunk_rows`) is
-read in chunks (`reader.iter_raw_table`) and merges exactly. The
-`step_guard` completion manifest is ROADMAP A8.
+read in chunks (`reader.iter_raw_table`) and merges exactly. The step
+runs under the ``posttrain`` manifest (`step_guard`).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from shifu_tpu_torch.fileio import atomic_write
 from shifu_tpu_torch.ops import stats as stats_ops
 from shifu_tpu_torch.ops.normalize import build_numeric_table
 from shifu_tpu_torch.processor import norm as norm_proc
-from shifu_tpu_torch.processor.base import ProcessorContext
+from shifu_tpu_torch.processor.base import ProcessorContext, step_guard
 from shifu_tpu_torch.processor.chunking import analysis_chunk_rows
 from shifu_tpu_torch.processor.varselect import _sensitivity_kernel
 
@@ -46,8 +46,11 @@ def run(ctx: ProcessorContext, device: "str | torch.device" = "cuda",
     `Scorer.score` (``score_s``)."""
     ctx.require_columns()
     out = os.path.join(ctx.path_finder.root, "featureimportance.csv")
-    return _run(ctx, out, resolve_device(device),
-                report if report is not None else {})
+    with step_guard(ctx, "posttrain", outputs=[out]) as go:
+        if not go:
+            return 0
+        return _run(ctx, out, resolve_device(device),
+                    report if report is not None else {})
 
 
 def _run(ctx: ProcessorContext, out: str, dev: torch.device,

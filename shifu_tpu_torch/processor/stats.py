@@ -21,7 +21,7 @@ the step to the chunked two-pass sketch of
 `processor/stats_streaming.py`, except that an automatic trigger stays
 resident for segment expansion and DateStats, as in the JAX package.
 The `-seg`, `-seg-merge` and `-base-only` variants (the DAG's
-per-segment siblings, A8) raise in the CLI.
+per-segment siblings, ROADMAP A8.2) raise in the CLI.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ from shifu_tpu_torch.data.reader import Table, read_raw_table
 from shifu_tpu_torch.ops import stats as stats_ops
 from shifu_tpu_torch.ops.binning import cap_categories, \
     compute_numeric_binning
-from shifu_tpu_torch.processor.base import ProcessorContext
+from shifu_tpu_torch.processor.base import ProcessorContext, step_guard
 from shifu_tpu_torch.processor import datestat
 
 log = logging.getLogger("shifu_tpu_torch")
@@ -51,9 +51,20 @@ log = logging.getLogger("shifu_tpu_torch")
 def run(ctx: ProcessorContext, dataset: Optional[ColumnarDataset] = None,
         seed: int = 12306, device: "str | torch.device" = "cuda",
         report: Optional[Dict[str, float]] = None) -> int:
-    """Fill ColumnConfig.json with binning and stats. `report`, when
-    given, receives the seconds spent reading the raw table (``read_s``)
-    and the rows the step computed over (``rows``)."""
+    """Fill ColumnConfig.json with binning and stats, resident or
+    streaming, under the ``stats`` manifest (`step_guard`). `report`,
+    when given, receives the seconds spent reading the raw table
+    (``read_s``) and the rows the step computed over (``rows``)."""
+    with step_guard(ctx, "stats", outputs=[
+            ctx.path_finder.column_config_path()]) as go:
+        if not go:
+            return 0
+        return _run(ctx, dataset, seed, device, report)
+
+
+def _run(ctx: ProcessorContext, dataset: Optional[ColumnarDataset],
+         seed: int, device: "str | torch.device",
+         report: Optional[Dict[str, float]]) -> int:
     from shifu_tpu_torch import resolve_device
     dev = resolve_device(device)
     t0 = time.time()

@@ -17,13 +17,19 @@ With `train#trainOnDisk` every family trains from the `.npy` layout
 builders of `models/gbdt`); multi-class ignores it and trains resident,
 and `numKFold` with it raises, as in the JAX package.
 
-Not ported, each raising and naming its ROADMAP item:
-`CheckpointInterval > 0` (orbax checkpoints of the carry), the
-supervised restart loop
-(`SHIFU_TPU_MAX_RESTARTS > 0`) and the `step_guard` resume
-(`SHIFU_TPU_RESUME`) (A8). The JAX package's `_record_train_roofline`
-(its `profiling` records, A8) has no counterpart; `cli train` prints
-the run's rows, epochs and wall seconds instead.
+The step runs under the ``train`` manifest (`step_guard`; the dense
+family declares `tmp/valerr.json`), and the family dispatch under
+`resilience.supervise`: with ``SHIFU_TPU_MAX_RESTARTS`` > 0 a
+preemption or a transient failure re-invokes it, and the trainer
+resumes from its checkpoint. `CheckpointInterval` > 0 checkpoints the
+resident dense trainer into `checkpoint_path(0)` (not under grid search
+or k-fold, as in the JAX package; a finished run's checkpoint stays,
+so a rerun restores it and returns at once) and the streaming NN, WDL
+and MTL into its `streaming`, `streaming-wdl` and `streaming-mtl`
+subdirectories, removed once the models are saved. The JAX package's
+`_record_train_roofline` (its `profiling` records, ROADMAP A8.5) has no
+counterpart; `cli train` prints the run's rows, epochs and wall seconds
+instead.
 """
 
 from __future__ import annotations
@@ -39,14 +45,13 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from shifu_tpu_torch import resolve_device
-from shifu_tpu_torch.config.environment import knob_bool, knob_int
+from shifu_tpu_torch import resilience, resolve_device
 from shifu_tpu_torch.config.model_config import Algorithm
 from shifu_tpu_torch.fileio import atomic_write
 from shifu_tpu_torch.models import nn as nn_mod
 from shifu_tpu_torch.models.spec import load_model, save_model
 from shifu_tpu_torch.processor import norm as norm_proc
-from shifu_tpu_torch.processor.base import ProcessorContext
+from shifu_tpu_torch.processor.base import ProcessorContext, step_guard
 from shifu_tpu_torch.train import grid_search
 from shifu_tpu_torch.train.trainer import TrainResult, train_nn
 
@@ -73,34 +78,40 @@ def run(ctx: ProcessorContext, seed: int = 12306,
             f"multi-class (>2 tags) is supported for NN/LR/SVM, not "
             f"{alg.value}; the reference likewise restricts "
             f"multiClassifyMethod to its NN-family trainers")
-    if knob_int("SHIFU_TPU_MAX_RESTARTS") > 0 or \
-            knob_bool("SHIFU_TPU_RESUME"):
-        raise NotImplementedError(
-            "the supervised restart loop (SHIFU_TPU_MAX_RESTARTS) and the "
-            "step_guard resume (SHIFU_TPU_RESUME) are not ported yet "
-            "(ROADMAP A8)")
-    if alg.is_tree:
-        from shifu_tpu_torch.processor import train_tree
-        train_tree.run_tree(ctx, seed, device)
-    elif alg in DENSE:
-        if alg is Algorithm.TENSORFLOW:
-            # the reference's TF bridge spawns distributed-TF training;
-            # here the same network trains natively
-            log.info("TENSORFLOW algorithm: training the network natively")
-        results = _train_dense(ctx, seed, resolve_device(device))
-        if report is not None:
-            report.update(_dense_report(results))
-    elif alg in (Algorithm.WDL, Algorithm.MTL):
-        if alg is Algorithm.WDL:
-            from shifu_tpu_torch.processor import train_wdl
-            results = train_wdl.run_wdl(ctx, seed, resolve_device(device))
-        else:
-            from shifu_tpu_torch.processor import train_mtl
-            results = train_mtl.run_mtl(ctx, seed, resolve_device(device))
-        if report is not None:
-            report.update(_dense_report(results))
-    else:
-        raise ValueError(f"unsupported algorithm {alg}")
+    # only the dense family writes val_error_path; the others record a
+    # fingerprint-only manifest
+    outs = [ctx.path_finder.val_error_path()] if alg in DENSE else []
+    with step_guard(ctx, "train", outputs=outs) as go:
+        if not go:
+            return 0
+
+        def _attempt() -> None:
+            if alg.is_tree:
+                from shifu_tpu_torch.processor import train_tree
+                train_tree.run_tree(ctx, seed, device)
+                return
+            if alg in DENSE:
+                if alg is Algorithm.TENSORFLOW:
+                    # the reference's TF bridge spawns distributed-TF
+                    # training; here the same network trains natively
+                    log.info("TENSORFLOW algorithm: training the network "
+                             "natively")
+                results = _train_dense(ctx, seed, resolve_device(device))
+            elif alg is Algorithm.WDL:
+                from shifu_tpu_torch.processor import train_wdl
+                results = train_wdl.run_wdl(ctx, seed, resolve_device(device))
+            elif alg is Algorithm.MTL:
+                from shifu_tpu_torch.processor import train_mtl
+                results = train_mtl.run_mtl(ctx, seed, resolve_device(device))
+            else:
+                raise ValueError(f"unsupported algorithm {alg}")
+            if report is not None:
+                report.update(_dense_report(results))
+
+        # with SHIFU_TPU_MAX_RESTARTS > 0 a preemption or a transient
+        # failure re-invokes the trainer, which resumes from its
+        # checkpoint
+        resilience.supervise(_attempt, step="train", device=device)
     log.info("train[%s] done in %.2fs", alg.value, time.time() - t0)
     return 0
 
@@ -207,11 +218,11 @@ def _train_dense(ctx: ProcessorContext, seed: int,
     is_gs = len(combos) > 1
     kfold = mc.train.numKFold if mc.train.numKFold and \
         mc.train.numKFold > 1 else 0
+    # CheckpointInterval epochs a checkpoint of the carry (NNOutput tmp
+    # models); grid-search combos and k-fold folds skip it
     ck_int = int(mc.train.get_param("CheckpointInterval", 0) or 0)
-    if ck_int > 0 and not is_gs and not kfold:
-        raise NotImplementedError(
-            "train#params CheckpointInterval > 0 (orbax checkpoints of the "
-            "training carry) is not ported yet (ROADMAP A8)")
+    ck_dir = ctx.path_finder.checkpoint_path(0) if ck_int and not is_gs \
+        else None
 
     results: List[Tuple[Dict[str, Any], TrainResult]] = []
     for ci, params in enumerate(combos):
@@ -223,7 +234,8 @@ def _train_dense(ctx: ProcessorContext, seed: int,
             init_params, fixed, gmask = _continuous_init(ctx, spec, seed)
             res = train_nn(conf, x, y, w, seed=seed + ci, spec=spec,
                            init_params=init_params, fixed_layers=fixed,
-                           grad_mask=gmask, device=device)
+                           grad_mask=gmask, device=device,
+                           checkpoint_dir=ck_dir, checkpoint_interval=ck_int)
         results.append((params, res))
         if is_gs:
             log.info("grid[%d/%d] %s → val %.6f", ci + 1, len(combos),
@@ -356,7 +368,6 @@ def _train_dense_streaming(ctx: ProcessorContext, seed: int,
     the JAX package; continuous training starts from models/model0."""
     from shifu_tpu_torch.train import streaming
     mc = ctx.model_config
-    streaming.checkpoint_args(mc)
     path = ctx.path_finder.normalized_data_path()
     if not os.path.exists(os.path.join(path, "dense.npy")):
         raise FileNotFoundError(
@@ -377,14 +388,16 @@ def _train_dense_streaming(ctx: ProcessorContext, seed: int,
     init_params, fixed, gmask = _continuous_init(ctx, spec, seed)
     chunk_rows, n_val = streaming.streaming_train_args(
         mc, norm_proc.load_normalized_meta(path))
+    ck_dir, ck_int = streaming.checkpoint_args(mc, ctx, "streaming")
     res = streaming.train_nn_streaming(
         mc.train, get_chunk, len(tags), dense.shape[1], seed=seed,
         spec=spec, chunk_rows=chunk_rows, init_params=init_params,
         fixed_layers=fixed, grad_mask=gmask, n_val=n_val,
         bag_labels=lambda a, b: np.asarray(tags[a:b], np.float32),
-        device=device)
+        device=device, checkpoint_dir=ck_dir, checkpoint_interval=ck_int)
     _save_dense_models(ctx, res, alg)
     _write_val_errors(ctx, res)
+    streaming.cleanup_checkpoints(ck_dir)
     return [res]
 
 

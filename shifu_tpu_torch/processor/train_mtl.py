@@ -7,7 +7,7 @@ the `.npy` layout (`_run_mtl_streaming`). Rows without the first task's
 tag are dropped by `norm`'s row filter; bagging stratifies and samples
 negatives on task 0, the label upSampleWeight keys on. The JAX
 package's sharding of the heads over a 'model' mesh axis is multi-card
-work (ROADMAP A8) and is left out.
+work (ROADMAP A8.3) and is left out.
 """
 
 from __future__ import annotations
@@ -130,7 +130,6 @@ def _run_mtl_streaming(ctx: ProcessorContext, seed: int,
     metric does."""
     t0 = time.time()
     mc = ctx.model_config
-    streaming.checkpoint_args(mc)
     path = ctx.path_finder.normalized_data_path()
     dense, task_tags, weights = streaming.mmap_layout(
         path, "dense", "task_tags", "weights")
@@ -166,14 +165,16 @@ def _run_mtl_streaming(ctx: ProcessorContext, seed: int,
         return mtl.labelled_mass(inputs[1], w_)
 
     chunk_rows, n_val = streaming.streaming_train_args(mc, meta)
+    ck_dir, ck_int = streaming.checkpoint_args(mc, ctx, "streaming-mtl")
     res = streaming.train_streaming_core(
         mc.train, get_chunk, len(weights), seed=seed, chunk_rows=chunk_rows,
         init_fn=lambda g: mtl.init_params(spec, g), loss_fn=loss_fn,
         metric_sum_fn=metric_sum_fn, n_val=n_val, spec=spec,
         metric_mass_fn=metric_mass_fn,
         bag_labels=lambda a, b: np.asarray(task_tags[a:b, 0], np.float32),
-        device=device)
+        device=device, checkpoint_dir=ck_dir, checkpoint_interval=ck_int)
     _save(ctx, res, _mtl_spec_meta(mc, spec, names, meta))
+    streaming.cleanup_checkpoints(ck_dir)
     log.info("train[MTL streaming]: %d tasks, %d bag(s), best val %s "
              "in %.2fs", len(names), len(res.params_per_bag),
              np.round(res.best_val, 6).tolist(), time.time() - t0)

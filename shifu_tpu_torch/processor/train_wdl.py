@@ -11,7 +11,7 @@ times the row weights; every bag trains at once on `device`
 (`trainer.train_bags` over the bag-stacked params of `models/wdl`).
 The JAX package's mesh sharding of the embedding and wide tables over a
 'model' axis (`SHIFU_TPU_MESH_MODEL`, `parallel/mesh.py`) is multi-card
-work (ROADMAP A8); on one card it has no counterpart, so it is left out.
+work (ROADMAP A8.3); on one card it has no counterpart, so it is left out.
 """
 
 from __future__ import annotations
@@ -142,7 +142,6 @@ def _run_wdl_streaming(ctx: ProcessorContext, seed: int,
     through the streaming core."""
     t0 = time.time()
     mc = ctx.model_config
-    streaming.checkpoint_args(mc)
     path = ctx.path_finder.normalized_data_path()
     if not os.path.exists(os.path.join(path, "dense.npy")):
         raise FileNotFoundError(
@@ -170,12 +169,14 @@ def _run_wdl_streaming(ctx: ProcessorContext, seed: int,
     spec = wdl.WDLSpec.from_train_params(mc.train.params, dense.shape[1],
                                          n_cat, vocab)
     chunk_rows, n_val = streaming.streaming_train_args(mc, meta)
+    ck_dir, ck_int = streaming.checkpoint_args(mc, ctx, "streaming-wdl")
     res = streaming.train_wdl_streaming(
         mc.train, get_chunk, len(tags), spec, seed=seed,
         chunk_rows=chunk_rows, n_val=n_val,
         bag_labels=lambda a, b: np.asarray(tags[a:b], np.float32),
-        device=device)
+        device=device, checkpoint_dir=ck_dir, checkpoint_interval=ck_int)
     _save(ctx, res, _wdl_spec_meta(mc, spec, meta))
+    streaming.cleanup_checkpoints(ck_dir)
     log.info("train[WDL streaming]: %d bag(s), best val %s in %.2fs",
              len(res.params_per_bag), np.round(res.best_val, 6).tolist(),
              time.time() - t0)

@@ -26,7 +26,8 @@ size) SE/ST/SC and V read a uniform sample of at most
 SHIFU_TPU_ANALYSIS_MAX_ROWS rows (`chunking.analysis_frame`, read in
 chunks and cached on the context), and se.0 says so in its first line;
 FI reads what `norm` writes (the streaming norm past the norm trigger).
-The `step_guard` completion manifest is ROADMAP A8.
+The selection path runs under the ``varselect`` manifest
+(`step_guard`); `-reset`, `-list` and `-f` are edits and stay outside it.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ from shifu_tpu_torch.config.model_config import NormType
 from shifu_tpu_torch.fileio import atomic_write
 from shifu_tpu_torch.models import nn as nn_mod
 from shifu_tpu_torch.processor import norm as norm_proc
-from shifu_tpu_torch.processor.base import ProcessorContext
+from shifu_tpu_torch.processor.base import ProcessorContext, step_guard
 from shifu_tpu_torch.processor import chunking
 from shifu_tpu_torch.train import optimizers
 from shifu_tpu_torch.train.trainer import train_nn
@@ -123,6 +124,18 @@ def run(ctx: ProcessorContext, recursive: int = 0, seed: int = 12306,
                  select_file)
         return 0
 
+    with step_guard(ctx, "varselect",
+                    outputs=[ctx.path_finder.column_config_path()]) as go:
+        if not go:
+            return 0
+        return _select(ctx, recursive, seed, device, report, t0)
+
+
+def _select(ctx: ProcessorContext, recursive: int, seed: int,
+            device: "str | torch.device", report: Dict[str, Any],
+            t0: float) -> int:
+    """The selection path: pre-filters, then `varSelect#filterBy`."""
+    vs = ctx.model_config.varSelect
     candidates = _apply_pre_filters(ctx)
     if not vs.filterEnable:
         for cc in candidates:

@@ -1,6 +1,5 @@
-"""Fault injection, bounded retry and deliberate absorbs — the port's
-copy of the parts of `shifu_tpu/resilience.py` that the serving plane,
-the health plane, the registry, the fleet and the closed loop call:
+"""Fault injection, bounded retry, markers, preemption and supervised
+restarts — the port's copy of `shifu_tpu/resilience.py`:
 
 1. **Deterministic fault injection** (`fault_point`): the env spec
 
@@ -8,42 +7,67 @@ the health plane, the registry, the fleet and the closed loop call:
 
    makes an instrumented site misbehave on specific calls. ``kind`` is
    ``oserror`` | ``timeout`` (raise OSError / TimeoutError), ``kill``
-   (SIGKILL the process — a real mid-publish crash) or ``preempt`` (set
+   (SIGKILL the process — a real mid-step crash) or ``preempt`` (set
    the graceful-shutdown flag that SIGTERM sets). ``nth`` is a 1-based
    per-site call counter: ``2`` fires on exactly the 2nd call, ``1-3``
-   on calls 1..3, ``2+`` on every call from the 2nd on. The sites of
-   this slice are listed in ``FAULT_SITES``. Unset (the default) this
-   is dead code.
+   on calls 1..3, ``2+`` on every call from the 2nd on. The static
+   sites are listed in ``FAULT_SITES`` (plus the dynamic
+   ``step.<name>`` at each processor step's start). Unset (the
+   default) this is dead code.
 2. **Bounded retry with backoff** (`retrying`): transient errors
    (timeouts, connection and other OS errors) are retried with
    exponential backoff under ``SHIFU_TPU_RETRY_ATTEMPTS`` /
    ``_BASE_S`` / ``_MAX_S``; permanent ones (a missing file, a
-   permission error) propagate at once (`is_transient`).
+   permission error, a value error) propagate at once
+   (`is_transient`).
 3. **Deliberate absorbs** (`absorbed`, `absorb_counts`): a per-site
-   counter for every exception the health plane swallows by design.
-4. **Preemption flag** (`request_preempt`, `preempt_requested`,
-   `graceful_shutdown`): SIGTERM/SIGINT set a flag the watch loop
-   checks at tick boundaries, as `cli serve` stops on them.
-
-5. **Startup hygiene** (`sweep_stale`): the ``.tmp.*`` residue a
+   counter for every exception swallowed by design.
+4. **The abort scope** (`set_abort_scope`): the model set's ``tmp/``,
+   set by `step_guard`. A step's start and each supervised attempt
+   clear a stale abort or preempt marker there (`clear_abort`,
+   `clear_preempt_marker`), as the JAX package's do; nothing in the
+   one-card port publishes one. A ``scheme://`` scope raises (ROADMAP
+   A8.4).
+5. **Preemption-safe shutdown** (`graceful_shutdown` /
+   `preempt_requested` / `Preempted`): SIGTERM/SIGINT set a flag the
+   epoch loops check at step boundaries; the trainer saves a final
+   checkpoint and raises `Preempted`, which the CLI turns into
+   ``PREEMPT_RC`` (75) — a rerun with ``SHIFU_TPU_RESUME=1`` picks up
+   at the saved step. Leaving the scope flushes the background
+   checkpoint writer.
+6. **Supervised restarts** (`supervise`): the train step is re-invoked
+   on preemption or a transient failure up to
+   ``SHIFU_TPU_MAX_RESTARTS`` times (default 0 = off) with exponential
+   backoff; each attempt restores from its checkpoint directory.
+   Each restart record is appended to the scope's
+   ``metrics/steps.jsonl``.
+7. **Startup hygiene** (`sweep_stale`): the ``.tmp.*`` residue a
    killed `fileio.atomic_write` leaves in a local directory is removed
-   when the row log opens.
+   when a step or the row log starts.
 
-`atomic_write` and `atomic_path` stay in `fileio.py`. The abort and
-preempt markers, `supervise`, `step_guard`, checkpoint faults and the
-remaining sites of the JAX package's ``FAULT_SITES`` are ROADMAP A8.1;
-the remote sweep is A8.4.
+`atomic_write` and `atomic_path` stay in `fileio.py` (their
+``atomic.commit`` site fires just before the rename). The multi-host
+pieces are ROADMAP A8.3: `publish_preempt` (the broadcast from the
+signal handler), `preempt_exit_sync` (the ordered exit and its
+``preempt.ack.*`` markers), `publish_abort`/`check_abort`/
+`check_preempt_marker` (the markers a peer reads) and
+`dump_thread_stacks` (the collective watchdog's); the `retry`
+decorator, `retry_stats` and the buffered events (`note_event`/
+`drain_events`) come with the step records and spans of A8.5; the
+remote sweep and remote markers are A8.4.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import json
 import logging
 import os
 import random
 import re
 import signal
+import sys
 import threading
 import time
 from typing import Callable, Iterator, List, NamedTuple, Optional
@@ -95,9 +119,15 @@ class _FaultRule(NamedTuple):
     hi: float       # inclusive; inf for "N+"
 
 
-# the static fault sites of the port's serving and health planes and
-# of the closed loop (the row log, refresh, canary and the shadow arm)
+# every static fault site of the port (`step.<name>` sites are
+# dynamic); the JAX package's others are its remote filesystem
+# (`fs.*`, A8.4), its collectives and the DAG (`dist.*` A8.3,
+# `dag.*` A8.2) and its trace export (`obs.export`, A8.5)
 FAULT_SITES = (
+    "reader.read", "reader.native",
+    "ckpt.save", "ckpt.stage", "ckpt.publish", "ckpt.saved",
+    "ckpt.restore", "ckpt.reshard",
+    "atomic.commit", "pipeline.fetch", "serve.request",
     "serve.route", "registry.publish", "obs.metrics_flush", "obs.alert",
     "obs.webhook", "watch.window", "refresh.swap",
     "ingest.append", "ingest.seal", "ingest.offset",
@@ -223,8 +253,87 @@ def absorb_counts() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# preemption flag
+# abort and preempt markers, durable event records
 # ---------------------------------------------------------------------------
+
+# the model set's tmp/ directory: set by step_guard on entry so code
+# deep in the stack reaches the markers without a root argument
+_abort_scope: Optional[str] = None
+_ABORT_NAME = "abort.marker"
+_PREEMPT_NAME = "preempt.marker"
+
+
+def set_abort_scope(tmp_dir: Optional[str]) -> None:
+    """Point the abort/preempt markers and the durable event records at
+    the model set's ``tmp/`` directory (None unsets it)."""
+    global _abort_scope
+    _abort_scope = tmp_dir
+
+
+def _abort_dir() -> Optional[str]:
+    d = _abort_scope
+    if d:
+        from shifu_tpu_torch import fileio
+        if fileio.has_scheme(d):
+            raise NotImplementedError(
+                f"{d}: remote abort and preempt markers are not ported "
+                "yet (ROADMAP A8.4); use a local model set")
+    return d
+
+
+def _marker_path(name: str) -> Optional[str]:
+    d = _abort_dir()
+    return os.path.join(d, name) if d else None
+
+
+def _clear_marker(path: Optional[str], what: str) -> None:
+    if not path:
+        return
+    try:
+        if os.path.exists(path):
+            os.remove(path)
+    except OSError as e:
+        log.warning("could not clear %s marker %s: %s", what, path, e)
+
+
+def clear_abort() -> None:
+    """Remove a stale abort marker (step start, restart attempt)."""
+    _clear_marker(_marker_path(_ABORT_NAME), "abort")
+
+
+def clear_preempt_marker() -> None:
+    """Remove a stale preempt marker (step start, restart attempt)."""
+    _clear_marker(_marker_path(_PREEMPT_NAME), "preempt")
+
+
+def _append_steps_jsonl(rec: dict) -> None:
+    """Durable append to the scope's metrics/steps.jsonl."""
+    d = _abort_dir()
+    if not d:
+        return
+    try:
+        mdir = os.path.join(d, "metrics")
+        os.makedirs(mdir, exist_ok=True)
+        with open(os.path.join(mdir, "steps.jsonl"), "a") as f:
+            f.write(json.dumps(rec) + "\n")
+    except OSError as e:
+        log.warning("could not append event to steps.jsonl: %s", e)
+
+
+# ---------------------------------------------------------------------------
+# preemption-safe shutdown
+# ---------------------------------------------------------------------------
+
+#: exit code of a preempted but checkpointed run (EX_TEMPFAIL): a
+#: supervisor that sees it reruns with SHIFU_TPU_RESUME=1
+PREEMPT_RC = 75
+
+
+class Preempted(RuntimeError):
+    """Raised at a step boundary after a SIGTERM/SIGINT (or an injected
+    ``preempt`` fault) once the final checkpoint is saved."""
+    rc = PREEMPT_RC
+
 
 _preempt = threading.Event()
 
@@ -241,17 +350,29 @@ def clear_preempt() -> None:
     _preempt.clear()
 
 
+def _flush_checkpoints() -> None:
+    """Make an in-flight background checkpoint durable (a preempt exits
+    rc 75 right after the scope unwinds). Nothing to flush when the
+    checkpoint module was never imported."""
+    ckpt = sys.modules.get("shifu_tpu_torch.train.checkpoint")
+    if ckpt is None:
+        return
+    try:
+        ckpt.flush_saves(reraise=False)
+    except Exception as e:  # noqa: BLE001 — the unwind must go on
+        absorbed("preempt.ckpt-flush", e)
+
+
 @contextlib.contextmanager
 def graceful_shutdown(note: str = "watching") -> Iterator[None]:
     """SIGTERM/SIGINT set the preemption flag (cleared on entry) while
-    the block runs (the loop stops at its next boundary); a second
-    signal restores the
-    previous handlers and raises KeyboardInterrupt at once. No-op off
-    the main thread (`signal.signal` would raise)."""
+    the block runs: the loop stops at its next boundary (an epoch loop
+    checkpoints and raises `Preempted`); a second signal restores the
+    previous handlers and raises KeyboardInterrupt at once. Leaving
+    the block flushes the background checkpoint writer. The handlers
+    are installed on the main thread only (`signal.signal` raises
+    elsewhere)."""
     clear_preempt()
-    if threading.current_thread() is not threading.main_thread():
-        yield
-        return
     previous = {}
 
     def _handler(signum, frame):  # noqa: ARG001 — signal API
@@ -259,17 +380,73 @@ def graceful_shutdown(note: str = "watching") -> Iterator[None]:
             for sig, handler in previous.items():
                 signal.signal(sig, handler)
             raise KeyboardInterrupt(f"second signal {signum} during {note}")
-        log.warning("signal %d: stopping %s at the next boundary",
-                    signum, note)
+        log.warning("signal %d: stopping %s at the next boundary "
+                    "(a checkpointed trainer exits rc=%d; rerun with "
+                    "SHIFU_TPU_RESUME=1 to resume)", signum, note,
+                    PREEMPT_RC)
         request_preempt()
 
-    for sig in (signal.SIGTERM, signal.SIGINT):
-        previous[sig] = signal.signal(sig, _handler)
+    if threading.current_thread() is threading.main_thread():
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            previous[sig] = signal.signal(sig, _handler)
     try:
         yield
     finally:
         for sig, handler in previous.items():
             signal.signal(sig, handler)
+        _flush_checkpoints()
+
+
+# ---------------------------------------------------------------------------
+# supervised restart loop
+# ---------------------------------------------------------------------------
+
+def _device_count(device) -> int:
+    """The cards torch sees for a run on `device` (1 for the CPU): what
+    a restart resumes on."""
+    if device is None or str(device).startswith("cpu"):
+        return 1
+    import torch
+    return int(torch.cuda.device_count()) if torch.cuda.is_available() \
+        else 0
+
+
+def supervise(fn: Callable[[], "object"], step: str = "train",
+              max_restarts: Optional[int] = None, device=None):
+    """Run `fn()` under a restart supervisor: on `Preempted` or a
+    transient failure, re-invoke it up to ``SHIFU_TPU_MAX_RESTARTS``
+    times (default 0 — supervision off) with exponential backoff. The
+    trainers restore from their checkpoint directory on entry, so each
+    re-invocation resumes at the last saved step. Restart records (with
+    the cards torch sees for the run's `device`) are appended to
+    ``steps.jsonl`` when a scope is set.
+    Permanent errors and an exhausted budget re-raise."""
+    if max_restarts is None:
+        max_restarts = max(knob_int("SHIFU_TPU_MAX_RESTARTS"), 0)
+    base = knob_float("SHIFU_TPU_RETRY_BASE_S")
+    cap = knob_float("SHIFU_TPU_RETRY_MAX_S")
+    restarts = 0
+    while True:
+        clear_preempt()
+        clear_abort()
+        clear_preempt_marker()
+        try:
+            return fn()
+        except BaseException as e:  # noqa: BLE001 — classified below
+            restartable = isinstance(e, Preempted) or is_transient(e)
+            if restarts >= max_restarts or not restartable:
+                raise
+            restarts += 1
+            delay = min(cap, base * 2 ** (restarts - 1))
+            err = f"{type(e).__name__}: {e}"
+            log.warning("supervise[%s]: restart %d/%d in %.2fs after %s",
+                        step, restarts, max_restarts, delay, err)
+            rec = {"step": step, "event": "restart", "restart": restarts,
+                   "maxRestarts": max_restarts, "error": err,
+                   "time": round(time.time(), 3),
+                   "devices": _device_count(device)}
+            _append_steps_jsonl(rec)
+            time.sleep(delay)
 
 
 # ---------------------------------------------------------------------------

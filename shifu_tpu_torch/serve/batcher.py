@@ -8,7 +8,8 @@ shape bucket) or the opener's deadline — submit time +
 overflow the bucket is carried over to open the next batch, so order
 stays FIFO end to end. The admission queue is bounded
 (``SHIFU_TPU_SERVE_QUEUE_DEPTH``); a full queue rejects the submit with
-`queue.Full`.
+`queue.Full`. The ``serve.request`` fault site fires once a submit,
+before the request is queued.
 """
 
 from __future__ import annotations
@@ -18,7 +19,10 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
+from shifu_tpu_torch import resilience
 from shifu_tpu_torch.config import environment as env
+
+SERVE_SITE = "serve.request"
 
 
 def max_delay_s() -> float:
@@ -87,12 +91,14 @@ class MicroBatcher:
 
     # -- producer side -------------------------------------------------
     def submit(self, blocks: Dict[str, Any], n: int) -> Request:
-        """Enqueue one request; raises `queue.Full` on backpressure."""
+        """Enqueue one request; raises `queue.Full` on backpressure and
+        whatever the `serve.request` fault site injects."""
         if self._thread is None or self._stop.is_set():
             raise RuntimeError("micro-batcher is not running")
         if n <= 0 or n > self.max_rows:
             raise ValueError(
                 f"request rows must be in [1, {self.max_rows}], got {n}")
+        resilience.fault_point(SERVE_SITE)
         req = Request(blocks, n)
         self._q.put_nowait(req)
         return req

@@ -34,22 +34,32 @@ issued for chunk k+1 while chunk k computes. A chunk stored as f16
 chunk to one shape for XLA; here the tail chunk is simply shorter
 (zero-weight rows add nothing, and every denominator is clamped).
 
-Not ported: `CheckpointInterval > 0` (`checkpoint_args` raises,
-ROADMAP A8), and the JAX core's multi-host row slices and mesh
-placement (one card here).
+With `CheckpointInterval` > 0 (`checkpoint_args`: the directory is
+``checkpoint_path(0)/<route>``) the state — parameters, optimizer
+state, the best tracker, the stop counters, the curves so far and the
+dropout generator — is saved every `checkpoint_interval` epochs and
+restored on entry (`restore_latest` with a step-shaped `like`); the
+chunk order derives from the epoch number, so a resumed run replays the
+same schedule and equals a straight one. A preemption saves off the
+interval (`save_interrupt`) and raises `resilience.Preempted`. The
+caller removes the directory only after the models are saved
+(`cleanup_checkpoints`). The JAX core's multi-host row slices and mesh
+placement are ROADMAP A8.3.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
+import shutil
 import time
 from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from shifu_tpu_torch import resolve_device
+from shifu_tpu_torch import resilience, resolve_device
 from shifu_tpu_torch.data import pipeline as pipe
 from shifu_tpu_torch.models import nn as nn_mod
 from shifu_tpu_torch.train import trainer as trainer_mod
@@ -120,13 +130,24 @@ def streaming_train_args(mc, meta) -> Tuple[int, Optional[int]]:
     return chunk_rows, n_val
 
 
-def checkpoint_args(mc) -> None:
-    """train#params CheckpointInterval > 0 is refused, as the resident
-    trainer refuses it."""
-    if int(mc.train.get_param("CheckpointInterval", 0) or 0) > 0:
-        raise NotImplementedError(
-            "train#params CheckpointInterval > 0 (checkpoints of the "
-            "streaming trainer) is not ported yet (ROADMAP A8)")
+def checkpoint_args(mc, ctx, route: str
+                    ) -> Tuple[Optional[str], int]:
+    """(checkpoint_dir, interval) of a streaming trainer: one rule for
+    the NN/WDL/MTL processors, a subdirectory a route; (None, 0)
+    without train#params CheckpointInterval."""
+    ck_int = int(mc.train.get_param("CheckpointInterval", 0) or 0)
+    if not ck_int:
+        return None, 0
+    return os.path.join(ctx.path_finder.checkpoint_path(0), route), ck_int
+
+
+def cleanup_checkpoints(checkpoint_dir: Optional[str]) -> None:
+    """Remove a streaming run's checkpoints after its models are saved:
+    a finished run's state must not resume into the next fresh run, and
+    removing it before the models are written would lose the run to a
+    crash in between."""
+    if checkpoint_dir:
+        shutil.rmtree(checkpoint_dir, ignore_errors=True)
 
 
 def _grad_mask(one_bag: Any, grad_mask, fixed_layers) -> Any:
@@ -159,7 +180,9 @@ def train_streaming_core(train_conf, get_chunk: Callable[[int, int], Tuple],
                          bag_labels: Optional[
                              Callable[[int, int], np.ndarray]] = None,
                          dropout: bool = False,
-                         device: "str | torch.device" = "cuda"
+                         device: "str | torch.device" = "cuda",
+                         checkpoint_dir: Optional[str] = None,
+                         checkpoint_interval: int = 0
                          ) -> TrainResult:
     """Model-agnostic streaming trainer on `device`.
 
@@ -171,7 +194,8 @@ def train_streaming_core(train_conf, get_chunk: Callable[[int, int], Tuple],
     model's params (bags are drawn by `trainer.initial_params`), or
     `init_params` (one model) for every bag. bag_labels(a, b) → labels
     for train.sampleNegOnly. `dropout` hands the loss a generator on
-    the device."""
+    the device. `checkpoint_dir` with `checkpoint_interval` > 0 saves
+    and restores the state (module docstring)."""
     t0 = time.time()
     dev = resolve_device(device)
     neg_only = bool(getattr(train_conf, "sampleNegOnly", False))
@@ -262,69 +286,140 @@ def train_streaming_core(train_conf, get_chunk: Callable[[int, int], Tuple],
     def bag_mask(flags):
         return torch.as_tensor(flags).to(dev)
 
-    for epoch in range(train_conf.numTrainEpochs):
-        order = np.random.default_rng(
-            (seed ^ 0x5EED) + epoch).permutation(len(train_chunks))
-        chunks = pipe.map_prefetch(lambda bnd: host_assemble(bnd, True),
-                                   [train_chunks[i] for i in order])
-        prev = tree_map(torch.clone, stacked) if stopped.any() else None
-        loss_parts, sw_parts = [], []
-        nxt = place(next(chunks), "t")
-        for ci in range(len(order)):
-            inputs, w_bags = nxt
-            stacked, opt_state, loss, sw = update(stacked, opt_state,
-                                                  inputs, w_bags)
-            loss_parts.append(loss)
-            sw_parts.append(sw)
-            if ci + 1 < len(order):
-                nxt = place(next(chunks), "t")   # copies while it computes
-        if prev is not None:
-            keep = bag_mask(stopped)
-            stacked = _unflat(stacked, [
-                trainer_mod._bag_where(keep, old, new)
-                for new, old in zip(_flat(stacked), _flat(prev))])
-        # the epoch's one fetch; the sums run on the host in float64
-        losses = torch.stack(loss_parts).cpu().numpy().astype(np.float64)
-        sws = torch.stack(sw_parts).cpu().numpy().astype(np.float64)
-        train_err = np.sum(losses * sws, axis=0) / np.maximum(
-            np.sum(sws, axis=0), 1e-12)
+    start_epoch = 0
+    checkpointing = bool(checkpoint_dir) and checkpoint_interval > 0
+    if checkpointing:
+        from shifu_tpu_torch.train import checkpoint as ckpt_mod
 
-        if val_chunks:
-            e_parts, m_parts = [], []
-            vchunks = pipe.map_prefetch(
-                lambda bnd: host_assemble(bnd, False), val_chunks)
-            nxt = place(next(vchunks), "v")
-            with torch.no_grad():
-                for ci in range(len(val_chunks)):
-                    inputs, w = nxt
-                    e_parts.append(metric_sum_fn(stacked, inputs, w))
-                    m_parts.append(metric_mass_fn(inputs, w))
-                    if ci + 1 < len(val_chunks):
-                        nxt = place(next(vchunks), "v")
-            es = torch.stack(e_parts).cpu().numpy().astype(np.float64)
-            ms = torch.stack(m_parts).cpu().numpy().astype(np.float64)
-            val_err = np.sum(es, axis=0) / max(float(np.sum(ms)), 1e-12)
-        else:
-            val_err = train_err
+        def _like(step):
+            # the curves' shapes depend on the resume epoch; steps past
+            # numTrainEpochs are filtered by max_step
+            return {"stacked": stacked, "opt_state": opt_state,
+                    "best": best, "best_val": best_val,
+                    "best_epoch": best_epoch, "bad": bad,
+                    "stopped": stopped, "gen": gen,
+                    "train_errs": np.zeros((step, n_bags), np.float32),
+                    "val_errs": np.zeros((step, n_bags), np.float32)}
 
-        train_errs.append(train_err.astype(np.float32))
-        val_errs.append(val_err.astype(np.float32))
-        improved = (val_err < best_val) & ~stopped
-        if improved.any():
-            imp = bag_mask(improved)
-            with torch.no_grad():
-                best = _unflat(best, [
-                    trainer_mod._bag_where(imp, p, b)
-                    for b, p in zip(_flat(best), _flat(stacked))])
-            best_val = np.where(improved, val_err,
-                                best_val).astype(np.float32)
-            best_epoch = np.where(improved, epoch, best_epoch)
-        bad = np.where(stopped, bad, np.where(improved, 0, bad + 1))
-        stopped |= (window > 0) & (bad >= window)
-        stopped |= (conv > 0) & (train_err <= conv)
-        if stopped.all():
-            log.info("streaming train: all bags stopped at epoch %d", epoch)
-            break
+        restored = ckpt_mod.restore_resharded(
+            checkpoint_dir, _like, device=dev,
+            max_step=train_conf.numTrainEpochs)
+        if restored is not None:
+            step, st = restored
+            stacked, opt_state, best = st["stacked"], st["opt_state"], \
+                st["best"]
+            best_val, best_epoch = st["best_val"], st["best_epoch"]
+            bad, stopped = st["bad"], st["stopped"]
+            if gen is not None:
+                gen.set_state(st["gen"].get_state())
+            train_errs = list(st["train_errs"])
+            val_errs = list(st["val_errs"])
+            start_epoch = int(step)
+            log.info("streaming train: resumed from checkpoint at "
+                     "epoch %d", start_epoch)
+            if stopped.all():
+                # every bag had already stopped: the restored best is
+                # the result, another epoch would only add a curve row
+                start_epoch = train_conf.numTrainEpochs
+
+    def _ckpt_state():
+        return {"stacked": stacked, "opt_state": opt_state, "best": best,
+                "best_val": best_val, "best_epoch": best_epoch, "bad": bad,
+                "stopped": stopped, "gen": gen,
+                "train_errs": np.stack(train_errs),
+                "val_errs": np.stack(val_errs)}
+
+    with contextlib.ExitStack() as unwind:
+        if checkpointing:
+            # SIGTERM/SIGINT → finish the epoch, save, raise Preempted
+            # (rc 75); the writer's last save is made durable on the
+            # way out, its error raised only on a clean exit
+            unwind.enter_context(
+                resilience.graceful_shutdown("streaming train"))
+            unwind.push(lambda *exc: ckpt_mod.flush_saves(
+                reraise=exc[0] is None))
+        for epoch in range(start_epoch, train_conf.numTrainEpochs):
+            order = np.random.default_rng(
+                (seed ^ 0x5EED) + epoch).permutation(len(train_chunks))
+            chunks = pipe.map_prefetch(lambda bnd: host_assemble(bnd, True),
+                                       [train_chunks[i] for i in order])
+            prev = tree_map(torch.clone, stacked) if stopped.any() else None
+            loss_parts, sw_parts = [], []
+            nxt = place(next(chunks), "t")
+            for ci in range(len(order)):
+                inputs, w_bags = nxt
+                stacked, opt_state, loss, sw = update(stacked, opt_state,
+                                                      inputs, w_bags)
+                loss_parts.append(loss)
+                sw_parts.append(sw)
+                if ci + 1 < len(order):
+                    # copies while it computes
+                    nxt = place(next(chunks), "t")
+            if prev is not None:
+                keep = bag_mask(stopped)
+                stacked = _unflat(stacked, [
+                    trainer_mod._bag_where(keep, old, new)
+                    for new, old in zip(_flat(stacked), _flat(prev))])
+            # the epoch's one fetch; the sums run on the host in float64
+            losses = torch.stack(loss_parts).cpu().numpy().astype(np.float64)
+            sws = torch.stack(sw_parts).cpu().numpy().astype(np.float64)
+            train_err = np.sum(losses * sws, axis=0) / np.maximum(
+                np.sum(sws, axis=0), 1e-12)
+
+            if val_chunks:
+                e_parts, m_parts = [], []
+                vchunks = pipe.map_prefetch(
+                    lambda bnd: host_assemble(bnd, False), val_chunks)
+                nxt = place(next(vchunks), "v")
+                with torch.no_grad():
+                    for ci in range(len(val_chunks)):
+                        inputs, w = nxt
+                        e_parts.append(metric_sum_fn(stacked, inputs, w))
+                        m_parts.append(metric_mass_fn(inputs, w))
+                        if ci + 1 < len(val_chunks):
+                            nxt = place(next(vchunks), "v")
+                es = torch.stack(e_parts).cpu().numpy().astype(np.float64)
+                ms = torch.stack(m_parts).cpu().numpy().astype(np.float64)
+                val_err = np.sum(es, axis=0) / max(float(np.sum(ms)), 1e-12)
+            else:
+                val_err = train_err
+
+            train_errs.append(train_err.astype(np.float32))
+            val_errs.append(val_err.astype(np.float32))
+            improved = (val_err < best_val) & ~stopped
+            if improved.any():
+                imp = bag_mask(improved)
+                with torch.no_grad():
+                    best = _unflat(best, [
+                        trainer_mod._bag_where(imp, p, b)
+                        for b, p in zip(_flat(best), _flat(stacked))])
+                best_val = np.where(improved, val_err,
+                                    best_val).astype(np.float32)
+                best_epoch = np.where(improved, epoch, best_epoch)
+            bad = np.where(stopped, bad, np.where(improved, 0, bad + 1))
+            stopped |= (window > 0) & (bad >= window)
+            stopped |= (conv > 0) & (train_err <= conv)
+            saved = False
+            if checkpointing and (epoch + 1) % checkpoint_interval == 0:
+                ckpt_mod.save_checkpoint(checkpoint_dir, epoch + 1,
+                                         _ckpt_state())
+                saved = True
+            if checkpointing and resilience.preempt_requested():
+                # a preemption notice: save off the interval so nothing
+                # past the last save is lost, then stop with rc 75
+                if saved:
+                    ckpt_mod.flush_saves()
+                else:
+                    ckpt_mod.save_interrupt(checkpoint_dir, epoch + 1,
+                                            _ckpt_state())
+                raise resilience.Preempted(
+                    f"streaming train preempted after epoch {epoch + 1}/"
+                    f"{train_conf.numTrainEpochs}; checkpoint saved")
+            if stopped.all():
+                log.info("streaming train: all bags stopped at epoch %d",
+                         epoch)
+                break
+
 
     res = TrainResult(
         spec=spec, params_per_bag=unstack_params(best),
@@ -344,8 +439,9 @@ def train_nn_streaming(train_conf, get_chunk, n_rows: int, input_dim: int,
                        chunk_rows: int = 262_144, init_params=None,
                        fixed_layers=None, grad_mask=None,
                        n_val: Optional[int] = None, bag_labels=None,
-                       device: "str | torch.device" = "cuda"
-                       ) -> TrainResult:
+                       device: "str | torch.device" = "cuda",
+                       checkpoint_dir: Optional[str] = None,
+                       checkpoint_interval: int = 0) -> TrainResult:
     """`baggingNum` NN/LR models trained by streaming row chunks:
     get_chunk(a, b) → (x, y, w)."""
     spec = spec or nn_mod.MLPSpec.from_train_params(train_conf.params,
@@ -370,14 +466,17 @@ def train_nn_streaming(train_conf, get_chunk, n_rows: int, input_dim: int,
         metric_sum_fn=metric_sum_fn, init_params=init_params,
         fixed_layers=fixed_layers, grad_mask=grad_mask, n_val=n_val,
         spec=spec, bag_labels=bag_labels,
-        dropout=spec.dropout_rate > 0, device=device)
+        dropout=spec.dropout_rate > 0, device=device,
+        checkpoint_dir=checkpoint_dir,
+        checkpoint_interval=checkpoint_interval)
 
 
 def train_wdl_streaming(train_conf, get_chunk, n_rows: int, spec,
                         seed: int = 12306, chunk_rows: int = 262_144,
                         n_val: Optional[int] = None, bag_labels=None,
-                        device: "str | torch.device" = "cuda"
-                        ) -> TrainResult:
+                        device: "str | torch.device" = "cuda",
+                        checkpoint_dir: Optional[str] = None,
+                        checkpoint_interval: int = 0) -> TrainResult:
     """Streaming wide-and-deep: get_chunk(a, b) → (dense, idx, y, w)."""
     from shifu_tpu_torch.models import wdl as wdl_mod
 
@@ -394,4 +493,5 @@ def train_wdl_streaming(train_conf, get_chunk, n_rows: int, spec,
         train_conf, get_chunk, n_rows, seed=seed, chunk_rows=chunk_rows,
         init_fn=lambda g: wdl_mod.init_params(spec, g), loss_fn=loss_fn,
         metric_sum_fn=metric_sum_fn, n_val=n_val, spec=spec,
-        bag_labels=bag_labels, device=device)
+        bag_labels=bag_labels, device=device, checkpoint_dir=checkpoint_dir,
+        checkpoint_interval=checkpoint_interval)

@@ -25,8 +25,14 @@ multiplicities bit for bit. Initial parameters are drawn from a CPU
 generator seeded by the train seed, so a card run and its CPU twin
 start from the same weights; `jax.random` and torch generators differ,
 so the parity tests inject the JAX package's initial parameters.
-Checkpointed chunks (`CheckpointInterval`, orbax) are not ported
-(ROADMAP A8).
+
+With a checkpoint directory and `CheckpointInterval` > 0, `train_bags`
+trains in chunks of that many epochs and saves the whole carry after
+each (`train/checkpoint.py`); a restarted run restores the newest
+checkpoint and goes on from there. Chunking changes no arithmetic: the
+mini-batch order is drawn once and sliced, the dropout generator and
+the early-stop trackers carry on, so a resumed run equals a straight
+one to the bit.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from shifu_tpu_torch import resolve_device
+from shifu_tpu_torch import resilience, resolve_device
 from shifu_tpu_torch.models import nn as nn_mod
 from shifu_tpu_torch.train.optimizers import (Optimizer, freeze,
                                               optimizer_from_params)
@@ -390,11 +396,18 @@ def train_bags(loss_fn, metric_fn, optimizer: Optimizer, n_epochs: int,
     ``0xB47C4 ^ perm_seed``) and each bag takes the batches in the
     order `batch_order` gives ((E, B, n_batches)); by default the
     orders are drawn at once from a CPU generator seeded by
-    `perm_seed`, so a card run and its CPU twin take the same ones."""
-    if checkpoint_dir and checkpoint_interval > 0:
-        raise NotImplementedError(
-            "train#params CheckpointInterval > 0 (orbax checkpoints of the "
-            "training carry) is not ported yet (ROADMAP A8)")
+    `perm_seed`, so a card run and its CPU twin take the same ones.
+
+    With `checkpoint_dir` and `checkpoint_interval` > 0 the epochs run
+    in chunks of `checkpoint_interval`, the carry saved after each
+    (`checkpoint.save_checkpoint`); an existing checkpoint of at most
+    `n_epochs` epochs is restored first. A preemption (SIGTERM, or the
+    ``preempt`` fault) stops the run after the next save with
+    `resilience.Preempted`. As in the JAX package, a resumed run
+    returns the train and validation curves of the epochs after the
+    resume only, `best_epoch` as the argmin over those, and for a run
+    that had already finished train errors of shape (B, 0) and the
+    best validation errors as its one (B, 1) column."""
     dev = resolve_device(device)
     n_rows = int(train_inputs[0].shape[0])
     n_bags = int(w_train_bags.shape[0])
@@ -421,19 +434,68 @@ def train_bags(loss_fn, metric_fn, optimizer: Optimizer, n_epochs: int,
     grad_mask = tree_map(lambda v: _on(v, dev), grad_mask)
 
     carry = init_train_carry(optimizer, stacked_params, dropout_generator)
-    carry, train_errs, val_errs = train_bags_carry(
-        loss_fn, metric_fn, optimizer, n_epochs, early_stop_window,
-        convergence_threshold, carry, train_inputs, w_train_bags,
-        val_inputs, w_val, grad_mask, order)
+
+    def run(carry, done, chunk):
+        return train_bags_carry(
+            loss_fn, metric_fn, optimizer, chunk, early_stop_window,
+            convergence_threshold, carry, train_inputs, w_train_bags,
+            val_inputs, w_val, grad_mask,
+            None if order is None else order[done:done + chunk])
+
+    if checkpoint_dir and checkpoint_interval > 0:
+        carry, train_errs, val_errs = _train_checkpointed(
+            run, carry, n_epochs, checkpoint_dir, checkpoint_interval, dev)
+    else:
+        carry, train_errs, val_errs = run(carry, 0, n_epochs)
     # the one host sync of the run
     train_errs = torch.stack(train_errs, 1).cpu().numpy() if train_errs \
         else np.zeros((n_bags, 0), np.float32)
     val_errs = torch.stack(val_errs, 1).cpu().numpy() if val_errs \
-        else np.zeros((n_bags, 0), np.float32)
+        else carry[2]["val"].reshape(-1, 1).cpu().numpy()
     best = carry[2]
     best_epoch = np.argmin(val_errs, axis=1)
     return best["params"], train_errs, val_errs, \
         best["val"].cpu().numpy(), best_epoch
+
+
+def _train_checkpointed(run, carry, n_epochs: int, checkpoint_dir: str,
+                        interval: int, dev: torch.device):
+    """`run(carry, done, chunk)` over chunks of `interval` epochs, the
+    carry restored first (at most `n_epochs`) and saved after each
+    chunk; a preemption noticed after a save raises `Preempted` once
+    that save is durable. Returns the carry and the curves of the
+    epochs run here."""
+    from shifu_tpu_torch.train import checkpoint as ckpt
+    done = 0
+    restored = ckpt.restore_resharded(checkpoint_dir, carry, device=dev,
+                                      max_step=n_epochs)
+    if restored is not None:
+        done, carry = restored
+        log.info("checkpoint: resumed at epoch %d from %s", done,
+                 checkpoint_dir)
+    train_errs, val_errs = [], []
+    # SIGTERM/SIGINT → finish the chunk, keep its checkpoint, raise
+    # Preempted (rc 75); SHIFU_TPU_RESUME=1 or `supervise` resumes
+    with resilience.graceful_shutdown("train"):
+        try:
+            while done < n_epochs:
+                chunk = min(interval, n_epochs - done)
+                carry, tr, va = run(carry, done, chunk)
+                train_errs += tr
+                val_errs += va
+                done += chunk
+                ckpt.save_checkpoint(checkpoint_dir, done, carry)
+                if resilience.preempt_requested() and done < n_epochs:
+                    ckpt.flush_saves()
+                    raise resilience.Preempted(
+                        f"train preempted after epoch {done}/{n_epochs}; "
+                        "checkpoint saved")
+            ckpt.flush_saves()
+        except BaseException:
+            # the last save made durable without masking the unwind
+            ckpt.flush_saves(reraise=False)
+            raise
+    return carry, train_errs, val_errs
 
 
 def train_nn(train_conf, x: np.ndarray, y: np.ndarray, w: np.ndarray,

@@ -108,6 +108,13 @@ conf.numTrainEpochs, conf.baggingNum = 3, 2
 res = trainer.train_nn(conf, x, (x[:, 0] > 0).astype(np.float32),
                        np.ones(5, np.float32), device="cpu")
 assert res.val_errors.shape == (2, 3)
+from shifu_tpu_torch.train import checkpoint
+from shifu_tpu_torch.processor import base
+res = trainer.train_nn(conf, x, (x[:, 0] > 0).astype(np.float32),
+                       np.ones(5, np.float32), device="cpu",
+                       checkpoint_dir=root + "/ck", checkpoint_interval=2)
+assert checkpoint.latest_step(root + "/ck") == 3
+assert base.step_guard and shifu_tpu_torch.resilience.PREEMPT_RC == 75
 m, s, ss, p = correlation.pearson_moments(torch.as_tensor(x))
 assert correlation.pearson_from_moments(m, s, ss, p).shape == (3, 3)
 ds = datestat.compute_date_stats(x, np.ones(5), np.array([0, 1, 0, 1, 1]),
@@ -189,7 +196,9 @@ def test_source_scan_covers_the_serving_and_health_planes():
                 "shifu_tpu_torch/obs/health/watch.py",
                 "shifu_tpu_torch/obs/health/refresh.py",
                 "shifu_tpu_torch/obs/health/canary.py",
-                "shifu_tpu_torch/data/ingest.py"):
+                "shifu_tpu_torch/data/ingest.py",
+                "shifu_tpu_torch/train/checkpoint.py",
+                "shifu_tpu_torch/processor/base.py"):
         assert rel in files, rel
 
 

@@ -810,3 +810,44 @@ def test_capture_while_another_service_scores(cuda, tmp_path):
         for graph, eager, _ in svcs.values():
             graph.close()
             eager.close()
+
+
+def test_checkpointed_card_run_resumed_after_preempt_equals_straight(
+        cuda, tmp_path, monkeypatch):
+    """The small NN on the card with dropout (a CUDA generator in the
+    carry) and mini-batches: a preemption after the first save raises
+    `Preempted`, the rerun resumes at epoch 4 and ends on the straight
+    card run's parameters and curves, to the bit (cuBLAS with TF32 off
+    runs the same kernels on the same shapes)."""
+    from shifu_tpu_torch import resilience
+    from shifu_tpu_torch.config.model_config import ModelTrainConf
+    from shifu_tpu_torch.train import checkpoint as ckpt
+    from shifu_tpu_torch.train.trainer import train_nn
+    rng = np.random.default_rng(5)
+    x = rng.normal(0, 1, (600, 8)).astype(np.float32)
+    y = (x[:, 0] - x[:, 1] > 0).astype(np.float32)
+    w = rng.uniform(0.5, 2.0, 600).astype(np.float32)
+    conf = ModelTrainConf()
+    conf.params = {"NumHiddenLayers": 2, "NumHiddenNodes": [16, 8],
+                   "ActivationFunc": ["tanh", "relu"], "LearningRate": 0.05,
+                   "Propagation": "ADAM", "DropoutRate": 0.1,
+                   "MiniBatchRows": 128}
+    conf.numTrainEpochs, conf.baggingNum, conf.validSetRate = 12, 2, 0.2
+    straight = train_nn(conf, x, y, w, seed=7, device=cuda)
+    d = str(tmp_path / "ck")
+    monkeypatch.setenv("SHIFU_TPU_FAULT", "ckpt.saved:preempt:1")
+    monkeypatch.setenv("SHIFU_TPU_CKPT_ASYNC", "0")
+    resilience.reset_faults()
+    with pytest.raises(resilience.Preempted, match="after epoch 4/12"):
+        train_nn(conf, x, y, w, seed=7, device=cuda, checkpoint_dir=d,
+                 checkpoint_interval=4)
+    monkeypatch.delenv("SHIFU_TPU_FAULT")
+    assert ckpt.latest_step(d) == 4
+    res = train_nn(conf, x, y, w, seed=7, device=cuda, checkpoint_dir=d,
+                   checkpoint_interval=4)
+    np.testing.assert_array_equal(res.val_errors, straight.val_errors[:, 4:])
+    np.testing.assert_array_equal(res.best_val, straight.best_val)
+    for pg, pw in zip(res.params_per_bag, straight.params_per_bag):
+        for lg, lw in zip(pg, pw):
+            for k in lw:
+                np.testing.assert_array_equal(lg[k], lw[k])

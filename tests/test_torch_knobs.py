@@ -94,3 +94,25 @@ def test_knobs_markdown_matches_the_jax_rows(capsys, name):
     assert len(got) == len(want) == 1
     # name, type and default; the docs may say what the port does
     assert got[0].split(" | ")[:3] == want[0].split(" | ")[:3]
+
+
+CHECKPOINT_KNOBS = ("SHIFU_TPU_CKPT_ASYNC", "SHIFU_TPU_MAX_RESTARTS",
+                    "SHIFU_TPU_RESUME")
+
+
+@pytest.mark.parametrize("name", CHECKPOINT_KNOBS)
+def test_checkpoint_knobs_match_the_jax_defaults(name, monkeypatch):
+    """The checkpoint writer's, the restart and the resume knobs:
+    the JAX package's type, default and doc, read alike when set (and
+    when malformed)."""
+    from shifu_tpu.config import environment as jenv
+    from shifu_tpu_torch.config import environment as penv
+    k, j = penv.KNOBS[name], jenv.KNOBS[name]
+    assert (k.type, k.default, k.doc) == (j.type, j.default, j.doc)
+    read = {"int": "knob_int", "flag": "knob_bool",
+            "str": "knob_str"}[k.type]
+    monkeypatch.delenv(name, raising=False)
+    assert getattr(penv, read)(name) == getattr(jenv, read)(name)
+    for raw in ("0", "1", "3", "nonsense"):
+        monkeypatch.setenv(name, raw)
+        assert getattr(penv, read)(name) == getattr(jenv, read)(name)

@@ -17,7 +17,8 @@ streaming branches.
   but for the z-scored dense block, held within 1e-5 as
   `test_torch_norm.py` holds data.npz;
 - the `train` verb on trainOnDisk sets (NN, WDL, MTL) against the JAX
-  `train`; the k-fold and CheckpointInterval refusals.
+  `train`; the k-fold refusal, and CheckpointInterval on the streaming
+  NN, WDL and MTL (the checkpoints removed once the models are saved).
 """
 
 import dataclasses
@@ -304,22 +305,59 @@ def test_streaming_train_verb_matches_jax(tmp_path, capsys, monkeypatch,
                                    want_v["bestValError"], rtol=1e-5)
 
 
-def test_streaming_refusals(tmp_path):
+def test_streaming_refusals(tmp_path, monkeypatch):
+    """k-fold with trainOnDisk still raises; CheckpointInterval (refused
+    until checkpoints were ported) trains the streaming NN, WDL and MTL
+    through the `train` verb to the models of an uncheckpointed run;
+    each route saved every interval, and its checkpoint directory is
+    gone once its models are saved."""
+    from shifu_tpu_torch.models.spec import load_model
+    from shifu_tpu_torch.train import checkpoint as tckpt
     from tests.test_torch_wdl_mtl import _edit
     src = _nn_set(tmp_path / "src", 79)
-    _, got = pair(src, tmp_path)
+    plain, got = pair(src, tmp_path)
     _edit(got, lambda mc: mc["train"].update(numKFold=3))
     with pytest.raises(ValueError, match="numKFold is not supported with "
                                          "trainOnDisk"):
         port(got, "train")
     _edit(got, lambda mc: mc["train"].update(numKFold=-1))
-    _edit(got, lambda mc: mc["train"]["params"].update(CheckpointInterval=2))
-    with pytest.raises(NotImplementedError, match="A8"):
-        port(got, "train")
-    for alg in ("WDL", "MTL"):
-        _edit(got, lambda mc: mc["train"].update(algorithm=alg))
-        with pytest.raises(NotImplementedError, match="A8"):
-            port(got, "train")
+    mtl_src = made_set(tmp_path / "mtl_src", "MTL", 83, n_rows=600,
+                       on_disk=True, chunk_rows=128)
+    mtl = pair(mtl_src, tmp_path / "mtl")
+    cleaned = []
+    real = tstream.cleanup_checkpoints
+
+    def cleanup(d):
+        cleaned.append(d and (os.path.basename(d), tckpt.latest_step(d)))
+        real(d)
+    monkeypatch.setattr(tstream, "cleanup_checkpoints", cleanup)
+    for alg, route, kind in (("NN", "streaming", "nn"),
+                             ("WDL", "streaming-wdl", "wdl"),
+                             ("MTL", "streaming-mtl", "mtl")):
+        pl, gt = mtl if alg == "MTL" else (plain, got)
+        _edit(gt, lambda mc: mc["train"]["params"].update(
+            CheckpointInterval=2))
+        for root in (pl, gt):
+            _edit(root, lambda mc: mc["train"].update(algorithm=alg))
+            port(root, "train")
+        epochs = load_json(gt)["train"]["numTrainEpochs"]
+        assert cleaned[-2:] == [None, (route, epochs - epochs % 2)], cleaned
+        assert not os.path.exists(os.path.join(gt, "tmp", "checkpoints",
+                                               "bag0", route))
+        for b in range(2):
+            name = f"model{b}.{kind}"
+            pg = jax.tree.leaves(load_model(os.path.join(
+                gt, "models", name))[2])
+            pw = jax.tree.leaves(load_model(os.path.join(
+                pl, "models", name))[2])
+            assert len(pg) == len(pw) > 0
+            for a, w in zip(pg, pw):
+                np.testing.assert_array_equal(a, w)
+
+
+def load_json(root):
+    with open(os.path.join(root, "ModelConfig.json")) as f:
+        return json.load(f)
 
 
 def test_new_entry_points_default_to_the_card(monkeypatch):

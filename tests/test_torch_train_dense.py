@@ -23,9 +23,9 @@ Multi-class `eval -run`, `-score` and `-audit` of the same model files
 against the JAX package's outputs (`chip_smoke.compare_multiclass_eval`:
 class scores within 1e-6, the same predictions, the C×C matrix and
 accuracy equal to the printed digit); `-confmat`/`-perf` refuse a
-multi-class set, as the JAX package does. The refusals that name their
-ROADMAP item (CheckpointInterval and the supervised restarts, A8) and
-the card default; trainOnDisk and WDL train now, held in
+multi-class set, as the JAX package does. CheckpointInterval and the
+supervised restarts (refused until checkpoints were ported) against the
+JAX package and a preempted, restarted run, and the card default; trainOnDisk and WDL train now, held in
 `test_torch_streaming.py` and `test_torch_wdl_mtl.py`.
 """
 
@@ -325,18 +325,42 @@ def test_multiclass_train_and_eval_match_jax(sets, tmp_path, capsys,
             port(proot, "eval", flag)
 
 
-def test_refusals_name_their_roadmap_item(sets, tmp_path, monkeypatch):
-    for i, (edit, item) in enumerate((
-            (lambda mc: mc["train"]["params"].update(CheckpointInterval=2),
-             "A8"),)):
-        root = pair(sets("binary"), tmp_path / str(i), edit)[1]
-        with pytest.raises(NotImplementedError, match=item):
-            port(root, "train")
-    root = pair(sets("binary"), tmp_path / "plain")[1]
+def test_refusals_name_their_roadmap_item(sets, tmp_path, monkeypatch,
+                                         jax_init):
+    """CheckpointInterval and SHIFU_TPU_MAX_RESTARTS work now: the
+    checkpointed port run matches the checkpointed JAX run and leaves
+    `checkpoint_path(0)` at the last epoch; a preemption after the
+    first save restarts once (one `restart` record) and ends with the
+    same files; no card still raises."""
+    from shifu_tpu.train import checkpoint as jckpt
+    from shifu_tpu_torch import resilience
+    from shifu_tpu_torch.models.spec import load_model
+
+    def ck(mc):
+        mc["train"]["params"].update(CheckpointInterval=3)
+    jroot, proot = pair(sets("binary"), tmp_path / "ck", ck)
+    jax_train(jroot)
+    port(proot, "train")
+    same_models(jroot, proot)
+    assert jckpt.latest_step(os.path.join(proot, "tmp", "checkpoints",
+                                          "bag0")) == 8
+    root = pair(sets("binary"), tmp_path / "sup", ck)[1]
     monkeypatch.setenv("SHIFU_TPU_MAX_RESTARTS", "2")
-    with pytest.raises(NotImplementedError, match="A8"):
-        port(root, "train")
+    monkeypatch.setenv("SHIFU_TPU_FAULT", "ckpt.saved:preempt:1")
+    resilience.reset_faults()
+    port(root, "train")
+    monkeypatch.delenv("SHIFU_TPU_FAULT")
     monkeypatch.delenv("SHIFU_TPU_MAX_RESTARTS")
+    with open(os.path.join(root, "tmp", "metrics", "steps.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    assert [r["event"] for r in recs] == ["restart"]
+    assert recs[0]["step"] == "train" and recs[0]["devices"] == 1
+    for name in ("model0.nn", "model1.nn"):
+        got = load_model(os.path.join(root, "models", name))[2]
+        want = load_model(os.path.join(proot, "models", name))[2]
+        for lg, lw in zip(got, want):
+            for k in lw:
+                np.testing.assert_array_equal(lg[k], lw[k])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA"):
         cli.main(["--dir", root, "train"])

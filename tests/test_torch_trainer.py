@@ -20,8 +20,8 @@ activation and cotangent to 2^-8: curves within 1e-3, params within
 Also covered: window and convergence stops (a stopped bag's params and
 optimizer state freeze), FixedLayers and an element-wise grad_mask,
 validSetRate 0, mini-batch mode with the JAX package's batch order
-replayed, the epoch loop's not reading any tensor on the host, the
-checkpoint refusal and the card default.
+replayed, the epoch loop's not reading any tensor on the host, a
+checkpointed run equal to a straight one and the card default.
 """
 
 import dataclasses
@@ -263,12 +263,22 @@ def test_epoch_loop_never_reads_a_tensor_on_the_host(monkeypatch):
     assert calls and res.val_errors.shape == (2, 4)
 
 
-def test_checkpoints_refused_and_the_card_is_the_default(monkeypatch):
+def test_checkpoints_refused_and_the_card_is_the_default(monkeypatch,
+                                                         tmp_path):
+    """CheckpointInterval trains now (it was refused until checkpoints
+    were ported): the chunked run equals the straight one to the bit;
+    without a card the default device raises."""
     conf = _confs(BASE)[1]
     x, y, w = _data(12, n=40)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ttrainer.train_nn(conf, x, y, w, device="cpu",
-                          checkpoint_dir="ck", checkpoint_interval=2)
+    straight = ttrainer.train_nn(conf, x, y, w, device="cpu")
+    ck = ttrainer.train_nn(conf, x, y, w, device="cpu",
+                           checkpoint_dir=str(tmp_path / "ck"),
+                           checkpoint_interval=3)
+    np.testing.assert_array_equal(ck.val_errors, straight.val_errors)
+    for a, b in zip(ck.params_per_bag, straight.params_per_bag):
+        for la, lb in zip(a, b):
+            for k in lb:
+                np.testing.assert_array_equal(la[k], lb[k])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA"):
         ttrainer.train_nn(conf, x, y, w)
