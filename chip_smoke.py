@@ -5,7 +5,8 @@
 Phases, each fatal on failure (the exit code is then non-zero and no
 result line is printed):
 
-1. the card's name, count and power limit; build every kernel from
+1. the card's name, count and power limit, whether `import fsspec`
+   succeeds there; build every kernel from
    `shifu_tpu_torch/csrc/` (one `nvcc` per source, all at once), with
    ptxas's registers, shared memory and spills per kernel;
 2. K1 `fused_score` against its plain PyTorch version at 512×600→512, at
@@ -82,7 +83,8 @@ result line is printed):
    weighted bin sums within rtol 1e-5, skewness/kurtosis atol 1e-4),
    CleanedData and the WOE block equal, the ZSCALE block within 1e-5;
    each step's JSON line (device, rows, read and total seconds); the
-   CPU twin's steps run beside the card's;
+   CPU twin's steps run beside the card's; the phase runs in a process
+   of its own (`--p10`) beside phases 11-13 and prints when collected;
 11. the NN of phase 4's shape (600 → 512 → 256 → 1, weights from a
    seed) over a raw table of 600 numeric columns and 16,384 rows (2 %
    missing tokens) made into ColumnConfig.json by the port's `init` and
@@ -241,7 +243,33 @@ result line is printed):
    appended to ModelConfig.json re-runs `train` and `eval` (K3 +25, K5
    +20 between markers, K2 again) to the same EvalScore.csv, and `norm`
    failing at its first atomic commit leaves no manifest and meta.json
-   byte for byte.
+   byte for byte;
+19. the pipeline DAG (`shifu_tpu_torch/pipeline/`) in a process of its
+   own (`--p19-dag`), started with phase 15 and collected after phase
+   18, over a 65,536-row table of phase 10's layout (a 16,384-row eval
+   file as eval sets Eval1 and Eval2; GBT 20 trees, depth 6, 64 bins,
+   log loss; the NN 64 hidden units, `bench.py:76-78`): (a) `run_dag`
+   of `pipeline_nodes` with GBT + RF (the RF a `prepare_variant` clone)
+   and posttrain under the default admission: every node done, the two
+   trainers overlapping (timeshared: max_concurrent >= 2; several
+   cards: a lease each), ColumnConfig.json, the normalized and cleaned
+   data, both models, both EvalPerformance.json and
+   featureimportance.csv equal to the bit to the same steps walked in
+   this process (`cli.main`) on a copy; then, with SHIFU_TPU_RESUME=1
+   and eval.Eval1's manifest removed, the nodes end in the states their
+   manifests predict (posttrain rewrote ColumnConfig.json after stats,
+   norm and train wrote theirs: C-ref-4), eval.Eval1 among those run,
+   no node run that C-ref-4 leaves valid (init, train.RF and posttrain
+   cached), every output unchanged; (b) `stats -base-only`, `-seg 1`,
+   `-seg 2`, `-seg-merge` in this process: ColumnConfig.json
+   byte-equal to an inline `stats` on the card and to a `--device cpu`
+   inline twin; (c) `combo -new NN,GBT,LR`, `-init`, `-run` (the
+   sub-models overlap), `-run -resume` (both cached, the same assemble
+   model to the bit), `-eval` (the assemble's card scores within 1e-5
+   of the CPU's, then the AUC within 1e-6 plus `auc_allowance` of
+   `combo.evaluate(device="cpu")` over the same files); (d) `test -n 200`: rc 0, the five nodes of the JAX
+   package's DAG, each done. The child processes' launches come from
+   their step lines (`tmp/dag_logs/*.log`).
 
 Phase 8 then registers a holdout table (262,144 rows, another seed) as
 eval set `holdout` of the card-trained RF and log-loss GBT sets and runs
@@ -259,7 +287,10 @@ phase 13's FI run, phase 14's streaming tree trainings and phase 15's
 FI, GBT and RF runs to phase 8's (and phase 15's evals to K1/K2's);
 phase 16 adds its mixed traffic's K1/K2 replays and its health set's
 `train` and `eval`, phase 17 its refreshes' K1/K2/K3/K5 and (b)'s
-serving, phase 18 its evals' K1, (d)'s K2 and its trainings' K3/K5.
+serving, phase 18 its evals' K1, (d)'s K2 and its trainings' K3/K5,
+phase 19 its DAG's, combo's and its own K2/K3/K5 (its path launches no
+K1: combo scores its NN sub-model through `ModelRunner`'s plain
+forward, as the JAX package does).
 
 The last lines are the per-kernel launch line, the kernel JSON line,
 the card's name and power limit, and the result object.
@@ -283,7 +314,8 @@ phase 13's card steps, each a process with the host to itself, twice:
 SE at 65,536 × 600 and `export -t baggingpmml` of a 2-bag wide NN;
 `--closed-loop` only phase 17 (after the build and the phase 16
 steps it reuses); `--checkpoint-resume` only phase 18 (after the build
-and phase 16 (d)'s GBT set); `--p14-walls` only phase 14's launch counts and
+and phase 16 (d)'s GBT set); `--dag` only phase 19 (after the build);
+`--p14-walls` only phase 14's launch counts and
 timings (it needs the WDL/MTL and streaming modules; the main run asks
 only for the counts, `--p14-launches`); `--stream-walls` only `stats`, `norm`
 and `eval` (a 10-tree GBT) on the card at 2,000,000 rows of phase 10's
@@ -519,6 +551,11 @@ def phase_device():
     print(f"device: {name}, count {torch.cuda.device_count()}, "
           f"torch {torch.__version__}, cuda {torch.version.cuda}")
     print(f"nvidia-smi: {smi}")
+    try:
+        import fsspec
+        print(f"fsspec: import fsspec succeeds ({fsspec.__version__})")
+    except ImportError as e:
+        print(f"fsspec: import fsspec fails ({e})")
     return name, smi
 
 
@@ -4348,6 +4385,28 @@ def phase_wdl_mtl_stream(report, workdir, device="cuda"):
     K3/K5 launches of the streaming builders (`p14_walls`); two card
     runs of the streaming log-loss GBT."""
     t0 = time.perf_counter()
+    # the launch gate (`p14_launches`) runs in a process of its own
+    # beside the rest of the phase: a process that has traced earlier
+    # phases loses profiler records, and the profiler traces its own
+    # process's kernels only
+    gate = background_start(os.path.join(workdir, "p14_launches"),
+                            "--p14-launches", device)
+    try:
+        p14_phase_body(report, workdir, device, t0)
+        report["phase14"]["stream_launches"] = background_finish(
+            gate, "--p14-launches")["p14_launches"]
+    finally:
+        background_stop(gate)
+    report["phase14"]["seconds"] = time.perf_counter() - t0
+    print(f"  phase 14: families {report['phase14']['family_s']:.1f} s, "
+          f"streaming {report['phase14']['stream_s']:.1f} s, the launch "
+          f"gate's process beside them; {report['phase14']['seconds']:.1f}"
+          " s")
+
+
+def p14_phase_body(report, workdir, device, t0):
+    """Phase 14 but its launch gate: the families, the layouts, the
+    streaming trainers and the atomics check."""
     wdl, mtl, higgs = in_parallel(
         lambda: p14_family("WDL", workdir, device),
         lambda: p14_family("MTL", workdir, device),
@@ -4388,34 +4447,11 @@ def phase_wdl_mtl_stream(report, workdir, device="cuda"):
     print(f"  two card runs each of the streaming and the resident log-loss "
           f"GBT write equal models: {json.dumps(atomics)}")
     t_stream = time.perf_counter() - t0 - t_fam
-    launches = p14_launches_process()
     report["phase14"] = {
         "families": fam, "family_s": t_fam, "stream_s": t_stream,
         "layouts": {k: v[2:] for k, v in layouts.items()},
         "stream": {k: v[:2] for k, v in runs.items()},
-        "stream_gates": gates, "atomics": atomics,
-        "stream_launches": launches, "seconds": time.perf_counter() - t0}
-    print(f"  phase 14: families {t_fam:.1f} s, streaming {t_stream:.1f} s, "
-          f"launch gate {report['phase14']['seconds'] - t_fam - t_stream:.1f}"
-          " s")
-
-
-def p14_launches_process():
-    """`p14_launches` (the streaming builders' launch gate) in a process
-    of its own (`--p14-launches`): a process that has traced earlier
-    phases loses profiler records."""
-    proc = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--p14-launches"],
-        capture_output=True, text=True, timeout=600,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
-    lines = proc.stdout.strip().splitlines()
-    for line in lines:
-        if line.startswith("  p14 "):
-            print(line)
-    if proc.returncode != 0:
-        raise RuntimeError(f"--p14-launches failed (rc {proc.returncode}):"
-                           f"\n{proc.stderr[-4000:]}")
-    return json.loads(lines[-1])["p14_launches"]
+        "stream_gates": gates, "atomics": atomics}
 
 
 def family_walls(kind, device="cuda", rows=P14_WALL_ROWS,
@@ -6631,6 +6667,403 @@ def phase_checkpoint_resume(report, workdir, device="cuda"):
           f"{json.dumps(launched)}")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the pipeline DAG, the segment siblings, combo and test
+# ---------------------------------------------------------------------------
+
+P19_ROWS = 65_536           # the HIGGS-width table of phase 10's layout
+P19_EVAL_ROWS = 16_384      # its eval file (eval sets Eval1 and Eval2)
+P19_PARAMS = {"TreeNum": 20, "MaxDepth": TRAIN_DEPTH,
+              "LearningRate": TRAIN_LR, "Loss": "log",
+              # combo's NN sub-model: the flagship's hidden width
+              # (bench.py:76-78)
+              "NumHiddenLayers": 1, "NumHiddenNodes": [64],
+              "ActivationFunc": ["relu"], "Propagation": "ADAM"}
+P19_EPOCHS = 10
+P19_SEGMENTS = ("f0 > 0", "c0 == 'aa'")
+P19_DEPS = {"test.config": [], "test.filter": ["test.config"],
+            "test.eval.Eval1": ["test.config"],
+            "test.eval.Eval2": ["test.config"],
+            "test.plan": ["test.config"]}
+P19_KERNELS = ("fused_score", "fused_trees", "level_hist", "best_splits")
+# combo's assemble scores, card against CPU (phase 15's score gate)
+P19_SCORE_TOL = 1e-5
+# the nodes posttrain's rewrite of ColumnConfig.json can leave stale
+# (C-ref-4): a RESUME run may run these again, and no other
+P19_STALE = ("stats", "norm", "train.GBT", "eval.Eval1", "eval.Eval2")
+# the kernels phase 19's path launches: combo scores its sub-models
+# through `ModelRunner.score_frame`, which (as the JAX package's) passes
+# no z-score parameters, so its NN sub-model takes the plain forward and
+# K1 (`fused_score`) is counted but not required
+P19_PATH = ("fused_trees", "level_hist", "best_splits")
+
+
+def p19_set(root, eval_dir, seed=191):
+    """Phase 19's model set: a P19_ROWS-row raw table of phase 10's
+    layout (28 numeric, 2 categorical, weight and meta columns) from a
+    seed, GBT at phase 8's widths, eval sets Eval1 and Eval2 over
+    `eval_dir`'s P19_EVAL_ROWS rows (written once, by the first call)."""
+    write_model_set(root, "GBT", dict(P19_PARAMS), seed, P19_ROWS, 0.1,
+                    extras=True)
+    set_config(root, "train", numTrainEpochs=P19_EPOCHS)
+    if not os.path.exists(eval_dir):
+        names, cols, _, _ = raw_table(np.random.default_rng(seed + 1),
+                                      P19_EVAL_ROWS, True)
+        write_raw(eval_dir, names, cols)
+    for name in ("Eval1", "Eval2"):
+        add_eval_set(root, name, eval_dir)
+    return root
+
+
+def p19_outputs(root, clone=None):
+    """{relative path: bytes} of what the pipeline published:
+    ColumnConfig.json, the normalized and cleaned data, the models,
+    each eval set's EvalPerformance.json, featureimportance.csv, and
+    the RF clone's model."""
+    files = ["ColumnConfig.json", "featureimportance.csv",
+             "models/model0.gbt", "evals/Eval1/EvalPerformance.json",
+             "evals/Eval2/EvalPerformance.json"]
+    for sub in ("NormalizedData", "CleanedData"):
+        files += [f"tmp/{sub}/{f}" for f in
+                  sorted(os.listdir(os.path.join(root, "tmp", sub)))]
+    out = {}
+    for rel in files:
+        with open(os.path.join(root, rel), "rb") as f:
+            out[rel] = f.read()
+    if clone:
+        with open(os.path.join(clone, "models", "model0.rf"), "rb") as f:
+            out["train.RF:models/model0.rf"] = f.read()
+    return out
+
+
+def p19_log_launches(*roots):
+    """The kernels' launches the DAG's child processes report: the sum
+    of every step line's ``launches`` in each root's tmp/dag_logs/*.log."""
+    total = dict.fromkeys(P19_KERNELS, 0)
+    for root in roots:
+        d = os.path.join(root, "tmp", "dag_logs")
+        for name in sorted(os.listdir(d)) if os.path.isdir(d) else ():
+            with open(os.path.join(d, name)) as f:
+                for line in f:
+                    if line.startswith("{"):
+                        for k, v in json.loads(line).get(
+                                "launches", {}).items():
+                            if k in total:
+                                total[k] += v
+    return total
+
+
+def p19_states(rep):
+    return {r["node"]: r["state"] for r in rep["nodes"]}
+
+
+def p19_plan(root, device="cuda"):
+    from shifu_tpu_torch.pipeline import nodes
+    return nodes.pipeline_nodes(
+        root, eval_sets=["Eval1", "Eval2"], algorithms=["GBT", "RF"],
+        posttrain=True, device=device)
+
+
+def p19_dag_legs(root, device="cuda"):
+    """(a)'s two DAG runs of `p19_plan` (GBT + RF, the RF a clone made
+    by `prepare_variant`, eval sets Eval1 and Eval2, posttrain) under
+    the default admission: the pipeline, then the RESUME leg with
+    eval.Eval1's manifest removed. Returns both reports, the outputs
+    after each, the states the RESUME leg was predicted to end in and
+    the child processes' launches."""
+    import shutil
+    from shifu_tpu_torch.pipeline import nodes
+    from shifu_tpu_torch.pipeline.scheduler import run_dag
+    clone = nodes.variant_dir(root, "train.RF")
+    out = {"dag": run_dag(p19_plan(root, device), root=root, label="p19")}
+    out["outputs"] = p19_outputs(root, clone)
+    out["launches"] = p19_log_launches(root, clone)
+    # RESUME: a node parks as cached when its manifest still matches its
+    # inputs; posttrain rewrote ColumnConfig.json, an input of every
+    # manifest's fingerprint, after stats, norm, train and the evals
+    # that finished before it wrote theirs (C-ref-4), so those run again
+    os.remove(os.path.join(root, "tmp", "manifests", "eval.Eval1.json"))
+    for d in (root, clone):
+        shutil.rmtree(os.path.join(d, "tmp", "dag_logs"))
+    with _environ({"SHIFU_TPU_RESUME": "1"}):
+        plan = p19_plan(root, device)
+        out["predicted"] = {n.name: "cached" if n.done_check() else "done"
+                            for n in plan}
+        out["resume"] = run_dag(plan, root=root, label="p19-resume")
+    out["after"] = p19_outputs(root, clone)
+    out["resume_launches"] = p19_log_launches(root, clone)
+    return out
+
+
+def p19_walk(seq, device="cuda"):
+    """The steps of `p19_plan` walked one after another in this process
+    (`cli.main`) on `seq`, a copy of the set; returns their lines."""
+    from shifu_tpu_torch.pipeline import nodes
+    clone = nodes.variant_dir(seq, "train.RF")
+    lines = run_verbs([(seq, ["init"]), (seq, ["stats"]), (seq, ["norm"]),
+                       (seq, ["train"])], device)
+    nodes.prepare_variant(seq, clone, algorithm="RF")
+    lines += run_verbs([(clone, ["train"]),
+                        (seq, ["eval", "-run", "Eval1"]),
+                        (seq, ["eval", "-run", "Eval2"]),
+                        (seq, ["posttrain"])], device)
+    assert all(ln["rc"] == 0 for ln in lines), lines
+    return lines
+
+
+def p19_pipeline_gates(legs, root, seq, wall):
+    """(a)'s gates: every node done; train.GBT and train.RF overlap
+    (timeshared: max_concurrent >= 2; sliced: each on a lease of its
+    own); the outputs equal the sequential walk's to the bit; the RESUME
+    leg ends in the predicted states, eval.Eval1 among those that run,
+    the others that run among those C-ref-4 stales (P19_STALE), the
+    rest (init, train.RF, posttrain) cached, and every output as it
+    was."""
+    from shifu_tpu_torch.pipeline import nodes
+    rep = legs["dag"]
+    states = p19_states(rep)
+    assert set(states.values()) == {"done"}, states
+    if rep["total_devices"] is None:
+        assert rep["max_concurrent"] >= 2, rep
+        overlap = f"timeshared, max_concurrent {rep['max_concurrent']}"
+    else:
+        by = {r["node"]: r["devices"] for r in rep["nodes"]}
+        assert by["train.GBT"] and by["train.RF"] and \
+            by["train.GBT"] + by["train.RF"] <= rep["total_devices"], by
+        overlap = f"sliced over {rep['total_devices']} cards, leases " \
+            f"{by['train.GBT']} + {by['train.RF']}"
+    got = legs["outputs"]
+    want = p19_outputs(seq, nodes.variant_dir(seq, "train.RF"))
+    differ = sorted(k for k in want if got.get(k) != want[k])
+    assert not differ, f"DAG outputs differ from the sequential walk: " \
+        f"{differ}"
+    predicted = legs["predicted"]
+    assert predicted["eval.Eval1"] == "done", predicted
+    assert all(v == "cached" for k, v in predicted.items()
+               if k not in P19_STALE), predicted
+    assert p19_states(legs["resume"]) == predicted, \
+        (p19_states(legs["resume"]), predicted)
+    after = legs["after"]
+    assert after == got, sorted(k for k in got if after.get(k) != got[k])
+    ran = sorted(k for k, v in predicted.items() if v == "done")
+    print(f"  (a) DAG {overlap}: wall {rep['wall_s']} s, critical path "
+          f"{rep['critical_path_s']} s, occupancy {rep['occupancy']}; "
+          f"outputs = the sequential walk's ({len(want)} files); RESUME "
+          f"{legs['resume']['wall_s']} s ran {ran}, outputs unchanged, "
+          f"launches {legs['resume_launches']}")
+    launches = {k: legs["launches"][k] + legs["resume_launches"][k]
+                for k in P19_KERNELS}
+    return {"dag": rep, "wall_s": wall, "resume": legs["resume"],
+            "resume_ran": ran, "launches": launches}
+
+
+def p19_segments(workdir, eval_dir, device="cuda"):
+    """(b) The segment siblings in this process: `stats -base-only`,
+    `-seg 1`, `-seg 2` and `-seg-merge` on the card against an inline
+    `stats` on the card and its `--device cpu` twin, byte for byte."""
+    from shifu_tpu_torch.fileio import atomic_write
+    roots = {}
+    for name in ("sib", "card", "cpu"):
+        root = p19_set(os.path.join(workdir, f"p19_seg_{name}"), eval_dir,
+                       seed=192)
+        seg = os.path.join(root, "columns", "segments.txt")
+        with atomic_write(seg) as f:
+            f.write("\n".join(P19_SEGMENTS) + "\n")
+        set_config(root, "dataSet", segExpressionFile=seg)
+        roots[name] = root
+    t0 = time.monotonic()
+    lines = run_verbs([(roots["sib"], ["init"])]
+                      + [(roots["sib"], ["stats", *f]) for f in (
+                          ["-base-only"], ["-seg", "1"], ["-seg", "2"],
+                          ["-seg-merge"])], device)
+    sib_s = time.monotonic() - t0
+    lines += run_verbs([(roots["card"], ["init"]),
+                        (roots["card"], ["stats"])], device)
+    lines += run_verbs([(roots["cpu"], ["init"]),
+                        (roots["cpu"], ["stats"])], "cpu")
+    assert all(ln["rc"] == 0 for ln in lines), lines
+    ccs = {}
+    for name, root in roots.items():
+        with open(os.path.join(root, "ColumnConfig.json"), "rb") as f:
+            ccs[name] = f.read()
+    assert ccs["sib"] == ccs["card"], \
+        "the segment siblings' ColumnConfig.json differs from inline stats"
+    assert ccs["sib"] == ccs["cpu"], \
+        "the segment siblings' ColumnConfig.json differs from the CPU twin"
+    n_seg = sum(1 for c in json.loads(ccs["sib"]) if c.get("segment"))
+    assert n_seg == 2 * 33, n_seg
+    print(f"  (b) segment siblings in {sib_s:.1f} s: ColumnConfig.json "
+          f"= inline card stats = the CPU twin's, to the byte")
+    return {"sibling_s": sib_s,
+            "steps": [{k: ln.get(k) for k in ("step", "device", "rows",
+                                              "seconds")} for ln in lines]}
+
+
+def p19_combo(workdir, eval_dir, device="cuda"):
+    """(c) `combo -new NN,GBT,LR`, `-init`, `-run`, `-run -resume` and
+    `-eval` on the card (the sub-models as processes), the assemble's
+    AUC against `combo.evaluate` on the CPU over the same files."""
+    from shifu_tpu_torch.processor import combo
+    from shifu_tpu_torch.processor.base import ProcessorContext
+    root = p19_set(os.path.join(workdir, "p19_combo"), eval_dir, seed=193)
+    set_config(root, "dataSet", weightColumnName="")
+    lines = run_verbs([(root, ["combo", "-new", "NN,GBT,LR"]),
+                       (root, ["combo", "-init"])], device)
+    with open(os.path.join(root, "ComboTrain.json")) as f:
+        spec = json.load(f)
+    asm = os.path.join(root, spec["assemble"]["name"], "models",
+                       "model0.lr")
+    runs = []
+    for extra in ([], ["-resume"]):
+        runs += run_verbs([(root, ["combo", "-run", *extra, "--device",
+                                   device])], device)
+        with open(asm, "rb") as f:
+            runs[-1]["model"] = f.read()
+    assert all(ln["rc"] == 0 for ln in lines + runs), lines + runs
+    subs = [f"combo.{s['name']}" for s in spec["subModels"]]
+    first, second = (p19_states(ln["dag"]) for ln in runs)
+    assert all(first[s] == "done" for s in subs), first
+    assert runs[0]["dag"]["max_concurrent"] >= 2, runs[0]["dag"]
+    assert all(second[s] == "cached" for s in subs), second
+    assert runs[1]["model"] == runs[0]["model"], \
+        "-resume rewrote another assemble model"
+    ev = run_verbs([(root, ["combo", "-eval", "--device", device])],
+                   device)[0]
+    assert ev["rc"] == 0, ev
+    ctx = ProcessorContext.load(root)
+    ec = ctx.model_config.evals[0]
+    table, tags, weights = combo.eval_table(ctx.model_config, ec)
+    # the scores held against the CPU's: launches to compare, not counted
+    before = p19_counts()
+    card = combo.assemble_scores(ctx, table, device)
+    compare = {k: v - before[k] for k, v in p19_counts().items()}
+    cpu = combo.assemble_scores(ctx, table, "cpu")
+    report = {}
+    assert combo.evaluate(ctx, ec.name, device="cpu", report=report) == 0
+    # the scores first, within phase 15's score gate (phase 11's 1e-5,
+    # K1's 3xTF32): the allowance below grows with their difference
+    delta = float(np.max(np.abs(card - cpu)))
+    assert delta <= P19_SCORE_TOL, \
+        f"combo's card scores differ from the CPU's by {delta}"
+    allow, _ = auc_allowance(cpu, tags, weights, delta + 1e-6, 0.0)
+    auc_err = abs(ev["auc"][ec.name] - report["auc"][ec.name])
+    assert auc_err <= 1e-6 + allow, (ev["auc"], report["auc"], allow)
+    in_process = {k: sum(ln["launches"][k] for ln in runs + [ev])
+                  for k in P19_KERNELS}
+    print(f"  (c) combo: -run {runs[0]['seconds']:.1f} s (sub-models "
+          f"overlap, max_concurrent {runs[0]['dag']['max_concurrent']}), "
+          f"-resume {runs[1]['seconds']:.1f} s (subs cached, the same "
+          f"assemble), -eval AUC {ev['auc'][ec.name]} vs CPU "
+          f"{report['auc'][ec.name]} (|d| {auc_err:.3g} <= 1e-6 + "
+          f"{allow:.3g}; scores |d| {delta:.3g} <= {P19_SCORE_TOL})")
+    return {"run_s": runs[0]["seconds"], "resume_s": runs[1]["seconds"],
+            "eval_s": ev["seconds"], "dag": runs[0]["dag"],
+            "auc": ev["auc"][ec.name], "auc_cpu": report["auc"][ec.name],
+            "auc_err": auc_err, "auc_allowance": allow,
+            "score_err": delta, "in_process": in_process,
+            "compare": compare, "launches": p19_log_launches(root)}
+
+
+def p19_test(root):
+    """(d) `test -n 200` in this process: rc 0 and the JAX package's
+    five host nodes, each done."""
+    line = run_verbs([(root, ["test", "-n", "200"])], "host")[0]
+    assert line["rc"] == 0, line
+    got = {r["node"]: (r["deps"], r["state"]) for r in line["dag"]["nodes"]}
+    assert got == {k: (v, "done") for k, v in P19_DEPS.items()}, got
+    print(f"  (d) test -n 200: {list(got)} done in {line['seconds']:.2f} s")
+    return {"seconds": line["seconds"], "dag": line["dag"]}
+
+
+def p19_counts():
+    from shifu_tpu_torch.ops import best_splits, fused_score, fused_trees
+    from shifu_tpu_torch.ops import level_hist
+    return {"fused_score": fused_score.launches,
+            "fused_trees": fused_trees.launches,
+            "level_hist": level_hist.launches,
+            "best_splits": best_splits.launches}
+
+
+def p19_main(workdir, device):
+    """The `--p19-dag` process: (a)'s DAG legs (child processes) on one
+    thread while this process walks (a)'s steps and runs (b), (c) and
+    (d) on another; then (a)'s gates. The last line holds the result,
+    with the kernels' launches of this process (less (c)'s comparison)
+    and of the DAG's child processes (their step lines)."""
+    import shutil
+    from shifu_tpu_torch.ops import best_splits, fused_score, fused_trees
+    from shifu_tpu_torch.ops import level_hist
+    fused_score.launches = fused_trees.launches = 0
+    level_hist.launches = best_splits.launches = 0
+    t0 = time.monotonic()
+    eval_dir = os.path.join(workdir, "p19_eval")
+    root = p19_set(os.path.join(workdir, "p19_dag"), eval_dir)
+    seq = shutil.copytree(root, os.path.join(workdir, "p19_seq"),
+                          ignore=shutil.ignore_patterns("data"))
+    out = {}
+
+    def in_process():
+        p19_walk(seq, device)
+        out["b"] = p19_segments(workdir, eval_dir, device)
+        out["c"] = p19_combo(workdir, eval_dir, device)
+        out["d"] = p19_test(os.path.join(workdir, "p19_seg_card"))
+    legs, _ = in_parallel(lambda: p19_dag_legs(root, device), in_process)
+    out["a"] = p19_pipeline_gates(legs, root, seq, time.monotonic() - t0)
+    here = p19_counts()
+    out["launches"] = {k: here[k] - out["c"]["compare"][k]
+                       + out["a"]["launches"][k] + out["c"]["launches"][k]
+                       for k in P19_KERNELS}
+    out["seconds"] = time.monotonic() - t0
+    print(json.dumps(out, default=str))
+
+
+def background_start(workdir, flag, device="cuda"):
+    """`chip_smoke.py <flag> <workdir> <device>` (phase 10's `--p10`,
+    phase 14's `--p14-launches`, phase 19's `--p19-dag`) in a process
+    of its own, to run beside the phases that follow: returns (process,
+    its log's path)."""
+    os.makedirs(workdir, exist_ok=True)
+    log = os.path.join(workdir, flag.strip("-") + ".log")
+    return p18_spawn([os.path.abspath(__file__), flag, workdir, device],
+                     log), log
+
+
+def background_finish(started, flag):
+    """Wait for a `background_start` process: it must exit 0; print the
+    lines it printed and return its last line's JSON object."""
+    proc, log = started
+    try:
+        res, _ = proc.communicate(timeout=900)
+    finally:
+        background_stop(started)
+    assert proc.returncode == 0, f"{flag} failed:\n" + _log_tail(log)
+    lines = res.strip().splitlines()
+    for line in lines[:-1]:
+        print(line)
+    return json.loads(lines[-1])
+
+
+def background_stop(started):
+    proc = started[0]
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def phase_dag_finish(report, started, device="cuda"):
+    """Collect phase 19: every gate held in its process; its K2, K3 and
+    K5 launches (and K1's, none) join the kernels line."""
+    out = background_finish(started, "--p19-dag")
+    for k in P19_KERNELS:
+        if device == "cuda" and k in P19_PATH:
+            assert out["launches"][k] > 0, \
+                f"phase 19 launched no {k}: {out['launches']}"
+        report[k]["launches"] += out["launches"][k]
+    report["p19"] = out
+    print(f"  phase 19: {out['seconds']:.1f} s in its process, launches "
+          f"{json.dumps(out['launches'])}")
+
+
 SOURCES = {
     "fused_score": ("shifu_tpu_torch/csrc/fused_score.cu",
                     "shifu_tpu/ops/pallas_score.py:110"),
@@ -6669,6 +7102,25 @@ def main() -> int:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         p18_gbt_main(*sys.argv[2:4])
         return 0
+    if sys.argv[1:2] == ["--p10"]:
+        # phase 10 in a process of its own, beside phases 11-13: its
+        # lines, then its result
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        out = {}
+        phase_pipeline(out, sys.argv[2], sys.argv[3])
+        print(json.dumps(out["pipeline"]))
+        return 0
+    if sys.argv[1:2] == ["--p14-launches"]:
+        # phase 14's launch gate in a process of its own, beside the
+        # rest of phase 14 (a workdir and a device may follow, unused)
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        print(json.dumps({"p14_launches": p14_launches()}))
+        return 0
+    if sys.argv[1:2] == ["--p19-dag"]:
+        # phase 19 in a process of its own, beside phases 15-18
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        p19_main(*sys.argv[2:4])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
@@ -6700,9 +7152,6 @@ def main() -> int:
     if sys.argv[1:] == ["--p14-walls"]:
         print(json.dumps({"p14_walls": p14_walls()}))
         return 0
-    if sys.argv[1:] == ["--p14-launches"]:
-        print(json.dumps({"p14_launches": p14_launches()}))
-        return 0
     if sys.argv[1:] == ["--varselect-walls"]:
         print(json.dumps({"varselect_walls": varselect_walls()}))
         return 0
@@ -6728,6 +7177,13 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as workdir:
             p16_health({}, workdir)       # phase 16 (d)'s GBT set
             phase_checkpoint_resume(report, workdir)
+        print(json.dumps({k: report[k]["launches"] for k in SOURCES}))
+        return 0
+    if sys.argv[1:] == ["--dag"]:
+        phase_build()
+        report = {k: {"launches": 0} for k in SOURCES}
+        with tempfile.TemporaryDirectory() as workdir:
+            phase_dag_finish(report, background_start(workdir, "--p19-dag"))
         print(json.dumps({k: report[k]["launches"] for k in SOURCES}))
         return 0
     if sys.argv[1:] == ["--serving-plane"]:
@@ -6766,36 +7222,52 @@ def main() -> int:
         phase_posttrain_eval(report, w8)
         header("phase 9: training timing at the HIGGS widths")
         phase_train_timing(report, t_start)
-        header("phase 10: init -> stats -> norm on the card vs the CPU twin")
-        with tempfile.TemporaryDirectory() as workdir:
-            phase_pipeline(report, workdir)
-        header("phase 11: NN eval through K1 and posttrain, card vs CPU")
-        with tempfile.TemporaryDirectory() as workdir:
-            phase_nn_eval(report, workdir, rows=MAIN_NN_ROWS)
-            header("phase 12: NN/LR trainer on the card vs CPU, eval "
-                   "through K1, multi-class, timing")
-            phase_nn_train(report, workdir)
-            header("phase 13: varselect, stats flags, export and encode "
-                   "on the card vs the CPU twin")
-            phase_varselect_export(report, w8, workdir,
-                                   se_full_rows=MAIN_NN_ROWS)
+        # phase 10 runs in a process of its own beside phases 11-13
+        with tempfile.TemporaryDirectory() as p10dir:
+            p10 = background_start(p10dir, "--p10")
+            try:
+                header("phase 11: NN eval through K1 and posttrain, card "
+                       "vs CPU")
+                with tempfile.TemporaryDirectory() as workdir:
+                    phase_nn_eval(report, workdir, rows=MAIN_NN_ROWS)
+                    header("phase 12: NN/LR trainer on the card vs CPU, "
+                           "eval through K1, multi-class, timing")
+                    phase_nn_train(report, workdir)
+                    header("phase 13: varselect, stats flags, export and "
+                           "encode on the card vs the CPU twin")
+                    phase_varselect_export(report, w8, workdir,
+                                           se_full_rows=MAIN_NN_ROWS)
+                header("phase 10: init -> stats -> norm on the card vs the "
+                       "CPU twin (started with phase 11)")
+                report["pipeline"] = background_finish(p10, "--p10")
+            finally:
+                background_stop(p10)
     header("phase 14: WDL, MTL and trainOnDisk on the card vs the CPU twin")
     with tempfile.TemporaryDirectory() as workdir:
         phase_wdl_mtl_stream(report, workdir)
-    header("phase 15: past the trigger (the streaming steps) on the card "
-           "vs the CPU twin")
-    with tempfile.TemporaryDirectory() as workdir:
-        phase_past_trigger(report, workdir)
-    header("phase 16: serving graphs, swap, registry/fleet and the health "
-           "plane on the card")
-    with tempfile.TemporaryDirectory() as workdir:
-        dirs = phase_serving_plane(report, workdir)
-        header("phase 17: the closed loop (row log, refresh, canary, full "
-               "watch) on the card")
-        phase_closed_loop(report, workdir, dirs)
-        header("phase 18: checkpoints and resume (kill, preempt, the "
-               "streaming NN, the step manifests) on the card")
-        phase_checkpoint_resume(report, workdir)
+    # phase 19 runs in a process of its own beside phases 15-18
+    with tempfile.TemporaryDirectory() as p19dir:
+        dag = background_start(p19dir, "--p19-dag")
+        try:
+            header("phase 15: past the trigger (the streaming steps) on the "
+                   "card vs the CPU twin")
+            with tempfile.TemporaryDirectory() as workdir:
+                phase_past_trigger(report, workdir)
+            header("phase 16: serving graphs, swap, registry/fleet and the "
+                   "health plane on the card")
+            with tempfile.TemporaryDirectory() as workdir:
+                dirs = phase_serving_plane(report, workdir)
+                header("phase 17: the closed loop (row log, refresh, "
+                       "canary, full watch) on the card")
+                phase_closed_loop(report, workdir, dirs)
+                header("phase 18: checkpoints and resume (kill, preempt, "
+                       "the streaming NN, the step manifests) on the card")
+                phase_checkpoint_resume(report, workdir)
+            header("phase 19: the pipeline DAG, the segment siblings, "
+                   "combo and test on the card (started with phase 15)")
+            phase_dag_finish(report, dag)
+        finally:
+            background_stop(dag)
     print(f"total: {time.monotonic() - t_start:.1f} s on {smi}")
 
     kernels = []

@@ -1,12 +1,11 @@
-"""Command line of the port — the verbs of `shifu_tpu/cli.py` (the DAG
-verbs `combo` and `test` come with ROADMAP A8.2, `top` and `trace` with
-A8.5).
+"""Command line of the port — the verbs of `shifu_tpu/cli.py` (`top`
+and `trace` come with ROADMAP A8.5).
 
     python -m shifu_tpu_torch --dir <dir> new <name>
     python -m shifu_tpu_torch --dir <model-set> init
     python -m shifu_tpu_torch --dir <model-set> stats [--device cuda|cpu]
         [-correlation | -psi | -rebin [-vars a,b] [-n N] [-ivr R]
-         [-bic C]]
+         [-bic C] | -base-only | -seg K | -seg-merge]
     python -m shifu_tpu_torch --dir <model-set> norm [--device cuda|cpu]
     python -m shifu_tpu_torch --dir <model-set> varsel [-r N]
         [-reset | -list | -f FILE] [--device cuda|cpu]
@@ -21,6 +20,9 @@ A8.5).
         [--device cuda|cpu]
     python -m shifu_tpu_torch --dir <model-set> encode [--device cuda|cpu]
     python -m shifu_tpu_torch --dir <model-set> convert SRC OUT
+    python -m shifu_tpu_torch --dir <model-set> combo -new ALG1,ALG2,ALG3
+        | -init | -run [-resume] | -eval  [--device cuda|cpu]
+    python -m shifu_tpu_torch --dir <model-set> test [-n N]
     python -m shifu_tpu_torch --dir <model-set> save [NAME] | switch NAME
         | show
     python -m shifu_tpu_torch --dir <model-set> serve [--port P]
@@ -52,9 +54,11 @@ the seconds spent reading the raw table. Past its size trigger, or with
 SHIFU_TPU_{STATS,NORM}_CHUNK_ROWS set, `stats` and `norm` read the raw
 set in chunks (the streaming steps); likewise `eval` past
 SHIFU_TPU_EVAL_CHUNK_ROWS and `stats -correlation`/`-psi` and varselect
-past SHIFU_TPU_ANALYSIS_CHUNK_ROWS. The `stats` variants `-seg`,
-`-seg-merge` and `-base-only` (the DAG's per-segment siblings) are not
-ported yet and raise, naming their ROADMAP item.
+past SHIFU_TPU_ANALYSIS_CHUNK_ROWS. `stats -base-only`, `-seg K` and
+`-seg-merge` are the pipeline DAG's per-segment siblings: the base
+columns, segment expression K's partial under `tmp/stats_seg/`, and
+the merge into ColumnConfig.json (host only), equal to the inline
+`stats` byte for byte.
 
 `varsel` sets `finalSelect` by the model set's `varSelect#filterBy`:
 KS/IV/MIX/PARETO on the host; SE/ST/SC (quick NN training and column
@@ -79,8 +83,15 @@ bagging and the ume types on the host, and correlation on `--device`;
 the training set (`encoded/`) on `--device`; `convert` turns a model
 spec into an open zip bundle and back; `save`, `switch` and `show` keep
 versions of the model set under `.shifu-versions/`. `combo` and `test`
-run through the pipeline DAG, which is not ported yet: they raise
-(ROADMAP A8.2).
+run through the pipeline DAG (`pipeline/scheduler.run_dag`): `combo
+-new` writes ComboTrain.json (three algorithms or more, the last the
+assemble model), `-init` scaffolds the sub-model workspaces, `-run
+[-resume]` trains the sub-models as sibling processes on `--device`
+(`-resume` parks trained ones as cached) and then the assemble model
+over their scores, `-eval` writes `evals/<name>_combo/`; `test -n N`
+checks the config, the filters over N sampled rows of the training and
+eval sets and the pipeline's DAG as host-only nodes. `combo -run` and
+`test` print the DAG's report as the `dag` key of their JSON line.
 
 `serve` serves every model spec under ``<model-set>/models`` (the
 `PathFinder.models_path()` rule) until SIGTERM/SIGINT or `--duration-s`,
@@ -436,17 +447,9 @@ def _device_step(step: str, run, args) -> int:
     return rc
 
 
-_STATS_LEFT_OUT = ("seg", "seg_merge", "base_only")
-
-
 def cmd_stats(args) -> int:
     from shifu_tpu_torch.processor import correlation, psi
     from shifu_tpu_torch.processor import stats as stats_proc
-    for flag in _STATS_LEFT_OUT:
-        if getattr(args, flag) not in (None, False):
-            raise NotImplementedError(
-                f"stats -{flag.replace('_', '-')} (the pipeline DAG's "
-                "per-segment siblings) is not ported yet (ROADMAP A8.2)")
     if args.correlation:
         return _device_step("stats -correlation", correlation.run, args)
     if args.psi:
@@ -455,6 +458,16 @@ def cmd_stats(args) -> int:
         return _host_step("stats -rebin", lambda ctx, _: stats_proc.run_rebin(
             ctx, request_vars=args.vars, expect_bin_num=args.n,
             iv_keep_ratio=args.ivr, min_inst_cnt=args.bic), args)
+    if args.seg is not None:
+        return _device_step(f"stats -seg {args.seg}", lambda ctx, **kw:
+                            stats_proc.run_segment(ctx, args.seg, **kw),
+                            args)
+    if args.seg_merge:
+        return _host_step("stats -seg-merge", lambda ctx, _:
+                          stats_proc.run_segment_merge(ctx), args)
+    if args.base_only:
+        return _device_step("stats -base-only", lambda ctx, **kw:
+                            stats_proc.run(ctx, base_only=True, **kw), args)
     return _device_step("stats", stats_proc.run, args)
 
 
@@ -642,10 +655,108 @@ def cmd_knobs(args) -> int:
     return 0
 
 
-def cmd_dag_verb(args) -> int:
-    raise NotImplementedError(
-        f"`{args.command}` runs through the pipeline DAG (`run_dag`), "
-        "which is not ported yet (ROADMAP A8.2)")
+def cmd_test(args) -> int:
+    """Dry-run the model set through the pipeline DAG
+    (ShifuTestProcessor): the config check, the training data's filter
+    over `-n` sampled rows, one node an eval set and the pipeline's DAG
+    validated without running it, as host-only nodes. The JSON line
+    carries the DAG's report (``dag``)."""
+    import time
+
+    from shifu_tpu_torch.data.purifier import DataPurifier
+    from shifu_tpu_torch.data.reader import read_raw_table
+    from shifu_tpu_torch.pipeline.nodes import STEP_REGISTRY, pipeline_nodes
+    from shifu_tpu_torch.pipeline.scheduler import Node, _validate, run_dag
+    from shifu_tpu_torch.processor.base import ProcessorContext
+    t0 = time.perf_counter()
+    ctx = ProcessorContext.load(os.path.abspath(args.dir))
+    mc = ctx.model_config
+    root = ctx.path_finder.root
+
+    def check_filter():
+        df = read_raw_table(mc, max_rows=args.n)
+        keep = DataPurifier(mc.dataSet.filterExpressions).apply(df)
+        log.info("filter %r keeps %d / %d sampled records",
+                 mc.dataSet.filterExpressions, int(keep.sum()), len(df))
+
+    def check_eval(ec):
+        def fn():
+            df = read_raw_table(mc, ds=ec.dataSet, max_rows=args.n)
+            keep = DataPurifier(ec.dataSet.filterExpressions).apply(df)
+            log.info("eval %s: filter %r keeps %d / %d sampled records",
+                     ec.name, ec.dataSet.filterExpressions,
+                     int(keep.sum()), len(df))
+        return fn
+
+    def check_plan():
+        # the model set's pipeline, validated (unique names, known deps,
+        # acyclic) without running anything
+        plan = pipeline_nodes(root, eval_sets=[e.name for e in mc.evals])
+        _validate(plan)
+        log.info("pipeline DAG: %d nodes over %d registered steps "
+                 "validate clean", len(plan), len(STEP_REGISTRY))
+
+    def check_config():
+        log.info("config: model set %s, algorithm %s, %d eval set(s)",
+                 mc.model_set_name, mc.train.algorithm.value,
+                 len(mc.evals))
+
+    nodes = [Node("test.config", check_config, (), device=False)]
+    nodes.append(Node("test.filter", check_filter, ("test.config",),
+                      device=False))
+    for ec in mc.evals:
+        nodes.append(Node(f"test.eval.{ec.name}", check_eval(ec),
+                          ("test.config",), device=False))
+    nodes.append(Node("test.plan", check_plan, ("test.config",),
+                      device=False))
+    report = {"dag": run_dag(nodes, root=root, label="test")}
+    _step_line("test", "host", report, t0, rc=0)
+    return 0
+
+
+def cmd_combo(args) -> int:
+    """`combo -new`, `-init` (host), `-run [-resume]` and `-eval` (on
+    `--device`, their line with the scoring and tree kernels' launches
+    in this process; `-run`'s with the DAG's report)."""
+    import time
+
+    import torch
+
+    from shifu_tpu_torch import resolve_device
+    from shifu_tpu_torch.ops import fused_score, fused_trees
+    from shifu_tpu_torch.processor import combo as p
+    from shifu_tpu_torch.processor.base import ProcessorContext
+    if args.new:
+        return _host_step("combo -new",
+                          lambda ctx, _: p.new(ctx, args.new), args)
+    if args.init:
+        return _host_step("combo -init", lambda ctx, _: p.init(ctx), args)
+    if not (args.run or args.eval):
+        raise SystemExit("combo: pass one of -new ALGS / -init / -run / "
+                         "-eval")
+
+    def counts():
+        return {"fused_score": fused_score.launches,
+                "fused_trees": fused_trees.launches,
+                **_tree_kernel_counts()}
+
+    dev = resolve_device(args.device)
+    _card_clock(dev)
+    before = counts()
+    t0 = time.perf_counter()
+    report: dict = {}
+    ctx = ProcessorContext.load(os.path.abspath(args.dir))
+    if args.run:
+        step = "combo -run"
+        rc = p.run(ctx, resume=args.resume, device=dev, report=report)
+    else:
+        step = "combo -eval"
+        rc = p.evaluate(ctx, device=dev, report=report)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    _step_line(step, str(dev), report, t0, rc=rc, launches={
+        k: v - before[k] for k, v in counts().items()})
+    return rc
 
 
 def cmd_ckpt(args) -> int:
@@ -810,11 +921,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="IV keep ratio while shrinking bins")
     p.add_argument("-bic", type=int, default=0,
                    help="minimum instance count per bin")
-    for flag in ("seg-merge", "base-only"):
-        p.add_argument(f"-{flag}", f"--{flag}", action="store_true",
-                       help="not ported yet (raises)")
     p.add_argument("-seg", type=int, default=None,
-                   help="not ported yet (raises)")
+                   help="compute stats for ONE segment expression "
+                        "(1-based index) into a tmp partial — a DAG "
+                        "sibling of the base stats step")
+    p.add_argument("-seg-merge", "--seg-merge", action="store_true",
+                   help="merge base + per-segment partials into "
+                        "ColumnConfig.json")
+    p.add_argument("-base-only", "--base-only", action="store_true",
+                   help="skip segment expansion (the DAG runs segments "
+                        "as sibling -seg steps)")
     device_flag(p, "for the column math")
     p.set_defaults(fn=cmd_stats)
     for alias in ("varsel", "varselect"):
@@ -850,16 +966,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=cmd_switch)
     sub.add_parser("show", help="list model-set snapshots") \
         .set_defaults(fn=cmd_show)
-    p = sub.add_parser("combo", help="not ported yet (raises: the "
-                                     "pipeline DAG, ROADMAP A8.2)")
-    p.add_argument("-new", "--new", default=None, metavar="ALG1,ALG2,...")
-    for flag in ("init", "run", "eval", "resume"):
-        p.add_argument(f"-{flag}", f"--{flag}", action="store_true")
-    p.set_defaults(fn=cmd_dag_verb)
-    p = sub.add_parser("test", help="not ported yet (raises: the "
-                                    "pipeline DAG, ROADMAP A8.2)")
+    p = sub.add_parser("combo", help="assembled multi-algorithm models")
+    p.add_argument("-new", "--new", default=None, metavar="ALG1,ALG2,...",
+                   help="create ComboTrain.json (last alg = assemble "
+                        "model)")
+    p.add_argument("-init", "--init", action="store_true",
+                   help="scaffold sub-model workspaces")
+    p.add_argument("-run", "--run", action="store_true",
+                   help="train sub-models + assemble model")
+    p.add_argument("-eval", "--eval", action="store_true",
+                   help="evaluate the assembled model")
+    p.add_argument("-resume", "--resume", action="store_true",
+                   help="skip already-trained sub-models")
+    device_flag(p, "for -run and -eval")
+    p.set_defaults(fn=cmd_combo)
+    p = sub.add_parser("test", help="dry-run filter expressions")
     p.add_argument("-n", type=int, default=100)
-    p.set_defaults(fn=cmd_dag_verb)
+    p.set_defaults(fn=cmd_test)
     for alias in ("norm", "normalize"):
         p = sub.add_parser(alias, help="normalize data")
         p.add_argument("--device", default="cuda",

@@ -16,7 +16,8 @@ row-state tier of the streaming GBT builder, and the serving plane's
 health, registry and fleet knobs with the retry and fault-injection
 knobs they read (`resilience.py`), and the closed loop's knobs (the
 row log, the refresh controller, the shadow and canary arms and the
-fleet's refresh budget): same names, types and
+fleet's refresh budget), and the pipeline DAG's admission and lease
+knobs (`pipeline/scheduler.py`): same names, types and
 defaults, and the same warn-and-run parsing (a malformed value logs a
 warning and falls back to the default instead of failing the process).
 `knobs_rows` lists them for the `knobs` verb.
@@ -211,6 +212,18 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
          "max tenant refreshes a fleet drift tick may schedule — a "
          "breach storm (N tenants drifting at once) defers the rest "
          "to later ticks instead of launching N concurrent retrains"),
+    Knob("SHIFU_TPU_DAG_WORKERS", "int", 2,
+         "pipeline DAG scheduler, timeshared mode: concurrent "
+         "device-using nodes (host-only nodes are admitted "
+         "immediately; sliced mode admits by device-slice leases)"),
+    Knob("SHIFU_TPU_DAG_SLICE", "str", "auto",
+         "DAG device-slice leases: auto = lease disjoint cards to "
+         "concurrent device nodes when the pool holds >1 card, "
+         "1 = force slicing, 0 = timeshared admission"),
+    Knob("SHIFU_TPU_DAG_DEVICES", "int", None,
+         "card pool size the DAG slice allocator leases from (None = "
+         "torch.cuda.device_count(), read only for a DAG that holds a "
+         "device node)"),
 )}
 
 

@@ -84,26 +84,6 @@ class GuardrailHold(RuntimeError):
     outcome."""
 
 
-def _absolutize(obj, base: str):
-    """Every relative local path-valued field (``*Path``/``*File``) of a
-    raw ModelConfig dict, resolved against the parent model set — a
-    clone lives under tmp/ and must keep reading the parent's files
-    (the JAX package's `pipeline/nodes._absolutize`)."""
-    if isinstance(obj, dict):
-        out = {}
-        for k, v in obj.items():
-            if isinstance(v, str) and v and \
-                    (k.endswith("Path") or k.endswith("File")) and \
-                    not fileio.has_scheme(v) and not os.path.isabs(v):
-                out[k] = os.path.join(base, v)
-            else:
-                out[k] = _absolutize(v, base)
-        return out
-    if isinstance(obj, list):
-        return [_absolutize(v, base) for v in obj]
-    return obj
-
-
 class RefreshController:
     """Owns the breach → promote pipeline for ONE model set.
 
@@ -408,6 +388,7 @@ class RefreshController:
         with open(os.path.join(root, "ModelConfig.json"),
                   encoding="utf-8") as f:
             raw = json.load(f)
+        from shifu_tpu_torch.pipeline.nodes import _absolutize
         raw = _absolutize(raw, root)
         raw.setdefault("train", {})["isContinuous"] = True
         raw.setdefault("basic", {})["name"] = \

@@ -15,18 +15,24 @@ column on the host (`ops/rebin.py`), with no data pass. The
 `-correlation` and `-psi` variants are `processor/correlation.py` and
 `processor/psi.py`.
 
+`run(..., base_only=True)` (`stats -base-only`), `run_segment`
+(`stats -seg K`) and `run_segment_merge` (`stats -seg-merge`) split
+the segment expansion into the pipeline DAG's siblings: the base
+columns, one partial a segment expression under ``tmp/stats_seg/``,
+and the merge that commits ColumnConfig.json equal to the inline
+expansion's, byte for byte.
+
 Past the size trigger (SHIFU_TPU_STATS_CHUNK_ROWS or -Dshifu.stats.
 chunkRows, or raw files over SHIFU_TPU_STATS_STREAM_BYTES) `run` hands
 the step to the chunked two-pass sketch of
 `processor/stats_streaming.py`, except that an automatic trigger stays
 resident for segment expansion and DateStats, as in the JAX package.
-The `-seg`, `-seg-merge` and `-base-only` variants (the DAG's
-per-segment siblings, ROADMAP A8.2) raise in the CLI.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Dict, Optional
 
@@ -50,21 +56,23 @@ log = logging.getLogger("shifu_tpu_torch")
 
 def run(ctx: ProcessorContext, dataset: Optional[ColumnarDataset] = None,
         seed: int = 12306, device: "str | torch.device" = "cuda",
-        report: Optional[Dict[str, float]] = None) -> int:
+        report: Optional[Dict[str, float]] = None,
+        base_only: bool = False) -> int:
     """Fill ColumnConfig.json with binning and stats, resident or
     streaming, under the ``stats`` manifest (`step_guard`). `report`,
     when given, receives the seconds spent reading the raw table
-    (``read_s``) and the rows the step computed over (``rows``)."""
+    (``read_s``) and the rows the step computed over (``rows``). With
+    `base_only` the segment copies are left to `run_segment`."""
     with step_guard(ctx, "stats", outputs=[
             ctx.path_finder.column_config_path()]) as go:
         if not go:
             return 0
-        return _run(ctx, dataset, seed, device, report)
+        return _run(ctx, dataset, seed, device, report, base_only)
 
 
 def _run(ctx: ProcessorContext, dataset: Optional[ColumnarDataset],
          seed: int, device: "str | torch.device",
-         report: Optional[Dict[str, float]]) -> int:
+         report: Optional[Dict[str, float]], base_only: bool) -> int:
     from shifu_tpu_torch import resolve_device
     dev = resolve_device(device)
     t0 = time.time()
@@ -99,6 +107,12 @@ def _run(ctx: ProcessorContext, dataset: Optional[ColumnarDataset],
         # expressions removed since the last run: drop orphaned copies
         ccs = [c for c in ccs if not c.is_segment]
         ctx.column_configs = ccs
+    if base_only and exprs:
+        # the DAG's `stats -seg K` siblings own the segment blocks: this
+        # run commits the base columns only
+        ccs = [c for c in ccs if not c.is_segment]
+        ctx.column_configs = ccs
+        exprs = []
     if exprs and df is not None:
         base = [c for c in ccs if not c.is_segment]
         ccs = base + segment.expand_column_configs(base, exprs)
@@ -337,4 +351,88 @@ def run_rebin(ctx: ProcessorContext, request_vars: Optional[str] = None,
             n_done += 1
     ctx.save_column_configs()
     log.info("rebin: %d column(s) re-binned", n_done)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# per-segment stats as DAG siblings (`stats -seg K` / `stats -seg-merge`)
+# ---------------------------------------------------------------------------
+
+def _seg_partial_path(ctx: ProcessorContext, k: int) -> str:
+    return os.path.join(ctx.path_finder.root, "tmp", "stats_seg",
+                        f"seg_{k}.json")
+
+
+def run_segment(ctx: ProcessorContext, k: int, seed: int = 12306,
+                device: "str | torch.device" = "cuda",
+                report: Optional[Dict[str, float]] = None) -> int:
+    """`stats -seg K`: the stats of segment block K alone, on `device`,
+    written to a partial under ``tmp/stats_seg/`` (the
+    ``stats.seg.<k>`` manifest); `run_segment_merge` folds the partials
+    back into ColumnConfig.json."""
+    from shifu_tpu_torch import resolve_device
+    from shifu_tpu_torch.config.column_config import save_column_configs
+    dev = resolve_device(device)
+    t0 = time.time()
+    mc = ctx.model_config
+    ctx.validate(ModelStep.STATS)
+    ctx.require_columns()
+    exprs = segment.segment_expressions(mc)
+    if not 1 <= k <= len(exprs):
+        raise ValueError(
+            f"stats -seg {k}: segment index out of range (the "
+            f"segExpressionFile defines {len(exprs)} expression(s))")
+    out = _seg_partial_path(ctx, k)
+    with step_guard(ctx, f"stats.seg.{k}", outputs=[out]) as go:
+        if not go:
+            return 0
+        t_read = time.perf_counter()
+        df = _resident_frame(ctx, seed)
+        if report is not None:
+            report["read_s"] = time.perf_counter() - t_read
+        base = [c for c in ctx.column_configs if not c.is_segment]
+        n_base = len(base)
+        block = [c for c in segment.expand_column_configs(base, exprs)
+                 if k * n_base <= c.columnNum < (k + 1) * n_base]
+        expr = exprs[k - 1]
+        mask = DataPurifier(expr).apply(df)
+        dset_k = build_columnar(mc, base, df.select(mask))
+        by_num = {c.columnNum: c for c in block}
+        cc_map = {c.columnNum: by_num[k * n_base + c.columnNum]
+                  for c in base}
+        compute_stats(ctx, dset_k, cc_map=cc_map, device=dev)
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        save_column_configs(block, out)
+        if report is not None:
+            report["rows"] = dset_k.num_rows
+        log.info("stats -seg %d (%s): %d/%d rows in %.2fs", k, expr,
+                 int(mask.sum()), len(df), time.time() - t0)
+    return 0
+
+
+def run_segment_merge(ctx: ProcessorContext) -> int:
+    """`stats -seg-merge`: re-attach every segment block's partial
+    ColumnConfigs (written by the `stats -seg K` siblings) to the base
+    configs and commit ColumnConfig.json (host only)."""
+    from shifu_tpu_torch.config.column_config import load_column_configs
+    mc = ctx.model_config
+    ctx.require_columns()
+    exprs = segment.segment_expressions(mc)
+    with step_guard(ctx, "stats.segmerge", outputs=[
+            ctx.path_finder.column_config_path()]) as go:
+        if not go:
+            return 0
+        merged = [c for c in ctx.column_configs if not c.is_segment]
+        for k in range(1, len(exprs) + 1):
+            p = _seg_partial_path(ctx, k)
+            if not os.path.exists(p):
+                raise FileNotFoundError(
+                    f"segment partial {p} missing — run "
+                    f"`stats -seg {k}` first")
+            merged.extend(load_column_configs(p))
+        ctx.column_configs = merged
+        ctx.save_column_configs()
+        log.info("stats -seg-merge: %d base + %d segment configs",
+                 len([c for c in merged if not c.is_segment]),
+                 len([c for c in merged if c.is_segment]))
     return 0

@@ -23,11 +23,13 @@ restarts — the port's copy of `shifu_tpu/resilience.py`:
 3. **Deliberate absorbs** (`absorbed`, `absorb_counts`): a per-site
    counter for every exception swallowed by design.
 4. **The abort scope** (`set_abort_scope`): the model set's ``tmp/``,
-   set by `step_guard`. A step's start and each supervised attempt
-   clear a stale abort or preempt marker there (`clear_abort`,
-   `clear_preempt_marker`), as the JAX package's do; nothing in the
-   one-card port publishes one. A ``scheme://`` scope raises (ROADMAP
-   A8.4).
+   set by `step_guard` and by `pipeline.scheduler.run_dag`. A step's
+   start and each supervised attempt clear a stale abort or preempt
+   marker there (`clear_abort`, `clear_preempt_marker`), as the JAX
+   package's do. The DAG's first failing node publishes an abort
+   marker (`publish_abort`): the JAX package's record, which the JAX
+   package's `check_abort` reads. A ``scheme://`` scope raises
+   (ROADMAP A8.4).
 5. **Preemption-safe shutdown** (`graceful_shutdown` /
    `preempt_requested` / `Preempted`): SIGTERM/SIGINT set a flag the
    epoch loops check at step boundaries; the trainer saves a final
@@ -47,11 +49,11 @@ restarts — the port's copy of `shifu_tpu/resilience.py`:
 
 `atomic_write` and `atomic_path` stay in `fileio.py` (their
 ``atomic.commit`` site fires just before the rename). The multi-host
-pieces are ROADMAP A8.3: `publish_preempt` (the broadcast from the
-signal handler), `preempt_exit_sync` (the ordered exit and its
-``preempt.ack.*`` markers), `publish_abort`/`check_abort`/
-`check_preempt_marker` (the markers a peer reads) and
-`dump_thread_stacks` (the collective watchdog's); the `retry`
+pieces are ROADMAP A8.3: the peer side of the markers (a barrier that
+waits on a peer's abort marker, `check_preempt_marker`),
+`publish_preempt` (the broadcast from the signal handler),
+`preempt_exit_sync` (the ordered exit and its ``preempt.ack.*``
+markers) and `dump_thread_stacks` (the collective watchdog's); the `retry`
 decorator, `retry_stats` and the buffered events (`note_event`/
 `drain_events`) come with the step records and spans of A8.5; the
 remote sweep and remote markers are A8.4.
@@ -121,8 +123,8 @@ class _FaultRule(NamedTuple):
 
 # every static fault site of the port (`step.<name>` sites are
 # dynamic); the JAX package's others are its remote filesystem
-# (`fs.*`, A8.4), its collectives and the DAG (`dist.*` A8.3,
-# `dag.*` A8.2) and its trace export (`obs.export`, A8.5)
+# (`fs.*`, A8.4), its collectives (`dist.*`, A8.3) and its trace
+# export (`obs.export`, A8.5)
 FAULT_SITES = (
     "reader.read", "reader.native",
     "ckpt.save", "ckpt.stage", "ckpt.publish", "ckpt.saved",
@@ -133,6 +135,7 @@ FAULT_SITES = (
     "ingest.append", "ingest.seal", "ingest.offset",
     "refresh.schedule", "refresh.guardrail", "refresh.promote",
     "canary.start", "canary.decide", "canary.rollback", "shadow.score",
+    "dag.node", "dag.slice",
 )
 
 _NTH_RE = re.compile(r"^(\d+)(\+|-(\d+))?$")
@@ -299,6 +302,29 @@ def _clear_marker(path: Optional[str], what: str) -> None:
 def clear_abort() -> None:
     """Remove a stale abort marker (step start, restart attempt)."""
     _clear_marker(_marker_path(_ABORT_NAME), "abort")
+
+
+def publish_abort(site: str, exc: BaseException,
+                  process: Optional[int] = None) -> None:
+    """Atomically write the abort marker under the scope: the JAX
+    package's record (``site``, ``process``, ``error``, ``time``).
+    `process` defaults to 0: the port runs one process. Best-effort: a
+    failure to publish never masks the original exception."""
+    path = _marker_path(_ABORT_NAME)
+    if not path:
+        return
+    rec = {"site": site, "process": 0 if process is None else process,
+           "error": f"{type(exc).__name__}: {exc}",
+           "time": round(time.time(), 3)}
+    try:
+        from shifu_tpu_torch.fileio import atomic_write
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with atomic_write(path) as f:
+            f.write(json.dumps(rec))
+        log.error("abort marker published at %s (site=%s): %s", path,
+                  site, rec["error"])
+    except Exception as e:  # noqa: BLE001 — never mask the original
+        log.warning("could not publish abort marker %s: %s", path, e)
 
 
 def clear_preempt_marker() -> None:

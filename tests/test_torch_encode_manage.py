@@ -149,10 +149,3 @@ def test_save_switch_show_match_jax(sets, tmp_path, capsys):  # noqa: F811
         port(proot, "save", "v1", device=False)
     with pytest.raises(ValueError, match="no saved version"):
         port(proot, "switch", "v9", device=False)
-
-
-@pytest.mark.parametrize("verb", [["combo", "-new", "NN,LR"],
-                                  ["test", "-n", "5"]])
-def test_dag_verbs_raise(tmp_path, verb):
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        port(str(tmp_path), *verb, device=False)

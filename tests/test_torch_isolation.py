@@ -50,6 +50,7 @@ import shifu_tpu_torch.serve.fleet, shifu_tpu_torch.serve.aot
 from shifu_tpu_torch.obs.health import drift, slo, store, watch
 from shifu_tpu_torch.obs.health import canary, refresh
 from shifu_tpu_torch.data import ingest
+import shifu_tpu_torch.pipeline, shifu_tpu_torch.processor.combo
 root = sys.argv[1]
 log = ingest.RowLog(root + "/rowlog", header=["a", "b"], segment_rows=2)
 log.append(["1|x", "2|", "3|z"])

@@ -60,6 +60,36 @@ def test_closed_loop_knobs_match_the_jax_defaults(name, monkeypatch):
         assert getattr(penv, read)(name) == getattr(jenv, read)(name)
 
 
+DAG_KNOBS = ("SHIFU_TPU_DAG_WORKERS", "SHIFU_TPU_DAG_SLICE",
+             "SHIFU_TPU_DAG_DEVICES")
+
+
+@pytest.mark.parametrize("name", DAG_KNOBS)
+def test_dag_knobs_match_the_jax_package(name, monkeypatch):
+    """The pipeline DAG's admission and lease knobs: declared with the
+    JAX package's type and default, and read alike when set (and when
+    malformed)."""
+    from shifu_tpu.config import environment as jenv
+    from shifu_tpu_torch.config import environment as penv
+    k, j = penv.KNOBS[name], jenv.KNOBS[name]
+    assert (k.type, k.default) == (j.type, j.default)
+    read = {"int": "knob_int", "str": "knob_str"}[k.type]
+    monkeypatch.delenv(name, raising=False)
+    assert getattr(penv, read)(name) == getattr(jenv, read)(name) == k.default
+    for raw in ("3", "0", "1,2", "auto", "nonsense"):
+        monkeypatch.setenv(name, raw)
+        assert getattr(penv, read)(name) == getattr(jenv, read)(name)
+
+
+def test_mesh_and_compile_cache_knobs_stay_out():
+    """The mesh's knobs wait for the mesh that reads them (ROADMAP
+    A8.3); the port has no XLA compile cache."""
+    from shifu_tpu_torch.config.environment import KNOBS
+    assert not {"SHIFU_TPU_MESH_DEVICES", "SHIFU_TPU_COMPILE_CACHE_DIR",
+                "SHIFU_TPU_DEVICE_SLICE", "SHIFU_TPU_DAG_DEMAND_CAP"} \
+        & set(KNOBS)
+
+
 def test_bench_refresh_knob_stays_out():
     from shifu_tpu_torch.config.environment import KNOBS
     assert "SHIFU_TPU_BENCH_REFRESH" not in KNOBS

@@ -134,7 +134,7 @@ def test_every_fault_site_is_listed():
     """Every `fault_point("...")` literal of the port is in FAULT_SITES
     (`step.` sites are dynamic), every listed site fires somewhere, and
     the JAX package's sites missing here are exactly its remote
-    filesystem, collective, DAG and trace-export ones."""
+    filesystem, collective and trace-export ones."""
     from shifu_tpu import resilience as jres
     root = os.path.dirname(resilience.__file__)
     found = set()
@@ -149,10 +149,10 @@ def test_every_fault_site_is_listed():
                 found |= set(pat.findall(text)) | set(const.findall(text))
     assert found == set(resilience.FAULT_SITES)
     missing = set(jres.FAULT_SITES) - set(resilience.FAULT_SITES)
-    assert all(s.startswith(("fs.", "dist.", "dag.")) or s == "obs.export"
+    assert all(s.startswith(("fs.", "dist.")) or s == "obs.export"
                for s in missing), missing
     assert {s for s in jres.FAULT_SITES
-            if s.startswith(("fs.", "dist.", "dag."))
+            if s.startswith(("fs.", "dist."))
             or s == "obs.export"} == missing
     assert set(resilience.FAULT_SITES) <= set(jres.FAULT_SITES)
 

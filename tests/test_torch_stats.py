@@ -384,15 +384,6 @@ def test_stats_defaults_to_the_card(tmp_path, monkeypatch):
             cli.main(["--dir", port, verb])
 
 
-@pytest.mark.parametrize("flag", [["-seg", "1"], ["-seg-merge"],
-                                  ["-base-only"]])
-def test_stats_variants_not_ported_raise(tmp_path, flag):
-    from shifu_tpu_torch import cli
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        cli.main(["--dir", str(tmp_path), "stats", *flag, "--device",
-                  "cpu"])
-
-
 def test_stats_streaming_trigger_and_date_stats_raise(tmp_path,
                                                       monkeypatch):
     """Past the streaming trigger `stats` takes the chunked two-pass
