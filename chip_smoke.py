@@ -104,7 +104,9 @@ result line is printed):
    (each bag's best val error within 1e-3 relative: sign-driven rules
    part on near-zero gradients); at 16,384 rows the card trains the NN
    (ADAM) and LR (R), and `eval` of each runs on the card (through K1,
-   `fused_score` launched) and on a CPU twin with phase 11's gates; a
+   `fused_score` launched) and on a CPU twin with phase 11's gates, the
+   card `train`'s steps.jsonl record carrying a `roofline` block
+   (`profiling.ROOFLINE_FIELDS`, 0 < `mxu_util` <= 1); a
    3-class table of the HIGGS widths (16,384 rows, a 16,384-row holdout,
    `init → stats → norm` on the card): NATIVE and ONEVSALL NNs (28 → 64
    → 3, momentum) trained and `eval -run` on the card and the CPU (class
@@ -181,7 +183,9 @@ result line is printed):
    with CUDA graphs beside eager and CPU twins — one capture per (model,
    bucket), every bucket bit-equal to the eager card path and within
    1e-5 (NN) / 1e-6 (trees) of the CPU, 512 mixed-size requests with no
-   capture after warm-up, their K1/K2 launches counted through the
+   capture after warm-up, under SHIFU_TPU_TRACE=1: each request's
+   `serve.request` span with five children equal to its `timing`
+   splits within 1 µs; their K1/K2 launches counted through the
    replays and one replay's kernels equal to the profiler's between
    marker kernels; (b) `swap_params` ten times between two NNs of phase
    4's shape trained by the port on two seeds while a client submits
@@ -250,7 +254,14 @@ result line is printed):
    file as eval sets Eval1 and Eval2; GBT 20 trees, depth 6, 64 bins,
    log loss; the NN 64 hidden units, `bench.py:76-78`): (a) `run_dag`
    of `pipeline_nodes` with GBT + RF (the RF a `prepare_variant` clone)
-   and posttrain under the default admission: every node done, the two
+   and posttrain under the default admission, traced
+   (SHIFU_TPU_TRACE=1) inside `step_metrics` as a verb runs, in a process
+   of its own (`--p19-traced-leg`): one merged trace with one `run.step`
+   of that process, a `dag.node` span a node (its parent, state done,
+   `dag.queue`/`dag.run` children), one `run.step` of each node process
+   in the merge, one steps.jsonl record a node verb (rc 0; `backend`
+   cuda and `deviceCount` 1 but for `init`; train.GBT's
+   `peakBytesInUse` > 0) and the coordinator's with its `dag` block; every node done, the two
    trainers overlapping (timeshared: max_concurrent >= 2; several
    cards: a lease each), ColumnConfig.json, the normalized and cleaned
    data, both models, both EvalPerformance.json and
@@ -260,7 +271,13 @@ result line is printed):
    manifests predict (posttrain rewrote ColumnConfig.json after stats,
    norm and train wrote theirs: C-ref-4), eval.Eval1 among those run,
    no node run that C-ref-4 leaves valid (init, train.RF and posttrain
-   cached), every output unchanged; (b) `stats -base-only`, `-seg 1`,
+   cached), every output unchanged; then `python -m shifu_tpu_torch
+   --profile --dir <copy> train` under SHIFU_TPU_TRACE=1 in a fresh
+   process: `trace ls` pairs its span trace and its profile, the
+   profile's K3/K5 kernels count what its line reports, its record has
+   `trace` and `tree_build_dispatches`, `top` shows its `train` row
+   with rc 0, and the step's card idle share (one minus the union of
+   kernel intervals over `run.step`) is printed; (b) `stats -base-only`, `-seg 1`,
    `-seg 2`, `-seg-merge` in this process: ColumnConfig.json
    byte-equal to an inline `stats` on the card and to a `--device cpu`
    inline twin; (c) `combo -new NN,GBT,LR`, `-init`, `-run` (the
@@ -324,7 +341,11 @@ read, compute and write seconds (it needs the streaming modules);
 `--k3-timing` only K3 (uint8, int32) and K4 at 2,000,000 × 28 × 64, S =
 1 and 32, on real-valued grads; `--serving-plane` only phase 16 (after
 the build); `--serve-walls` also sets each service's graphs against its
-eager twin at each bucket, in turns. The others call only functions that
+eager twin at each bucket, in turns (`--serve-walls 1,512` at those
+buckets only); `--serve-walls-pairs PARENT N` runs `--serve-walls 1,512`
+in N process pairs, the tree unpacked at PARENT (this script copied
+into it) against this one, in turns, tracer off, and prints each
+p50/p99's min, median and max per tree. The others call only functions that
 older trees of the port have too, so the script copied into the root of
 an older tree times that tree: run the two in turns on one card.
 """
@@ -2233,6 +2254,48 @@ def serve_walls(sizes=(1, 8, 64, 512), device="cuda", turns=2,
     return out
 
 
+def serve_wall_pairs(parent, pairs, sizes=(1, 512)):
+    """`--serve-walls` at `sizes` in `pairs` process pairs, the tree at
+    `parent` (this script copied into its root) against this one, in
+    turns (parent, this, this, parent, ...) on one card, with the tracer
+    off. Per tree and (service, mode, size): each process's p50 and p99
+    (the mean of its turns), and their min, median and max over the
+    processes."""
+    import shutil
+    here = os.path.dirname(os.path.abspath(__file__))
+    shutil.copy(os.path.abspath(__file__), os.path.join(parent,
+                                                        "chip_smoke.py"))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("SHIFU_TPU_TRACE")}
+    raw = {"parent": [], "this": []}
+    for i in range(pairs):
+        order = (("parent", parent), ("this", here))
+        for tag, tree in (order if i % 2 == 0 else order[::-1]):
+            proc = subprocess.run(
+                [sys.executable, "chip_smoke.py", "--serve-walls",
+                 ",".join(str(n) for n in sizes)], cwd=tree, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                text=True, timeout=600)
+            assert proc.returncode == 0, (tag, proc.returncode)
+            raw[tag].append(json.loads(
+                proc.stdout.strip().splitlines()[-1])["serve_walls_ms"])
+    out = {}
+    for tag, runs in raw.items():
+        for key in runs[0]:
+            for q in ("p50_ms", "p99_ms"):
+                vals = sorted(float(np.mean([t[q] for t in run[key]]))
+                              for run in runs)
+                out.setdefault(f"{key} {q}", {})[tag] = {
+                    "min": vals[0], "median": float(np.median(vals)),
+                    "max": vals[-1], "each": vals}
+    for key, row in out.items():
+        print(f"  {key}: parent {row['parent']['min']:.4f} / "
+              f"{row['parent']['median']:.4f} / {row['parent']['max']:.4f},"
+              f" this {row['this']['min']:.4f} / {row['this']['median']:.4f}"
+              f" / {row['this']['max']:.4f} (min / median / max)")
+    return out
+
+
 def train_walls(repeats=3):
     """Wall seconds of `build_gbt` at 2M rows × 10 trees (HIGGS widths),
     binned and fused, `repeats` times each after a one-tree warm-up, and
@@ -3037,6 +3100,21 @@ def mc_model_set(root, workdir, device="cuda"):
     return run_pipeline(root, device)
 
 
+def p12_roofline(root, nn=True):
+    """(c) The `roofline` block the card `train` of `root` queued for its
+    steps.jsonl record: ROOFLINE_FIELDS, and for the NN (`nn`) a share
+    of the card's f32 peak in (0, 1] (LR's 3,600 FLOPs a row round to a
+    share of 0 at four decimals)."""
+    from shifu_tpu_torch.profiling import ROOFLINE_FIELDS
+    rec = [r for r in _steps_records(root) if r["step"] == "train"][-1]
+    roof = rec.get("roofline")
+    assert roof is not None and tuple(roof) == ROOFLINE_FIELDS, rec
+    assert 0 < roof["mxu_util"] <= 1 or not nn, roof
+    print(f"  (c) train roofline of {os.path.basename(root)}: "
+          + json.dumps(roof))
+    return roof
+
+
 def phase_nn_train(report, workdir, device="cuda", cpu_rows=NN_TRAIN_CPU_ROWS,
                    walls=True):
     """Phase 12: the NN/LR trainer on the card. Phase 11's set (its
@@ -3134,9 +3212,10 @@ def phase_nn_train(report, workdir, device="cuda", cpu_rows=NN_TRAIN_CPU_ROWS,
         print(f"  {name} eval card = CPU within 1e-5: {json.dumps(errs)}")
         report["fused_score"]["launches"] += \
             card_eval["launches"]["fused_score"]
+        roof = p12_roofline(root, nn=name.startswith("NN"))
         out["full"][name] = {"train": line, "eval": {"card": card_eval,
                                                      "cpu": cpu_eval},
-                             "errors": errs}
+                             "errors": errs, "roofline": roof}
     for method, ((card, cpu), (card_eval, cpu_eval), croot, cpu_root) in zip(
             ("NATIVE", "ONEVSALL"), results[3]):
         print(f"  3-class {method} train: card {json.dumps(card)}, "
@@ -3563,7 +3642,8 @@ def card_scores(root, table, n, device):
 def manage_round_trip(src, workdir):
     """`new`, then `save v1` / an edit (`varsel -reset`) / `save v2` /
     `switch v1` / `show` on a copy of `src`: the restored files equal
-    the v1 snapshot."""
+    the v1 snapshot (but the CLI's step log, which each verb appends
+    to)."""
     def files(root, skip=".shifu-versions"):
         out = {}
         for d, dirs, fs in os.walk(root):
@@ -3572,6 +3652,7 @@ def manage_round_trip(src, workdir):
                 p = os.path.join(d, f)
                 with open(p, "rb") as h:
                     out[os.path.relpath(p, root)] = h.read()
+        out.pop(os.path.join("tmp", "metrics", "steps.jsonl"), None)
         return out
     root = model_copy(src, os.path.join(workdir, "manage"))
     lines = run_verbs([(workdir, ["new", "scaffold"]),
@@ -5063,6 +5144,48 @@ def same_scores(a, b):
         np.array_equal(a[k], b[k], equal_nan=True) for k in b)
 
 
+@contextlib.contextmanager
+def p16_traced(root):
+    """A trace run of its own (SHIFU_TPU_TRACE=1, a ring that holds
+    every span of the block) around the block; yields the run."""
+    from shifu_tpu_torch.obs import trace as obs_trace
+    with _environ({"SHIFU_TPU_TRACE": "1", "SHIFU_TPU_TRACE_BUF": "65536",
+                   "SHIFU_TPU_TRACE_DIR": None}):
+        with obs_trace.trace_run(root, "serve") as run:
+            assert run is not None
+            yield run
+
+
+# the largest |span − timing split| (d) allows: one microsecond
+P16_SPAN_TOL_S = 1e-6
+
+
+def p16_span_gate(run, reqs):
+    """(d) Every request of the traced traffic has one `serve.request`
+    span (its submit time the span's start) whose five children equal
+    its `timing` splits within P16_SPAN_TOL_S."""
+    from shifu_tpu_torch.obs import trace as obs_trace
+    spans = run.tracer.spans()
+    assert run.tracer.summary()["dropped_spans"] == 0
+    by_ts = {s["ts"]: s for s in spans if s["name"] == "serve.request"}
+    kids = {}
+    for s in spans:
+        if s["parent"] is not None and s["name"].startswith("serve."):
+            kids.setdefault(s["parent"], {})[s["name"]] = s["dur"]
+    worst = 0.0
+    for r in reqs:
+        req = by_ts[obs_trace.wall(r.t_submit)]
+        got = kids[req["id"]]
+        assert set(got) == {f"serve.{k}" for k in
+                            ("queue", "pad", "h2d", "device", "d2h")}, got
+        for k in ("queue", "pad", "h2d", "device", "d2h"):
+            worst = max(worst, abs(got[f"serve.{k}"] - r.timing[f"{k}_s"]))
+        worst = max(worst, abs(req["dur"] - r.timing["total_s"]))
+    assert worst <= P16_SPAN_TOL_S, worst
+    return {"requests": len(by_ts), "spans": len(spans),
+            "max_abs_s": worst}
+
+
 def p16_graphs(report, workdir, device="cuda"):
     """(a) Phase 4's two services with graphs, beside an eager twin on
     the card and a CPU twin: one capture per (model, bucket); every
@@ -5113,12 +5236,18 @@ def p16_graphs(report, workdir, device="cuda"):
             payloads = [make(rng, int(n)) for n in sizes]
             fused_score.launches = 0
             fused_trees.launches = 0
-            t0 = time.monotonic()
-            for i in range(0, P16_MIXED, 4):
-                pend = [graph.submit_async(**b) for b in payloads[i:i + 4]]
-                for r in pend:
-                    r.wait(120)
-            mixed_s = time.monotonic() - t0
+            reqs = []
+            with p16_traced(os.path.join(workdir, "p16_trace_" + name)) \
+                    as run:
+                t0 = time.monotonic()
+                for i in range(0, P16_MIXED, 4):
+                    pend = [graph.submit_async(**b)
+                            for b in payloads[i:i + 4]]
+                    for r in pend:
+                        r.wait(120)
+                    reqs += pend
+                mixed_s = time.monotonic() - t0
+            spans_gate = p16_span_gate(run, reqs)
             counts = {"fused_score": fused_score.launches,
                       "fused_trees": fused_trees.launches}
             after = graph.stats()
@@ -5142,6 +5271,7 @@ def p16_graphs(report, workdir, device="cuda"):
             out[name] = {"graphs": st["graphs"], "warm_s": warm_s,
                          "captures_after_mixed": after["graph_captures"],
                          "mixed_requests": P16_MIXED, "mixed_s": mixed_s,
+                         "traced": spans_gate,
                          "batches": after["batcher"]["batches"],
                          "launches": counts, "replay_kernels": seen}
             print(f"  (a) {name}: {json.dumps(out[name])}")
@@ -6478,7 +6608,8 @@ def p18_preempt(workdir, base, twin, device="cuda"):
     """(b) A preemption after the first save (epoch 4: the saves are
     synchronous, so `ckpt.saved` fires on the training thread and the
     epoch loop sees it at that boundary): supervised (2 restarts) it
-    restarts once, recorded in steps.jsonl, and ends on (a)'s
+    restarts once, recorded in steps.jsonl (a durable `restart` line,
+    and the step's own record counting it), and ends on (a)'s
     unchunked twin's model; unsupervised `train` returns 75, and the
     rerun with SHIFU_TPU_RESUME=1 returns 0 with the same model."""
     sup = p18_copy(base, os.path.join(workdir, "p18_sup"),
@@ -6490,7 +6621,10 @@ def p18_preempt(workdir, base, twin, device="cuda"):
     assert line["rc"] == 0, line
     with open(os.path.join(sup, "tmp", "metrics", "steps.jsonl")) as f:
         recs = [json.loads(ln) for ln in f if ln.strip()]
-    assert [r["event"] for r in recs] == ["restart"], recs
+    events = [r for r in recs if "event" in r]
+    assert [r["event"] for r in events] == ["restart"], recs
+    train = [r for r in recs if r["step"] == "train" and "event" not in r]
+    assert train[-1]["rc"] == 0 and train[-1]["restarts"] == 1, train
     assert same_nn(sup, twin), "the supervised run's model differs"
     solo = p18_copy(base, os.path.join(workdir, "p18_solo"),
                     trainOnDisk=False)
@@ -6503,7 +6637,7 @@ def p18_preempt(workdir, base, twin, device="cuda"):
     with _environ({"SHIFU_TPU_RESUME": "1"}):
         rc2 = cli_rc(solo, "train", "--device", device)
     assert rc2 == 0 and same_nn(solo, twin), rc2
-    return {"restart": recs[0], "unsupervised_rc": [rc, rc2],
+    return {"restart": events[0], "unsupervised_rc": [rc, rc2],
             "preempted_at": step}
 
 
@@ -6764,20 +6898,214 @@ def p19_plan(root, device="cuda"):
         posttrain=True, device=device)
 
 
+def _steps_records(root):
+    """The records of `root`'s tmp/metrics/steps.jsonl (none yet: [])."""
+    path = os.path.join(root, "tmp", "metrics", "steps.jsonl")
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def p19_traced_leg_main(root, device):
+    """The `--p19-traced-leg` process: (a)'s first DAG run of `p19_plan`
+    as a verb runs, inside `profiling.step_metrics` and
+    `obs_trace.trace_run` (SHIFU_TPU_TRACE=1 from the parent), so every
+    node process joins the trace; prints the report, this process's pid
+    and the run id."""
+    from shifu_tpu_torch import profiling
+    from shifu_tpu_torch.obs import trace as obs_trace
+    from shifu_tpu_torch.pipeline.scheduler import run_dag
+    with profiling.step_metrics(root, "dag") as rec, \
+            obs_trace.trace_run(root, "dag") as run:
+        assert run is not None, "SHIFU_TPU_TRACE is not set"
+        rep = run_dag(p19_plan(root, device), root=root, label="p19")
+        rec["rc"] = 0
+    print(json.dumps({"dag": rep, "pid": os.getpid(),
+                      "run_id": run.run_id}))
+
+
+def p19_spawn_traced(args, log, env_extra=None, timeout=900):
+    """`python <args>` from the repo's root with SHIFU_TPU_TRACE=1 and no
+    inherited trace workspace (a trace run of its own); returns its
+    stdout's last line as JSON, or raises with its log's tail."""
+    env = dict(os.environ)
+    env.pop("SHIFU_TPU_TRACE_DIR", None)
+    env.update({"SHIFU_TPU_TRACE": "1"}, **(env_extra or {}))
+    with open(log, "w") as err:
+        proc = subprocess.run([sys.executable, *args], stdout=subprocess.PIPE,
+                              stderr=err, text=True, env=env,
+                              timeout=timeout,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+    assert proc.returncode == 0, \
+        f"{' '.join(args)} exited {proc.returncode}:\n" + _log_tail(log)
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def p19_trace_gates(root, clone, coord, before, device="cuda"):
+    """(a)'s trace gates after the traced leg: one merged trace, named by
+    the coordinator's run id, with one `run.step` root of the
+    coordinator's pid; a `dag.node` span a node (parent that root, state
+    done) with its `dag.queue` and `dag.run` children; one `run.step` of
+    each node process in the merge; one steps.jsonl record a node verb
+    (rc 0; on the card `backend` cuda and `deviceCount` 1 for all but
+    `init`, `peakBytesInUse` > 0 for train.GBT) and the coordinator's
+    with a `dag` block of DAG_SUMMARY_FIELDS and a `trace` block."""
+    import collections
+    import glob
+    from shifu_tpu_torch.profiling import DAG_SUMMARY_FIELDS, TRACE_FIELDS
+    tdir = os.path.join(root, "tmp", "trace")
+    merged = sorted(glob.glob(os.path.join(tdir, "*.trace.json")))
+    assert merged == [os.path.join(tdir, coord["run_id"] + ".trace.json")], \
+        merged
+    with open(merged[0]) as f:
+        events = json.load(f)["traceEvents"]
+    per_pid = collections.Counter(e["pid"] for e in events
+                                  if e["name"] == "run.step")
+    roots = [e for e in events if e["name"] == "run.step"
+             and e["pid"] == coord["pid"]]
+    assert len(roots) == 1, per_pid
+    rid = roots[0]["args"]["id"]
+    nodes = {e["args"]["node"]: e for e in events if e["name"] == "dag.node"}
+    want_nodes = {r["node"] for r in coord["dag"]["nodes"]}
+    assert set(nodes) == want_nodes, (sorted(nodes), sorted(want_nodes))
+    for name, e in nodes.items():
+        assert e["args"]["parent"] == rid and e["args"]["state"] == "done", e
+        kids = sorted(k["name"] for k in events
+                      if k["name"] in ("dag.queue", "dag.run")
+                      and k["args"].get("parent") == e["args"]["id"])
+        assert kids == ["dag.queue", "dag.run"], (name, kids)
+    children = {p: n for p, n in per_pid.items() if p != coord["pid"]}
+    assert len(children) == len(want_nodes) and \
+        set(children.values()) == {1}, per_pid
+    recs = {d: _steps_records(d)[before.get(d, 0):] for d in (root, clone)}
+    coord_rec = [r for r in recs[root] if r["step"] == "dag"]
+    node_recs = [(d, r) for d in (root, clone) for r in recs[d]
+                 if r["step"] != "dag"]
+    assert len(coord_rec) == 1 and coord_rec[0]["rc"] == 0, coord_rec
+    assert tuple(coord_rec[0]["dag"]) == DAG_SUMMARY_FIELDS, coord_rec
+    assert tuple(coord_rec[0]["trace"]) == TRACE_FIELDS, coord_rec
+    verbs = sorted(r["step"] for _, r in node_recs)
+    assert verbs == sorted(["init", "stats", "norm", "train", "train", "eval",
+                            "eval", "posttrain"]), verbs
+    assert all(r["rc"] == 0 for _, r in node_recs), node_recs
+    gbt = [r for d, r in node_recs if d == root and r["step"] == "train"]
+    if device == "cuda":
+        for _, r in node_recs:
+            if r["step"] != "init":
+                assert r.get("backend") == "cuda" and \
+                    r.get("deviceCount") == 1, r
+        assert gbt[0]["peakBytesInUse"] > 0, gbt
+    trace_block = coord_rec[0]["trace"]
+    print(f"  (a) traced: {len(events)} events in one merge, "
+          f"{len(children)} node processes with a run.step each, "
+          f"dag.node + queue/run for {len(nodes)} nodes; step records "
+          f"{verbs} rc 0; coordinator trace {json.dumps(trace_block)}; "
+          f"train.GBT peakBytesInUse {gbt[0].get('peakBytesInUse')}")
+    return {"events": len(events), "node_processes": len(children),
+            "trace": trace_block,
+            "gbt_peak_bytes": gbt[0].get("peakBytesInUse")}
+
+
+def _kernel_intervals(profile_path):
+    """(name, start µs, end µs) of every CUDA kernel of a torch.profiler
+    Chrome trace, on the span trace's wall clock."""
+    with open(profile_path) as f:
+        doc = json.load(f)
+    base = doc.get("baseTimeNanoseconds", 0) / 1e3
+    return [(e["name"], base + e["ts"], base + e["ts"] + e.get("dur", 0))
+            for e in doc["traceEvents"] if e.get("cat") == "kernel"]
+
+
+def _idle_share(intervals, t0, t1):
+    """One minus the union of the intervals within [t0, t1], over it."""
+    busy, end = 0.0, t0
+    for _, a, b in sorted(intervals, key=lambda k: k[1]):
+        a, b = max(a, end), min(b, t1)
+        if b > a:
+            busy += b - a
+            end = b
+    return 1.0 - busy / max(t1 - t0, 1e-9)
+
+
+def p19_profile(root, device="cuda"):
+    """(b) `python -m shifu_tpu_torch --profile --dir <copy> train
+    --device D` under SHIFU_TPU_TRACE=1 in a fresh process on a copy of
+    the pipeline's set: `trace ls` pairs its span trace with its
+    profile; the profile's K3 and K5 kernels count what its line
+    reports; its record carries `trace` and `tree_build_dispatches`;
+    `top` shows its `train` row with rc 0. Prints the step's card idle
+    share (one minus the union of kernel intervals over `run.step`)."""
+    import shutil
+    from shifu_tpu_torch import cli
+    from shifu_tpu_torch.obs import trace as obs_trace
+    from shifu_tpu_torch.profiling import PROFILE_FILE, TRACE_FIELDS
+    t0 = time.monotonic()
+    prof = os.path.join(os.path.dirname(root), "p19_profile")
+    shutil.copytree(root, prof, ignore=shutil.ignore_patterns(
+        "data", "trace", "profile", "metrics", "dag_logs", "dag_models",
+        "manifests", "models"))
+    line = p19_spawn_traced(
+        ["-m", "shifu_tpu_torch", "--profile", "--dir", prof, "train",
+         "--device", device], os.path.join(prof, "profile.log"))
+    rows = obs_trace.trace_ls(prof)
+    assert len(rows) == 1 and rows[0]["trace"] and rows[0]["profile"], rows
+    kernels = _kernel_intervals(os.path.join(rows[0]["profile"],
+                                             PROFILE_FILE))
+    k3 = sum(1 for k in kernels if "level_hist_kernel" in k[0])
+    k5 = sum(1 for k in kernels if "best_splits_kernel" in k[0])
+    lc = line["launches"]
+    assert (k3, k5) == (lc["level_hist"] + lc["level_hist_fused"],
+                        lc["best_splits"]), (k3, k5, lc)
+    if device == "cuda":
+        assert k3 > 0 and k5 > 0, lc
+    rec = [r for r in _steps_records(prof) if r["step"] == "train"][-1]
+    assert rec["rc"] == 0 and tuple(rec["trace"]) == TRACE_FIELDS, rec
+    dispatches = rec["inputPipeline"]["tree_build_dispatches"]
+    assert dispatches > 0, rec
+    frame = cli._top_render(prof)
+    assert any(ln.split()[:2] == ["train", "0"]
+               for ln in frame.splitlines()), frame
+    with open(rows[0]["trace"]) as f:
+        step = [e for e in json.load(f)["traceEvents"]
+                if e["name"] == "run.step"]
+    assert len(step) == 1, step
+    a, b = step[0]["ts"], step[0]["ts"] + step[0]["dur"]
+    idle = _idle_share(kernels, a, b)
+    out = {"seconds": time.monotonic() - t0, "train_seconds":
+           line["seconds"], "step_wall_s": rec["wallSeconds"],
+           "kernels": len(kernels), "k3": k3, "k5": k5,
+           "tree_build_dispatches": dispatches, "idle_share": idle,
+           "launches": {"level_hist": lc["level_hist"],
+                        "best_splits": lc["best_splits"]}}
+    print(f"  (b) --profile train: {json.dumps(out)}; trace ls pairs "
+          f"{rows[0]['run_id']}; top: "
+          + [ln for ln in frame.splitlines() if ln.startswith("train")][0])
+    return out
+
+
 def p19_dag_legs(root, device="cuda"):
     """(a)'s two DAG runs of `p19_plan` (GBT + RF, the RF a clone made
     by `prepare_variant`, eval sets Eval1 and Eval2, posttrain) under
-    the default admission: the pipeline, then the RESUME leg with
-    eval.Eval1's manifest removed. Returns both reports, the outputs
-    after each, the states the RESUME leg was predicted to end in and
-    the child processes' launches."""
+    the default admission: the pipeline, traced, as a verb in a process
+    of its own (`--p19-traced-leg`), then the RESUME leg with
+    eval.Eval1's manifest removed; then (b). Returns both reports, the
+    outputs after each, the states the RESUME leg was predicted to end
+    in, the child processes' launches, the trace gates' and (b)'s
+    results."""
     import shutil
     from shifu_tpu_torch.pipeline import nodes
     from shifu_tpu_torch.pipeline.scheduler import run_dag
     clone = nodes.variant_dir(root, "train.RF")
-    out = {"dag": run_dag(p19_plan(root, device), root=root, label="p19")}
+    before = {d: len(_steps_records(d)) for d in (root, clone)}
+    t0 = time.monotonic()
+    coord = p19_spawn_traced(
+        [os.path.abspath(__file__), "--p19-traced-leg", root, device],
+        os.path.join(os.path.dirname(root), "p19_traced_leg.log"))
+    out = {"dag": coord["dag"], "traced_leg_s": time.monotonic() - t0}
     out["outputs"] = p19_outputs(root, clone)
     out["launches"] = p19_log_launches(root, clone)
+    out["trace"] = p19_trace_gates(root, clone, coord, before, device)
     # RESUME: a node parks as cached when its manifest still matches its
     # inputs; posttrain rewrote ColumnConfig.json, an input of every
     # manifest's fingerprint, after stats, norm, train and the evals
@@ -6792,6 +7120,7 @@ def p19_dag_legs(root, device="cuda"):
         out["resume"] = run_dag(plan, root=root, label="p19-resume")
     out["after"] = p19_outputs(root, clone)
     out["resume_launches"] = p19_log_launches(root, clone)
+    out["profile"] = p19_profile(root, device)
     return out
 
 
@@ -6852,9 +7181,12 @@ def p19_pipeline_gates(legs, root, seq, wall):
           f"{legs['resume']['wall_s']} s ran {ran}, outputs unchanged, "
           f"launches {legs['resume_launches']}")
     launches = {k: legs["launches"][k] + legs["resume_launches"][k]
+                + legs["profile"]["launches"].get(k, 0)
                 for k in P19_KERNELS}
     return {"dag": rep, "wall_s": wall, "resume": legs["resume"],
-            "resume_ran": ran, "launches": launches}
+            "resume_ran": ran, "launches": launches,
+            "traced_leg_s": legs["traced_leg_s"], "trace": legs["trace"],
+            "profile": legs["profile"]}
 
 
 def p19_segments(workdir, eval_dir, device="cuda"):
@@ -7060,7 +7392,9 @@ def phase_dag_finish(report, started, device="cuda"):
                 f"phase 19 launched no {k}: {out['launches']}"
         report[k]["launches"] += out["launches"][k]
     report["p19"] = out
-    print(f"  phase 19: {out['seconds']:.1f} s in its process, launches "
+    print(f"  phase 19: {out['seconds']:.1f} s in its process (the traced "
+          f"leg {out['a']['traced_leg_s']:.1f} s, (b) "
+          f"{out['a']['profile']['seconds']:.1f} s), launches "
           f"{json.dumps(out['launches'])}")
 
 
@@ -7121,6 +7455,11 @@ def main() -> int:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         p19_main(*sys.argv[2:4])
         return 0
+    if sys.argv[1:2] == ["--p19-traced-leg"]:
+        # phase 19 (a)'s traced DAG leg, the coordinator of its trace
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        p19_traced_leg_main(*sys.argv[2:4])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
@@ -7134,8 +7473,14 @@ def main() -> int:
         print(json.dumps({"train_walls_s": walls,
                           "split_host_ms_per_level": split_ms}))
         return 0
-    if sys.argv[1:] == ["--serve-walls"]:
-        print(json.dumps({"serve_walls_ms": serve_walls()}))
+    if sys.argv[1:2] == ["--serve-walls"]:
+        sizes = tuple(int(n) for n in sys.argv[2].split(",")) \
+            if len(sys.argv) > 2 else (1, 8, 64, 512)
+        print(json.dumps({"serve_walls_ms": serve_walls(sizes)}))
+        return 0
+    if sys.argv[1:2] == ["--serve-walls-pairs"]:
+        print(json.dumps({"serve_wall_pairs": serve_wall_pairs(
+            sys.argv[2], int(sys.argv[3]))}))
         return 0
     if sys.argv[1:] == ["--k5-timing"]:
         print(json.dumps({"k5_timing": k5_timing()}))

@@ -1,5 +1,6 @@
-"""Command line of the port — the verbs of `shifu_tpu/cli.py` (`top`
-and `trace` come with ROADMAP A8.5).
+"""Command line of the port — the 26 verbs of `shifu_tpu/cli.py`.
+
+    python -m shifu_tpu_torch [--profile] --dir <dir> <verb> ...
 
     python -m shifu_tpu_torch --dir <dir> new <name>
     python -m shifu_tpu_torch --dir <model-set> init
@@ -39,6 +40,9 @@ and `trace` come with ROADMAP A8.5).
     python -m shifu_tpu_torch ingest ls --log DIR
     python -m shifu_tpu_torch --dir <model-set> health [--trend N]
     python -m shifu_tpu_torch --dir <model-set> ckpt
+    python -m shifu_tpu_torch --dir <model-set> top [--watch]
+        [--interval S]
+    python -m shifu_tpu_torch --dir <model-set> trace ls
     python -m shifu_tpu_torch knobs [--all] [--markdown]
     python -m shifu_tpu_torch version
 
@@ -136,6 +140,18 @@ skipped. `ckpt` prints the checkpoint inventory (the latest step of
 each bag's directory and its sharding sidecar) as the JAX package's
 verb does, without touching the card.
 `--device` defaults to the card and raises when there is none.
+
+Every command appends one record to `tmp/metrics/steps.jsonl`
+(`profiling.step_metrics`: the step, rc, wall seconds, the card's
+memory when the step used it, the stage timers, retries, the `roofline`
+or `dag` block a layer queued). With SHIFU_TPU_TRACE=1 the command runs
+inside a trace run (`obs/trace.trace_run`): its spans are merged into
+`tmp/trace/<run_id>.trace.json` and summarized in the record's `trace`
+block. `--profile` adds a `torch.profiler` trace under
+`tmp/profile/<run_id>/`. `top` prints the last step records with their
+trace summaries, the trace runs still in flight and the health plane's
+recent events (`--watch` redraws every `--interval` seconds); `trace
+ls` pairs each run's merged span trace with its profile.
 """
 
 from __future__ import annotations
@@ -337,6 +353,125 @@ def _canary_lines(st) -> list:
             bits.append(f"arm_psi={psi[(model, None)]:.4f}")
         lines.append(f"  {model}: " + " ".join(bits))
     return lines
+
+
+def _top_render(root: str) -> str:
+    """One frame of `top`: the last steps.jsonl records (step, rc, wall,
+    trace block when present) plus any live span files from a trace
+    run still in flight, and the health plane's canary arms and recent
+    events."""
+    import glob as _glob
+    import time
+
+    from shifu_tpu_torch.resilience import absorbed
+    lines = []
+    steps_path = os.path.join(root, "tmp", "metrics", "steps.jsonl")
+    recs = []
+    try:
+        with open(steps_path, encoding="utf-8") as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    recs.append(json.loads(line))
+                except ValueError:
+                    continue
+    except OSError as e:
+        absorbed("cli.steps-read", e)
+    recs = recs[-10:]
+    if not recs:
+        lines.append(f"no step records yet ({steps_path})")
+    else:
+        lines.append(f"{'step':<12} {'rc':>3} {'wall_s':>9} "
+                     f"{'spans':>6} {'drop':>5}  top self-time")
+        for rec in recs:
+            tr = rec.get("trace") or {}
+            top = ", ".join(
+                f"{t['name']}={t['self_s']:.3f}s"
+                for t in tr.get("top_self", [])) or "-"
+            lines.append(
+                f"{str(rec.get('step', '?')):<12} "
+                f"{str(rec.get('rc', '-')):>3} "
+                f"{float(rec.get('wallSeconds', 0.0)):>9.2f} "
+                f"{str(tr.get('span_count', '-')):>6} "
+                f"{str(tr.get('dropped_spans', '-')):>5}  {top}")
+    live = []
+    for d in sorted(_glob.glob(os.path.join(root, "tmp", "trace", "*"))):
+        if not os.path.isdir(d):
+            continue
+        rid = os.path.basename(d)
+        merged = os.path.join(root, "tmp", "trace", rid + ".trace.json")
+        if os.path.exists(merged):
+            continue   # finished run, already merged
+        n = len(_glob.glob(os.path.join(d, "spans.*.jsonl")))
+        live.append(f"  {rid}: {n} span file(s), not yet merged")
+    if live:
+        lines.append("live trace runs:")
+        lines.extend(live)
+    # the health plane's tail (absorbed — a corrupt store must not
+    # break the monitor)
+    try:
+        from shifu_tpu_torch.obs.health import store as health_store
+        st = health_store.store(root)
+        lines.extend(_canary_lines(st))
+        events = st.events(
+            limit=5, names=["drift", "breach", "warn", "recovered",
+                            "refresh", "canary", "fleet_drift"])
+        if events:
+            lines.append("health/drift events:")
+            for ev in events:
+                tags = ev.get("tags") or {}
+                ts = time.strftime("%H:%M:%S",
+                                   time.localtime(ev.get("ts", 0)))
+                detail = " ".join(f"{k}={v}"
+                                  for k, v in sorted(tags.items()))
+                lines.append(f"  {ts}  {ev.get('name', '?'):<16} {detail}")
+    except Exception as e:  # noqa: BLE001 — monitoring must not fail top
+        absorbed("cli.status-events", e)
+    return "\n".join(lines)
+
+
+def cmd_top(args) -> int:
+    """Step and trace monitor over steps.jsonl and the trace workspace.
+    Single shot by default; --watch redraws every --interval seconds
+    until interrupted."""
+    import sys
+    import time
+    root = args.dir
+    if not args.watch:
+        print(_top_render(root))
+        return 0
+    try:
+        while True:
+            # ANSI clear + home, as top(1) does
+            sys.stdout.write("\x1b[2J\x1b[H")
+            print(time.strftime("%H:%M:%S"), "shifu top —", root)
+            print(_top_render(root))
+            sys.stdout.flush()
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def cmd_trace(args) -> int:
+    """`trace ls`: pair merged span traces (tmp/trace/) with profiler
+    traces (tmp/profile/) by their shared run id."""
+    from shifu_tpu_torch.obs import trace as obs_trace
+    if args.action != "ls":
+        raise SystemExit(f"trace: unknown action {args.action!r}")
+    rows = obs_trace.trace_ls(args.dir)
+    if not rows:
+        print("no trace artifacts under tmp/trace or tmp/profile")
+        return 0
+    rid_w = max(len(r["run_id"]) for r in rows)
+    print(f"{'run_id':<{rid_w}}  {'spans':>5}  trace / profile")
+    for r in rows:
+        paths = [p for p in (r["trace"], r["profile"]) if p]
+        print(f"{r['run_id']:<{rid_w}}  {r['span_files']:>5}  "
+              + (" + ".join(paths) or "-"))
+    return 0
 
 
 def cmd_health(args) -> int:
@@ -659,8 +794,9 @@ def cmd_test(args) -> int:
     """Dry-run the model set through the pipeline DAG
     (ShifuTestProcessor): the config check, the training data's filter
     over `-n` sampled rows, one node an eval set and the pipeline's DAG
-    validated without running it, as host-only nodes. The JSON line
-    carries the DAG's report (``dag``)."""
+    validated without running it, as host-only nodes, then the I/O
+    retries of the run. The JSON line carries the DAG's report
+    (``dag``)."""
     import time
 
     from shifu_tpu_torch.data.purifier import DataPurifier
@@ -668,6 +804,7 @@ def cmd_test(args) -> int:
     from shifu_tpu_torch.pipeline.nodes import STEP_REGISTRY, pipeline_nodes
     from shifu_tpu_torch.pipeline.scheduler import Node, _validate, run_dag
     from shifu_tpu_torch.processor.base import ProcessorContext
+    from shifu_tpu_torch.resilience import retry_stats
     t0 = time.perf_counter()
     ctx = ProcessorContext.load(os.path.abspath(args.dir))
     mc = ctx.model_config
@@ -710,6 +847,13 @@ def cmd_test(args) -> int:
     nodes.append(Node("test.plan", check_plan, ("test.config",),
                       device=False))
     report = {"dag": run_dag(nodes, root=root, label="test")}
+    retries = retry_stats()
+    if retries:
+        for site, d in sorted(retries.items()):
+            log.warning("resilience: %s retried %d time(s), last error: "
+                        "%s", site, d["attempts"], d["lastError"])
+    else:
+        log.info("resilience: no I/O retries")
     _step_line("test", "host", report, t0, rc=0)
     return 0
 
@@ -895,6 +1039,10 @@ def cmd_eval(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="shifu_tpu_torch")
     ap.add_argument("--dir", default=".", help="model-set directory")
+    ap.add_argument("--profile", action="store_true",
+                    help="capture a torch.profiler trace for this command "
+                         "under tmp/profile/<run_id>/ (open in "
+                         "ui.perfetto.dev)")
     sub = ap.add_subparsers(dest="command", required=True)
 
     def device_flag(p, what):
@@ -1112,6 +1260,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--markdown", action="store_true",
                    help="emit the table as markdown")
     p.set_defaults(fn=cmd_knobs)
+    p = sub.add_parser("top",
+                       help="live step/trace monitor (steps.jsonl + "
+                            "in-flight span files)")
+    p.add_argument("--watch", action="store_true",
+                   help="redraw continuously until interrupted")
+    p.add_argument("--interval", type=float, default=2.0,
+                   help="redraw period in seconds (with --watch)")
+    p.set_defaults(fn=cmd_top)
+    p = sub.add_parser("trace",
+                       help="trace artifacts: `trace ls` pairs span "
+                            "traces with profiler traces by run_id")
+    p.add_argument("action", choices=["ls"])
+    p.set_defaults(fn=cmd_trace)
     sub.add_parser("ckpt",
                    help="checkpoint inventory: latest step + the mesh "
                         "topology that wrote it (sharding sidecar)") \
@@ -1125,8 +1286,20 @@ def main(argv: Optional[List[str]] = None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
     args = build_parser().parse_args(argv)
+    from shifu_tpu_torch.obs.trace import trace_run
+    from shifu_tpu_torch.profiling import maybe_profile, step_metrics
+    root = getattr(args, "dir", ".") or "."
     try:
-        return args.fn(args)
+        # every command writes one steps.jsonl record; trace_run sits
+        # inside step_metrics (its exit attaches the span summary to the
+        # record before the record is written) and outside maybe_profile
+        # (so the profile is named after the live trace run's id)
+        with step_metrics(root, args.command) as rec, \
+                trace_run(root, args.command), \
+                maybe_profile(root, args.command, args.profile):
+            rc = args.fn(args)
+            rec["rc"] = int(rc or 0)
+        return rc
     except resilience.Preempted as e:
         # a checkpointed preemption: the distinct rc tells a supervisor
         # (systemd, a shell loop, k8s) to rerun with SHIFU_TPU_RESUME=1

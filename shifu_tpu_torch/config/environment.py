@@ -16,8 +16,9 @@ row-state tier of the streaming GBT builder, and the serving plane's
 health, registry and fleet knobs with the retry and fault-injection
 knobs they read (`resilience.py`), and the closed loop's knobs (the
 row log, the refresh controller, the shadow and canary arms and the
-fleet's refresh budget), and the pipeline DAG's admission and lease
-knobs (`pipeline/scheduler.py`): same names, types and
+fleet's refresh budget), the pipeline DAG's admission and lease
+knobs (`pipeline/scheduler.py`), and the span tracer's switch, ring
+size and shared workspace (`obs/trace.py`): same names, types and
 defaults, and the same warn-and-run parsing (a malformed value logs a
 warning and falls back to the default instead of failing the process).
 `knobs_rows` lists them for the `knobs` verb.
@@ -115,6 +116,16 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
          "retry backoff cap (seconds)"),
     Knob("SHIFU_TPU_FAULT", "str", None,
          "deterministic fault spec <site>:<kind>:<nth>[;...]"),
+    Knob("SHIFU_TPU_TRACE", "flag", "0",
+         "1 = record host spans (obs.trace) and export a merged "
+         "Chrome-trace JSON per step; unset/0 = zero-cost no-op"),
+    Knob("SHIFU_TPU_TRACE_BUF", "int", 4096,
+         "span ring-buffer capacity per process; overflow drops the "
+         "oldest span and counts it in the steps.jsonl trace block"),
+    Knob("SHIFU_TPU_TRACE_DIR", "str", None,
+         "trace workspace for this run's span files; normally unset "
+         "(the coordinator derives tmp/trace/<run_id> and exports it "
+         "so DAG subprocess nodes land their spans in the same merge)"),
     Knob("SHIFU_TPU_METRICS", "flag", "0",
          "1 = persist metric points to tmp/metrics/metrics.jsonl "
          "(serving snapshots, eval guardrails, drift, SLO health); "

@@ -27,9 +27,23 @@ package left to `jax.device_put`.
 Fault injection: the ``pipeline.fetch`` site fires once a chunk in the
 producer (before each item is pulled, or before each `map_prefetch`
 assembly), on the threaded and the sequential paths alike; an injected
-error reaches the consumer at its item's place. The JAX package's stage
-timers, spans and lock checks (`add_stage_time`, `obs_trace`,
-`lockcheck`) belong to its tracing plane (ROADMAP A8.5).
+error reaches the consumer at its item's place.
+
+Observability, as in the JAX package: every stage accrues wall time
+into a process-wide thread-safe accumulator — ``host_parse_s`` (reader
+time in ``next()``), ``host_assemble_s`` (worker time in ``fn``),
+``input_stall_s`` (consumer time spent waiting on the pipeline, the
+number that collapses when the overlap works), ``chunks``, ``h2d_s``
+(`Stager.put`: the host time of enqueueing a chunk's copies) and the
+layers' own timers (``device_step_s``, ``ckpt_save_s``, ``serve_*_s``,
+...); `host_fetch` is the one sanctioned device→host read of a hot
+path and counts its wait in ``host_sync_s``/``host_syncs``. On the
+sequential paths all fetch time is stall time by definition.
+`profiling.step_metrics` drains the accumulator into the step's
+``tmp/metrics/steps.jsonl`` record under ``inputPipeline``; with
+SHIFU_TPU_TRACE=1 the stages are also recorded as ``input.*`` spans.
+No timer synchronizes the card: a device stage's timer is the host's
+dispatch time.
 """
 
 from __future__ import annotations
@@ -37,6 +51,7 @@ from __future__ import annotations
 import collections
 import queue
 import threading
+import time
 from typing import Callable, Dict, Iterable, Iterator, Optional, Sequence, \
     Tuple, TypeVar
 
@@ -44,7 +59,8 @@ import numpy as np
 import torch
 
 from shifu_tpu_torch.config.environment import knob_int
-from shifu_tpu_torch.resilience import fault_point
+from shifu_tpu_torch.obs import trace as obs_trace
+from shifu_tpu_torch.resilience import fault_point, make_lock
 
 T = TypeVar("T")
 U = TypeVar("U")
@@ -61,6 +77,54 @@ def prefetch_depth() -> int:
 def prefetch_workers() -> int:
     """SHIFU_TPU_PREFETCH_WORKERS (assembly threads; 0 = off)."""
     return max(knob_int("SHIFU_TPU_PREFETCH_WORKERS"), 0)
+
+
+# ---------------------------------------------------------------------------
+# per-stage wall-time accumulator (drained into steps.jsonl)
+# ---------------------------------------------------------------------------
+
+_timers_lock = make_lock("pipeline.timers")
+_timers: collections.Counter = collections.Counter()
+
+
+def add_stage_time(stage: str, seconds: float) -> None:
+    """Accrue wall seconds for a pipeline stage (thread-safe)."""
+    with _timers_lock:
+        _timers[stage] += seconds
+
+
+def add_stage_count(stage: str, n: int = 1) -> None:
+    with _timers_lock:
+        _timers[stage] += n
+
+
+def peek_stage_timers() -> Dict[str, float]:
+    """Snapshot the accumulated stage timers without clearing them."""
+    with _timers_lock:
+        return {k: round(float(v), 6) for k, v in _timers.items()}
+
+
+def drain_stage_timers() -> Dict[str, float]:
+    """Snapshot AND clear — each steps.jsonl record owns its interval."""
+    with _timers_lock:
+        out = {k: round(float(v), 6) for k, v in _timers.items()}
+        _timers.clear()
+    return out
+
+
+def host_fetch(x) -> np.ndarray:
+    """The one sanctioned device→host read of a hot path: `x` (a tensor
+    on any device, or an array) as a numpy array, its wait accrued into
+    the ``host_sync_s`` stage timer with a ``host_syncs`` count, so a
+    deliberate read shows in ``steps.jsonl`` instead of hiding as
+    generic slowness. It adds no read: it times the one the caller
+    makes."""
+    t0 = time.perf_counter()
+    out = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+    add_stage_time("host_sync_s", time.perf_counter() - t0)
+    add_stage_count("host_syncs")
+    return out
 
 
 class _Done:
@@ -95,6 +159,7 @@ def _reader(iterable: Iterable, q: queue.Queue, stop: threading.Event,
     def produce() -> None:
         it = iter(iterable)
         while not stop.is_set():
+            t0 = time.monotonic()
             try:
                 fault_point(FETCH_SITE)
                 item = next(it)
@@ -104,6 +169,9 @@ def _reader(iterable: Iterable, q: queue.Queue, stop: threading.Event,
             except BaseException as e:  # noqa: BLE001 — carried across
                 offer(_Raised(e))
                 return
+            t1 = time.monotonic()
+            add_stage_time("host_parse_s", t1 - t0)
+            obs_trace.record_span("input.host_parse", t0, t1)
             if not offer(wrap(item)):
                 return
 
@@ -115,15 +183,36 @@ def _reader(iterable: Iterable, q: queue.Queue, stop: threading.Event,
 
 def _sync_fetch(iterable: Iterable[T]) -> Iterator[T]:
     """The sequential path: the items of `iterable`, the fetch site
-    firing before each is pulled."""
+    firing before each is pulled (all fetch time is stall time)."""
     it = iter(iterable)
     while True:
-        fault_point(FETCH_SITE)
+        t0 = time.monotonic()
         try:
+            fault_point(FETCH_SITE)
             item = next(it)
         except StopIteration:
             return
+        finally:
+            dt = time.monotonic() - t0
+            add_stage_time("host_parse_s", dt)
+            add_stage_time("input_stall_s", dt)
+        obs_trace.record_span("input.host_parse", t0, t0 + dt)
+        add_stage_count("chunks")
         yield item
+
+
+def _assembled(fn: Callable[[T], U]) -> Callable[[T], U]:
+    """`fn` with its wall time accrued to ``host_assemble_s`` and an
+    ``input.host_assemble`` span."""
+    def timed(item: T) -> U:
+        t0 = time.monotonic()
+        try:
+            return fn(item)
+        finally:
+            t1 = time.monotonic()
+            add_stage_time("host_assemble_s", t1 - t0)
+            obs_trace.record_span("input.host_assemble", t0, t1)
+    return timed
 
 
 def _drain(q: queue.Queue) -> None:
@@ -155,11 +244,14 @@ def prefetch(iterable: Iterable[T], depth: Optional[int] = None
     worker = _reader(iterable, q, stop)
     try:
         while True:
+            t0 = time.monotonic()
             item = q.get()
+            add_stage_time("input_stall_s", time.monotonic() - t0)
             if item is _DONE:
                 return
             if isinstance(item, _Raised):
                 raise item.exc
+            add_stage_count("chunks")
             yield item
     finally:
         stop.set()
@@ -172,17 +264,26 @@ def map_stream(fn: Callable[[T], U], iterable: Iterable[T],
                workers: Optional[int] = None) -> Iterator[U]:
     """`map_prefetch` over an unsized source: ``fn(item)`` for each item
     of `iterable` in order, one thread pulling items and up to `depth`
-    calls of `fn` in flight on `workers` threads. With ``workers=0`` or
-    ``depth=0`` a plain sequential map. Reader and worker errors are
-    raised again at the failed item's place; closing the generator
-    early cancels what is queued and joins every thread."""
+    calls of `fn` in flight on `workers` threads (``next()`` time accrues
+    to ``host_parse_s``, `fn` time to ``host_assemble_s``). With
+    ``workers=0`` or ``depth=0`` a plain sequential map. Reader and
+    worker errors are raised again at the failed item's place; closing
+    the generator early cancels what is queued and joins every
+    thread."""
     if depth is None:
         depth = prefetch_depth()
     if workers is None:
         workers = prefetch_workers()
+    timed = _assembled(fn)
     if depth <= 0 or workers <= 0:
         for item in _sync_fetch(iterable):
-            yield fn(item)
+            t0 = time.monotonic()
+            try:
+                out = timed(item)
+            finally:
+                # synchronous: assembly time IS stall time
+                add_stage_time("input_stall_s", time.monotonic() - t0)
+            yield out
         return
 
     from concurrent.futures import ThreadPoolExecutor
@@ -191,15 +292,23 @@ def map_stream(fn: Callable[[T], U], iterable: Iterable[T],
     ex = ThreadPoolExecutor(max_workers=min(workers, depth),
                             thread_name_prefix="shifu-pipeline")
     worker = _reader(iterable, q, stop,
-                     wrap=lambda item: ex.submit(fn, item))
+                     wrap=lambda item: ex.submit(timed, item))
     try:
         while True:
+            t0 = time.monotonic()
             got = q.get()
             if got is _DONE:
+                add_stage_time("input_stall_s", time.monotonic() - t0)
                 return
             if isinstance(got, _Raised):
+                add_stage_time("input_stall_s", time.monotonic() - t0)
                 raise got.exc
-            yield got.result()
+            try:
+                out = got.result()
+            finally:
+                add_stage_time("input_stall_s", time.monotonic() - t0)
+            add_stage_count("chunks")
+            yield out
     finally:
         stop.set()
         _drain(q)
@@ -211,21 +320,29 @@ def map_prefetch(fn: Callable[[T], U], items: Sequence[T],
                  depth: int = PREFETCH_DEPTH,
                  workers: Optional[int] = None) -> Iterator[U]:
     """Yield ``fn(item)`` for each item in order, computing up to
-    `depth` items ahead on `workers` threads. With ``workers=0`` (or
-    ``depth=0``) this is a plain sequential map. A worker's error
-    re-raises at its item's place in the order; later submissions are
-    cancelled."""
+    `depth` items ahead on `workers` threads (``fn`` time accrues to
+    ``host_assemble_s``). With ``workers=0`` (or ``depth=0``) this is a
+    plain sequential map. A worker's error re-raises at its item's place
+    in the order; later submissions are cancelled."""
     items = list(items)
     if workers is None:
         workers = prefetch_workers()
 
-    def fetched(item: T) -> U:
+    def fetch(item: T) -> U:
         fault_point(FETCH_SITE)
         return fn(item)
 
+    fetched = _assembled(fetch)
     if depth <= 0 or workers <= 0 or not items:
         for item in items:
-            yield fetched(item)
+            t0 = time.monotonic()
+            try:
+                out = fetched(item)
+            finally:
+                # synchronous: assembly time IS stall time
+                add_stage_time("input_stall_s", time.monotonic() - t0)
+            add_stage_count("chunks")
+            yield out
         return
 
     from concurrent.futures import ThreadPoolExecutor
@@ -238,10 +355,16 @@ def map_prefetch(fn: Callable[[T], U], items: Sequence[T],
             pending.append(ex.submit(fetched, items[idx]))
             idx += 1
         while pending:
-            out = pending.popleft().result()
+            fut = pending.popleft()
+            t0 = time.monotonic()
+            try:
+                out = fut.result()
+            finally:
+                add_stage_time("input_stall_s", time.monotonic() - t0)
             if idx < len(items):
                 pending.append(ex.submit(fetched, items[idx]))
                 idx += 1
+            add_stage_count("chunks")
             yield out
     finally:
         for fut in pending:
@@ -253,7 +376,9 @@ class Stager:
     """Host→device copies of numpy blocks (see the module docstring).
     `put(key, array)` returns the block as a tensor on `device`; `key`
     names the ring of pinned buffers the block goes through (one per
-    input of a chunk)."""
+    input of a chunk). Each put's host time (the pinned fill and the
+    enqueue, not the copy itself) accrues to ``h2d_s`` with an
+    ``input.h2d`` span."""
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
@@ -282,6 +407,15 @@ class Stager:
         return slot
 
     def put(self, key: str, arr: np.ndarray) -> torch.Tensor:
+        t0 = time.monotonic()
+        try:
+            return self._put(key, arr)
+        finally:
+            t1 = time.monotonic()
+            add_stage_time("h2d_s", t1 - t0)
+            obs_trace.record_span("input.h2d", t0, t1, key=key)
+
+    def _put(self, key: str, arr: np.ndarray) -> torch.Tensor:
         arr = np.ascontiguousarray(arr)
         if not self.cuda:
             return torch.tensor(arr, device=self.device)

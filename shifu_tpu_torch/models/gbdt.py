@@ -37,7 +37,11 @@ The JAX package shards rows over its mesh, pads them with zero weight
 and reduces with `psum`; the port has one device and no padding, so
 only the order of float sums differs from it. Tree arrays update in
 place (one dict of tensors per build) where JAX rebuilt them; nothing
-inside the level loop copies to the host.
+inside the level loop copies to the host. Every level (a level's chunk
+when streaming) adds one to the ``tree_build_dispatches`` stage count —
+the JAX package counts only its streaming builders — and the
+deliberate host reads (a round's validation error, the host tier's
+routed nodes) go through `pipeline.host_fetch`.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ import torch
 
 from shifu_tpu_torch import resolve_device
 from shifu_tpu_torch.config.environment import knob_bool, knob_int, knob_str
+from shifu_tpu_torch.data.pipeline import add_stage_count, host_fetch
 from shifu_tpu_torch.ops import best_splits as split_op
 from shifu_tpu_torch.ops import fused_trees, level_hist
 from shifu_tpu_torch.ops.stats import bin_index_numeric
@@ -510,11 +515,13 @@ def _grow(cfg: TreeConfig, binsT, grad_T, hess_T, feature_masks,
         _apply_level(cfg, trees, g, h, feature_masks, depth)
         node = _route_level(cfg, trees, binsT, node, depth)
         prev_g, prev_h = g, h
+        add_stage_count("tree_build_dispatches")
     g, h = _child_level_histograms(cfg, binsT, node, grad_T, hess_T,
                                    cfg.max_depth, prev_g, prev_h,
                                    trees["is_leaf"], trees["feature"],
                                    subtract)
     _final_leaves(cfg, trees, g, h)
+    add_stage_count("tree_build_dispatches")
     return trees, node
 
 
@@ -686,8 +693,8 @@ def build_gbt(cfg: TreeConfig, bins, y, weights, n_trees: int,
                 {k: v[None] for k, v in tree.items()}, vb, cfg.max_depth,
                 cfg.n_bins)[0]
             # the early-stop decision is a per-round host branch: this
-            # sync is deliberate
-            err = float(_val_error(vraw, vy, vw, cfg.loss))
+            # sync is deliberate — host_fetch times and counts it
+            err = float(host_fetch(_val_error(vraw, vy, vw, cfg.loss)))
             val_errs.append(err)
             if err < best_val - 1e-9:
                 best_val, bad = err, 0
@@ -760,7 +767,7 @@ def build_gbt_bagged(cfg: TreeConfig, bins, y, weights_T, n_trees: int,
         vraw_T = vraw_T + cfg.learning_rate * predict_trees(
             trees_T, vb, cfg.max_depth, cfg.n_bins)
         # ONE deliberate fetch decides every bag's round: (T,) errors
-        errs = _val_error(vraw_T, vy, vw, cfg.loss).cpu().numpy()
+        errs = host_fetch(_val_error(vraw_T, vy, vw, cfg.loss))
         for b in range(n_bags):
             if stop_round[b]:
                 continue
@@ -922,9 +929,10 @@ def _build_tree_streaming(cfg: TreeConfig, bins_mm, grad_of_chunk,
         for ci, (a, b) in enumerate(bounds):
             node_c, g, h = _stream_level_chunk(cfg, trees, *cur, depth,
                                                half)
+            add_stage_count("tree_build_dispatches")
             if ci + 1 < len(bounds):
                 cur = put(bounds[ci + 1])
-            node_host[a:b] = node_c[0].cpu().numpy()
+            node_host[a:b] = host_fetch(node_c[0])
             g_acc = g if g_acc is None else g_acc + g
             h_acc = h if h_acc is None else h_acc + h
         return g_acc, h_acc
@@ -944,6 +952,7 @@ def _build_tree_streaming_device(cfg: TreeConfig, bins_put, n_chunks: int,
             node_c, g, h = _stream_level_chunk(
                 cfg, trees, cur, node_state[ci], grad_state[ci],
                 hess_state[ci], depth, half)
+            add_stage_count("tree_build_dispatches")
             if ci + 1 < n_chunks:
                 cur = bins_put(ci + 1)   # the copy overlaps the compute
             node_state[ci] = node_c
@@ -1044,7 +1053,7 @@ def _build_gbt_streaming_resident(cfg: TreeConfig, bins_mm, y_mm, w_mm,
                 num = nm if num is None else num + nm
                 den = dn if den is None else den + dn
             # the round's one host read: early stop is a host decision
-            err = float(num / torch.clamp(den, min=1e-12))
+            err = float(host_fetch(num / torch.clamp(den, min=1e-12)))
             val_errs.append(err)
             if err < best_val - 1e-9:
                 best_val, bad = err, 0
@@ -1112,14 +1121,14 @@ def build_gbt_streaming(cfg: TreeConfig, bins_mm, y_mm, w_mm, n_trees: int,
         tree1 = _build_tree_streaming(cfg, bins_mm[:n_train], grad_of_chunk,
                                       node_host, chunk_rows, fm, stager)
         trees.append(_one(tree1))
-        leaf = tree1["leaf_value"][0].cpu().numpy()
+        leaf = host_fetch(tree1["leaf_value"][0])
         pred += cfg.learning_rate * leaf[node_host]
         if n_val:
             for a in range(n_train, r, chunk_rows):
                 b = min(a + chunk_rows, r)
-                contrib = predict_trees(
+                contrib = host_fetch(predict_trees(
                     tree1, stager.put("vbins", _chunk_bins(bins_mm, a, b)),
-                    cfg.max_depth, cfg.n_bins)[0].cpu().numpy()
+                    cfg.max_depth, cfg.n_bins)[0])
                 vraw[a - n_train:b - n_train] += cfg.learning_rate * contrib
             vy = np.asarray(y_mm[n_train:r], np.float32)
             err = float(_val_error(torch.as_tensor(vraw),
@@ -1142,9 +1151,9 @@ def _accumulate_pred(cfg: TreeConfig, tree1, bins_mm, pred, vraw,
     r = bins_mm.shape[0]
     for a in range(0, r, chunk_rows):
         b = min(a + chunk_rows, r)
-        contrib = cfg.learning_rate * predict_trees(
+        contrib = cfg.learning_rate * host_fetch(predict_trees(
             tree1, stager.put("vbins", _chunk_bins(bins_mm, a, b)),
-            cfg.max_depth, cfg.n_bins)[0].cpu().numpy()
+            cfg.max_depth, cfg.n_bins)[0])
         if a < n_train:
             hi = min(b, n_train)
             pred[a:hi] += contrib[:hi - a]

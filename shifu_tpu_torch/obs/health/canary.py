@@ -50,8 +50,9 @@ SIGKILL mid-run: the rerun (or a `watch` restart) calls
 the verdict never landed, so HEAD rolls back to the recorded baseline
 and the state file is cleared.
 
-The ``canary.run`` / ``canary.decide`` / ``canary.rollback`` spans of
-the JAX package's trace are ROADMAP A8.5.
+Under a trace run each staged cycle is a ``canary.run`` span, each
+live-arm comparison a ``canary.decide`` span and each rollback a
+``canary.rollback`` span.
 """
 
 from __future__ import annotations
@@ -64,6 +65,7 @@ from typing import Any, Dict, Optional
 
 from shifu_tpu_torch import fileio, resilience
 from shifu_tpu_torch.config.environment import knob_float, knob_int
+from shifu_tpu_torch.obs import trace as obs_trace
 from shifu_tpu_torch.obs.health import store as health_store
 from shifu_tpu_torch.resilience import absorbed
 
@@ -169,14 +171,20 @@ class CanaryController:
         "prev_head", "verdict"}``. Any exception after the optimistic
         publish leaves the state file in place — `recover` (or the next
         run) rolls HEAD back; the fleet primary never moved."""
-        from shifu_tpu_torch import registry
-
         # a stale state file (an earlier SIGKILL) must resolve before a
         # new optimistic publish can move HEAD again
         self.recover(self.registry_root, self.model_name,
                      fleet=self.fleet, store_root=self.store_root)
 
         t0 = time.monotonic()
+        with obs_trace.span("canary.run", model=self.model_name,
+                            run=run_name):
+            return self._run(challenger_dir, run_name, refresh_block, t0)
+
+    def _run(self, challenger_dir: str, run_name: str,
+             refresh_block: Optional[Dict[str, Any]],
+             t0: float) -> Dict[str, Any]:
+        from shifu_tpu_torch import registry
         # -- start: arm up, optimistic publish, state persisted ---------
         resilience.fault_point("canary.start")
         self.fleet.start_arms(self.model_name, challenger_dir,
@@ -258,10 +266,13 @@ class CanaryController:
                                   "canary window", "stats": a}
             time.sleep(self.poll_s)
 
-        resilience.fault_point("canary.decide")
-        a = self.fleet.arm_stats(self.model_name) or {}
-        decision, reason = self.decide(a, self.psi_max, self.p99_factor,
-                                       self.slo_p99_ms)
+        with obs_trace.span("canary.decide", model=self.model_name,
+                            run=run_name):
+            resilience.fault_point("canary.decide")
+            a = self.fleet.arm_stats(self.model_name) or {}
+            decision, reason = self.decide(a, self.psi_max,
+                                           self.p99_factor,
+                                           self.slo_p99_ms)
         return {"decision": decision, "reason": reason, "stats": a}
 
     def _live_breach(self, a: Dict[str, Any]) -> Optional[str]:
@@ -340,6 +351,14 @@ class CanaryController:
     def _rollback(self, version: str, prev_head: Optional[str],
                   run_name: str, verdict: Dict[str, Any],
                   window: Dict[str, Any]) -> Dict[str, Any]:
+        with obs_trace.span("canary.rollback", model=self.model_name,
+                            run=run_name, version=version):
+            return self._rollback_impl(version, prev_head, run_name,
+                                       verdict, window)
+
+    def _rollback_impl(self, version: str, prev_head: Optional[str],
+                       run_name: str, verdict: Dict[str, Any],
+                       window: Dict[str, Any]) -> Dict[str, Any]:
         from shifu_tpu_torch import registry
         resilience.fault_point("canary.rollback")
         # 1. traffic: canary routing off, arm down — every request is on

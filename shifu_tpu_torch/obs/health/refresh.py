@@ -53,9 +53,11 @@ HYSTERESIS: breaches arriving while a refresh is in flight or within
 retrain absorbs the storm; the count is an event and a counter in the
 store (`health` shows it) and in `stats()`.
 
-The ``refresh.run`` / ``refresh.guardrail`` / ``refresh.rollback`` spans
-and the ``refresh_*_s`` stage timers of the JAX package's trace are
-ROADMAP A8.5.
+Under a trace run each breach-scheduled cycle is a ``refresh.run``
+span, each challenger-vs-incumbent eval a ``refresh.guardrail`` span
+and each rollback a ``refresh.rollback`` span; the train, guardrail and
+promote phases accrue the ``refresh_{train,guardrail,promote}_s`` stage
+timers.
 """
 
 from __future__ import annotations
@@ -72,6 +74,8 @@ import torch
 
 from shifu_tpu_torch import fileio, resilience
 from shifu_tpu_torch.config.environment import knob_float, knob_int
+from shifu_tpu_torch.data import pipeline as data_pipeline
+from shifu_tpu_torch.obs import trace as obs_trace
 from shifu_tpu_torch.obs.health import store as health_store
 
 log = logging.getLogger("shifu_tpu_torch")
@@ -226,7 +230,12 @@ class RefreshController:
         t_breach = time.monotonic()
         self.runs += 1
         run_name = f"run{self.runs:04d}"
+        with obs_trace.span("refresh.run", slo=record.get("slo", "?"),
+                            run=run_name):
+            return self._refresh_run(record, st, t_breach, run_name)
 
+    def _refresh_run(self, record: Dict, st, t_breach: float,
+                     run_name: str) -> str:
         # -- schedule: challenger workspace ------------------------------
         resilience.fault_point("refresh.schedule")
         window, win = None, None
@@ -250,7 +259,10 @@ class RefreshController:
             self.ingest_log.commit(REFRESH_CONSUMER, win.end)
 
         # -- train: warm-start incremental epochs or trees ---------------
+        t0 = time.monotonic()
         self._train_challenger(clone)
+        data_pipeline.add_stage_time("refresh_train_s",
+                                     time.monotonic() - t0)
         if self.post_train is not None:
             self.post_train(clone)
 
@@ -261,7 +273,10 @@ class RefreshController:
                                         t_breach)
 
         # -- guardrail: challenger vs incumbent on held-out eval ---------
+        t0 = time.monotonic()
         verdict = self.guardrail(os.path.join(clone, "models"))
+        data_pipeline.add_stage_time("refresh_guardrail_s",
+                                     time.monotonic() - t0)
         st.emit("refresh.guardrail_delta", verdict["delta"], kind="gauge",
                 run=run_name)
         st.event("refresh", phase="guardrail", run=run_name,
@@ -284,6 +299,7 @@ class RefreshController:
 
         # -- promote: two-rename atomic registry commit -------------------
         from shifu_tpu_torch import registry
+        t0 = time.monotonic()
         resilience.fault_point("refresh.promote")
         prev_head = registry.head(self.registry_root, self.model_name)
         refresh_block = {
@@ -300,6 +316,8 @@ class RefreshController:
             self.registry_root, self.model_name,
             os.path.join(clone, "models"),
             extra={"refresh": refresh_block})
+        data_pipeline.add_stage_time("refresh_promote_s",
+                                     time.monotonic() - t0)
 
         # -- swap: in place into the running fleet ------------------------
         swap = "none"
@@ -308,7 +326,7 @@ class RefreshController:
                 swap = self.fleet.swap_in_place(self.model_name)
             except Exception as e:  # noqa: BLE001 — any swap failure
                 # (parity gate, injected fault) → instant rollback
-                self._rollback(version, prev_head, e)
+                self._rollback(version, prev_head, run_name, e)
                 self.rolled_back += 1
                 st.event("refresh", phase="rolled_back", run=run_name,
                          version=version, to=prev_head or "?",
@@ -467,22 +485,24 @@ class RefreshController:
                                                     _eval_by_name,
                                                     _score_dataset)
 
-        resilience.fault_point("refresh.guardrail")
-        ec = _eval_by_name(self.ctx, self.eval_name)[0]
-        dset, cols = _build_eval_dataset(self.ctx, ec)
-        mc = self.ctx.model_config
-        labels = np.asarray(dset.tags, dtype=np.float32)
-        weights = np.asarray(dset.weights, dtype=np.float32)
-        scores = {}
-        for side, mdir in (("incumbent", self.incumbent_models_dir()),
-                           ("challenger", challenger_dir)):
-            scorer = Scorer.from_dir(
-                mdir, score_selector=ec.performanceScoreSelector,
-                gbt_convert=ec.gbtScoreConvertStrategy, device=self.device)
-            out = _score_dataset(mc, scorer, dset, cols)
-            scores[side] = float(ops_metrics.weighted_auc(
-                np.asarray(out["final"], dtype=np.float32), labels, weights,
-                device=self.device))
+        with obs_trace.span("refresh.guardrail"):
+            resilience.fault_point("refresh.guardrail")
+            ec = _eval_by_name(self.ctx, self.eval_name)[0]
+            dset, cols = _build_eval_dataset(self.ctx, ec)
+            mc = self.ctx.model_config
+            labels = np.asarray(dset.tags, dtype=np.float32)
+            weights = np.asarray(dset.weights, dtype=np.float32)
+            scores = {}
+            for side, mdir in (("incumbent", self.incumbent_models_dir()),
+                               ("challenger", challenger_dir)):
+                scorer = Scorer.from_dir(
+                    mdir, score_selector=ec.performanceScoreSelector,
+                    gbt_convert=ec.gbtScoreConvertStrategy,
+                    device=self.device)
+                out = _score_dataset(mc, scorer, dset, cols)
+                scores[side] = float(ops_metrics.weighted_auc(
+                    np.asarray(out["final"], dtype=np.float32), labels,
+                    weights, device=self.device))
         decision, reason = self.decide(scores["incumbent"],
                                        scores["challenger"], self.tolerance)
         return {"decision": decision, "reason": reason,
@@ -503,21 +523,24 @@ class RefreshController:
         return "hold", "regressed beyond tolerance"
 
     def _rollback(self, version: str, prev_head: Optional[str],
-                  err: Exception) -> None:
+                  run_name: str, err: Exception) -> None:
         """Instant rollback after a failed swap: HEAD back to the
         incumbent, then a re-swap so the fleet is provably pinned to it
         (absorbed — the failed forward swap never mutated the fleet, so
         even a failed re-swap leaves the incumbent serving)."""
         from shifu_tpu_torch import registry
-        log.warning("refresh: swap of %s failed (%s) — rolling back HEAD "
-                    "to %s", version, err, prev_head)
-        registry.rollback(self.registry_root, self.model_name, to=prev_head)
-        if self.fleet is not None:
-            try:
-                self.fleet.swap_in_place(self.model_name)
-            except Exception as e:  # noqa: BLE001 — absorbed, see above
-                log.warning("refresh: re-swap after rollback failed "
-                            "(incumbent still resident): %s", e)
+        with obs_trace.span("refresh.rollback", run=run_name,
+                            version=version):
+            log.warning("refresh: swap of %s failed (%s) — rolling back "
+                        "HEAD to %s", version, err, prev_head)
+            registry.rollback(self.registry_root, self.model_name,
+                              to=prev_head)
+            if self.fleet is not None:
+                try:
+                    self.fleet.swap_in_place(self.model_name)
+                except Exception as e:  # noqa: BLE001 — absorbed, see above
+                    log.warning("refresh: re-swap after rollback failed "
+                                "(incumbent still resident): %s", e)
 
     # -- observability ------------------------------------------------------
 

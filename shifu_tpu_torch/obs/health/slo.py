@@ -41,13 +41,10 @@ from typing import Callable, Dict, List, Optional
 
 from shifu_tpu_torch.config.environment import knob_float, knob_str
 from shifu_tpu_torch.obs.health import store as health_store
+from shifu_tpu_torch.profiling import HEALTH_FIELDS
 from shifu_tpu_torch.resilience import fault_point, retrying
 
 log = logging.getLogger("shifu_tpu_torch")
-
-# the record schema of the JAX package's `profiling.HEALTH_FIELDS`
-HEALTH_FIELDS = ("slo", "metric", "state", "value", "warn", "breach",
-                 "window_s")
 
 _RANK = {"ok": 0, "warn": 1, "breach": 2}
 ALERTS_FILE = "alerts.jsonl"

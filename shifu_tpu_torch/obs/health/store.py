@@ -21,9 +21,9 @@ loop, eval). With ``SHIFU_TPU_METRICS`` unset the module is inert:
 `emit` drops points and `flush` touches no files.
 
 `step_completed` is `step_guard`'s exit hook (a ``step.completed``
-counter and a flush). The per-step record (`flush_step_record`) is fed
-by the JAX package's `profiling.step_metrics`, which the port has not
-yet (ROADMAP A8.5); until then `eval_metrics` flushes itself.
+counter and a flush); `flush_step_record` is `profiling.step_metrics`'
+(the finished steps.jsonl record as points: wall seconds, the stage
+timers, the roofline block, the dag summary).
 """
 
 from __future__ import annotations
@@ -35,14 +35,12 @@ import time
 from typing import Dict, Iterable, List, Optional
 
 from shifu_tpu_torch.config.environment import knob_bool, knob_int
+from shifu_tpu_torch.profiling import METRIC_FIELDS  # noqa: F401 — the line schema
 from shifu_tpu_torch.resilience import absorbed, fault_point, make_lock
 
 log = logging.getLogger("shifu_tpu_torch")
 
 METRICS_FILE = "metrics.jsonl"
-
-# the line schema of the JAX package's `profiling.METRIC_FIELDS`
-METRIC_FIELDS = ("ts", "name", "value", "kind", "tags")
 
 # seconds per rollup aggregation bucket: compacted points collapse to
 # at most one rollup line per (name, tags) per bucket
@@ -257,11 +255,58 @@ def store(root: str) -> MetricsStore:
         return st
 
 
+# ---------------------------------------------------------------------------
+# step-record flush (the step_metrics seam)
+# ---------------------------------------------------------------------------
+
+def flush_step_record(root: str, rec: Dict) -> None:
+    """Convert one finished step record (the dict step_metrics is about
+    to persist to steps.jsonl) into metric points and flush: wall
+    seconds, every numeric stage timer, the roofline block, the dag
+    summary. Tagged by step (+ run_id when a trace run is live). Raises
+    on flush failure — the caller absorbs."""
+    st = store(root)
+    if not metrics_enabled():
+        return
+    step = str(rec.get("step", "?"))
+    tags: Dict = {"step": step}
+    try:
+        from shifu_tpu_torch.obs import trace as obs_trace
+        if obs_trace.active():
+            tags["run_id"] = obs_trace.current_run_id()
+    except Exception as e:  # noqa: BLE001 — trace linkage is best-effort
+        absorbed("health.trace-link", e)
+    st.emit("step.wall_s", rec.get("wallSeconds", 0.0),
+            rc=rec.get("rc"), **tags)
+    wall = float(rec.get("wallSeconds") or 0.0)
+    for k, v in (rec.get("inputPipeline") or {}).items():
+        if isinstance(v, (int, float)):
+            st.emit(f"stage.{k}", v, **tags)
+    stall = (rec.get("inputPipeline") or {}).get("input_stall_s")
+    if isinstance(stall, (int, float)) and wall > 0:
+        st.emit("step.input_stall_frac", round(float(stall) / wall, 6),
+                **tags)
+    roof = rec.get("roofline")
+    if isinstance(roof, dict):
+        rt = dict(tags, family=roof.get("family"),
+                  bound=roof.get("bound"))
+        for k, v in roof.items():
+            if isinstance(v, (int, float)):
+                st.emit(f"roofline.{k}", v, **rt)
+    dag = rec.get("dag")
+    if isinstance(dag, dict):
+        for k, v in dag.items():
+            if isinstance(v, (int, float)):
+                st.emit(f"dag.{k}", v, **tags)
+    st.flush()
+
+
 def eval_metrics(root: str, eval_name: str, perf: Dict,
                  model: str = "") -> None:
-    """Write the eval guardrail metrics (AUC and friends) the moment the
-    eval processor computes them, and flush (the JAX package's step-exit
-    flush is ROADMAP A8.5). Never raises."""
+    """Buffer the eval guardrail metrics (AUC and friends) the moment
+    the eval processor computes them; the step-exit flush
+    (`step_completed`, `flush_step_record`) persists them. Never
+    raises."""
     try:
         st = store(root)
         tags = {"eval": eval_name}
@@ -273,7 +318,6 @@ def eval_metrics(root: str, eval_name: str, perf: Dict,
             v = perf.get(key)
             if isinstance(v, (int, float)):
                 st.emit(name, float(v), **tags)
-        st.flush()
     except Exception as e:  # noqa: BLE001 — health must not fail eval
         log.warning("eval metrics emit failed (step unaffected): %s", e)
 

@@ -30,8 +30,9 @@ loops in one fleet tick under SHIFU_TPU_FLEET_REFRESH_BUDGET.
 
 The loop honours the preemption contract of the port's `cli serve`:
 SIGTERM/SIGINT finish the current tick and exit cleanly with everything
-flushed (`resilience.graceful_shutdown`). The `watch.window` /
-`watch.evaluate` spans of the JAX package's trace are ROADMAP A8.5.
+flushed (`resilience.graceful_shutdown`). Under a trace run each
+observed window is a `watch.window` span and each SLO pass a
+`watch.evaluate` span (tenant-tagged in the fleet watch).
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from shifu_tpu_torch.config.environment import knob_float
 from shifu_tpu_torch.obs.health import store as health_store
 from shifu_tpu_torch.obs.health.drift import RollingDrift
 from shifu_tpu_torch.obs.health.slo import SloEvaluator
+from shifu_tpu_torch.obs import trace as obs_trace
 
 log = logging.getLogger("shifu_tpu_torch")
 
@@ -162,8 +164,9 @@ def run_monitor(ctx, interval_s: Optional[float] = None,
             # fault before the commit REPLAYS the window next tick
             if df is not None and len(df):
                 try:
-                    resilience.fault_point("watch.window")
-                    snap = drift.observe(df)
+                    with obs_trace.span("watch.window", rows=len(df)):
+                        resilience.fault_point("watch.window")
+                        snap = drift.observe(df)
                     _emit_drift(st, snap)
                     if refresh is not None:
                         refresh.note_window(df)
@@ -178,7 +181,8 @@ def run_monitor(ctx, interval_s: Optional[float] = None,
 
             # 3. guardrails (the evaluator alerts on transitions;
             # breaches additionally hit the retrain seam)
-            slo.evaluate()
+            with obs_trace.span("watch.evaluate"):
+                slo.evaluate()
             for rec in slo.drain_transitions():
                 if rec["state"] == "breach":
                     on_breach(rec, refresh)
@@ -265,8 +269,10 @@ class FleetDriftWatch:
         if df is None or not len(df):
             return None
         try:
-            resilience.fault_point("watch.window")
-            snap = t["drift"].observe(df)
+            with obs_trace.span("watch.window", rows=len(df),
+                                tenant=name):
+                resilience.fault_point("watch.window")
+                snap = t["drift"].observe(df)
         except Exception as e:  # noqa: BLE001 — absorbed
             st.counter("watch.window_failed", tenant=name)
             log.warning("fleet-drift: %s window skipped (absorbed): %s",
@@ -306,7 +312,8 @@ class FleetDriftWatch:
         self.ticks += 1
         st = health_store.store(self.store_root)
         for name, t in self._tenants.items():
-            t["slo"].evaluate()
+            with obs_trace.span("watch.evaluate", tenant=name):
+                t["slo"].evaluate()
             for rec in t["slo"].drain_transitions():
                 if rec["state"] != "breach":
                     continue

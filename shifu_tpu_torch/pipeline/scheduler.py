@@ -37,7 +37,13 @@ node as ``cached`` without running it.
 
 `run_dag` returns the report (`DAG_SUMMARY_FIELDS`, a record of
 `DAG_FIELDS` a node); the CLI prints it as the ``dag`` key of a step
-line.
+line, and it is queued as the ``dag`` block of the step's
+``steps.jsonl`` record (`profiling.set_step_extra`). Under a trace run
+every node that started leaves a ``dag.node`` span (parent: the calling
+thread's open span, the run root for a CLI verb) with ``dag.queue``
+(ready → dispatch) and ``dag.run`` (dispatch → done) children, cut from
+the same timestamps as the report; the node processes inherit
+``SHIFU_TPU_TRACE_DIR`` and add their own span files to the merge.
 """
 
 from __future__ import annotations
@@ -50,26 +56,16 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
-from shifu_tpu_torch import resilience
+from shifu_tpu_torch import profiling, resilience
 from shifu_tpu_torch.config.environment import knob_int, knob_str
+from shifu_tpu_torch.obs import trace as obs_trace
+from shifu_tpu_torch.profiling import DAG_FIELDS, DAG_SUMMARY_FIELDS
 from shifu_tpu_torch.resilience import fault_point
 
 log = logging.getLogger("shifu_tpu_torch")
 
 # terminal node states, as they appear in the report's node records
 DONE, CACHED, FAILED, POISONED = "done", "cached", "failed", "poisoned"
-
-# the report's schema, the JAX package's `profiling.DAG_FIELDS` and
-# `DAG_SUMMARY_FIELDS`: `devices` is the size of the lease a node held
-# (0 for host and never-leased nodes, None in timeshared mode);
-# `total_devices` the pool leased from (None when timeshared),
-# `max_concurrent` the peak of device nodes running at once, and
-# `occupancy` lease-weighted when sliced (Σ run_s·devices / wall·total)
-DAG_FIELDS = ("node", "state", "deps", "queue_s", "run_s", "devices",
-              "critical_path")
-DAG_SUMMARY_FIELDS = ("workers", "total_devices", "wall_s",
-                      "critical_path_s", "occupancy", "max_concurrent",
-                      "failed", "nodes")
 
 
 class DagError(RuntimeError):
@@ -412,8 +408,25 @@ def run_dag(nodes: Sequence[Node], workers: Optional[int] = None,
                       "indices free at exit", label,
                       sorted(rs.leases), len(rs.free), total)
 
+    if obs_trace.active():
+        # one span a node (parent: the run root) with its queue and run
+        # children, each node on a track of its own
+        for name in order:
+            if name not in rs.start_t:
+                continue
+            ready = rs.ready_t.get(name, rs.start_t[name])
+            nid = obs_trace.record_span(
+                "dag.node", ready, rs.end_t[name],
+                track=f"dag.{name}", node=name, state=rs.state[name])
+            obs_trace.record_span("dag.queue", ready, rs.start_t[name],
+                                  parent=nid, track=f"dag.{name}")
+            obs_trace.record_span("dag.run", rs.start_t[name],
+                                  rs.end_t[name], parent=nid,
+                                  track=f"dag.{name}")
+
     report = _report(order, by, rs, workers, wall,
                      total if sliced else None)
+    profiling.set_step_extra("dag", report)
     if rs.first_failure is not None:
         name, err = rs.first_failure
         poisoned = sorted(k for k, v in rs.state.items() if v == POISONED)

@@ -26,10 +26,10 @@ resident dense trainer into `checkpoint_path(0)` (not under grid search
 or k-fold, as in the JAX package; a finished run's checkpoint stays,
 so a rerun restores it and returns at once) and the streaming NN, WDL
 and MTL into its `streaming`, `streaming-wdl` and `streaming-mtl`
-subdirectories, removed once the models are saved. The JAX package's
-`_record_train_roofline` (its `profiling` records, ROADMAP A8.5) has no
-counterpart; `cli train` prints the run's rows, epochs and wall seconds
-instead.
+subdirectories, removed once the models are saved. The resident dense
+trainer queues a `roofline` block for the step's ``steps.jsonl`` record
+(`_record_train_roofline`: the spec's analytic per-row costs over the
+measured row·epochs/s, against the card's peaks in `profiling`).
 """
 
 from __future__ import annotations
@@ -225,9 +225,12 @@ def _train_dense(ctx: ProcessorContext, seed: int,
         else None
 
     results: List[Tuple[Dict[str, Any], TrainResult]] = []
+    t_train = time.time()
+    total_epochs = 0
     for ci, params in enumerate(combos):
         spec = _make_spec(alg, params, x.shape[1], classes)
         conf = _conf_with_params(mc.train, params)
+        total_epochs += int(conf.numTrainEpochs or 0) * (kfold or 1)
         if kfold:
             res = _train_kfold(conf, spec, x, y, w, kfold, seed, device)
         else:
@@ -245,9 +248,32 @@ def _train_dense(ctx: ProcessorContext, seed: int,
                             key=lambda pr: float(pr[1].best_val.min()))
     if is_gs:
         log.info("grid search best params: %s", best_params)
+    _record_train_roofline(best.spec, x.shape[0], mc.train.validSetRate,
+                           total_epochs, time.time() - t_train)
     _save_dense_models(ctx, best, alg)
     _write_val_errors(ctx, best)
     return [best]
+
+
+def _record_train_roofline(spec: nn_mod.MLPSpec, n_rows: int,
+                           valid_rate: float, total_epochs: int,
+                           wall: float) -> None:
+    """Queue a `roofline` block for this command's steps.jsonl record:
+    analytic per-row costs from the trained spec combined with the
+    measured row·epochs/s (`profiling.roofline`). The wall covers the
+    whole train loop (the first launches and the host's reads
+    included), so the shares are a floor."""
+    from shifu_tpu_torch import profiling
+    try:
+        n_train = max(int(n_rows * (1 - (valid_rate or 0.0))), 1)
+        bpe = 2 if spec.compute_dtype == "bfloat16" else 4
+        f, b = profiling.mlp_row_costs(spec.input_dim, spec.hidden_dims,
+                                       spec.output_dim, dtype_bytes=bpe)
+        profiling.set_step_extra("roofline", profiling.roofline(
+            "NN", f, b, n_train * total_epochs / max(wall, 1e-9),
+            compute_dtype=spec.compute_dtype))
+    except Exception as e:  # noqa: BLE001 — metrics must never fail a run
+        log.debug("roofline record skipped: %s", e)
 
 
 def _conf_with_params(tc, params):

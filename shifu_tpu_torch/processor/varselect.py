@@ -45,6 +45,7 @@ from shifu_tpu_torch import resolve_device
 from shifu_tpu_torch.config.column_config import ColumnConfig
 from shifu_tpu_torch.config.inspector import ModelStep
 from shifu_tpu_torch.config.model_config import NormType
+from shifu_tpu_torch.data.pipeline import host_fetch
 from shifu_tpu_torch.fileio import atomic_write
 from shifu_tpu_torch.models import nn as nn_mod
 from shifu_tpu_torch.processor import norm as norm_proc
@@ -453,8 +454,10 @@ def _filter_by_voted_wrapper(ctx: ProcessorContext,
 
     def fitness(masks_src: np.ndarray) -> np.ndarray:
         masks = on(masks_src) @ expand_t        # (P, n_dense), exact 0/1
-        return _population_fitness(spec, init, masks, train, val,
-                                   epochs).cpu().numpy()
+        # the GA is host-driven: selection and crossover need this
+        # generation's fitness on the host before the next can dispatch
+        return host_fetch(_population_fitness(spec, init, masks, train,
+                                              val, epochs))
 
     best = []
     for gen in range(generations):

@@ -14,12 +14,14 @@ restarts — the port's copy of `shifu_tpu/resilience.py`:
    sites are listed in ``FAULT_SITES`` (plus the dynamic
    ``step.<name>`` at each processor step's start). Unset (the
    default) this is dead code.
-2. **Bounded retry with backoff** (`retrying`): transient errors
-   (timeouts, connection and other OS errors) are retried with
-   exponential backoff under ``SHIFU_TPU_RETRY_ATTEMPTS`` /
-   ``_BASE_S`` / ``_MAX_S``; permanent ones (a missing file, a
-   permission error, a value error) propagate at once
-   (`is_transient`).
+2. **Bounded retry with backoff** (`retrying`, the `retry`
+   decorator): transient errors (timeouts, connection and other OS
+   errors) are retried with exponential backoff under
+   ``SHIFU_TPU_RETRY_ATTEMPTS`` / ``_BASE_S`` / ``_MAX_S``; permanent
+   ones (a missing file, a permission error, a value error) propagate
+   at once (`is_transient`). Every retried failure is counted by site
+   (`retry_stats`), which each step's ``steps.jsonl`` record and the
+   `test` verb's closing line report.
 3. **Deliberate absorbs** (`absorbed`, `absorb_counts`): a per-site
    counter for every exception swallowed by design.
 4. **The abort scope** (`set_abort_scope`): the model set's ``tmp/``,
@@ -42,7 +44,9 @@ restarts — the port's copy of `shifu_tpu/resilience.py`:
    ``SHIFU_TPU_MAX_RESTARTS`` times (default 0 = off) with exponential
    backoff; each attempt restores from its checkpoint directory.
    Each restart record is appended to the scope's
-   ``metrics/steps.jsonl``.
+   ``metrics/steps.jsonl`` and buffered (`note_event`) for the step's
+   own record, which `profiling.step_metrics` drains
+   (`drain_events`).
 7. **Startup hygiene** (`sweep_stale`): the ``.tmp.*`` residue a
    killed `fileio.atomic_write` leaves in a local directory is removed
    when a step or the row log starts.
@@ -53,9 +57,7 @@ pieces are ROADMAP A8.3: the peer side of the markers (a barrier that
 waits on a peer's abort marker, `check_preempt_marker`),
 `publish_preempt` (the broadcast from the signal handler),
 `preempt_exit_sync` (the ordered exit and its ``preempt.ack.*``
-markers) and `dump_thread_stacks` (the collective watchdog's); the `retry`
-decorator, `retry_stats` and the buffered events (`note_event`/
-`drain_events`) come with the step records and spans of A8.5; the
+markers) and `dump_thread_stacks` (the collective watchdog's); the
 remote sweep and remote markers are A8.4.
 """
 
@@ -63,6 +65,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import json
 import logging
 import os
@@ -123,8 +126,7 @@ class _FaultRule(NamedTuple):
 
 # every static fault site of the port (`step.<name>` sites are
 # dynamic); the JAX package's others are its remote filesystem
-# (`fs.*`, A8.4), its collectives (`dist.*`, A8.3) and its trace
-# export (`obs.export`, A8.5)
+# (`fs.*`, A8.4) and its collectives (`dist.*`, A8.3)
 FAULT_SITES = (
     "reader.read", "reader.native",
     "ckpt.save", "ckpt.stage", "ckpt.publish", "ckpt.saved",
@@ -135,7 +137,7 @@ FAULT_SITES = (
     "ingest.append", "ingest.seal", "ingest.offset",
     "refresh.schedule", "refresh.guardrail", "refresh.promote",
     "canary.start", "canary.decide", "canary.rollback", "shadow.score",
-    "dag.node", "dag.slice",
+    "dag.node", "dag.slice", "obs.export",
 )
 
 _NTH_RE = re.compile(r"^(\d+)(\+|-(\d+))?$")
@@ -209,6 +211,36 @@ def fault_point(site: str) -> None:
 # retry
 # ---------------------------------------------------------------------------
 
+# per-site retry accounting (the `test` verb's closing line and each
+# step's tmp/metrics/steps.jsonl record) — thread-safe: retried I/O can
+# run on pipeline prefetch workers
+_retry_lock = make_lock("resilience.retry_stats")
+_retry_stats: dict = {}
+
+
+def _note_retry(site: str, exc: BaseException) -> None:
+    with _retry_lock:
+        d = _retry_stats.setdefault(site, {"attempts": 0, "lastError": ""})
+        d["attempts"] += 1
+        d["lastError"] = f"{type(exc).__name__}: {exc}"
+
+
+def retry_stats(reset: bool = False) -> dict:
+    """{site: {attempts, lastError}} for every retried call since the
+    last reset. `attempts` counts RETRIED failures — zero means every
+    call succeeded first try (the dict is then empty)."""
+    with _retry_lock:
+        out = {k: dict(v) for k, v in _retry_stats.items()}
+        if reset:
+            _retry_stats.clear()
+    return out
+
+
+def reset_retry_stats() -> None:
+    with _retry_lock:
+        _retry_stats.clear()
+
+
 def retrying(site: str, fn: Callable, *args, **kwargs):
     """Call `fn(*args, **kwargs)` with bounded exponential-backoff
     retries on transient errors. The site's fault point fires before
@@ -223,12 +255,23 @@ def retrying(site: str, fn: Callable, *args, **kwargs):
         except BaseException as e:  # noqa: BLE001 — classified below
             if attempt >= attempts or not is_transient(e):
                 raise
+            _note_retry(site, e)
             delay = min(cap, base * 2 ** (attempt - 1))
             delay *= 0.5 + random.random()  # jitter: 0.5x..1.5x
             log.warning("%s: transient %s (attempt %d/%d), retrying in "
                         "%.2fs: %s", site, type(e).__name__, attempt,
                         attempts, delay, e)
             time.sleep(delay)
+
+
+def retry(site: str):
+    """Decorator form of `retrying`."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            return retrying(site, fn, *args, **kwargs)
+        return wrapped
+    return deco
 
 
 # ---------------------------------------------------------------------------
@@ -330,6 +373,27 @@ def publish_abort(site: str, exc: BaseException,
 def clear_preempt_marker() -> None:
     """Remove a stale preempt marker (step start, restart attempt)."""
     _clear_marker(_marker_path(_PREEMPT_NAME), "preempt")
+
+
+# resilience events (supervised restarts) — buffered for the step's
+# steps.jsonl record, which profiling.step_metrics drains; each is
+# also appended as a standalone line the moment it happens, because a
+# killed process may never reach the step record
+_events_lock = make_lock("resilience.events")
+_events: List[dict] = []
+
+
+def note_event(rec: dict) -> None:
+    with _events_lock:
+        _events.append(rec)
+
+
+def drain_events() -> List[dict]:
+    """Snapshot AND clear buffered resilience events (step_metrics)."""
+    with _events_lock:
+        out = list(_events)
+        _events.clear()
+    return out
 
 
 def _append_steps_jsonl(rec: dict) -> None:
@@ -471,6 +535,7 @@ def supervise(fn: Callable[[], "object"], step: str = "train",
                    "maxRestarts": max_restarts, "error": err,
                    "time": round(time.time(), 3),
                    "devices": _device_count(device)}
+            note_event(rec)
             _append_steps_jsonl(rec)
             time.sleep(delay)
 

@@ -9,7 +9,9 @@ overflow the bucket is carried over to open the next batch, so order
 stays FIFO end to end. The admission queue is bounded
 (``SHIFU_TPU_SERVE_QUEUE_DEPTH``); a full queue rejects the submit with
 `queue.Full`. The ``serve.request`` fault site fires once a submit,
-before the request is queued.
+before the request is queued. Each formed batch adds every request's
+wait to the ``serve_queue_s`` stage timer, counts ``serve_batches`` and
+leaves a ``serve.flush`` span (opener admission → batch sealed).
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from typing import Any, Callable, Dict, List, Optional
 
 from shifu_tpu_torch import resilience
 from shifu_tpu_torch.config import environment as env
+from shifu_tpu_torch.data import pipeline
+from shifu_tpu_torch.obs import trace as obs_trace
 
 SERVE_SITE = "serve.request"
 
@@ -36,13 +40,14 @@ def queue_depth() -> int:
 class Request:
     """One scoring request riding the admission queue."""
 
-    __slots__ = ("blocks", "n", "t_submit", "timing",
+    __slots__ = ("blocks", "n", "t_submit", "t_batched", "timing",
                  "_done", "_result", "_error")
 
     def __init__(self, blocks: Dict[str, Any], n: int):
         self.blocks = blocks
         self.n = n
         self.t_submit = time.monotonic()
+        self.t_batched = self.t_submit
         self.timing: Dict[str, float] = {}
         self._done = threading.Event()
         self._result: Any = None
@@ -163,12 +168,19 @@ class MicroBatcher:
             rows += nxt.n
         t = time.monotonic()
         for r in batch:
+            r.t_batched = t
             r.timing["queue_s"] = t - r.t_submit
+            pipeline.add_stage_time("serve_queue_s", t - r.t_submit)
         with self._stats_lock:
             self.batches += 1
             self.requests += len(batch)
             self.rows += rows
             self._occupancy_sum += rows / self.max_rows
+        pipeline.add_stage_count("serve_batches")
+        # batch-formation span: opener admission → batch sealed
+        obs_trace.record_span("serve.flush", opener.t_submit, t,
+                              track="serve", requests=len(batch),
+                              rows=rows)
         return batch
 
     def stats(self) -> Dict[str, Any]:

@@ -53,8 +53,10 @@ when the shapes changed. The fleet summary block carries
   `obs/health/canary.CanaryController` decides on; `stop_arms` turns
   routing off first, then the worker and the challenger.
 
-The `fleet.warm` / `fleet.evict` / `fleet.swap` / `shadow.score` spans
-and stage timers of the JAX package's trace are ROADMAP A8.5.
+Under a trace run each (re-)warm, eviction, in-place swap and shadow
+replay leaves a `fleet.warm` / `fleet.evict` / `fleet.swap` /
+`shadow.score` span, and the stage timers `fleet_rewarm_s`,
+`fleet_evictions` and `fleet_swap_s` accrue into the step record.
 """
 
 from __future__ import annotations
@@ -71,15 +73,14 @@ import torch
 
 from shifu_tpu_torch import registry
 from shifu_tpu_torch.config import environment as env
+from shifu_tpu_torch.data import pipeline
+from shifu_tpu_torch.obs import trace as obs_trace
+from shifu_tpu_torch.profiling import FLEET_FIELDS
 from shifu_tpu_torch.resilience import absorbed, fault_point, make_lock
 from shifu_tpu_torch.serve.service import ScorerService
 
 PRIORITIES = ("high", "low")
 
-# the fleet summary block's keys (the JAX package's
-# `profiling.FLEET_FIELDS`)
-FLEET_FIELDS = ("models_resident", "evictions", "rewarm_s",
-                "shed_rate", "p99_ms_by_class", "swaps", "swap_s")
 
 
 class ShedReject(queue.Full):
@@ -294,9 +295,12 @@ class FleetService:
                    if e.service is not None)
 
     def _evict_locked(self, entry: _Entry) -> None:
-        entry.service.close()    # drops its graphs and their pool
+        with obs_trace.span("fleet.evict", model=entry.name,
+                            version=entry.version):
+            entry.service.close()    # drops its graphs and their pool
         entry.service = None
         self._evictions += 1
+        pipeline.add_stage_count("fleet_evictions")
 
     def _service(self, vdir: str, entry: _Entry,
                  tags: Dict[str, str]) -> ScorerService:
@@ -339,12 +343,17 @@ class FleetService:
                         continue
                     self._evict_locked(victim)
             t0 = time.monotonic()
-            svc = self._service(entry.vdir, entry, {"model": name})
-            svc.start()
+            with obs_trace.span("fleet.warm", model=name,
+                                version=entry.version,
+                                rewarm=entry.warmed_once):
+                svc = self._service(entry.vdir, entry, {"model": name})
+                svc.start()
             if entry.warmed_once:
                 # a RE-warm (post-eviction) — the steady-state cost the
-                # budget trades for
+                # budget trades for; first warms land on serve_warm_s
                 self._rewarm_s += time.monotonic() - t0
+                pipeline.add_stage_time("fleet_rewarm_s",
+                                        time.monotonic() - t0)
             entry.warmed_once = True
             entry.service = svc
             return svc
@@ -383,13 +392,18 @@ class FleetService:
             if version == entry.version:
                 return "noop"
             t0 = time.monotonic()
-            swapped = entry.service.swap_params(vdir)
+            with obs_trace.span("fleet.swap", model=name,
+                                version=version,
+                                from_version=entry.version):
+                swapped = entry.service.swap_params(vdir)
             if swapped:
                 entry.version = version
                 entry.vdir = vdir
                 entry.manifest = manifest
                 self._swaps += 1
                 self._swap_s += time.monotonic() - t0
+                pipeline.add_stage_time("fleet_swap_s",
+                                        time.monotonic() - t0)
                 return "swapped"
             # structural change — fall back to evict + re-warm (which
             # re-resolves HEAD and recaptures/selfchecks from scratch)
@@ -497,9 +511,12 @@ class FleetService:
             if item is None:
                 return
             try:
-                fault_point("shadow.score")
-                out, timing = arm.service.submit_timed(timeout=5.0, **item)
-                arm.note("shadow", timing["total_s"], out)
+                with obs_trace.span("shadow.score", model=arm.model,
+                                    version=arm.version):
+                    fault_point("shadow.score")
+                    out, timing = arm.service.submit_timed(timeout=5.0,
+                                                           **item)
+                    arm.note("shadow", timing["total_s"], out)
             except Exception:  # noqa: BLE001 — absorbed by design
                 arm.shadow_errors += 1
 

@@ -21,6 +21,12 @@ inputs, then the blocks the eager models read; synchronized on the
 current stream), device is the replays with the copy of the scores back
 (and the eager models' `score_matrix` calls), and d2h is the
 per-request slicing of the result. On the CPU the h2d stage is empty.
+The splits also accrue to the ``serve_{pad,h2d,device,d2h}_s`` stage
+timers (``serve_warm_s`` at warm-up), and under a trace run each
+request leaves a ``serve.request`` span with ``serve.queue``/``pad``/
+``h2d``/``device``/``d2h`` children cut from the same timestamps as
+its `timing` splits, on both routes; none of them synchronizes the
+card beyond what the route already does.
 
 `swap_params` hot-swaps a same-shaped ensemble into the running service
 (the JAX package's structural gate, an in-place copy into the storage
@@ -47,7 +53,9 @@ import torch
 
 from shifu_tpu_torch import weights
 from shifu_tpu_torch.config import environment as env
+from shifu_tpu_torch.data import pipeline
 from shifu_tpu_torch.eval.scorer import Scorer, score_matrix
+from shifu_tpu_torch.obs import trace as obs_trace
 from shifu_tpu_torch.ops import fused_score
 from shifu_tpu_torch.resilience import make_lock
 from shifu_tpu_torch.serve import aot
@@ -182,6 +190,7 @@ class ScorerService:
         self._graphs = graphs
         self._warmed_buckets = len(self.ladder)
         self._warm_s = time.monotonic() - t0
+        pipeline.add_stage_time("serve_warm_s", self._warm_s)
 
     def _eager(self, graphs: Optional[aot.ServingGraphs]) -> List[int]:
         """The models no graph scores, by index."""
@@ -411,8 +420,31 @@ class ScorerService:
             r.timing["d2h_s"] = t_done - t_prev
             r.timing["total_s"] = t_done - r.t_submit
             self._latencies.append(r.timing["total_s"])
+            if obs_trace.active():
+                # one span a request, children cut from the exact
+                # timestamps the timing splits are computed from
+                rid = obs_trace.record_span(
+                    "serve.request", r.t_submit, t_done,
+                    track="serve", rows=r.n)
+                obs_trace.record_span("serve.queue", r.t_submit,
+                                      r.t_batched, parent=rid,
+                                      track="serve")
+                obs_trace.record_span("serve.pad", t0, t_pad,
+                                      parent=rid, track="serve")
+                obs_trace.record_span("serve.h2d", t_pad, t_h2d,
+                                      parent=rid, track="serve")
+                obs_trace.record_span("serve.device", t_h2d, t_dev,
+                                      parent=rid, track="serve")
+                obs_trace.record_span("serve.d2h", t_prev, t_done,
+                                      parent=rid, track="serve")
             t_prev = t_done
             r.resolve(sliced)
+        t_d2h = time.monotonic()
+
+        pipeline.add_stage_time("serve_pad_s", t_pad - t0)
+        pipeline.add_stage_time("serve_h2d_s", t_h2d - t_pad)
+        pipeline.add_stage_time("serve_device_s", t_dev - t_h2d)
+        pipeline.add_stage_time("serve_d2h_s", t_d2h - t_dev)
 
     # -- monitoring ----------------------------------------------------
     @property

@@ -48,9 +48,14 @@ logical→physical rules table; numpy leaves (the streaming trainer's
 host curves and counters) get no entry and restore on the host.
 `place_resharded` moves each recorded leaf onto the caller's device; a
 sidecar written on a mesh of more than one device restores replicated,
-with one log line. Placement across cards is ROADMAP A8.3, the
-`ckpt.*` spans and the ``ckpt_save_s``/``ckpt_stall_s`` stage timers
-A8.5.
+with one log line. Placement across cards is ROADMAP A8.3.
+
+Timers and spans, as in the JAX package: the snapshot is a
+``ckpt.stage`` span on the training thread and the serialize-and-
+publish a ``ckpt.publish`` span (on the writer thread when async);
+``ckpt_save_s`` accrues a save's whole wall time (snapshot to publish)
+and ``ckpt_stall_s`` what the training thread waited for it — all of it
+when synchronous, the snapshot and a free slot when async.
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ import logging
 import os
 import shutil
 import threading
+import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, \
     Union
 
@@ -68,7 +74,9 @@ import numpy as np
 import torch
 
 from shifu_tpu_torch.config.environment import knob_bool
+from shifu_tpu_torch.data import pipeline as pipe
 from shifu_tpu_torch.fileio import atomic_write
+from shifu_tpu_torch.obs import trace as obs_trace
 from shifu_tpu_torch.resilience import fault_point, make_lock, sweep_stale
 
 log = logging.getLogger("shifu_tpu_torch")
@@ -114,8 +122,9 @@ def _map(fn: Callable, state: Any) -> Any:
 def _snapshot(state: Any) -> Any:
     """Device→host staging: a host copy of the state, the only part of
     a save the training thread waits for."""
-    fault_point("ckpt.stage")
-    return _map(_copy_leaf, state)
+    with obs_trace.span("ckpt.stage"):
+        fault_point("ckpt.stage")
+        return _map(_copy_leaf, state)
 
 
 def _leaves(state: Any, path: str = "") -> List[Tuple[str, Any]]:
@@ -170,6 +179,12 @@ def _publish(ckpt_dir: str, step: int, snap: Any,
     sidecar, then prune the older steps. The sidecar commits after the
     step: a kill between the two leaves a restorable step that falls
     back to the caller's placement, never the reverse."""
+    with obs_trace.span("ckpt.publish", step=step):
+        _publish_impl(ckpt_dir, step, snap, meta)
+
+
+def _publish_impl(ckpt_dir: str, step: int, snap: Any,
+                  meta: Optional[dict] = None) -> None:
     from shifu_tpu_torch.models.spec import save_model
     ckpt_dir = os.path.abspath(ckpt_dir)
     sweep_stale(ckpt_dir)
@@ -194,10 +209,14 @@ def _publish(ckpt_dir: str, step: int, snap: Any,
 def save_state(ckpt_dir: str, step: int, state: Any) -> None:
     """Write the training state for `step` (epochs done) synchronously,
     replacing any older checkpoint."""
+    t0 = time.monotonic()
     fault_point("ckpt.save")
     os.makedirs(os.path.abspath(ckpt_dir), exist_ok=True)
     meta = sharding_meta(state)
     _publish(ckpt_dir, step, _snapshot(state), meta)
+    dt = time.monotonic() - t0
+    pipe.add_stage_time("ckpt_save_s", dt)
+    pipe.add_stage_time("ckpt_stall_s", dt)  # sync: the step waits it all
 
 
 class AsyncCheckpointWriter:
@@ -236,9 +255,10 @@ class AsyncCheckpointWriter:
             with self._cond:
                 while not self._staged:
                     self._cond.wait()
-                ckpt_dir, step, snap, meta = self._staged.popleft()
+                ckpt_dir, step, snap, meta, t0 = self._staged.popleft()
             try:
                 _publish(ckpt_dir, step, snap, meta)
+                pipe.add_stage_time("ckpt_save_s", time.monotonic() - t0)
             except BaseException as e:  # noqa: BLE001 — surfaced at flush
                 with self._lock:
                     if self._error is None:
@@ -249,6 +269,7 @@ class AsyncCheckpointWriter:
                     self._cond.notify_all()
 
     def save(self, ckpt_dir: str, step: int, state: Any) -> None:
+        t0 = time.monotonic()
         fault_point("ckpt.save")
         err = self._take_error()
         if err is not None:
@@ -260,9 +281,10 @@ class AsyncCheckpointWriter:
             while self._inflight >= self.SLOTS:
                 self._cond.wait()
             self._inflight += 1
-            self._staged.append((ckpt_dir, step, snap, meta))
+            self._staged.append((ckpt_dir, step, snap, meta, t0))
             self._ensure_worker()
             self._cond.notify_all()
+        pipe.add_stage_time("ckpt_stall_s", time.monotonic() - t0)
 
     def flush(self, reraise: bool = True) -> None:
         """Wait for every write in flight; raise (or, with

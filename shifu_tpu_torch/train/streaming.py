@@ -29,7 +29,12 @@ feed it their loss):
 The host half of a chunk (materializing the mmap slice, bag weights)
 runs on `data/pipeline.map_prefetch` threads; the device half is a copy
 from pinned memory on a side CUDA stream (`data/pipeline.Stager`),
-issued for chunk k+1 while chunk k computes. A chunk stored as f16
+issued for chunk k+1 while chunk k computes. The stage timers are the
+JAX core's: ``h2d_s`` and its ``input.h2d`` spans (one a block) come
+from the `Stager`, ``device_step_s`` is the host's dispatch time of the
+chunk updates and validation passes (no synchronization), and the
+epoch's one read goes through `pipeline.host_fetch` (``host_sync_s``).
+A chunk stored as f16
 (FLOAT16 layouts) is widened on the device. The JAX core pads a tail
 chunk to one shape for XLA; here the tail chunk is simply shorter
 (zero-weight rows add nothing, and every denominator is clamped).
@@ -348,10 +353,13 @@ def train_streaming_core(train_conf, get_chunk: Callable[[int, int], Tuple],
             nxt = place(next(chunks), "t")
             for ci in range(len(order)):
                 inputs, w_bags = nxt
+                t_dev = time.monotonic()
                 stacked, opt_state, loss, sw = update(stacked, opt_state,
                                                       inputs, w_bags)
                 loss_parts.append(loss)
                 sw_parts.append(sw)
+                pipe.add_stage_time("device_step_s",
+                                    time.monotonic() - t_dev)
                 if ci + 1 < len(order):
                     # copies while it computes
                     nxt = place(next(chunks), "t")
@@ -361,8 +369,9 @@ def train_streaming_core(train_conf, get_chunk: Callable[[int, int], Tuple],
                     trainer_mod._bag_where(keep, old, new)
                     for new, old in zip(_flat(stacked), _flat(prev))])
             # the epoch's one fetch; the sums run on the host in float64
-            losses = torch.stack(loss_parts).cpu().numpy().astype(np.float64)
-            sws = torch.stack(sw_parts).cpu().numpy().astype(np.float64)
+            losses = pipe.host_fetch(torch.stack(loss_parts)).astype(
+                np.float64)
+            sws = pipe.host_fetch(torch.stack(sw_parts)).astype(np.float64)
             train_err = np.sum(losses * sws, axis=0) / np.maximum(
                 np.sum(sws, axis=0), 1e-12)
 
@@ -374,12 +383,15 @@ def train_streaming_core(train_conf, get_chunk: Callable[[int, int], Tuple],
                 with torch.no_grad():
                     for ci in range(len(val_chunks)):
                         inputs, w = nxt
+                        t_dev = time.monotonic()
                         e_parts.append(metric_sum_fn(stacked, inputs, w))
                         m_parts.append(metric_mass_fn(inputs, w))
+                        pipe.add_stage_time("device_step_s",
+                                            time.monotonic() - t_dev)
                         if ci + 1 < len(val_chunks):
                             nxt = place(next(vchunks), "v")
-                es = torch.stack(e_parts).cpu().numpy().astype(np.float64)
-                ms = torch.stack(m_parts).cpu().numpy().astype(np.float64)
+                es = pipe.host_fetch(torch.stack(e_parts)).astype(np.float64)
+                ms = pipe.host_fetch(torch.stack(m_parts)).astype(np.float64)
                 val_err = np.sum(es, axis=0) / max(float(np.sum(ms)), 1e-12)
             else:
                 val_err = train_err

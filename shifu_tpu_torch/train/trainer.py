@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from shifu_tpu_torch import resilience, resolve_device
+from shifu_tpu_torch.data import pipeline as pipe
 from shifu_tpu_torch.models import nn as nn_mod
 from shifu_tpu_torch.train.optimizers import (Optimizer, freeze,
                                               optimizer_from_params)
@@ -447,10 +448,10 @@ def train_bags(loss_fn, metric_fn, optimizer: Optimizer, n_epochs: int,
             run, carry, n_epochs, checkpoint_dir, checkpoint_interval, dev)
     else:
         carry, train_errs, val_errs = run(carry, 0, n_epochs)
-    # the one host sync of the run
-    train_errs = torch.stack(train_errs, 1).cpu().numpy() if train_errs \
-        else np.zeros((n_bags, 0), np.float32)
-    val_errs = torch.stack(val_errs, 1).cpu().numpy() if val_errs \
+    # the one host sync of the run (host_fetch times and counts it)
+    train_errs = pipe.host_fetch(torch.stack(train_errs, 1)) \
+        if train_errs else np.zeros((n_bags, 0), np.float32)
+    val_errs = pipe.host_fetch(torch.stack(val_errs, 1)) if val_errs \
         else carry[2]["val"].reshape(-1, 1).cpu().numpy()
     best = carry[2]
     best_epoch = np.argmin(val_errs, axis=1)

@@ -7,7 +7,8 @@ cpu`): `encoded/part-00000` and its header byte-equal, and
 `gbdt.leaf_indices` equal to the JAX package's walk on the same bins.
 `new` writes the JAX package's scaffold; `save` / `switch` / `show` leave
 the same files and versions behind on two copies of one set. `combo`
-and `test` raise and name ROADMAP A8.
+and `test` run through the pipeline DAG and are held by
+`tests/test_torch_combo.py` and `tests/test_torch_pipeline_dag.py`.
 """
 
 import json
@@ -133,6 +134,11 @@ def test_save_switch_show_match_jax(sets, tmp_path, capsys):  # noqa: F811
     rc, line = port(proot, "switch", "v1", device=False, capsys=capsys)
     assert rc == 0 and line["step"] == "switch"
     got, want = tree(proot), tree(jroot)
+    # the port ran through its CLI, which appends each step's record;
+    # the JAX side ran its processors directly
+    steps = [json.loads(s)["step"] for s in
+             got.pop("tmp/metrics/steps.jsonl").decode().splitlines()]
+    assert steps == ["save", "varsel", "save", "switch"]
     assert set(got) == set(want)
     for rel in want:
         if rel.endswith(("ModelConfig.json", "ColumnConfig.json")) or \

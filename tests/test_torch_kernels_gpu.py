@@ -159,6 +159,43 @@ def test_cuda_route_never_falls_back(cuda):
 # ---------------------------------------------------------------------------
 
 
+def test_profile_trace_names_k1_and_k3(cuda, tmp_path, monkeypatch):
+    """`profiling.maybe_profile` (the `--profile` flag) around one K1
+    and one K3 launch: the Chrome trace it exports under the trace run's
+    id names both kernels, once each."""
+    import json
+
+    from shifu_tpu_torch import profiling
+    from shifu_tpu_torch.obs import trace as obs_trace
+    monkeypatch.setenv("SHIFU_TPU_TRACE", "1")
+    monkeypatch.delenv("SHIFU_TPU_TRACE_DIR", raising=False)
+    x, mean, std, w, b = cs.k1_inputs(5, 512, cuda)
+    _, _, binsT, slot, grad, hess = cs.hist_inputs(3, 100_003, 8, cuda,
+                                                   True)
+    binsT = binsT.to(torch.uint8)
+    # built and warm before the profiled window
+    fused_score.fused_first_layer(x, mean, std, cs.CUTOFF, w, b)
+    level_hist.level_histograms(binsT, slot, grad, hess, 8, cs.GBT_BINS)
+    torch.cuda.synchronize()
+    root = str(tmp_path)
+    before = fused_score.launches, level_hist.launches
+    with obs_trace.trace_run(root, "train") as run, \
+            profiling.maybe_profile(root, "train", True) as out:
+        fused_score.fused_first_layer(x, mean, std, cs.CUTOFF, w, b)
+        level_hist.level_histograms(binsT, slot, grad, hess, 8,
+                                    cs.GBT_BINS)
+        torch.cuda.synchronize()
+    assert os.path.basename(out) == run.run_id
+    with open(os.path.join(out, profiling.PROFILE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert (fused_score.launches, level_hist.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert sum("fused_score_kernel" in n for n in kernels) == 1, kernels
+    assert sum("level_hist_kernel" in n for n in kernels) == 1, kernels
+    assert [r["run_id"] for r in obs_trace.trace_ls(root)] == [run.run_id]
+
+
 @pytest.mark.parametrize("n_slots", [1, 7, 32])
 @pytest.mark.parametrize("integer", [True, False])
 def test_level_hist_k3_k4_match_plain(cuda, n_slots, integer):

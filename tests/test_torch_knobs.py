@@ -146,3 +146,24 @@ def test_checkpoint_knobs_match_the_jax_defaults(name, monkeypatch):
     for raw in ("0", "1", "3", "nonsense"):
         monkeypatch.setenv(name, raw)
         assert getattr(penv, read)(name) == getattr(jenv, read)(name)
+
+
+TRACE_KNOBS = ("SHIFU_TPU_TRACE", "SHIFU_TPU_TRACE_BUF",
+               "SHIFU_TPU_TRACE_DIR")
+
+
+@pytest.mark.parametrize("name", TRACE_KNOBS)
+def test_trace_knobs_match_the_jax_package(name, monkeypatch):
+    """The span tracer's switch, ring size and shared workspace: the JAX
+    package's type, default and doc, read alike when set (and when
+    malformed)."""
+    from shifu_tpu.config import environment as jenv
+    from shifu_tpu_torch.config import environment as penv
+    k, j = penv.KNOBS[name], jenv.KNOBS[name]
+    assert (k.type, k.default, k.doc) == (j.type, j.default, j.doc)
+    read = {"flag": "knob_bool", "int": "knob_int", "str": "knob_str"}[k.type]
+    monkeypatch.delenv(name, raising=False)
+    assert getattr(penv, read)(name) == getattr(jenv, read)(name)
+    for raw in ("1", "0", "8", "tmp/trace/x", "nonsense"):
+        monkeypatch.setenv(name, raw)
+        assert getattr(penv, read)(name) == getattr(jenv, read)(name)

@@ -259,7 +259,9 @@ def test_step_entry_clears_markers_and_sweeps(tmp_path, monkeypatch):
     monkeypatch.setenv("SHIFU_TPU_FAULT", "step.stats:oserror:1")
     with pytest.raises(OSError, match="step.stats"):
         _port(root, "stats")
-    assert sorted(os.listdir(scope)) == []
+    # the markers are gone; what is left is the CLI's step records
+    assert sorted(os.listdir(scope)) == ["metrics"]
+    assert os.listdir(os.path.join(scope, "metrics")) == ["steps.jsonl"]
     assert not os.path.exists(residue)
     assert not os.path.exists(os.path.join(scope, "manifests",
                                            "stats.json"))

@@ -330,8 +330,9 @@ def test_refusals_name_their_roadmap_item(sets, tmp_path, monkeypatch,
     """CheckpointInterval and SHIFU_TPU_MAX_RESTARTS work now: the
     checkpointed port run matches the checkpointed JAX run and leaves
     `checkpoint_path(0)` at the last epoch; a preemption after the
-    first save restarts once (one `restart` record) and ends with the
-    same files; no card still raises."""
+    first save restarts once (one durable `restart` record, then the
+    step's own record counting it) and ends with the same files; no card
+    still raises."""
     from shifu_tpu.train import checkpoint as jckpt
     from shifu_tpu_torch import resilience
     from shifu_tpu_torch.models.spec import load_model
@@ -353,8 +354,10 @@ def test_refusals_name_their_roadmap_item(sets, tmp_path, monkeypatch,
     monkeypatch.delenv("SHIFU_TPU_MAX_RESTARTS")
     with open(os.path.join(root, "tmp", "metrics", "steps.jsonl")) as f:
         recs = [json.loads(line) for line in f]
-    assert [r["event"] for r in recs] == ["restart"]
+    assert [r.get("event") for r in recs] == ["restart", None]
     assert recs[0]["step"] == "train" and recs[0]["devices"] == 1
+    assert recs[1]["step"] == "train" and recs[1]["restarts"] == 1 and \
+        recs[1]["rc"] == 0
     for name in ("model0.nn", "model1.nn"):
         got = load_model(os.path.join(root, "models", name))[2]
         want = load_model(os.path.join(proot, "models", name))[2]
