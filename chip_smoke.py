@@ -6,7 +6,8 @@ Phases, each fatal on failure (the exit code is then non-zero and no
 result line is printed):
 
 1. the card's name, count and power limit, whether `import fsspec`
-   succeeds there; build every kernel from
+   succeeds there, and whether `import pyarrow` and `import tensorflow`
+   do (asked in a child process); build every kernel from
    `shifu_tpu_torch/csrc/` (one `nvcc` per source, all at once), with
    ptxas's registers, shared memory and spills per kernel;
 2. K1 `fused_score` against its plain PyTorch version at 512×600→512, at
@@ -286,7 +287,30 @@ result line is printed):
    of the CPU's, then the AUC within 1e-6 plus `auc_allowance` of
    `combo.evaluate(device="cpu")` over the same files); (d) `test -n 200`: rc 0, the five nodes of the JAX
    package's DAG, each done. The child processes' launches come from
-   their step lines (`tmp/dag_logs/*.log`).
+   their step lines (`tmp/dag_logs/*.log`);
+20. parquet and `scheme://` model sets and the `tf` kind
+   (`phase_remote_parquet_finish`) in a process of its own (`--p20`),
+   started with phase 14 and collected after phase 19: (a) phase 8's
+   raw table (28 numeric columns and a label, 262,144 rows, a
+   65,536-row holdout as eval set Eval1) as a delimited part file and
+   as 4 parquet part files of float32 columns under a `file://` URL
+   (written through `data/parquet.write_part`): `init → stats → norm →
+   train` (phase 8's 10-tree log-loss GBT) and `eval` through `cli.main`
+   on the card over both, ColumnConfig.json, the cleaned and normalized
+   data, the GBT file, EvalScore.csv and EvalPerformance.json
+   byte-equal, K2, K3 and K5 launched by each; (b) the same text behind
+   `memory://` (dataPath, headerPath, the eval set): every output equal
+   to (a)'s text route to the bit; a row log on a `file://` root seals
+   one segment, read back and committed, and an abort marker on a
+   `file://` scope is published, read and cleared; (c) in a process of
+   its own (`--p20-tf`; TensorFlow never shares one with another
+   phase): phase 11's wide NN (600 → 512 → 256 → 1) over a 4,096-row
+   ZSCALE set, `init` and `stats` on the card; with tensorflow, `export
+   -t tf` and `eval` of the spec beside its SavedModel (the NN column
+   through K1, the SavedModel's on the host, within 1e-5); without it,
+   `eval` through K1 and the gating errors of `export -t tf` and of
+   scoring a SavedModel. Its K1, K2, K3 and K5 launches must be
+   non-zero.
 
 Phase 8 then registers a holdout table (262,144 rows, another seed) as
 eval set `holdout` of the card-trained RF and log-loss GBT sets and runs
@@ -307,7 +331,8 @@ phase 16 adds its mixed traffic's K1/K2 replays and its health set's
 serving, phase 18 its evals' K1, (d)'s K2 and its trainings' K3/K5,
 phase 19 its DAG's, combo's and its own K2/K3/K5 (its path launches no
 K1: combo scores its NN sub-model through `ModelRunner`'s plain
-forward, as the JAX package does).
+forward, as the JAX package does), phase 20 its three routes' K2/K3/K5
+and (c)'s K1.
 
 The last lines are the per-kernel launch line, the kernel JSON line,
 the card's name and power limit, and the result object.
@@ -330,7 +355,7 @@ phase 13's card steps, each a process with the host to itself, twice:
 `stats -correlation` at 262,144 × 30, `varsel` FI, `encode` of its RF,
 SE at 65,536 × 600 and `export -t baggingpmml` of a 2-bag wide NN;
 `--closed-loop` only phase 17 (after the build and the phase 16
-steps it reuses); `--checkpoint-resume` only phase 18 (after the build
+steps it reuses); `--remote-parquet` only phase 20 (after the build); `--checkpoint-resume` only phase 18 (after the build
 and phase 16 (d)'s GBT set); `--dag` only phase 19 (after the build);
 `--p14-walls` only phase 14's launch counts and
 timings (it needs the WDL/MTL and streaming modules; the main run asks
@@ -3526,7 +3551,7 @@ def selection(root):
 
 def same_bytes(a, b, what):
     with open(a, "rb") as f, open(b, "rb") as g:
-        assert f.read() == g.read(), f"{what}: card and CPU files differ"
+        assert f.read() == g.read(), f"{what}: the files differ"
 
 
 def se_file(root):
@@ -7398,6 +7423,316 @@ def phase_dag_finish(report, started, device="cuda"):
           f"{json.dumps(out['launches'])}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: parquet and scheme:// model sets, and the tf kind
+# ---------------------------------------------------------------------------
+
+P20_ROWS = TRAIN_ROWS          # phase 8's raw table
+P20_EVAL_ROWS = 65_536         # its holdout, eval set Eval1
+P20_PARTS = 4                  # the parquet set's part files
+P20_GBT = {"TreeNum": 10, "MaxDepth": TRAIN_DEPTH,    # phase 8's gbt_log
+           "LearningRate": TRAIN_LR, "Loss": "log"}
+P20_STEPS = (["init"], ["stats"], ["norm"], ["train"], ["eval"])
+# every output held byte for byte between the routes
+P20_OUTPUTS = ("ColumnConfig.json", "tmp/CleanedData/data.npz",
+               "tmp/CleanedData/meta.json", "tmp/NormalizedData/data.npz",
+               "tmp/NormalizedData/meta.json", "models/model0.gbt",
+               "evals/Eval1/EvalScore.csv",
+               "evals/Eval1/EvalPerformance.json")
+P20_PATH = ("fused_trees", "level_hist", "best_splits")
+P20_NN_ROWS = 4_096            # (c)'s 600-column table
+P20_TF_TOL = 1e-5              # K1's 3xTF32 gate of phase 2
+P20_SEG_ROWS = 1_024           # (b)'s row log segment
+
+
+def p20_set(root, data_path, header_path, eval_path, eval_header):
+    """Phase 8's GBT set (log loss, 10 trees) over the given dataPath
+    and eval set Eval1, its paths as given (local, `file://` or
+    `memory://`; an empty headerPath reads the header from the data)."""
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    os.makedirs(root, exist_ok=True)
+    ds = {"dataPath": data_path, "dataDelimiter": "|",
+          "headerPath": header_path, "targetColumnName": "label",
+          "posTags": ["1"], "negTags": ["0"]}
+    ModelConfig.from_dict({
+        "basic": {"name": "smokeP20"}, "dataSet": ds,
+        "stats": {"maxNumBin": GBT_BINS - 1,
+                  "binningMethod": "EqualPositive"},
+        "normalize": {"normType": "ZSCALE"},
+        "train": {"algorithm": "GBT", "validSetRate": 0.1,
+                  "params": P20_GBT},
+        "evals": [{"name": "Eval1", "dataSet": dict(
+            ds, dataPath=eval_path, headerPath=eval_header)}]}).save(root)
+
+
+def p20_parquet(url_dir, names, x, y, parts):
+    """The table as `parts` parquet part files under `url_dir`, every
+    column float32 (a missing value null), written through the port's
+    `data/parquet.write_part`."""
+    from shifu_tpu_torch.data import parquet
+    from shifu_tpu_torch.data.reader import Table
+    cols = {n: x[:, j] for j, n in enumerate(names[:-1])}
+    cols[names[-1]] = y.astype(np.float32)
+    table = Table(cols)
+    edges = np.linspace(0, len(y), parts + 1).astype(int)
+    for k in range(parts):
+        parquet.write_part(f"{url_dir}/part-{k:05d}.parquet",
+                           table.select(np.arange(edges[k], edges[k + 1])))
+
+
+def p20_upload(local_dir, url_dir):
+    """A local part file and its `.pig_header` copied to `url_dir`."""
+    import fsspec
+    for name in ("part-00000", ".pig_header"):
+        with open(os.path.join(local_dir, name), "rb") as f:
+            data = f.read()
+        with fsspec.open(f"{url_dir}/{name}", "wb") as f:
+            f.write(data)
+
+
+def p20_same(a_root, b_root, what):
+    for rel in P20_OUTPUTS:
+        same_bytes(os.path.join(a_root, rel), os.path.join(b_root, rel),
+                   f"phase 20 {what}, {rel}")
+
+
+def p20_run(root, device):
+    """`init → stats → norm → train → eval` through `cli.main` in this
+    process; returns the step lines, printed, and the launches of the
+    path's kernels the train and eval lines report."""
+    lines = run_verbs([(root, a) for a in P20_STEPS], device)
+    for args, line in zip(P20_STEPS, lines):
+        assert line["rc"] == 0, (root, args, line)
+        line.pop("printed")
+    train, ev = lines[3], lines[4]
+    launches = {"fused_trees": ev["launches"]["fused_trees"],
+                "level_hist": train["launches"]["level_hist"],
+                "best_splits": train["launches"]["best_splits"]}
+    return lines, launches
+
+
+def p20_parquet_and_remote(workdir, device="cuda", rows=P20_ROWS,
+                           eval_rows=P20_EVAL_ROWS):
+    """(a) phase 8's raw table as delimited text (a local part file) and
+    as `P20_PARTS` float32 parquet parts under a `file://` URL, its
+    holdout the same way: `init → stats → norm → train → eval` on the
+    card over both, every output byte-equal; (b) the same text behind
+    `memory://` (dataPath, headerPath and the eval set), equal to (a)'s
+    text route to the bit; then a row log on a `file://` root seals one
+    segment and an abort scope there reads and clears its marker."""
+    import fsspec
+    from shifu_tpu_torch import resilience
+    from shifu_tpu_torch.data import ingest
+    rng = np.random.default_rng(200)
+    names, cols, x, y = raw_table(rng, rows, False)
+    e_names, e_cols, ex, ey = raw_table(np.random.default_rng(201),
+                                        eval_rows, False)
+    out = {}
+    t0 = time.monotonic()
+    text = os.path.join(workdir, "p20_text")
+    write_raw(os.path.join(text, "data"), names, cols)
+    write_raw(os.path.join(text, "evaldata"), e_names, e_cols)
+    p20_set(text, os.path.join(text, "data"),
+            os.path.join(text, "data", ".pig_header"),
+            os.path.join(text, "evaldata"),
+            os.path.join(text, "evaldata", ".pig_header"))
+    pq_url = "file://" + os.path.join(workdir, "p20_pq_data")
+    p20_parquet(pq_url + "/data", names, x, y, P20_PARTS)
+    p20_parquet(pq_url + "/evaldata", e_names, ex, ey, 1)
+    pq_root = os.path.join(workdir, "p20_parquet")
+    p20_set(pq_root, pq_url + "/data", "", pq_url + "/evaldata", "")
+    mem_url = f"memory://p20_{os.getpid()}"
+    p20_upload(os.path.join(text, "data"), mem_url + "/data")
+    p20_upload(os.path.join(text, "evaldata"), mem_url + "/evaldata")
+    mem_root = os.path.join(workdir, "p20_memory")
+    p20_set(mem_root, mem_url + "/data", mem_url + "/data/.pig_header",
+            mem_url + "/evaldata", mem_url + "/evaldata/.pig_header")
+    out["write_s"] = time.monotonic() - t0
+    launches = {k: 0 for k in P20_PATH}
+    for name, root in (("text", text), ("parquet", pq_root),
+                       ("memory", mem_root)):
+        t1 = time.monotonic()
+        lines, got = p20_run(root, device)
+        out[name] = {"seconds": time.monotonic() - t1, "lines": lines,
+                     "launches": got}
+        print(f"  (a/b) {name}: {out[name]['seconds']:.1f} s, launches "
+              f"{json.dumps(got)}")
+        for step in lines:
+            print(f"    {json.dumps(step)}")
+        if device == "cuda":
+            assert all(v > 0 for v in got.values()), (name, got)
+        for k in P20_PATH:
+            launches[k] += got[k]
+    p20_same(pq_root, text, "(a) parquet vs text")
+    print("  (a) parquet (file://, 4 float32 parts) = delimited text: "
+          + ", ".join(P20_OUTPUTS) + " byte-equal")
+    p20_same(mem_root, text, "(b) memory:// vs text")
+    print("  (b) memory:// = (a)'s text route, byte for byte")
+    fsspec.filesystem("memory").rm(mem_url[len("memory://"):],
+                                   recursive=True)
+
+    # a row log and an abort scope on a file:// root
+    log_root = "file://" + os.path.join(workdir, "p20_log")
+    log = ingest.RowLog(log_root, header=names, segment_rows=P20_SEG_ROWS,
+                        segment_age_s=1e9)
+    batch = ["|".join(r) for r in np.stack(cols, 1)[:P20_SEG_ROWS]
+             .tolist()]
+    log.append(batch)
+    inv = log.inventory()
+    assert inv["sealed_rows"] == P20_SEG_ROWS and \
+        inv["partitions"][0]["sealed_segments"] == 1, inv
+    win = log.read_window("watch")
+    assert win.lines == batch
+    log.commit("watch", win.end)
+    assert ingest.RowLog(log_root).lag("watch") == 0
+    scope = "file://" + os.path.join(workdir, "p20_scope", "tmp")
+    resilience.set_abort_scope(scope)
+    try:
+        resilience.publish_abort("dag.p20", RuntimeError("planted"))
+        rec = resilience.check_abort()
+        assert rec["site"] == "dag.p20" and "planted" in rec["error"], rec
+        resilience.clear_abort()
+        assert resilience.check_abort() is None
+    finally:
+        resilience.set_abort_scope(None)
+    print(f"  (b) row log on {log_root}: one sealed segment of "
+          f"{P20_SEG_ROWS} rows read back and committed; abort marker on "
+          "a file:// scope read and cleared")
+    out["launches"] = launches
+    return out
+
+
+def p20_tf_main(workdir, device):
+    """(c), the `--p20-tf` process: TensorFlow never shares a process
+    with another phase. Phase 11's wide NN (600 → 512 → 256 → 1, weights
+    from a seed) over a ZSCALE set of `P20_NN_ROWS` rows, `init` and
+    `stats` on the card; with tensorflow, `export -t tf` of it and
+    `eval` of the NN spec beside its SavedModel: the NN column through
+    K1, the SavedModel's on the host, within `P20_TF_TOL`. Without
+    tensorflow, `eval` of the NN through K1, and `export -t tf` and the
+    scoring of a SavedModel raise the gating errors. Last line: the
+    result, with K1's launches."""
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    from shifu_tpu_torch.eval import scorer
+    from shifu_tpu_torch.models.spec import save_model
+    t0 = time.monotonic()
+    names, tokens = nn_raw_table(np.random.default_rng(203), P20_NN_ROWS)
+    root = os.path.join(workdir, "p20_nn")
+    data_dir = os.path.join(root, "data")
+    write_raw(data_dir, names, tokens)
+    ds = {"dataPath": data_dir, "dataDelimiter": "|",
+          "headerPath": os.path.join(data_dir, ".pig_header"),
+          "targetColumnName": "label", "posTags": ["1"], "negTags": ["0"]}
+    ModelConfig.from_dict({
+        "basic": {"name": "smokeP20NN"}, "dataSet": ds,
+        "stats": {"maxNumBin": GBT_BINS - 1,
+                  "binningMethod": "EqualPositive"},
+        "normalize": {"normType": "ZSCALE", "stdDevCutOff": CUTOFF},
+        "train": {"algorithm": "NN"},
+        "evals": [{"name": "Eval1", "dataSet": ds}]}).save(root)
+    save_model(os.path.join(root, "models", "model0.nn"), "nn",
+               {"spec": {"input_dim": NN_IN, "hidden_dims": list(NN_HIDDEN),
+                         "activations": ["relu", "relu"]}},
+               nn_params(np.random.default_rng(204)))
+    for line in run_verbs([(root, ["init"]), (root, ["stats"])], device):
+        assert line["rc"] == 0, line
+    out = {"tensorflow": True}
+    try:
+        export = run_verbs([(root, ["export", "-t", "tf"])], device)[0]
+        assert export["rc"] == 0, export
+    except NotImplementedError as e:
+        out["tensorflow"] = False
+        assert "needs the optional tensorflow package" in str(e), e
+        out["export_error"] = str(e)
+    path = os.path.join(root, "ModelConfig.json")
+    with open(path) as f:
+        d = json.load(f)
+    d["evals"] = [{"name": "Eval1", "dataSet": ds, "customPaths": (
+        {"genericModelsPath": "tfmodel"} if out["tensorflow"] else {})}]
+    ModelConfig.from_dict(d).save(root)
+    ev = run_verbs([(root, ["eval"])], device)[0]
+    assert ev["rc"] == 0, ev
+    ev.pop("printed")
+    out["eval"] = ev
+    out["launches"] = {"fused_score": ev["launches"]["fused_score"]}
+    if device == "cuda":
+        assert out["launches"]["fused_score"] > 0, ev
+    with open(os.path.join(root, "evals", "Eval1", "EvalScore.csv")) as f:
+        header = f.readline().strip().split(",")
+        body = np.loadtxt(f, delimiter=",", ndmin=2)
+    assert body.shape[0] == P20_NN_ROWS, body.shape
+    if out["tensorflow"]:
+        a = body[:, header.index("model0")]
+        b = body[:, header.index("model1")]
+        out["max_abs_err"] = float(np.abs(a - b).max())
+        assert out["max_abs_err"] <= P20_TF_TOL, out["max_abs_err"]
+    else:
+        # the scoring side's gate: a SavedModel directory loads as the
+        # `tf` kind, and scoring it raises before reading it
+        fake = os.path.join(workdir, "p20_fake_savedmodel")
+        os.makedirs(fake)
+        open(os.path.join(fake, "saved_model.pb"), "wb").close()
+        try:
+            scorer.score_matrix("tf", {"path": fake}, fake,
+                                np.zeros((2, NN_IN), np.float32))
+            raise AssertionError("scoring a SavedModel without tensorflow "
+                                 "did not raise")
+        except NotImplementedError as e:
+            assert "needs the optional tensorflow package" in str(e), e
+            out["score_error"] = str(e)
+    out["seconds"] = time.monotonic() - t0
+    print(json.dumps(out, default=str))
+
+
+def p20_main(workdir, device):
+    """The `--p20` process: (c) started in a process of its own, (a) and
+    (b) here, then (c) collected. Last line: the result, with the
+    kernels' launches of (a), (b) and (c)."""
+    from shifu_tpu_torch.ops import best_splits, fused_score, fused_trees
+    from shifu_tpu_torch.ops import level_hist
+    fused_score.launches = fused_trees.launches = 0
+    level_hist.launches = best_splits.launches = 0
+    t0 = time.monotonic()
+    tf_started = background_start(os.path.join(workdir, "p20_tf"),
+                                  "--p20-tf", device)
+    try:
+        out = p20_parquet_and_remote(workdir, device)
+        out["c"] = background_finish(tf_started, "--p20-tf")
+    finally:
+        background_stop(tf_started)
+    c = out["c"]
+    if c["tensorflow"]:
+        print(f"  (c) tensorflow: export -t tf of the wide NN and eval "
+              f"beside it: the SavedModel's scores within "
+              f"{c['max_abs_err']:.3g} of K1's (gate {P20_TF_TOL})")
+    else:
+        print("  (c) tensorflow is absent: the wide NN's eval through K1, "
+              "and the gating errors of `export -t tf` and of scoring a "
+              "SavedModel checked")
+    out["launches"]["fused_score"] = c["launches"]["fused_score"]
+    out["seconds"] = time.monotonic() - t0
+    for k in ("text", "parquet", "memory"):
+        out[k].pop("lines")
+    print(json.dumps(out, default=str))
+
+
+def phase_remote_parquet_finish(report, started, device="cuda"):
+    """Collect phase 20: every gate held in its process; its K1, K2, K3
+    and K5 launches join the kernels line."""
+    out = background_finish(started, "--p20")
+    for k, v in out["launches"].items():
+        if device == "cuda":
+            assert v > 0, f"phase 20 launched no {k}: {out['launches']}"
+        report[k]["launches"] += v
+    report["p20"] = out
+    print(f"  phase 20: {out['seconds']:.1f} s in its process (writes "
+          f"{out['write_s']:.1f} s; text {out['text']['seconds']:.1f} s, "
+          f"parquet {out['parquet']['seconds']:.1f} s, memory:// "
+          f"{out['memory']['seconds']:.1f} s; (c) "
+          f"{out['c']['seconds']:.1f} s), launches "
+          f"{json.dumps(out['launches'])}")
+
+
 SOURCES = {
     "fused_score": ("shifu_tpu_torch/csrc/fused_score.cu",
                     "shifu_tpu/ops/pallas_score.py:110"),
@@ -7410,6 +7745,66 @@ SOURCES = {
     "best_splits": ("shifu_tpu_torch/csrc/best_splits.cu",
                     "shifu_tpu/ops/pallas_split.py:144"),
 }
+
+
+def main_phases_15_19(report, header):
+    """Phases 15-18 of the main run, phase 19 in a process of its own
+    beside them."""
+    with tempfile.TemporaryDirectory() as p19dir:
+        dag = background_start(p19dir, "--p19-dag")
+        try:
+            header("phase 15: past the trigger (the streaming steps) on the "
+                   "card vs the CPU twin")
+            with tempfile.TemporaryDirectory() as workdir:
+                phase_past_trigger(report, workdir)
+            header("phase 16: serving graphs, swap, registry/fleet and the "
+                   "health plane on the card")
+            with tempfile.TemporaryDirectory() as workdir:
+                dirs = phase_serving_plane(report, workdir)
+                header("phase 17: the closed loop (row log, refresh, "
+                       "canary, full watch) on the card")
+                phase_closed_loop(report, workdir, dirs)
+                header("phase 18: checkpoints and resume (kill, preempt, "
+                       "the streaming NN, the step manifests) on the card")
+                phase_checkpoint_resume(report, workdir)
+            header("phase 19: the pipeline DAG, the segment siblings, "
+                   "combo and test on the card (started with phase 15)")
+            phase_dag_finish(report, dag)
+        finally:
+            background_stop(dag)
+
+
+_IMPORT_PROBE = r"""
+import importlib
+import json
+import sys
+out = {}
+for name in sys.argv[1:]:
+    try:
+        out[name] = getattr(importlib.import_module(name), "__version__", "?")
+    except Exception as e:  # reported, not raised
+        out[name] = None
+        out[name + "_error"] = f"{type(e).__name__}: {e}"
+print(json.dumps(out))
+"""
+
+
+def import_probe_start(names=("pyarrow", "tensorflow")):
+    """Whether the optional packages import on this machine, asked in a
+    child process (so that neither loads into this one)."""
+    return _spawn(["-c", _IMPORT_PROBE, *names])
+
+
+def import_probe_finish(proc, names=("pyarrow", "tensorflow")):
+    out, err = proc.communicate(timeout=300)
+    assert proc.returncode == 0, err[-2000:]
+    res = json.loads(out.strip().splitlines()[-1])
+    for name in names:
+        v = res[name]
+        print(f"{name}: import {name} "
+              + (f"succeeds ({v})" if v else
+                 f"fails ({res[name + '_error']})"))
+    return res
 
 
 def main() -> int:
@@ -7454,6 +7849,16 @@ def main() -> int:
         # phase 19 in a process of its own, beside phases 15-18
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         p19_main(*sys.argv[2:4])
+        return 0
+    if sys.argv[1:2] == ["--p20"]:
+        # phase 20 in a process of its own, beside phases 15-19
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        p20_main(*sys.argv[2:4])
+        return 0
+    if sys.argv[1:2] == ["--p20-tf"]:
+        # phase 20 (c): TensorFlow in a process of its own
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        p20_tf_main(*sys.argv[2:4])
         return 0
     if sys.argv[1:2] == ["--p19-traced-leg"]:
         # phase 19 (a)'s traced DAG leg, the coordinator of its trace
@@ -7531,6 +7936,14 @@ def main() -> int:
             phase_dag_finish(report, background_start(workdir, "--p19-dag"))
         print(json.dumps({k: report[k]["launches"] for k in SOURCES}))
         return 0
+    if sys.argv[1:] == ["--remote-parquet"]:
+        phase_build()
+        report = {k: {"launches": 0} for k in SOURCES}
+        with tempfile.TemporaryDirectory() as workdir:
+            phase_remote_parquet_finish(
+                report, background_start(workdir, "--p20"))
+        print(json.dumps({k: report[k]["launches"] for k in SOURCES}))
+        return 0
     if sys.argv[1:] == ["--serving-plane"]:
         phase_build()
         report = {k: {"launches": 0} for k in SOURCES}
@@ -7543,7 +7956,9 @@ def main() -> int:
         print(f"{text} ({time.monotonic() - t_start:.0f} s)")
 
     header("phase 1: build")
+    probe = import_probe_start()
     phase_build()
+    import_probe_finish(probe)
     report = {}
     header("phase 2: K1 fused_score vs plain")
     phase_k1(report)
@@ -7587,32 +8002,20 @@ def main() -> int:
                 report["pipeline"] = background_finish(p10, "--p10")
             finally:
                 background_stop(p10)
-    header("phase 14: WDL, MTL and trainOnDisk on the card vs the CPU twin")
-    with tempfile.TemporaryDirectory() as workdir:
-        phase_wdl_mtl_stream(report, workdir)
-    # phase 19 runs in a process of its own beside phases 15-18
-    with tempfile.TemporaryDirectory() as p19dir:
-        dag = background_start(p19dir, "--p19-dag")
+    # phase 20 runs in a process of its own beside phases 14-19
+    with tempfile.TemporaryDirectory() as p20dir:
+        p20 = background_start(p20dir, "--p20")
         try:
-            header("phase 15: past the trigger (the streaming steps) on the "
-                   "card vs the CPU twin")
+            header("phase 14: WDL, MTL and trainOnDisk on the card vs the "
+                   "CPU twin")
             with tempfile.TemporaryDirectory() as workdir:
-                phase_past_trigger(report, workdir)
-            header("phase 16: serving graphs, swap, registry/fleet and the "
-                   "health plane on the card")
-            with tempfile.TemporaryDirectory() as workdir:
-                dirs = phase_serving_plane(report, workdir)
-                header("phase 17: the closed loop (row log, refresh, "
-                       "canary, full watch) on the card")
-                phase_closed_loop(report, workdir, dirs)
-                header("phase 18: checkpoints and resume (kill, preempt, "
-                       "the streaming NN, the step manifests) on the card")
-                phase_checkpoint_resume(report, workdir)
-            header("phase 19: the pipeline DAG, the segment siblings, "
-                   "combo and test on the card (started with phase 15)")
-            phase_dag_finish(report, dag)
+                phase_wdl_mtl_stream(report, workdir)
+            main_phases_15_19(report, header)
+            header("phase 20: parquet and scheme:// model sets and the tf "
+                   "kind on the card (started with phase 14)")
+            phase_remote_parquet_finish(report, p20)
         finally:
-            background_stop(dag)
+            background_stop(p20)
     print(f"total: {time.monotonic() - t_start:.1f} s on {smi}")
 
     kernels = []

@@ -83,7 +83,8 @@ device work and report the device as "host".
 
 `export -t` writes columnstats, woemapping, woe, pmml, baggingpmml,
 bagging and the ume types on the host, and correlation on `--device`;
-`-t tf` raises (it needs tensorflow). `encode` writes the tree-leaf encoding of
+`-t tf` writes a TensorFlow SavedModel of the first NN/LR spec to
+``tfmodel/`` on the host (it needs tensorflow). `encode` writes the tree-leaf encoding of
 the training set (`encoded/`) on `--device`; `convert` turns a model
 spec into an open zip bundle and back; `save`, `switch` and `show` keep
 versions of the model set under `.shifu-versions/`. `combo` and `test`

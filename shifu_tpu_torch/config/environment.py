@@ -12,7 +12,8 @@ varselect's sampled analysis frame, capped by
 SHIFU_TPU_ANALYSIS_MAX_ROWS), the `export -t ume` exporter hook, the
 prefetch depth and host-assembly threads of the chunked readers
 (`data/pipeline.prefetch`, `map_prefetch`, `map_stream`) and the
-row-state tier of the streaming GBT builder, and the serving plane's
+row-state tier of the streaming GBT builder, the remote filesystems'
+readahead hints (`data/fs.readahead_hints`), and the serving plane's
 health, registry and fleet knobs with the retry and fault-injection
 knobs they read (`resilience.py`), and the closed loop's knobs (the
 row log, the refresh controller, the shadow and canary arms and the
@@ -108,6 +109,12 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
     Knob("SHIFU_TPU_GBT_STATE_BUDGET_MB", "int", 2048,
          "device budget for resident streaming-GBT row state; auto mode "
          "goes resident when ~24 B/train row + ~12 B/val row fits"),
+    Knob("SHIFU_TPU_FS_CACHE_TYPE", "str", "readahead",
+         "fsspec cache_type hint for remote streaming opens "
+         "(readahead | bytes | block | none)"),
+    Knob("SHIFU_TPU_FS_BLOCK_SIZE", "int", 4 * 1024 * 1024,
+         "fsspec block_size hint (bytes) for remote streaming opens; "
+         "0 = leave the filesystem default"),
     Knob("SHIFU_TPU_RETRY_ATTEMPTS", "int", 4,
          "max attempts per retried remote call (the webhook alert sink)"),
     Knob("SHIFU_TPU_RETRY_BASE_S", "float", 0.05,

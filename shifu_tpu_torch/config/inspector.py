@@ -3,8 +3,8 @@
 The port's copy of `shifu_tpu/config/inspector.py` (`probe`,
 `ModelStep`; `core/validator/ModelInspector.java:56-92`): a
 ValidateResult with human-readable failure causes, and warnings for
-typo-like unknown keys. Scheme'd remote paths are not checked here;
-reading them raises later (remote filesystems are ROADMAP A8.4).
+typo-like unknown keys. A scheme'd remote path is checked through
+`data/fs.exists`, or at read time when its backend is not installed.
 """
 
 from __future__ import annotations
@@ -89,10 +89,16 @@ def _file_should_exist(mc: ModelConfig, p: str, label: str,
                        r: ValidateResult) -> None:
     if not p:
         return
-    from shifu_tpu_torch.fileio import has_scheme
-    if has_scheme(p):
-        return  # remote: reading it raises (ROADMAP A8.4)
     rp = mc.resolve_path(p)
+    from shifu_tpu_torch.data import fs as fs_mod
+    if fs_mod.has_scheme(rp):
+        try:
+            ok = fs_mod.exists(rp)
+        except RuntimeError:
+            return  # backend not installed here — defer to read time
+        if not ok:
+            r.fail(f"{label} points to {p!r}, which does not exist")
+        return
     if not os.path.exists(rp):
         r.fail(f"{label} points to {p!r}, which does not exist "
                f"(resolved {rp})")

@@ -731,15 +731,13 @@ class ModelConfig:
 
     def resolve_path(self, p: str) -> str:
         """Resolve a config-relative path against the model-set dir.
-        Scheme'd remote paths (hdfs://, s3://, gs://, memory://) raise:
-        remote filesystems are not ported yet."""
+        Scheme'd remote paths (hdfs://, s3://, gs://, memory://) pass
+        through untouched (fs/ShifuFileUtils SourceType dispatch)."""
         if not p:
             return p
         from shifu_tpu_torch.fileio import has_scheme
         if has_scheme(p):
-            raise NotImplementedError(
-                f"{p}: remote filesystems are not ported yet (the "
-                "streaming/remote-data slice)")
+            return p
         if os.path.isabs(p):
             return p
         base = self._base_dir or os.getcwd()

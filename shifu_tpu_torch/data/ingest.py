@@ -44,8 +44,9 @@ bitwise — the refresh manifest records exactly that range.
 
 The reader-side bridge `frame_from_rows` builds the port's `Table`
 (`data/reader._rows_table`), not a pandas frame. A ``scheme://`` root
-is ROADMAP A8.4 and a multi-host partition shard ROADMAP A8.3: both
-raise.
+(`gs://`, `s3://`, `file://`, `memory://`, ...) keeps the same files
+through fsspec; a multi-host partition shard is ROADMAP A8.3 and
+raises.
 """
 
 from __future__ import annotations
@@ -76,9 +77,22 @@ EVAL_CONSUMER = "eval"
 _SEG_FMT = "seg-{:06d}.rows"
 
 
+def _join(root: str, *parts: str) -> str:
+    if has_scheme(root):
+        return "/".join([root.rstrip("/")] + [p.strip("/") for p in parts])
+    return os.path.join(root, *parts)
+
+
 def _read_json(path: str) -> Optional[Dict[str, Any]]:
-    """One JSON file; None when absent."""
+    """One JSON file, local or remote; None when absent."""
     try:
+        if has_scheme(path):
+            from shifu_tpu_torch.data.fs import _fs_and_path
+            fs, p = _fs_and_path(path)
+            if not fs.exists(p):
+                return None
+            with fs.open(p, "r", encoding="utf-8") as f:
+                return json.load(f)
         with open(path, encoding="utf-8") as f:
             return json.load(f)
     except FileNotFoundError:
@@ -91,8 +105,22 @@ def _write_json(path: str, obj: Dict[str, Any]) -> None:
 
 
 def _read_text(path: str) -> str:
+    if has_scheme(path):
+        from shifu_tpu_torch.data.fs import _fs_and_path
+        fs, p = _fs_and_path(path)
+        with fs.open(p, "r", encoding="utf-8") as f:
+            return f.read()
     with open(path, encoding="utf-8") as f:
         return f.read()
+
+
+def _mkdirs(path: str) -> None:
+    if has_scheme(path):
+        from shifu_tpu_torch.data.fs import _fs_and_path
+        fs, p = _fs_and_path(path)
+        fs.makedirs(p, exist_ok=True)
+        return
+    os.makedirs(path, exist_ok=True)
 
 
 def rows_from_frame(table, delimiter: str = "|") -> List[str]:
@@ -152,10 +180,6 @@ class RowLog:
                  delimiter: str = "|", partitions: int = 1,
                  segment_rows: Optional[int] = None,
                  segment_age_s: Optional[float] = None):
-        if has_scheme(root):
-            raise NotImplementedError(
-                f"{root}: a row log on a remote filesystem is not ported "
-                "yet (ROADMAP A8.4); use a local path")
         self.root = root
         self.segment_rows = int(
             segment_rows if segment_rows is not None
@@ -163,26 +187,26 @@ class RowLog:
         self.segment_age_s = float(
             segment_age_s if segment_age_s is not None
             else knob_float("SHIFU_TPU_INGEST_SEGMENT_AGE_S"))
-        meta = _read_json(os.path.join(root, LOG_FILE))
+        meta = _read_json(_join(root, LOG_FILE))
         if meta is None:
             if header is None:
                 raise FileNotFoundError(
                     f"ingest: no log at {root!r} (pass header= to "
                     "create one)")
-            os.makedirs(root, exist_ok=True)
+            _mkdirs(root)
             meta = {"format": 1, "header": list(header),
                     "delimiter": delimiter,
                     "partitions": int(max(partitions, 1))}
             # idempotent create: concurrent openers write identical
             # bytes, and the atomic rename makes either copy whole
-            _write_json(os.path.join(root, LOG_FILE), meta)
+            _write_json(_join(root, LOG_FILE), meta)
         self.header: List[str] = list(meta["header"])
         self.delimiter: str = meta["delimiter"]
         self.partitions: int = int(meta["partitions"])
         # startup hygiene: a killed writer or committer leaves only
         # invisible dot-temps — sweep them so the tree stays clean
         sweep_stale(root)
-        sweep_stale(os.path.join(root, OFFSETS_DIR))
+        sweep_stale(_join(root, OFFSETS_DIR))
         for k in range(self.partitions):
             sweep_stale(self._part_dir(k))
         self._open_rows: Dict[int, List[str]] = {}
@@ -192,16 +216,16 @@ class RowLog:
     # -- paths -----------------------------------------------------------
 
     def _part_dir(self, part: int) -> str:
-        return os.path.join(self.root, f"part-{part}")
+        return _join(self.root, f"part-{part}")
 
     def _manifest_path(self, part: int) -> str:
-        return os.path.join(self._part_dir(part), MANIFEST_FILE)
+        return _join(self._part_dir(part), MANIFEST_FILE)
 
     def _seg_path(self, part: int, seq: int) -> str:
-        return os.path.join(self._part_dir(part), _SEG_FMT.format(seq))
+        return _join(self._part_dir(part), _SEG_FMT.format(seq))
 
     def _offset_path(self, consumer: str) -> str:
-        return os.path.join(self.root, OFFSETS_DIR, f"{consumer}.json")
+        return _join(self.root, OFFSETS_DIR, f"{consumer}.json")
 
     def _manifest(self, part: int) -> Dict[str, Any]:
         return _read_json(self._manifest_path(part)) or {"segments": []}
@@ -288,7 +312,7 @@ class RowLog:
         manifest = self._manifest(part)
         seq = len(manifest["segments"]) + 1
         data = "".join(line + "\n" for line in buf)
-        os.makedirs(self._part_dir(part), exist_ok=True)
+        _mkdirs(self._part_dir(part))
         # commit 1: the immutable segment file appears atomically
         fault_point("ingest.seal")
         with atomic_write(self._seg_path(part, seq), encoding="utf-8") as f:
@@ -398,7 +422,7 @@ class RowLog:
         """Atomically commit `consumer`'s offset to `end` — called only
         AFTER the window's downstream effect committed, so a crash
         replays the window rather than skipping it."""
-        os.makedirs(os.path.join(self.root, OFFSETS_DIR), exist_ok=True)
+        _mkdirs(_join(self.root, OFFSETS_DIR))
         fault_point("ingest.offset")
         _write_json(self._offset_path(consumer),
                     {"consumer": consumer,
@@ -431,8 +455,15 @@ class RowLog:
         return self.sealed_rows() - self.consumed_rows(consumer)
 
     def consumers(self) -> List[str]:
+        d = _join(self.root, OFFSETS_DIR)
         try:
-            names = os.listdir(os.path.join(self.root, OFFSETS_DIR))
+            if has_scheme(d):
+                from shifu_tpu_torch.data.fs import _fs_and_path
+                fs, p = _fs_and_path(d)
+                names = [q.rstrip("/").rsplit("/", 1)[-1]
+                         for q in fs.ls(p, detail=False)]
+            else:
+                names = os.listdir(d)
         except OSError:
             return []
         return sorted(n[:-5] for n in names

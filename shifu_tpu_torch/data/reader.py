@@ -7,28 +7,33 @@ returns a pandas frame; the port returns a `Table` — an ordered mapping
 from column name to a 1-D numpy array (str, or float32 for
 `numeric_columns` read through the C parser).
 
-Two routes, picked by the input as in the JAX package:
+Three routes, picked by the input as in the JAX package:
 
-- uncompressed files with `numeric_columns` and no `max_rows` → the C
-  parser (`data/native_reader.py`, `native/fast_reader.c`): numeric
-  columns parse straight to float32 with `strtof`, the rest come back
-  as stripped strings;
-- otherwise (gzip/bz2 parts, init's `max_rows` sample read) → the text
+- uncompressed local text files with `numeric_columns` and no
+  `max_rows` → the C parser (`data/native_reader.py`,
+  `native/fast_reader.c`): numeric columns parse straight to float32
+  with `strtof`, the rest come back as stripped strings;
+- parquet part files → `data/parquet.py` (pyarrow, imported there
+  only): all strings, or float32 `numeric_columns` when every part of
+  the dataPath is parquet;
+- otherwise (gzip/bz2 parts, ``scheme://`` parts through
+  `data/fs.open_text`, init's `max_rows` sample read) → the text
   route, which reproduces pandas' `read_csv(dtype=str, na_filter=False,
   quoting=3)`: every value a string, no quote handling (`""` stays a
   two-character token), `\\r\\n` and lone `\\r` line ends, blank and
   whitespace-only lines skipped, short rows padded with "".
 
-`iter_raw_table` yields the text route's tables in chunks, as the JAX
-package's chunked reader does for delimited text: the streaming stats,
-norm and eval, the chunked correlation and PSI, posttrain past the size
-trigger, varselect's sampled frame and eval's audit read through it.
+`iter_raw_table` yields the text route's tables in chunks (a parquet
+part's in pyarrow's batches), as the JAX package's chunked reader does:
+the streaming stats, norm and eval, the chunked correlation and PSI,
+posttrain past the size trigger, varselect's sampled frame and eval's
+audit read through it.
 
-Not ported: parquet input (needs pyarrow; ROADMAP A9), remote
-filesystems (ROADMAP A8.4), the pod-sharded read and the
-sharded/broadcast chunk iterators (A8.3); parquet and remote paths
-raise and name their queue item. Of pandas' compressions only gzip and
-bz2 are read.
+A dataPath or headerPath on a ``scheme://`` URL (`hdfs://`, `s3://`,
+`gs://`, `file://`, `memory://`, ...) lists and opens through
+`data/fs.py`. Not ported: the pod-sharded read and the
+sharded/broadcast chunk iterators (ROADMAP A8.3). Of pandas'
+compressions only gzip and bz2 are read from local files.
 """
 
 from __future__ import annotations
@@ -42,6 +47,8 @@ from typing import (Dict, Iterable, Iterator, List, Mapping, Optional,
 
 import numpy as np
 
+from shifu_tpu_torch.data import fs as fs_mod
+from shifu_tpu_torch.data import parquet
 from shifu_tpu_torch.fileio import has_scheme
 from shifu_tpu_torch.resilience import retrying
 
@@ -100,29 +107,22 @@ def string_column(values: np.ndarray) -> np.ndarray:
     return np.char.strip(np.asarray(values).astype(str, copy=False))
 
 
-def _remote(path: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{path}: remote filesystems are not ported yet (ROADMAP A8.4); "
-        "use a local path")
-
-
 def is_parquet(path: str) -> bool:
-    """Columnar input files, dispatched by extension like the JAX
-    package's `is_parquet`."""
+    """Columnar input files (`nn/NNParquetWorker.java:55`), dispatched
+    by extension like the JAX package's `is_parquet`; mixable with
+    delimited part files in one dataPath."""
     return path.split("?")[0].lower().endswith((".parquet", ".parq"))
-
-
-def _no_parquet(path: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{path}: parquet input needs pyarrow and is not ported yet "
-        "(ROADMAP A9); convert it to delimited text")
 
 
 def expand_data_files(data_path: str) -> List[str]:
     """A dataPath may be a file, a glob, or a directory of part files
-    (Hadoop layout); hidden/marker files are skipped."""
+    (Hadoop layout), local or on a ``scheme://`` filesystem
+    (`data/fs.list_data_files`); hidden/marker files are skipped."""
     if has_scheme(data_path):
-        raise _remote(data_path)
+        files = fs_mod.list_data_files(data_path, _SKIP_BASENAMES)
+        if not files:
+            raise FileNotFoundError(f"no data files under {data_path!r}")
+        return files
     if os.path.isdir(data_path):
         files = sorted(
             p for p in glob.glob(os.path.join(data_path, "*"))
@@ -137,9 +137,18 @@ def expand_data_files(data_path: str) -> List[str]:
     return files
 
 
+def _open_remote_text(path: str):
+    """A ``scheme://`` file as UTF-8 text with universal newlines; its
+    compression is inferred from the name (`data/fs.open_text`)."""
+    import io
+    return io.TextIOWrapper(fs_mod.open_text(path, "rb"), encoding="utf-8")
+
+
 def _opener_for(path: str):
     """Text-mode opener with universal newlines (\\r\\n and \\r end a
     line, as they do for pandas' C tokenizer)."""
+    if has_scheme(path):
+        return _open_remote_text
     if path.endswith(".gz"):
         import gzip
         return lambda p: gzip.open(p, "rt", encoding="utf-8")
@@ -158,15 +167,17 @@ def read_header(ds, base_resolver=None) -> List[str]:
     resolve = base_resolver or (lambda p: p)
     if ds.headerPath:
         hp = resolve(ds.headerPath)
-        if has_scheme(hp):
-            raise _remote(hp)
-        with open(hp, encoding="utf-8") as f:
+        opener = _open_remote_text if has_scheme(hp) \
+            else (lambda q: open(q, encoding="utf-8"))
+        with opener(hp) as f:
             line = f.readline().rstrip("\r\n")
         delim = ds.headerDelimiter or "|"
     else:
         files = expand_data_files(resolve(ds.dataPath))
         if is_parquet(files[0]):
-            raise _no_parquet(files[0])
+            # the columnar schema is the header (NNParquetWorker reads
+            # it from the parquet footer, not from a header line)
+            return [c.strip() for c in parquet.column_names(files[0])]
         with _opener_for(files[0])(files[0]) as f:
             line = f.readline().rstrip("\r\n")
         delim = ds.dataDelimiter or "|"
@@ -184,9 +195,6 @@ def _table_layout(mc, ds):
     ds = ds or mc.dataSet
     header = read_header(ds, mc.resolve_path)
     files = expand_data_files(mc.resolve_path(ds.dataPath))
-    bad = [p for p in files if is_parquet(p)]
-    if bad:
-        raise _no_parquet(bad[0])
     has_header_line = not ds.headerPath
     simple = [simple_column_name(c) for c in header]
     if len(set(simple)) != len(simple):
@@ -254,6 +262,9 @@ def iter_raw_table(mc, ds=None, chunk_rows: int = 2_000_000
     names = simple if simple is not None else list(header)
     delim = ds.dataDelimiter or "|"
     for path in files:
+        if is_parquet(path):
+            yield from parquet.iter_batches(path, header, names, chunk_rows)
+            continue
         skip = 1 if (has_header_line and path == first_file) else 0
         lines = _iter_text_lines(path, skip)
         done = 0
@@ -271,31 +282,66 @@ def read_raw_table(mc, ds=None, max_rows: Optional[int] = None,
     """The raw dataset as a `Table` under the header's (simple) column
     names: all strings, except that `numeric_columns` come back float32
     (missing/invalid tokens NaN) when the C parser reads them — the
-    route for uncompressed files with `numeric_columns` and no
-    `max_rows`."""
+    route for uncompressed local text files with `numeric_columns` and
+    no `max_rows` — or when every part file is parquet."""
     ds, header, files, first_file, has_header_line, simple = \
         _table_layout(mc, ds)
     names = simple if simple is not None else list(header)
     delim = ds.dataDelimiter or "|"
     if numeric_columns and max_rows is None and \
-            not any(p.endswith((".gz", ".bz2")) for p in files):
+            not any(p.endswith((".gz", ".bz2")) or has_scheme(p)
+                    or is_parquet(p) for p in files):
         from shifu_tpu_torch.data.native_reader import read_files_native
         return read_files_native(
             files, names, delim, [c for c in numeric_columns if c in names],
             skip_first_row_of=(first_file if has_header_line else None))
+    # a MIXED text + parquet dataPath stays all strings: float32 numeric
+    # columns only when every file is parquet
+    pq_numeric = numeric_columns \
+        if all(is_parquet(p) for p in files) else None
     tables = []
     rows_left = max_rows
     for path in files:
-        skip = 1 if (has_header_line and path == first_file) else 0
-        # retried: a file's read is idempotent, and a mount can flake
-        t = retrying("reader.read", read_text_file, path, names, delim,
-                     skip, rows_left)
+        if is_parquet(path):
+            t = parquet.read_file(path, header, names, pq_numeric,
+                                  rows_left)
+        else:
+            skip = 1 if (has_header_line and path == first_file) else 0
+            # retried: a file's read is idempotent, and a mount can flake
+            t = retrying("reader.read", read_text_file, path, names,
+                         delim, skip, rows_left)
         tables.append(t)
         if rows_left is not None:
             rows_left -= len(t)
             if rows_left <= 0:
                 break
     return Table.concat(tables)
+
+
+def count_data_rows(path: str, header_rows: int) -> int:
+    """Data rows in one part file without parsing it: the parquet
+    footer's row count, else the newline count (a trailing unterminated
+    line included) less `header_rows`. Assumes no blank lines — the
+    Hadoop part-file layout."""
+    if is_parquet(path):
+        return parquet.num_rows(path)
+    if not has_scheme(path) and not path.endswith((".gz", ".bz2")):
+        n, last = 0, b"\n"
+        with open(path, "rb") as f:
+            while True:
+                blk = f.read(1 << 20)
+                if not blk:
+                    break
+                n += blk.count(b"\n")
+                last = blk[-1:]
+        if last != b"\n":
+            n += 1
+        return max(n - header_rows, 0)
+    n = 0
+    with _opener_for(path)(path) as f:
+        for _ in f:
+            n += 1
+    return max(n - header_rows, 0)
 
 
 def missing_mask(values: np.ndarray,

@@ -10,8 +10,14 @@ blocks through the fused ensemble kernel; WDL reads the normalized
 dense and index blocks, MTL the dense block (the mean over its
 tasks). `Scorer.score_multiclass`
 scores a multi-class ensemble (NATIVE softmax models and ONEVSALL
-binary models) over the normalized block. The tf kind (a SavedModel)
-raises: it needs tensorflow.
+binary models) over the normalized block. The tf kind (an external
+TensorFlow SavedModel, `export -t tf` output included) scores the
+normalized dense block on the host through `tf.saved_model.load`, as
+in the JAX package — its host route, not a fallback; the other members
+of the ensemble still score on the card. Tensorflow is imported only
+inside `tensorflow_module`, which gates a missing install with the JAX
+package's error and hides every GPU from TensorFlow before its first
+use, so that it takes none of the card's memory from torch.
 `resolve_generic_models` expands an eval set's `customPaths` entry into
 model paths.
 """
@@ -32,6 +38,87 @@ from shifu_tpu_torch.ops import fused_score
 
 log = logging.getLogger("shifu_tpu_torch")
 
+
+def tensorflow_module(missing: str):
+    """`import tensorflow`, or NotImplementedError(`missing`) when it
+    is not installed. TensorFlow runs on the host here: every GPU is
+    hidden from it before its runtime starts, so that it never takes
+    the card's memory from torch (a runtime already started keeps its
+    devices)."""
+    try:
+        import tensorflow as tf
+    except ImportError as e:
+        raise NotImplementedError(missing) from e
+    try:
+        tf.config.set_visible_devices([], "GPU")
+    except (RuntimeError, ValueError):
+        pass   # the runtime is up already: its devices stay as they are
+    return tf
+
+
+_TF_FN_CACHE: Dict[str, Any] = {}
+
+
+def _saved_model_fn(path: str):
+    """A TF SavedModel's scoring function, loaded once per path. Takes
+    `export -t tf` modules (an `f` tf.function over the dense matrix) or
+    any foreign SavedModel with a single-input serving_default signature
+    (`core/GenericModel.java`). The model must take ONE dense float
+    matrix and return ONE score a record ((N,) or (N, 1)): a multi-input
+    model is refused here, a multi-output one in `score_matrix`."""
+    fn = _TF_FN_CACHE.get(path)
+    if fn is not None:
+        return fn
+    tf = tensorflow_module(
+        "scoring a TF SavedModel needs the optional tensorflow "
+        "package; native specs score without it")
+    mod = tf.saved_model.load(path)
+    # each function holds the loaded module: its variables live as long
+    if hasattr(mod, "f"):
+        def fn(x, _mod=mod):
+            return _mod.f(x)
+    elif getattr(mod, "signatures", None) and \
+            "serving_default" in mod.signatures:
+        sig = mod.signatures["serving_default"]
+        in_names = list(sig.structured_input_signature[1])
+        if len(in_names) != 1:
+            raise ValueError(
+                f"SavedModel {path} serving_default wants "
+                f"{in_names} — only single-input models can join the "
+                "ensemble")
+
+        def fn(x, _mod=mod, _sig=sig, _name=in_names[0]):
+            out = _sig(**{_name: x})
+            return next(iter(out.values()))
+    else:
+        raise ValueError(f"SavedModel {path} exposes neither `f` nor a "
+                         "serving_default signature")
+    _TF_FN_CACHE[path] = fn
+    return fn
+
+
+def _score_saved_model(meta: Dict[str, Any], dense) -> np.ndarray:
+    """The `tf` kind: the normalized dense block through the SavedModel,
+    on the host → (N,) scores."""
+    fn = _saved_model_fn(meta["path"])
+    import tensorflow as tf
+    if isinstance(dense, torch.Tensor):
+        dense = dense.cpu().numpy()
+    x = np.asarray(dense, np.float32)
+    out = np.asarray(fn(tf.constant(x)))
+    if out.ndim == 2 and out.shape[1] == 1:
+        out = out[:, 0]     # a single-output head: the binary convention
+    # the ensemble stacks (N,) score vectors: any other head fails here,
+    # with its shape
+    n = x.shape[0]
+    if out.ndim != 1 or out.shape[0] != n:
+        raise ValueError(
+            f"SavedModel {meta.get('path', '?')} returned output "
+            f"shape {tuple(out.shape)} for {n} input rows; the "
+            "ensemble needs one score per record — (N,) or (N, 1). "
+            "Multi-output/multi-class SavedModels are not supported "
+            "as external ensemble members")
+    return out
 
 
 def _as_f32(block, device: torch.device) -> torch.Tensor:
@@ -64,7 +151,7 @@ def score_matrix(kind: str, meta: Dict[str, Any], model: Any, dense,
     elif kind in ("wdl", "mtl"):
         out = model(dense, index)
     elif kind == "tf":
-        raise NotImplementedError(weights.TF_REFUSAL)
+        return _score_saved_model(meta, dense)
     else:
         raise ValueError(f"unknown model kind {kind!r}")
     return out.cpu().numpy()
@@ -88,8 +175,7 @@ def resolve_generic_models(path: str) -> List[str]:
     """An eval `customPaths` modelsPath / genericModelsPath entry →
     concrete model paths: a SavedModel dir is one model; a directory is
     scanned for spec files and SavedModel subdirectories; a file is a
-    spec. SavedModels then raise when loaded (the `tf` kind needs
-    tensorflow)."""
+    spec."""
     if os.path.isdir(path):
         if os.path.exists(os.path.join(path, "saved_model.pb")):
             return [path]

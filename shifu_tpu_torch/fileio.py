@@ -1,12 +1,14 @@
-"""Atomic local writes — the port's copy of the parts of
-`shifu_tpu/resilience.py` (`atomic_path`, `atomic_write`) and
-`shifu_tpu/data/fs.py` (`has_scheme`) that the config files and model
-specs need. The ``atomic.commit`` fault site fires just before each
-rename, so ``SHIFU_TPU_FAULT=atomic.commit:kill:1`` kills a step
-between its staged output and its publication.
+"""Atomic writes — the port's copy of the parts of
+`shifu_tpu/resilience.py` (`atomic_path`, `atomic_write`,
+`_remote_atomic_write`) and `shifu_tpu/data/fs.py` (`has_scheme`) that
+the config files and model specs need. The ``atomic.commit`` fault site
+fires just before each rename, so ``SHIFU_TPU_FAULT=atomic.commit:kill:1``
+kills a step between its staged output and its publication.
 
-Remote (``scheme://``) paths are not ported yet: `atomic_write` raises
-on them, and `has_scheme` lets callers detect them first.
+`has_scheme` is the port's one scheme test: `data/fs.py` and
+`resilience.py` import it from here. A ``scheme://`` path stages
+through a dot-prefixed sibling key and commits with the filesystem's
+``mv`` (`_remote_atomic_write`).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import re
 import shutil
 from typing import IO, Iterator
 
-from shifu_tpu_torch.resilience import fault_point
+from shifu_tpu_torch.resilience import absorbed, fault_point
 
 _SCHEME_RE = re.compile(r"^[a-zA-Z][a-zA-Z0-9+.\-]*://")
 
@@ -25,6 +27,38 @@ _SCHEME_RE = re.compile(r"^[a-zA-Z][a-zA-Z0-9+.\-]*://")
 def has_scheme(path: str) -> bool:
     """True for URL-style paths (hdfs://, s3://, gs://, memory://...)."""
     return bool(path) and bool(_SCHEME_RE.match(path))
+
+
+def _remote_tmp_name(path: str) -> str:
+    d, _, base = path.rpartition("/")
+    return f"{d}/.tmp.{os.getpid()}.{base}"
+
+
+@contextlib.contextmanager
+def _remote_atomic_write(path: str, mode: str, **open_kwargs) -> Iterator[IO]:
+    """fsspec twin of `atomic_write`: write a dot-prefixed sibling key,
+    then commit with the filesystem's rename (copy + delete on object
+    stores). Readers skip dot-prefixed keys, so a kill mid-upload never
+    leaves a half-written object under the real name."""
+    import fsspec
+    tmp = _remote_tmp_name(path)
+    fs, tmp_key = fsspec.core.url_to_fs(tmp)
+    _, real_key = fsspec.core.url_to_fs(path)
+    f = fsspec.open(tmp, mode, **open_kwargs).open()
+    try:
+        yield f
+        f.flush()
+        f.close()
+        fault_point("atomic.commit")
+        fs.mv(tmp_key, real_key)
+    except BaseException:
+        if not f.closed:
+            f.close()
+        try:
+            fs.rm(tmp_key)
+        except Exception as e:  # noqa: BLE001 - best-effort cleanup
+            absorbed("atomic.remote-scrub", e)
+        raise
 
 
 def _tmp_name(path: str) -> str:
@@ -58,11 +92,12 @@ def atomic_path(path: str) -> Iterator[str]:
 @contextlib.contextmanager
 def atomic_write(path: str, mode: str = "w", **open_kwargs) -> Iterator[IO]:
     """``open()``-shaped atomic file write: the handle points at a temp
-    file that is fsynced and renamed onto `path` only on clean exit."""
+    file that is fsynced and renamed onto `path` only on clean exit;
+    a ``scheme://`` path goes through `_remote_atomic_write`."""
     if has_scheme(path):
-        raise NotImplementedError(
-            f"{path}: remote filesystems are not ported yet (the "
-            "streaming/remote-data slice); write to a local path")
+        with _remote_atomic_write(path, mode, **open_kwargs) as f:
+            yield f
+        return
     tmp = _tmp_name(path)
     _scrub(tmp)
     f = open(tmp, mode, **open_kwargs)

@@ -71,15 +71,16 @@ def save_model(path: str, kind: str, meta: Dict[str, Any],
 
 
 def load_model(path: str) -> Tuple[str, Dict[str, Any], Any]:
-    """Read a model spec → (kind, meta, params). A TensorFlow SavedModel
-    directory raises: external `tf` models need tensorflow (ROADMAP,
-    not queued until tensorflow is on the card machine)."""
+    """Read a model spec → (kind, meta, params). numpy-only.
+
+    A directory holding `saved_model.pb` loads as an external
+    TensorFlow SavedModel (kind "tf", deserialized at scoring time by
+    `eval/scorer.py`) — the `core/GenericModel.java` analog: foreign TF
+    models, `export -t tf` output included, score inside the ensemble
+    beside native specs."""
     if os.path.isdir(path):
         if os.path.exists(os.path.join(path, "saved_model.pb")):
-            raise NotImplementedError(
-                f"{path} is a TF SavedModel; the `tf` model kind needs "
-                "tensorflow (ROADMAP, not queued until tensorflow is on "
-                "the card machine)")
+            return "tf", {"path": path}, None
         raise ValueError(
             f"{path} is a directory but not a TF SavedModel "
             "(no saved_model.pb)")

@@ -42,6 +42,8 @@ import os
 import time
 from typing import Dict, Iterable, Optional
 
+import numpy as np
+
 import torch
 
 from shifu_tpu_torch import resilience
@@ -73,7 +75,10 @@ def _production_window(ctx, tail: Dict):
     Line-atomic — only bytes up to each file's last newline are
     consumed, so a row the writer is mid-append on is carried into the
     next tick whole. A rewritten-shorter file resets its cursor. The
-    first file's header line (no headerPath) is not a row."""
+    first file's header line (no headerPath) is not a row. Parquet
+    parts (immutable whole-file appends, no torn line) and parts that
+    are not local files (``scheme://``) take the whole table's row
+    slice past the last tick's row count instead."""
     from shifu_tpu_torch.data import reader
     mc = ctx.model_config
     try:
@@ -81,6 +86,15 @@ def _production_window(ctx, tail: Dict):
             reader._table_layout(mc, None)
     except FileNotFoundError:
         return None, tail
+    if any(reader.is_parquet(f) or not os.path.isfile(f) for f in files):
+        table = reader.read_raw_table(mc)
+        seen = tail.get("__rows__", 0)
+        if len(table) < seen:
+            seen = 0
+        tail["__rows__"] = len(table)
+        if len(table) == seen:
+            return None, tail
+        return table.select(np.arange(seen, len(table))), tail
     lines = []
     for path in files:
         pos = tail.get(path, 0)

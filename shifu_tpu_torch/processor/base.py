@@ -96,10 +96,12 @@ def _inputs_fingerprint(ctx: ProcessorContext) -> str:
             h.update(b"<missing>")
         h.update(b"\x00")
     try:
-        from shifu_tpu_torch.data import reader
+        from shifu_tpu_torch.data import fs as fs_mod, reader
         dp = ctx.model_config.resolve_path(ctx.model_config.dataSet.dataPath)
         for p in reader.expand_data_files(dp):
-            h.update(f"{p}:{os.path.getsize(p)}".encode())
+            sz = fs_mod.size(p) if fs_mod.has_scheme(p) else \
+                os.path.getsize(p)
+            h.update(f"{p}:{sz}".encode())
     except Exception:  # noqa: BLE001 — data identity is best-effort
         h.update(b"<no-data-stat>")
     return h.hexdigest()

@@ -19,7 +19,8 @@ from typing import Optional
 import numpy as np
 
 from shifu_tpu_torch.config.environment import knob_int, knob_raw
-from shifu_tpu_torch.data.reader import Table, expand_data_files
+from shifu_tpu_torch.data import fs as fs_mod
+from shifu_tpu_torch.data.reader import Table, expand_data_files, is_parquet
 from shifu_tpu_torch.data.sampling import splitmix64_uniform
 
 __all__ = ["chunk_rows_for", "analysis_chunk_rows", "analysis_frame",
@@ -34,7 +35,8 @@ def chunk_rows_for(ctx, env_keys, byte_env: str, data_path: str,
     chunk_rows_for`): 0 = resident. Explicit through any of `env_keys`
     (first set wins; '0' forces resident); automatic when the raw
     files' estimated decompressed size passes the `byte_env` knob
-    (default 2 GB; gzip/bz2 parts count 6×)."""
+    (default 2 GB; gzip/bz2 parts count 6×, parquet parts 4× for their
+    columnar compression)."""
     for k in env_keys:
         v = knob_raw(k) if k.startswith("SHIFU_TPU_") else os.environ.get(k)
         if v is not None and str(v).strip() != "":
@@ -45,8 +47,8 @@ def chunk_rows_for(ctx, env_keys, byte_env: str, data_path: str,
                     f"{label} chunkRows must be an integer, got {v!r}")
     try:
         files = expand_data_files(ctx.model_config.resolve_path(data_path))
-        total = sum((os.path.getsize(p) if os.path.exists(p) else 0)
-                    * (6 if p.endswith((".gz", ".bz2")) else 1)
+        total = sum(_stored_size(p) * (6 if p.endswith((".gz", ".bz2"))
+                                       else 4 if is_parquet(p) else 1)
                     for p in files)
     except (OSError, FileNotFoundError, ValueError, RuntimeError) as e:
         log.warning("%s: could not estimate raw data size (%s) — "
@@ -54,6 +56,14 @@ def chunk_rows_for(ctx, env_keys, byte_env: str, data_path: str,
                     e)
         return 0
     return default_rows if total > knob_int(byte_env) else 0
+
+
+def _stored_size(p: str) -> int:
+    """A part file's bytes on storage: `fs.size` for a ``scheme://``
+    part, 0 for a local one that is gone."""
+    if fs_mod.has_scheme(p):
+        return int(fs_mod.size(p))
+    return os.path.getsize(p) if os.path.exists(p) else 0
 
 
 def analysis_chunk_rows(ctx) -> int:
@@ -107,7 +117,7 @@ def sampled_frame(mc, cap_rows: int, chunk_rows: int = 1_000_000,
                 files = expand_data_files(
                     mc.resolve_path(mc.dataSet.dataPath))
                 total_bytes = sum(
-                    (os.path.getsize(p) if os.path.exists(p) else 0)
+                    _stored_size(p)
                     * (6 if p.endswith((".gz", ".bz2")) else 1)
                     for p in files)
                 row_bytes = max(_frame_bytes(df) / max(len(df), 1), 1.0)

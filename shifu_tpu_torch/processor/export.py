@@ -5,10 +5,12 @@
 per model spec, `pmml.py`), bagging (one spec file of every bag),
 baggingpmml (one PMML averaging the NN bags), woe (per-variable WOE
 intervals), and ume / baggingume / normume through the
-SHIFU_TPU_UME_EXPORTER hook (rc 3 when it is absent). `tf` (a
-TensorFlow SavedModel, through jax2tf in the JAX package) raises: it
-needs tensorflow (ROADMAP, not queued until tensorflow is on the card
-machine).
+SHIFU_TPU_UME_EXPORTER hook (rc 3 when it is absent), and tf: a
+TensorFlow SavedModel of the first NN/LR spec at ``<root>/tfmodel``,
+whose `f` rebuilds the network from its weights with tf ops (the JAX
+package converts its forward through jax2tf; the port has neither).
+Tensorflow is imported only inside `_export_tf`, with the JAX package's
+gating error when it is missing.
 
 Every type but correlation is a host-side file conversion. Each runs
 under its ``export.<type>`` manifest (`step_guard`; columnstats and
@@ -23,6 +25,7 @@ import os
 import time
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from shifu_tpu_torch.config.environment import knob_str
@@ -76,10 +79,7 @@ def _export(ctx: ProcessorContext, et: str, device: "str | torch.device",
     elif et == "pmml":
         out = _export_pmml(ctx)
     elif et == "tf":
-        raise NotImplementedError(
-            "export -t tf (a TensorFlow SavedModel of an NN spec) needs "
-            "tensorflow (ROADMAP, not queued until tensorflow is on the "
-            "card machine); export PMML or the portable spec instead")
+        out = _export_tf(ctx)
     elif et == "bagging":
         out = _export_bagging(ctx)
     elif et == "baggingpmml":
@@ -107,6 +107,86 @@ def _export_columnstats(ctx: ProcessorContext) -> str:
                    st.woe, st.weightedWoe, st.skewness, st.kurtosis,
                    st.distinctCount, st.psi]
             f.write(",".join("" if v is None else str(v) for v in row) + "\n")
+    return out
+
+
+def _tf_activation(tf, name: str):
+    """The tf op of one activation of `models/nn.ACTIVATIONS`."""
+    acts = {
+        "sigmoid": tf.sigmoid,
+        "tanh": tf.tanh,
+        "relu": tf.nn.relu,
+        "leakyrelu": lambda x: tf.nn.leaky_relu(x, alpha=0.01),
+        "swish": lambda x: x * tf.sigmoid(x),
+        "gaussian": lambda x: tf.exp(-tf.square(x)),
+        # Encog's ActivationLOG: sign-symmetric log
+        "log": lambda x: tf.where(x >= 0, tf.math.log1p(x),
+                                  -tf.math.log1p(-x)),
+        "sin": tf.sin,
+        "linear": lambda x: x,
+        "ptanh": tf.tanh,
+    }
+    fn = acts.get(str(name).lower())
+    if fn is None:
+        raise ValueError(f"unknown ActivationFunc {name!r}; known: "
+                         f"{sorted(acts)}")
+    return fn
+
+
+def _export_tf(ctx: ProcessorContext) -> str:
+    """`export -t tf` — a TensorFlow SavedModel of the first NN/LR spec
+    (`TrainModelProcessor.java:472-527`, the GenericModel serving side):
+    a `tf.Module` whose `f` over ``TensorSpec([None, input_dim],
+    float32)`` is the spec's forward pass in tf ops — its activations,
+    its softmax head and its compute dtype (bf16 operands, products
+    summed in f32, as `models/nn.mm_f32`)."""
+    from shifu_tpu_torch.eval.scorer import tensorflow_module
+    tf = tensorflow_module(
+        "export -t tf needs the optional tensorflow package for "
+        "SavedModel serialization (the JAX model itself trains and "
+        "scores without it); install tensorflow or export PMML / "
+        "the portable spec instead")
+    from shifu_tpu_torch.models.nn import MLPSpec
+    from shifu_tpu_torch.models.spec import list_models, load_model
+
+    paths = list_models(ctx.path_finder.models_path())
+    if not paths:
+        raise FileNotFoundError("no trained models to export; run `train`")
+    kind, meta, params = load_model(paths[0])
+    if kind not in ("nn", "lr"):
+        raise ValueError(f"export -t tf supports nn/lr specs, not {kind}")
+    spec = MLPSpec.from_meta(meta["spec"])
+    bf16 = spec.compute_dtype == "bfloat16"
+    hidden = [_tf_activation(tf, a) for a in spec.activations]
+    head = None if spec.output_activation == "softmax" \
+        else _tf_activation(tf, spec.output_activation)
+
+    def cast(a):
+        # a bf16 operand, widened back: its products are exact in f32
+        return tf.cast(tf.cast(a, tf.bfloat16), tf.float32) if bf16 else a
+
+    # the weights are constants of the graph, as in a jax2tf export: a
+    # caller may keep `f` and drop the loaded module
+    w = [tf.constant(np.asarray(layer["w"], np.float32)) for layer in params]
+    b = [tf.constant(np.asarray(layer["b"], np.float32)) for layer in params]
+
+    @tf.function(input_signature=[tf.TensorSpec([None, spec.input_dim],
+                                                tf.float32)])
+    def f(x):
+        h = cast(x)
+        for i in range(len(w) - 1):
+            h = hidden[i](tf.matmul(h, cast(w[i])) + b[i])
+            h = cast(h)
+        out = tf.matmul(h, cast(w[-1])) + b[-1]
+        if head is None:
+            return tf.nn.softmax(out, axis=-1)
+        out = head(out)
+        return out[..., 0] if spec.output_dim == 1 else out
+
+    module = tf.Module()
+    module.f = f
+    out = os.path.join(ctx.path_finder.root, "tfmodel")
+    tf.saved_model.save(module, out)
     return out
 
 

@@ -29,9 +29,9 @@ restarts — the port's copy of `shifu_tpu/resilience.py`:
    start and each supervised attempt clear a stale abort or preempt
    marker there (`clear_abort`, `clear_preempt_marker`), as the JAX
    package's do. The DAG's first failing node publishes an abort
-   marker (`publish_abort`): the JAX package's record, which the JAX
-   package's `check_abort` reads. A ``scheme://`` scope raises
-   (ROADMAP A8.4).
+   marker (`publish_abort`): the JAX package's record, which
+   `check_abort` reads back. A ``scheme://`` scope (a model set on
+   remote storage) keeps its markers there, through fsspec.
 5. **Preemption-safe shutdown** (`graceful_shutdown` /
    `preempt_requested` / `Preempted`): SIGTERM/SIGINT set a flag the
    epoch loops check at step boundaries; the trainer saves a final
@@ -48,8 +48,8 @@ restarts — the port's copy of `shifu_tpu/resilience.py`:
    own record, which `profiling.step_metrics` drains
    (`drain_events`).
 7. **Startup hygiene** (`sweep_stale`): the ``.tmp.*`` residue a
-   killed `fileio.atomic_write` leaves in a local directory is removed
-   when a step or the row log starts.
+   killed `fileio.atomic_write` leaves in a directory, local or
+   ``scheme://``, is removed when a step or the row log starts.
 
 `atomic_write` and `atomic_path` stay in `fileio.py` (their
 ``atomic.commit`` site fires just before the rename). The multi-host
@@ -57,8 +57,7 @@ pieces are ROADMAP A8.3: the peer side of the markers (a barrier that
 waits on a peer's abort marker, `check_preempt_marker`),
 `publish_preempt` (the broadcast from the signal handler),
 `preempt_exit_sync` (the ordered exit and its ``preempt.ack.*``
-markers) and `dump_thread_stacks` (the collective watchdog's); the
-remote sweep and remote markers are A8.4.
+markers) and `dump_thread_stacks` (the collective watchdog's).
 """
 
 from __future__ import annotations
@@ -125,9 +124,10 @@ class _FaultRule(NamedTuple):
 
 
 # every static fault site of the port (`step.<name>` sites are
-# dynamic); the JAX package's others are its remote filesystem
-# (`fs.*`, A8.4) and its collectives (`dist.*`, A8.3)
+# dynamic); the JAX package's others are its collectives (`dist.*`,
+# A8.3)
 FAULT_SITES = (
+    "fs.exists", "fs.size", "fs.list", "fs.open",
     "reader.read", "reader.native",
     "ckpt.save", "ckpt.stage", "ckpt.publish", "ckpt.saved",
     "ckpt.restore", "ckpt.reshard",
@@ -316,30 +316,65 @@ def set_abort_scope(tmp_dir: Optional[str]) -> None:
     _abort_scope = tmp_dir
 
 
-def _abort_dir() -> Optional[str]:
-    d = _abort_scope
-    if d:
-        from shifu_tpu_torch import fileio
-        if fileio.has_scheme(d):
-            raise NotImplementedError(
-                f"{d}: remote abort and preempt markers are not ported "
-                "yet (ROADMAP A8.4); use a local model set")
-    return d
+def _remote(path: str) -> bool:
+    from shifu_tpu_torch.fileio import has_scheme
+    return has_scheme(path)
 
 
 def _marker_path(name: str) -> Optional[str]:
-    d = _abort_dir()
-    return os.path.join(d, name) if d else None
+    d = _abort_scope
+    if not d:
+        return None
+    if _remote(d):
+        return d.rstrip("/") + "/" + name
+    return os.path.join(d, name)
+
+
+def _read_marker(path: Optional[str], what: str) -> Optional[dict]:
+    if not path:
+        return None
+    try:
+        if _remote(path):
+            import fsspec
+            fs, key = fsspec.core.url_to_fs(path)
+            if not fs.exists(key):
+                return None
+            with fs.open(key, "r") as f:
+                raw = f.read()
+        else:
+            if not os.path.exists(path):
+                return None
+            with open(path) as f:
+                raw = f.read()
+        return json.loads(raw)
+    except FileNotFoundError:
+        return None
+    except Exception as e:  # noqa: BLE001 — corrupt marker still counts
+        return {"site": "unknown", "process": -1,
+                "error": f"unreadable {what} marker: {e}"}
 
 
 def _clear_marker(path: Optional[str], what: str) -> None:
     if not path:
         return
     try:
-        if os.path.exists(path):
+        if _remote(path):
+            import fsspec
+            fs, key = fsspec.core.url_to_fs(path)
+            if fs.exists(key):
+                fs.rm(key)
+        elif os.path.exists(path):
             os.remove(path)
-    except OSError as e:
+    except Exception as e:  # noqa: BLE001 — best-effort
         log.warning("could not clear %s marker %s: %s", what, path, e)
+
+
+def check_abort() -> Optional[dict]:
+    """The abort marker's record under the scope (`publish_abort`'s
+    ``site``, ``process``, ``error``, ``time``), or None: what a caller
+    reads to learn which DAG node failed. An unreadable marker still
+    counts, as a record with ``site`` "unknown"."""
+    return _read_marker(_marker_path(_ABORT_NAME), "abort")
 
 
 def clear_abort() -> None:
@@ -361,7 +396,8 @@ def publish_abort(site: str, exc: BaseException,
            "time": round(time.time(), 3)}
     try:
         from shifu_tpu_torch.fileio import atomic_write
-        os.makedirs(os.path.dirname(path), exist_ok=True)
+        if not _remote(path):
+            os.makedirs(os.path.dirname(path), exist_ok=True)
         with atomic_write(path) as f:
             f.write(json.dumps(rec))
         log.error("abort marker published at %s (site=%s): %s", path,
@@ -397,9 +433,10 @@ def drain_events() -> List[dict]:
 
 
 def _append_steps_jsonl(rec: dict) -> None:
-    """Durable append to the scope's metrics/steps.jsonl."""
-    d = _abort_dir()
-    if not d:
+    """Durable append to the scope's metrics/steps.jsonl (local scopes
+    only: a remote scope keeps the in-memory event instead)."""
+    d = _abort_scope
+    if not d or _remote(d):
         return
     try:
         mdir = os.path.join(d, "metrics")
@@ -544,18 +581,39 @@ def supervise(fn: Callable[[], "object"], step: str = "train",
 # startup hygiene
 # ---------------------------------------------------------------------------
 
+def sweep_stale_tmp_remote(directory: str) -> int:
+    """Remote twin of the local sweep: delete the orphaned dot-prefixed
+    temp keys that a `fileio._remote_atomic_write` killed between upload
+    and commit left under a ``scheme://`` directory. Returns the count
+    removed (0 when the directory does not exist yet)."""
+    import fsspec
+    fs, key = fsspec.core.url_to_fs(directory.rstrip("/"))
+    try:
+        names = fs.ls(key, detail=False)
+    except FileNotFoundError:
+        return 0
+    n = 0
+    for full in names:
+        base = full.rstrip("/").rpartition("/")[2]
+        if base.startswith(".tmp."):
+            try:
+                fs.rm(full, recursive=True)
+                n += 1
+            except FileNotFoundError:  # raced with another sweeper
+                pass
+    return n
+
+
 def sweep_stale(directory: str) -> int:
     """Remove leftover ``.tmp.*`` files and directories of killed
     earlier writers (`fileio.atomic_write`, `atomic_path`) from a local
-    `directory`; returns the count removed. Best-effort: a failed sweep
-    logs and returns 0, startup hygiene never fails a step. A
-    ``scheme://`` directory raises (ROADMAP A8.4)."""
+    or ``scheme://`` `directory`; returns the count removed.
+    Best-effort: a failed sweep logs and returns 0, startup hygiene
+    never fails a step."""
     from shifu_tpu_torch import fileio
-    if fileio.has_scheme(directory):
-        raise NotImplementedError(
-            f"{directory}: remote filesystems are not ported yet "
-            "(ROADMAP A8.4)")
     try:
+        if fileio.has_scheme(directory):
+            return sweep_stale_tmp_remote(directory)
         if not os.path.isdir(directory):
             return 0
         n = 0
@@ -564,6 +622,6 @@ def sweep_stale(directory: str) -> int:
                 fileio._scrub(os.path.join(directory, name))
                 n += 1
         return n
-    except OSError as e:
+    except Exception as e:  # noqa: BLE001 — best-effort
         log.warning("sweep_stale: could not sweep %s: %s", directory, e)
         return 0

@@ -13,7 +13,8 @@ lists/dicts of numpy arrays) and builds the port's scoring object:
   the host for the start-up check's plain walk, and the statics;
 - wdl / mtl → `models.wdl.WDLModel` / `models.mtl.MTLModel`, the spec
   and the params as tensors on `device`;
-- tf (a SavedModel) raises: it needs tensorflow.
+- tf (an external SavedModel) → its directory: `eval/scorer.py` loads
+  and scores it on the host.
 
 `from_torch` goes back to the numpy params, so a converted model saves
 with `save_model` unchanged; `refresh_` copies a same-shaped model's
@@ -38,9 +39,6 @@ from shifu_tpu_torch.models import nn as nn_mod
 from shifu_tpu_torch.ops import fused_score, fused_trees
 
 TREE_KEYS = ("feature", "bin", "default_left", "is_leaf", "leaf_value")
-
-TF_REFUSAL = ("the `tf` SavedModel kind needs tensorflow (ROADMAP, not "
-              "queued until tensorflow is on the card machine)")
 
 
 @dataclass
@@ -118,7 +116,7 @@ def to_torch(kind: str, meta: Dict[str, Any], params: Any,
     if kind == "mtl":
         return mtl.MTLModel(meta, params, dev)
     if kind == "tf":
-        raise NotImplementedError(TF_REFUSAL)
+        return meta["path"]
     raise ValueError(f"unknown model kind {kind!r}")
 
 

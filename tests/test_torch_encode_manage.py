@@ -1,5 +1,4 @@
-"""Port parity for `encode`, `new`, `save`, `switch` and `show`, and the
-verbs that stay with the pipeline DAG.
+"""Port parity for `encode`, `new`, `save`, `switch` and `show`.
 
 `encode` runs on the JAX-trained GBT and RF synth sets of
 `tests/test_torch_eval.py` in both packages (the port with `--device

@@ -13,13 +13,15 @@ exported by both packages from the same files:
 - `columnstats`, `woemapping`, `woe` byte-equal, `bagging` with equal
   zip members (its npz stamps the write time), `portable` scores equal;
 - `convert` bundles with equal contents, and the round trip;
-- the UME hook's rc-3 contract and its call; `-t tf` raising (it needs
-  tensorflow: not queued until tensorflow is on the card machine).
+- the UME hook's rc-3 contract and its call; without tensorflow, `-t tf`
+  raising the JAX package's gating error (`tests/test_torch_tf.py`
+  holds the SavedModels themselves).
 """
 
 import json
 import os
 import shutil
+import sys
 import xml.etree.ElementTree as ET
 import zipfile
 
@@ -305,9 +307,15 @@ def test_ume_contract_and_tf_refusal(sets, tmp_path, monkeypatch,  # noqa
                                                   "normAsUme": True})]
     monkeypatch.setenv("SHIFU_TPU_UME_EXPORTER", "port_ume_plug:Missing")
     assert port(root, "export", "-t", "ume")[0] == 3
-    with pytest.raises(NotImplementedError,
-                       match="not queued until tensorflow"):
+    # without tensorflow, `export -t tf` refuses with the JAX package's
+    # gating error (`tests/test_torch_tf.py` holds the SavedModels)
+    monkeypatch.setitem(sys.modules, "tensorflow", None)
+    with pytest.raises(NotImplementedError) as got:
         port(root, "export", "-t", "tf")
+    with pytest.raises(NotImplementedError) as want:
+        jax_export(root, "tf")
+    assert str(got.value) == str(want.value)
+    assert "needs the optional tensorflow package" in str(got.value)
 
 
 def test_export_refusals(sets, tmp_path):  # noqa: F811

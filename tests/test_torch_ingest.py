@@ -237,9 +237,23 @@ def test_frame_round_trip_preserves_missing_tokens_like_jax():
 @pytest.mark.parametrize("case", ["remote", "multi_host"])
 def test_remote_root_and_multi_host_shard_raise_naming_their_item(
         tmp_path, case):
+    """A `scheme://` root now holds a working log (ROADMAP A8.4 is
+    ported; `tests/test_torch_fs.py` holds its files against the JAX
+    package's); a multi-host shard still raises and names A8.3."""
     if case == "remote":
-        with pytest.raises(NotImplementedError, match="ROADMAP A8.4"):
-            ingest.RowLog("memory://twin/log", header=["a"])
+        import fsspec
+        root = f"memory://twin{os.getpid()}/log"
+        try:
+            lg = ingest.RowLog(root, header=["a"], segment_rows=2)
+            lg.append(["1", "2", "3"])
+            lg.seal_all()
+            win = lg.read_window("watch")
+            assert win.lines == ["1", "2", "3"]
+            lg.commit("watch", win.end)
+            assert ingest.RowLog(root).lag("watch") == 0
+        finally:
+            fsspec.filesystem("memory").rm(f"twin{os.getpid()}",
+                                           recursive=True)
     else:
         lg = ingest.RowLog(str(tmp_path / "log"), header=["a"], partitions=4)
         assert lg.owned_partitions((0, 1)) == [0, 1, 2, 3]

@@ -1,12 +1,18 @@
 """The port stands alone: it imports neither JAX nor the JAX package,
 nor JAX's optimizer, network and checkpoint libraries (optax, flax,
-orbax), and neither pandas nor pyarrow, which the card machine is not
-known to have.
+orbax), nor pandas. Two optional packages are allowed where a user's
+data or model needs them, and only inside functions, so that no other
+verb loads them: `pyarrow` in `data/parquet.py` (parquet part files)
+and `tensorflow` in `eval/scorer.py` and `processor/export.py` (the
+`tf` SavedModel kind).
 
-The runtime check runs in a subprocess, because this test process has
-JAX loaded already (tests/conftest.py imports it). The source scan
-covers every file of `shifu_tpu_torch/` and `chip_smoke.py`; the
-mutable-static scan covers the CUDA sources and the C reader.
+The runtime checks run in subprocesses, because this test process has
+JAX loaded already (tests/conftest.py imports it): `import
+shifu_tpu_torch` and its CLI load neither optional package, nor does a
+run of the port's modules that reads no parquet and scores no
+SavedModel. The source scan covers every file of `shifu_tpu_torch/`
+and `chip_smoke.py`; the mutable-static scan covers the CUDA sources
+and the C reader.
 """
 
 import os
@@ -15,12 +21,14 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
 import sys
 import numpy as np
+import pytest
 import torch
 import shifu_tpu_torch.cli, shifu_tpu_torch.weights, shifu_tpu_torch._build
 import shifu_tpu_torch.serve.http
@@ -49,7 +57,7 @@ import shifu_tpu_torch.resilience, shifu_tpu_torch.registry
 import shifu_tpu_torch.serve.fleet, shifu_tpu_torch.serve.aot
 from shifu_tpu_torch.obs.health import drift, slo, store, watch
 from shifu_tpu_torch.obs.health import canary, refresh
-from shifu_tpu_torch.data import ingest
+from shifu_tpu_torch.data import ingest, fs, parquet
 import shifu_tpu_torch.pipeline, shifu_tpu_torch.processor.combo
 root = sys.argv[1]
 log = ingest.RowLog(root + "/rowlog", header=["a", "b"], segment_rows=2)
@@ -132,20 +140,45 @@ assert portable.score_model(*portable.load_model(root + "/back.nn"),
                             dense=x).shape == (5,)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "shifu_tpu", "pandas",
-                                    "pyarrow", "optax", "flax", "orbax"))
+                                    "pyarrow", "optax", "flax", "orbax",
+                                    "tensorflow"))
 print("BAD", bad)
 sys.exit(1 if bad else 0)
 """
 
 
-def test_port_runs_without_jax_in_a_subprocess(tmp_path):
+def _run_probe(code, *args):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    proc = subprocess.run([sys.executable, "-c", _PROBE, str(tmp_path)],
+    return subprocess.run([sys.executable, "-c", code, *args],
                           capture_output=True, text=True, cwd=REPO,
                           env=env, timeout=120)
+
+
+def test_port_runs_without_jax_in_a_subprocess(tmp_path):
+    proc = _run_probe(_PROBE, str(tmp_path))
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "BAD []" in proc.stdout
+
+
+_OPTIONAL_PROBE = r"""
+import sys
+{body}
+print("LOADED", sorted({{m.split(".")[0] for m in sys.modules}}
+                       & {{"pyarrow", "tensorflow"}}))
+"""
+
+
+@pytest.mark.parametrize("body", [
+    "import shifu_tpu_torch, shifu_tpu_torch.cli",
+    "import shifu_tpu_torch.data.parquet, shifu_tpu_torch.data.reader",
+    "import shifu_tpu_torch.eval.scorer, shifu_tpu_torch.processor.export",
+    "from shifu_tpu_torch import cli; cli.main(['version'])",
+    "from shifu_tpu_torch import cli; cli.main(['knobs'])"])
+def test_import_loads_neither_pyarrow_nor_tensorflow(body):
+    proc = _run_probe(_OPTIONAL_PROBE.format(body=body))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout, proc.stdout
 
 
 # static imports, and dynamic ones through importlib / __import__
@@ -158,12 +191,27 @@ _PKG_IMPORT = re.compile(
     r"|__import__\(\s*[\"']\bshifu_tpu\b(?!_torch)", re.M)
 
 
-# pandas and pyarrow: the card machine is not known to have them; optax,
-# flax and orbax: JAX's own libraries
+# pandas: the port's reader has none; optax, flax and orbax: JAX's own
+# libraries
 _FOREIGN_IMPORT = re.compile(
-    r"^\s*(import|from)\s+(pandas|pyarrow|optax|flax|orbax)\b"
-    r"|(import_module|__import__)\(\s*[\"'](pandas|pyarrow|optax|flax"
+    r"^\s*(import|from)\s+(pandas|optax|flax|orbax)\b"
+    r"|(import_module|__import__)\(\s*[\"'](pandas|optax|flax"
     r"|orbax)\b", re.M)
+
+# the optional packages: any import of them, and the modules allowed one
+_OPTIONAL_IMPORT = {
+    "pyarrow": re.compile(
+        r"^(\s*)(import|from)\s+pyarrow\b"
+        r"|(import_module|__import__)\(\s*[\"']pyarrow\b", re.M),
+    "tensorflow": re.compile(
+        r"^(\s*)(import|from)\s+tensorflow\b"
+        r"|(import_module|__import__)\(\s*[\"']tensorflow\b", re.M),
+}
+_OPTIONAL_HOMES = {
+    "pyarrow": {"shifu_tpu_torch/data/parquet.py"},
+    "tensorflow": {"shifu_tpu_torch/eval/scorer.py",
+                   "shifu_tpu_torch/processor/export.py"},
+}
 
 
 def _port_sources():
@@ -183,7 +231,27 @@ def test_source_scan_finds_no_jax_or_jax_package_import():
         assert not _JAX_IMPORT.search(text), f"{path} imports jax"
         assert not _PKG_IMPORT.search(text), f"{path} imports shifu_tpu"
         assert not _FOREIGN_IMPORT.search(text), \
-            f"{path} imports pandas, pyarrow, optax, flax or orbax"
+            f"{path} imports pandas, optax, flax or orbax"
+
+
+@pytest.mark.parametrize("package", sorted(_OPTIONAL_IMPORT))
+def test_optional_packages_only_in_their_modules_inside_functions(package):
+    """`pyarrow` only in `data/parquet.py`, `tensorflow` only in
+    `eval/scorer.py` and `processor/export.py` (whose export takes it
+    from the scorer's `tensorflow_module`), and there only as an
+    indented (function-local) import, never a dynamic one."""
+    pat = _OPTIONAL_IMPORT[package]
+    homes = _OPTIONAL_HOMES[package]
+    seen = set()
+    for path in _port_sources():
+        rel = os.path.relpath(path, REPO)
+        with open(path) as f:
+            text = f.read()
+        for m in pat.finditer(text):
+            assert rel in homes, f"{rel} imports {package}"
+            assert m.group(1), f"{rel} imports {package} at module level"
+            seen.add(rel)
+    assert seen and seen <= homes, (package, seen)
 
 
 def test_source_scan_covers_the_serving_and_health_planes():
@@ -204,15 +272,21 @@ def test_source_scan_covers_the_serving_and_health_planes():
 
 
 def test_foreign_import_pattern():
-    for bad in ("import pandas as pd", "  from pyarrow import parquet",
-                "importlib.import_module('pandas')", "__import__(\"pyarrow\")",
+    for bad in ("import pandas as pd", "  from pandas import Series",
+                "importlib.import_module('pandas')", "__import__(\"optax\")",
                 "import optax", "from flax import linen",
                 "import orbax.checkpoint as ocp",
                 "importlib.import_module('optax')"):
         assert _FOREIGN_IMPORT.search(bad), bad
     for fine in ("import pandasx", "# pandas is not imported",
-                 "x = 'pandas'", "import optaxy", "# optax semantics"):
+                 "x = 'pandas'", "import optaxy", "# optax semantics",
+                 "import pyarrow", "    import tensorflow as tf"):
         assert not _FOREIGN_IMPORT.search(fine), fine
+    for pkg, pat in _OPTIONAL_IMPORT.items():
+        assert pat.search(f"import {pkg}").group(1) == ""
+        assert pat.search(f"    from {pkg} import x").group(1) == "    "
+        assert pat.search(f"importlib.import_module('{pkg}')")
+        assert not pat.search(f"import {pkg}x")
 
 
 # a `static` declaration that is not a constant: process-wide state that

@@ -4,9 +4,10 @@ the ``atomic.commit`` site, the abort and preempt markers, preemption
 (`graceful_shutdown`, `Preempted`, rc 75 from `cli.main`) and the
 supervised restart loop. The units mirror `tests/test_resilience.py`
 and the marker units of `tests/test_reshard.py` where they apply (the
-remote filesystem, the collective watchdog and the markers a peer
-publishes and reads are ROADMAP A8.3–A8.4; the retry counts are held
-by `tests/test_torch_profiling.py`). Everything runs on the CPU; a
+collective watchdog and the markers a peer publishes and reads are
+ROADMAP A8.3; the remote filesystem's parts are held by
+`tests/test_torch_fs.py`, the retry counts by
+`tests/test_torch_profiling.py`). Everything runs on the CPU; a
 private `np.random.default_rng` each where data is drawn."""
 
 import json
@@ -134,9 +135,9 @@ def test_permanent_errors_not_retried(monkeypatch, caplog):
 def test_every_fault_site_is_listed():
     """Every `fault_point("...")` literal of the port is in FAULT_SITES
     (`step.` sites are dynamic), every listed site fires somewhere, and
-    the JAX package's sites missing here are exactly its remote
-    filesystem and collective ones (the trace export's `obs.export`
-    is ported)."""
+    the JAX package's sites missing here are exactly its collective ones
+    (the trace export's `obs.export` and the remote filesystem's `fs.*`
+    are ported)."""
     from shifu_tpu import resilience as jres
     root = os.path.dirname(resilience.__file__)
     found = set()
@@ -151,10 +152,11 @@ def test_every_fault_site_is_listed():
                 found |= set(pat.findall(text)) | set(const.findall(text))
     assert found == set(resilience.FAULT_SITES)
     missing = set(jres.FAULT_SITES) - set(resilience.FAULT_SITES)
-    assert all(s.startswith(("fs.", "dist.")) for s in missing), missing
-    assert {s for s in jres.FAULT_SITES
-            if s.startswith(("fs.", "dist."))} == missing
+    assert all(s.startswith("dist.") for s in missing), missing
+    assert {s for s in jres.FAULT_SITES if s.startswith("dist.")} == missing
     assert "obs.export" in resilience.FAULT_SITES
+    assert {"fs.exists", "fs.size", "fs.list", "fs.open"} <= \
+        set(resilience.FAULT_SITES)
     assert set(resilience.FAULT_SITES) <= set(jres.FAULT_SITES)
 
 
@@ -315,9 +317,19 @@ def test_no_scope_touches_nothing(tmp_path, monkeypatch):
 
 
 def test_remote_scope_raises_naming_a8_4():
-    resilience.set_abort_scope("gs://bucket/set/tmp")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8.4"):
+    """A `scheme://` scope now keeps its markers there (ROADMAP A8.4 is
+    ported): published, read and cleared through fsspec."""
+    import fsspec
+    scope = f"memory://scope{os.getpid()}/set/tmp"
+    resilience.set_abort_scope(scope)
+    try:
+        resilience.publish_abort("dag.x", RuntimeError("boom"))
+        assert resilience.check_abort()["error"] == "RuntimeError: boom"
         resilience.clear_abort()
+        assert resilience.check_abort() is None
+    finally:
+        resilience.set_abort_scope(None)
+        fsspec.filesystem("memory").rm(f"scope{os.getpid()}", recursive=True)
 
 
 def test_steps_jsonl_appends_one_record_a_line(tmp_path):

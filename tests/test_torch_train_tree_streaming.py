@@ -16,13 +16,20 @@ builders on the same memory-mapped bin matrix (a private
   `train` (GBT with validation and early stop, RF), and the cached
   `bins.npy`: reused while its key holds, replaced when the layout
   changes.
+
+Every JAX reference here (the streaming builders' trees and the JAX
+steps' model sets) is computed in a fresh child process that loads JAX
+and the JAX package alone (`_jax_child`), and compared in this one: an
+xdist worker that had run torch and JAX side by side aborted (SIGABRT)
+now and then inside the JAX package's CPU dispatch.
 """
 
 import json
 import os
 import shutil
+import subprocess
+import sys
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -34,9 +41,83 @@ from shifu_tpu_torch.models import gbdt as tgbdt
 from shifu_tpu_torch.models.spec import load_model
 from tests.test_torch_train_tree import _close, _cfgs, _exact
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-def _np(trees):
-    return jax.tree.map(np.asarray, trees)
+# the child: JAX and the JAX package only, never torch; one job a call
+_CHILD = r"""
+import json
+import os
+import sys
+
+import numpy as np
+
+job = json.loads(sys.argv[1])
+if job["kind"] == "set":
+    from shifu_tpu.processor import init, norm, stats, train
+    from shifu_tpu.processor.base import ProcessorContext
+    from tests.synth import make_model_set
+    root = make_model_set(job["dir"], np.random.default_rng(job["seed"]),
+                          n_rows=1200, algorithm=job["alg"],
+                          train_params=job["params"])
+    path = os.path.join(root, "ModelConfig.json")
+    with open(path) as f:
+        mc = json.load(f)
+    mc["train"]["trainOnDisk"] = True
+    with open(path, "w") as f:
+        json.dump(mc, f, indent=2)
+    for proc in (init, stats, norm):
+        assert proc.run(ProcessorContext.load(root)) == 0
+    import shutil
+    shutil.copytree(root, job["copy"])
+    if job["train"]:
+        assert train.run(ProcessorContext.load(root)) == 0
+    print(json.dumps({"root": root}))
+    sys.exit(0)
+from shifu_tpu.models import gbdt as jgbdt
+z = np.load(job["inputs"])
+bins = np.load(job["bins"], mmap_mode="r")
+kw = dict(job["kw"])
+init = {k[5:]: z[k] for k in z.files if k.startswith("init.")}
+if init:
+    kw["init_trees"] = init
+out = getattr(jgbdt, job["fn"])(jgbdt.TreeConfig(**job["cfg"]), bins,
+                                z["y"], z["w"], *job["args"], **kw)
+trees, errs = out if isinstance(out, tuple) else (out, None)
+np.savez(job["out"], **{k: np.asarray(v) for k, v in trees.items()})
+print(json.dumps({"errs": None if errs is None
+                  else np.asarray(errs, np.float64).tolist()}))
+"""
+
+
+def _jax_child(job):
+    """Run one job of `_CHILD` in a fresh ``python`` with
+    JAX_PLATFORMS=cpu (this process's XLA_FLAGS and knobs inherited);
+    returns its JSON line."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", _CHILD, json.dumps(job)],
+                          capture_output=True, text=True, cwd=REPO, env=env,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _jax_build(tmp_path, fn, cfg, bins, y, w, *args, init_trees=None,
+               **kw):
+    """`jgbdt.<fn>(TreeConfig(**cfg), bins, y, w, *args, **kw)` in a
+    child process over the same memory-mapped bin file → (trees as
+    numpy, the validation errors or None)."""
+    n = len(os.listdir(tmp_path))
+    inputs, out = str(tmp_path / f"in{n}.npz"), str(tmp_path / f"out{n}.npz")
+    np.savez(inputs, y=y, w=w, **{f"init.{k}": np.asarray(v)
+                                  for k, v in (init_trees or {}).items()})
+    line = _jax_child({"kind": "build", "fn": fn, "cfg": cfg,
+                       "bins": bins.filename, "inputs": inputs, "out": out,
+                       "args": list(args), "kw": kw})
+    with np.load(out) as z:
+        trees = {k: z[k] for k in z.files}
+    errs = None if line["errs"] is None else np.asarray(line["errs"])
+    return trees, errs
 
 
 def _layout(tmp_path, seed, n=700, c=6, n_bins=16, weights="int"):
@@ -52,6 +133,10 @@ def _layout(tmp_path, seed, n=700, c=6, n_bins=16, weights="int"):
     return np.load(path, mmap_mode="r"), y, w
 
 
+def _tcfg(**kw):
+    return kw, _cfgs(**kw)[1]
+
+
 @pytest.mark.parametrize("tier", ["0", "1"])
 @pytest.mark.parametrize("n_trees,chunk", [(1, 128), (3, 160), (2, 1024)])
 def test_streaming_squared_gbt_bit_exact(tmp_path, monkeypatch, tier,
@@ -63,14 +148,13 @@ def test_streaming_squared_gbt_bit_exact(tmp_path, monkeypatch, tier,
     too)."""
     monkeypatch.setenv("SHIFU_TPU_GBT_RESIDENT_STATE", tier)
     bins, y, w = _layout(tmp_path, 3)
-    jcfg, tcfg = _cfgs(max_depth=3, n_bins=16, learning_rate=0.5,
+    jcfg, tcfg = _tcfg(max_depth=3, n_bins=16, learning_rate=0.5,
                        loss="squared")
-    want, jerr = jgbdt.build_gbt_streaming(jcfg, bins, y, w, n_trees,
-                                           valid_rate=0.2, chunk_rows=chunk)
+    want, jerr = _jax_build(tmp_path, "build_gbt_streaming", jcfg, bins, y,
+                            w, n_trees, valid_rate=0.2, chunk_rows=chunk)
     got, terr = tgbdt.build_gbt_streaming(tcfg, bins, y, w, n_trees,
                                           valid_rate=0.2, chunk_rows=chunk,
                                           device="cpu")
-    want = _np(want)
     _exact({k: v[:1] for k, v in got.items()},
            {k: v[:1] for k, v in want.items()})
     _close(got, want)
@@ -81,14 +165,14 @@ def test_streaming_squared_gbt_bit_exact(tmp_path, monkeypatch, tier,
 def test_streaming_log_loss_gbt(tmp_path, monkeypatch, tier):
     monkeypatch.setenv("SHIFU_TPU_GBT_RESIDENT_STATE", tier)
     bins, y, w = _layout(tmp_path, 5, weights="real")
-    jcfg, tcfg = _cfgs(max_depth=3, n_bins=16, learning_rate=0.3,
+    jcfg, tcfg = _tcfg(max_depth=3, n_bins=16, learning_rate=0.3,
                        loss="log")
-    want, jerr = jgbdt.build_gbt_streaming(jcfg, bins, y, w, 3,
-                                           valid_rate=0.1, chunk_rows=200)
+    want, jerr = _jax_build(tmp_path, "build_gbt_streaming", jcfg, bins, y,
+                            w, 3, valid_rate=0.1, chunk_rows=200)
     got, terr = tgbdt.build_gbt_streaming(tcfg, bins, y, w, 3,
                                           valid_rate=0.1, chunk_rows=200,
                                           device="cpu")
-    _close(got, _np(want))
+    _close(got, want)
     np.testing.assert_allclose(terr, jerr, rtol=1e-5)
 
 
@@ -110,32 +194,31 @@ def test_both_tiers_grow_the_same_trees(tmp_path, monkeypatch):
 
 def test_streaming_resume_from_init_trees(tmp_path, monkeypatch):
     bins, y, w = _layout(tmp_path, 8)
-    jcfg, tcfg = _cfgs(max_depth=3, n_bins=16, learning_rate=0.5,
+    jcfg, tcfg = _tcfg(max_depth=3, n_bins=16, learning_rate=0.5,
                        loss="squared")
-    first, _ = jgbdt.build_gbt_streaming(jcfg, bins, y, w, 1,
-                                         valid_rate=0.2, chunk_rows=128)
-    first = _np(first)
+    first, _ = _jax_build(tmp_path, "build_gbt_streaming", jcfg, bins, y,
+                          w, 1, valid_rate=0.2, chunk_rows=128)
     for tier in ("0", "1"):
         monkeypatch.setenv("SHIFU_TPU_GBT_RESIDENT_STATE", tier)
-        want, jerr = jgbdt.build_gbt_streaming(
-            jcfg, bins, y, w, 2, valid_rate=0.2, chunk_rows=128,
-            init_trees=first)
+        want, jerr = _jax_build(
+            tmp_path, "build_gbt_streaming", jcfg, bins, y, w, 2,
+            valid_rate=0.2, chunk_rows=128, init_trees=first)
         got, terr = tgbdt.build_gbt_streaming(
             tcfg, bins, y, w, 2, valid_rate=0.2, chunk_rows=128,
             init_trees=first, device="cpu")
-        _close(got, _np(want))
+        _close(got, want)
         np.testing.assert_allclose(terr, jerr, rtol=1e-6)
 
 
 @pytest.mark.parametrize("subset,seed", [("ALL", 1), ("SQRT", 2)])
 def test_streaming_rf_bit_exact(tmp_path, subset, seed):
     bins, y, w = _layout(tmp_path, 10 + seed)
-    jcfg, tcfg = _cfgs(max_depth=4, n_bins=16)
-    want = jgbdt.build_rf_streaming(jcfg, bins, y, w, 3, subset, 0.8, seed,
-                                    chunk_rows=150)
+    jcfg, tcfg = _tcfg(max_depth=4, n_bins=16)
+    want, _ = _jax_build(tmp_path, "build_rf_streaming", jcfg, bins, y, w,
+                         3, subset, 0.8, seed, chunk_rows=150)
     got = tgbdt.build_rf_streaming(tcfg, bins, y, w, 3, subset, 0.8, seed,
                                    chunk_rows=150, device="cpu")
-    _exact(got, _np(want))
+    _exact(got, want)
 
 
 def test_resident_tier_reads_nothing_on_the_host_inside_a_level(
@@ -192,34 +275,20 @@ STREAM_PARAMS = {
 }
 
 
-def _stream_set(tmp_path, alg, seed):
-    from shifu_tpu.processor import init as init_proc
-    from shifu_tpu.processor import norm as norm_proc
-    from shifu_tpu.processor import stats as stats_proc
-    from shifu_tpu.processor.base import ProcessorContext
-    from tests.synth import make_model_set
-    root = make_model_set(tmp_path / "jax", np.random.default_rng(seed),
-                          n_rows=1200, algorithm=alg,
-                          train_params=STREAM_PARAMS[alg])
-    path = os.path.join(root, "ModelConfig.json")
-    with open(path) as f:
-        mc = json.load(f)
-    mc["train"]["trainOnDisk"] = True
-    with open(path, "w") as f:
-        json.dump(mc, f, indent=2)
-    for proc in (init_proc, stats_proc, norm_proc):
-        proc.run(ProcessorContext.load(root))
+def _stream_set(tmp_path, alg, seed, train=False):
+    """A synth set with trainOnDisk through the JAX package's init →
+    stats → norm (then its `train`, with `train`) in a child process,
+    and the port's copy, taken after `norm`."""
     port_root = str(tmp_path / "port")
-    shutil.copytree(root, port_root)
+    root = _jax_child({"kind": "set", "dir": str(tmp_path / "jax"),
+                       "seed": seed, "alg": alg, "copy": port_root,
+                       "params": STREAM_PARAMS[alg], "train": train})["root"]
     return root, port_root
 
 
 @pytest.mark.parametrize("alg,seed", [("GBT", 31), ("RF", 32)])
 def test_streaming_train_verb_matches_jax(tmp_path, capsys, alg, seed):
-    from shifu_tpu.processor import train as jtrain
-    from shifu_tpu.processor.base import ProcessorContext
-    root, port_root = _stream_set(tmp_path, alg, seed)
-    assert jtrain.run(ProcessorContext.load(root)) == 0
+    root, port_root = _stream_set(tmp_path, alg, seed, train=True)
     assert cli.main(["--dir", port_root, "train", "--device", "cpu"]) == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["algorithm"] == alg and line["device"] == "cpu"
